@@ -1,0 +1,116 @@
+"""The port stands alone: ubresnet_tpu_torch and chip_smoke.py import
+neither jax nor the JAX package, and nothing runs on the CPU unless
+the caller asks for it."""
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from ubresnet_tpu_torch.utils.platform import resolve_device
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "ubresnet_tpu_torch"
+
+
+def test_import_pulls_in_no_jax():
+    code = (
+        "import pkgutil, sys, ubresnet_tpu_torch\n"
+        "for m in pkgutil.walk_packages(ubresnet_tpu_torch.__path__,\n"
+        "                               'ubresnet_tpu_torch.'):\n"
+        "    __import__(m.name)\n"
+        "bad = sorted(n for n in sys.modules if n == 'jax'\n"
+        "             or n.startswith(('jax.', 'jaxlib', 'flax'))\n"
+        "             or n == 'ubresnet_tpu' or n.startswith('ubresnet_tpu.'))\n"
+        "n = sum(n.startswith('ubresnet_tpu_torch.') for n in sys.modules)\n"
+        "print(n, bad)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, cwd=ROOT, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    n, bad = proc.stdout.split(" ", 1)
+    assert int(n) >= 20 and bad.strip() == "[]", proc.stdout
+
+
+def test_sources_name_no_jax():
+    files = [p for p in PORT.rglob("*") if p.suffix in (".py", ".cu", ".cuh")]
+    files.append(ROOT / "chip_smoke.py")
+    pat = re.compile(r"import jax|from jax|\bubresnet_tpu\.")
+    hits = [f"{p.relative_to(ROOT)}:{i}" for p in files
+            for i, line in enumerate(p.read_text().splitlines(), 1)
+            if pat.search(line)]
+    assert len(files) > 20 and hits == []
+
+
+def test_resolve_device_raises_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError):
+        resolve_device("mps")
+
+
+@pytest.mark.parametrize("build", ["UResNet", "ConvBN", "BasicBlock",
+                                   "Deconv2x", "get_model"])
+def test_models_default_to_cuda(monkeypatch, build):
+    """A model or block built with no device asks for the card and
+    raises without one; it never lands on the CPU unasked."""
+    from ubresnet_tpu_torch import models
+    from ubresnet_tpu_torch.deploy.weights import random_state_dict
+
+    sd = random_state_dict(seed=0)
+    make = {
+        "UResNet": lambda: models.UResNet(sd),
+        "ConvBN": lambda: models.ConvBN(sd, "conv10", "bn10"),
+        "BasicBlock": lambda: models.BasicBlock(sd, "enc_layer1.res1"),
+        "Deconv2x": lambda: models.Deconv2x(sd, "dec_layer1.deconv"),
+        "get_model": lambda: models.get_model("uresnet", sd),
+    }[build]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make()
+
+
+def test_kernel_shapes_have_one_table():
+    """The .cu entry points instantiate and dispatch from the X-macro
+    lists that _build writes from SHAPES, the table the wrappers' shape
+    gates read; no source spells a shape of its own."""
+    from ubresnet_tpu_torch.ops import _build, block, conv, deconv
+
+    header = _build.shapes_header()
+    for name, mod in (("conv_bn_act", conv), ("basic_block", block),
+                      ("deconv2x", deconv)):
+        macro = f"UBR_{name.upper()}_SHAPES"
+        assert mod.SHAPES is _build.SHAPES[name]
+        line = next(ln for ln in header.splitlines() if macro + "(X)" in ln)
+        assert line.count(" X(") == len(mod.SHAPES)
+        src = (_build.CSRC / f"{name}.cu").read_text()
+        assert f"{macro}(" in src and "return launch<" in src
+        assert not re.search(r"launch<\d", src)
+
+
+def test_cli_defaults_to_cuda(monkeypatch, tmp_path):
+    """No --device: the CLI asks for the card and raises without one."""
+    from ubresnet_tpu_torch.cli.infer_precropped import main
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["-i", "in.uevt", "-o", str(tmp_path / "o.uevt"),
+              "-c", "w.tar"])
+
+
+def test_chip_smoke_refuses_without_a_card():
+    """chip_smoke.py exits non-zero and prints no result line when
+    torch sees no card (as on this host)."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: chip_smoke.py would run for real")
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
+                          capture_output=True, text=True, cwd=ROOT,
+                          timeout=120)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout

@@ -1,0 +1,86 @@
+"""Precropped deploy, file → score → file: the port's CLI
+(ubresnet_tpu_torch.cli.infer_precropped, --device cpu) against the
+JAX package's CLI on the same synthetic .uevt and the same reference
+.tar, both in float32. Labels must agree on ≥ 99.9% of pixels and each
+package must read the other's output file."""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from ubresnet_tpu.cli.infer_precropped import main as jax_main
+from ubresnet_tpu.data.uevt import EventFileReader as JaxReader
+from ubresnet_tpu.parity.torch_oracle import make_state_dict
+from ubresnet_tpu_torch.cli.infer_precropped import main as port_main
+from ubresnet_tpu_torch.data.synthetic import make_synthetic_file
+from ubresnet_tpu_torch.data.uevt import EventFileReader as PortReader
+from ubresnet_tpu_torch.deploy.weights import save_reference_checkpoint
+
+torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module")
+def files(tmp_path_factory):
+    d = tmp_path_factory.mktemp("precropped")
+    data = make_synthetic_file(str(d / "in.uevt"), n_events=4, hw=(64, 64),
+                               seed=5)
+    sd = make_state_dict(np.random.RandomState(7), inplanes=16)
+    ckpt = save_reference_checkpoint(sd, str(d / "ref.tar"))
+    return d, data, ckpt
+
+
+def _scores(reader, i):
+    imgs = reader.read_entry(i)["uburn_plane2"]
+    return np.stack([im.pixels.astype(np.float32) for im in imgs], -1), imgs
+
+
+def test_port_cli_matches_jax_cli(files):
+    d, data, ckpt = files
+    out_jax, out_port = str(d / "jax.uevt"), str(d / "port.uevt")
+    common = ["-i", data, "-c", ckpt, "-b", "3", "--f32"]
+    assert jax_main(common + ["-o", out_jax]) == 0
+    assert port_main(common + ["-o", out_port, "--device", "cpu"]) == 0
+    # each package reads the other's file
+    a, b = PortReader(out_jax), JaxReader(out_port)
+    assert len(a) == len(b) == 4
+    src = PortReader(data)
+    labels_a, labels_b = [], []
+    for i in range(4):
+        sa, imgs_a = _scores(a, i)
+        sb, imgs_b = _scores(b, i)
+        assert len(imgs_a) == len(imgs_b) == 3
+        assert imgs_b[0].rse == src.rse(i) == imgs_a[0].rse
+        assert (dataclasses.astuple(imgs_b[0].meta)
+                == dataclasses.astuple(imgs_a[0].meta))
+        np.testing.assert_allclose(sb.sum(-1), 1.0, atol=1e-4)
+        labels_a.append(sa.argmax(-1))
+        labels_b.append(sb.argmax(-1))
+    agree = float((np.stack(labels_a) == np.stack(labels_b)).mean())
+    assert agree >= 0.999, agree
+
+
+@pytest.mark.parametrize("mode,atol", [("f16", 2e-3), ("u8", 6e-3)])
+def test_port_compact_readback_and_f16_scores(files, mode, atol):
+    """Compact device→host forms rebuild the dropped class; f16 score
+    files halve the bytes; the tail batch (4 events at -b 3) is padded
+    and its padding never written."""
+    d, data, ckpt = files
+    ref, out = str(d / f"ref_{mode}.uevt"), str(d / f"c_{mode}.uevt")
+    base = ["-i", data, "-c", ckpt, "-b", "3", "--device", "cpu"]
+    port_main(base + ["-o", ref])
+    port_main(base + ["-o", out, "--compact-readback", mode, "--f16-scores"])
+    r0, r1 = PortReader(ref), PortReader(out)
+    assert len(r1) == 4
+    for i in range(4):
+        s0, _ = _scores(r0, i)
+        s1, imgs = _scores(r1, i)
+        assert imgs[0].pixels.dtype == np.float16
+        np.testing.assert_allclose(s1, s0, atol=atol)
+
+
+def test_port_refuses_root_files(files):
+    d, data, ckpt = files
+    with pytest.raises(NotImplementedError, match="ROOT"):
+        port_main(["-i", data, "-o", str(d / "x.root"), "-c", ckpt,
+                   "--device", "cpu"])

@@ -1,0 +1,35 @@
+"""Mixed-precision policy (counterpart of ubresnet_tpu/core/precision.py).
+
+Parameters and BatchNorm statistics are read and folded in float32;
+convolutions run in bfloat16 by default and the network head is
+float32 so the log-softmax is stable. ``Policy.f32()`` is the full-float32 parity
+mode: it also turns the kernel zone off, so every layer runs as a
+float32 torch.nn.functional op (with TF32 off on the card, see
+utils/platform.py:strict_f32).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class Policy:
+    """compute_dtype: dtype activations and conv weights run in.
+    output_dtype:  dtype of the classifier output before log-softmax.
+    fused_eval:    route the kernel-zone layers (stem pool, enc1,
+                   dec2, dec1, head, classifier) through the Hopper
+                   kernels of ops/ wherever their shape qualifies. The
+                   kernels take bfloat16 only; on the CPU the wrappers
+                   run their plain versions in any dtype.
+    """
+
+    compute_dtype: torch.dtype = torch.bfloat16
+    output_dtype: torch.dtype = torch.float32
+    fused_eval: bool = True
+
+    @staticmethod
+    def f32() -> "Policy":
+        """Full float32, kernel zone off — numerical parity mode."""
+        return Policy(compute_dtype=torch.float32, fused_eval=False)

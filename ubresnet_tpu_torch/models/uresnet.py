@@ -1,0 +1,95 @@
+"""U-ResNet, the flagship MicroBooNE SSNet model, eval mode, NHWC
+(counterpart of ubresnet_tpu/models/uresnet.py):
+
+  stem:    7x7 conv(bias) → BN → ReLU → 3x3 maxpool s2
+  encoder: ``depth`` × DoubleResNet, channels ×2 per stage, strides
+           1, 2, 2, ...
+  decoder: ``depth`` × (deconv k4 s2 → [up, skip] → DoubleResNet)
+  head:    7x7 conv → BN → ReLU → 7x7 conv → log-softmax over classes
+
+Built from a reference-format state_dict (``enc_layer{i}``,
+``dec_layer{i}``, ``conv10``, ``conv11`` ... names), which also fixes
+its geometry. With the default policy the stem pool, enc1, dec2, dec1,
+the head and the classifier run on the Hopper kernels of ops/ (11
+launches per forward at the flagship width); the rest are
+torch.nn.functional ops. It is built on the card unless
+``device="cpu"`` is passed; with no card and no explicit cpu it raises.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict
+
+import torch
+from torch import nn
+
+from ubresnet_tpu_torch.core.precision import Policy
+from ubresnet_tpu_torch.models.blocks import (
+    ConvBN,
+    DecoderBlock,
+    DoubleResNet,
+    stem_pool,
+)
+from ubresnet_tpu_torch.utils.platform import resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class UResNetConfig:
+    num_classes: int = 3
+    input_channels: int = 1
+    inplanes: int = 16
+    final_conv_kernels: int = 16
+    depth: int = 5
+
+
+def config_from_state_dict(sd: Dict[str, torch.Tensor]) -> UResNetConfig:
+    """Geometry read off the weights (as deploy/importers.py infers it)."""
+    w = sd["conv1.weight"]
+    depth = 0
+    while f"enc_layer{depth + 1}.res1.conv1.weight" in sd:
+        depth += 1
+    return UResNetConfig(
+        num_classes=int(sd["conv11.weight"].shape[0]),
+        input_channels=int(w.shape[1]),
+        inplanes=int(w.shape[0]),
+        final_conv_kernels=int(sd["conv10.weight"].shape[0]),
+        depth=depth,
+    )
+
+
+class UResNet(nn.Module):
+    """Input (b, h, w, c) NHWC; output (b, h, w, num_classes)
+    log-probabilities (or logits) in ``policy.output_dtype``."""
+
+    def __init__(self, state_dict: Dict[str, torch.Tensor],
+                 policy: Policy = Policy(), device=None):
+        super().__init__()
+        sd = {k: v.detach().cpu() for k, v in state_dict.items()}
+        self.config = config_from_state_dict(sd)
+        self.policy = policy
+        kw = dict(policy=policy, device=resolve_device(device))
+        self.conv1 = ConvBN(sd, "conv1", "bn1", **kw)
+        self.enc = nn.ModuleList(
+            DoubleResNet(sd, f"enc_layer{i}", stride=1 if i == 1 else 2, **kw)
+            for i in range(1, self.config.depth + 1))
+        # dec[0] is dec_layer{depth}, the deepest, which runs first
+        self.dec = nn.ModuleList(
+            DecoderBlock(sd, f"dec_layer{i}", **kw)
+            for i in range(self.config.depth, 0, -1))
+        self.conv10 = ConvBN(sd, "conv10", "bn10", **kw)
+        self.conv11 = ConvBN(sd, "conv11", None, act=False, **kw)
+
+    def forward(self, x: torch.Tensor, logits: bool = False) -> torch.Tensor:
+        pol = self.policy
+        x0 = self.conv1(x.to(pol.compute_dtype).contiguous())
+        y = stem_pool(x0, fused=pol.fused_eval)
+        skips = [x0]
+        for enc in self.enc:
+            y = enc(y)
+            skips.append(y)
+        for dec, skip in zip(self.dec, reversed(skips[:-1])):
+            y = dec(y, skip)
+        y = self.conv11(self.conv10(y)).to(pol.output_dtype)
+        if logits:
+            return y
+        return torch.log_softmax(y, dim=-1)

@@ -1,0 +1,203 @@
+"""Build and bind the Hopper kernels (ops/csrc/*.cu).
+
+Each source compiles with its own ``nvcc -c`` for ``sm_90a``, all
+started together, and the objects link into one shared library with a
+plain C interface, ``build/kernels/libubresnet_kernels.so`` under the
+checkout (``UBRESNET_TORCH_BUILD`` overrides the directory). The
+library is loaded with ctypes; every entry point takes its pointers
+and the stream as ``c_void_p`` (a bare int would be cut to 32 bits)
+and returns ``cudaGetLastError()`` after its launch, which ``launch``
+turns into an exception.
+
+``SHAPES`` is the one table of the shapes each kernel is compiled for:
+the build writes it as X-macro lists into ``ubr_shapes.h`` beside the
+objects, the ``.cu`` entry points instantiate and dispatch from those
+lists, and the wrappers' ``supports()`` gates read the same table.
+
+Nothing here runs at import: the first kernel launch builds (or finds
+an up-to-date build, keyed by a hash of the sources) and loads the
+library. A CPU-only host may have no nvcc at all; the CPU path never calls
+in here.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+LIB_NAME = "libubresnet_kernels.so"
+ARCH = "-gencode=arch=compute_90a,code=sm_90a"
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# entry point → argtypes (pointers and the trailing stream are void*)
+SIGNATURES = {
+    # x, w, g, b, residual, out | B, H, W, ci, co, k, pre_act, act | stream
+    "ubr_conv_bn_act": [_P] * 6 + [_I] * 8 + [_P],
+    # a, b, w1, g1, b1, w2, g2, b2, wb, gb, bb, out | B, H, W, ca, cb, co
+    "ubr_basic_block": [_P] * 12 + [_I] * 6 + [_P],
+    # x, w, out | B, H, W, ci, co
+    "ubr_deconv2x": [_P] * 3 + [_I] * 5 + [_P],
+    # x, out | B, H, W, C
+    "ubr_maxpool3x3s2": [_P] * 2 + [_I] * 4 + [_P],
+}
+
+# kernel → the template arguments instantiated in its .cu entry point,
+# the kernel-zone layers of the flagship UResNet
+SHAPES = {
+    # (ci, co, k): head conv10, classifier conv11
+    "conv_bn_act": frozenset({(16, 16, 7), (16, 3, 7)}),
+    # (ca, cb, co, projection); cb == 0 is the single-stream block
+    "basic_block": frozenset({
+        (16, 0, 32, True),    # enc1.res1
+        (32, 0, 32, False),   # enc1.res2, dec2.res.res2
+        (32, 32, 32, True),   # dec2.res.res1
+        (16, 16, 16, True),   # dec1.res.res1
+        (16, 0, 16, False),   # dec1.res.res2
+    }),
+    # (ci, co): dec2 and dec1 upsamples
+    "deconv2x": frozenset({(64, 32), (32, 16)}),
+}
+SHAPES_HEADER = "ubr_shapes.h"
+
+_lock = threading.Lock()
+_lib = None
+
+
+def build_dir() -> Path:
+    env = os.environ.get("UBRESNET_TORCH_BUILD")
+    if env:
+        return Path(env)
+    return CSRC.parents[2] / "build" / "kernels"
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu"))
+
+
+def shapes_header() -> str:
+    """``#define UBR_<KERNEL>_SHAPES(X) X(a, b, ...) ...`` per kernel."""
+    def arg(v):
+        return ("true" if v else "false") if isinstance(v, bool) else str(v)
+
+    lines = ["// Written by ubresnet_tpu_torch/ops/_build.py from its SHAPES.",
+             "#pragma once"]
+    for name, shapes in SHAPES.items():
+        calls = " ".join(f"X({', '.join(map(arg, s))})"
+                         for s in sorted(shapes))
+        lines.append(f"#define UBR_{name.upper()}_SHAPES(X) {calls}")
+    return "\n".join(lines) + "\n"
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256(ARCH.encode())
+    h.update(shapes_header().encode())
+    for p in sorted(CSRC.glob("*.cu*")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the Hopper kernels are built with "
+                       "the CUDA toolkit (PATH or /usr/local/cuda/bin)")
+
+
+def build() -> Path:
+    """Compile every csrc/*.cu in parallel and link the shared library;
+    a build whose stamp matches the sources' hash is reused. Returns
+    the library path."""
+    out = build_dir()
+    out.mkdir(parents=True, exist_ok=True)
+    lib = out / LIB_NAME
+    stamp = out / (LIB_NAME + ".stamp")
+    key = _source_hash()
+    if lib.exists() and stamp.exists() and stamp.read_text() == key:
+        return lib
+    nvcc = _nvcc()
+    header = out / (SHAPES_HEADER + f".{os.getpid()}.tmp")
+    header.write_text(shapes_header())
+    os.replace(header, out / SHAPES_HEADER)
+    flags = [ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+             "-I", str(CSRC), "-I", str(out)]
+    procs = []
+    for src in _sources():
+        obj = out / (src.stem + ".o")
+        cmd = [nvcc, *flags, "-c", str(src), "-o", str(obj)]
+        procs.append((src, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    errors = []
+    for src, _, proc in procs:  # wait for every compile, even on failure
+        log, _ = proc.communicate()
+        if proc.returncode:
+            errors.append(f"nvcc failed on {src.name}:\n{log}")
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    tmp = out / (LIB_NAME + f".{os.getpid()}.tmp")
+    link = subprocess.run(
+        [nvcc, ARCH, "-shared", "-o", str(tmp),
+         *[str(obj) for _, obj, _ in procs], "-lcudart"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if link.returncode:
+        raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+    os.replace(tmp, lib)
+    stamp.write_text(key)
+    return lib
+
+
+def library():
+    """The loaded kernel library (built on first use)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.ubr_error_string.argtypes = [ctypes.c_int]
+            lib.ubr_error_string.restype = ctypes.c_char_p
+            _lib = lib
+    return _lib
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def launch(name: str, tensors, ints, device: torch.device):
+    """Call entry point ``name`` with tensor pointers (None → NULL),
+    int arguments and the current stream of ``device``; raise on a
+    non-zero cudaGetLastError()."""
+    lib = library()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(device):
+        rc = getattr(lib, name)(*[_ptr(t) for t in tensors],
+                                *[int(i) for i in ints], stream)
+    if rc:
+        msg = lib.ubr_error_string(rc).decode()
+        raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
+
+
+def check(t, name: str, dtype, shape, device) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape``
+    on ``device``."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")

@@ -7,14 +7,19 @@ Phases, each printing JSON lines; any failure exits non-zero:
 
 1. device  — the card's name and power limit (nvidia-smi); no card,
              no run: without CUDA the script exits 1 before anything.
-2. build   — nvcc builds the four Hopper kernels from
+2. build   — nvcc builds the seven Hopper kernels from
              ubresnet_tpu_torch/ops/csrc for sm_90a.
 3. kernels — every kernel-zone layer of the flagship UResNet at its
              main-path shape and batch (16): the kernel against its plain
-             PyTorch version on the same bf16 inputs (max abs error
-             ≤ 1e-2·max|plain| for K1-K3, exact for K4), the kernel's,
-             the plain version's and the library call's time (CUDA
-             events), and the bound from the bytes and operations.
+             PyTorch version on the same bf16 inputs, the kernel's, the
+             plain version's and the library call's time (CUDA events),
+             and the bound from the bytes and operations. Eval rows (K1-K4,
+             max abs error ≤ 1e-2·max|plain| for K1-K3 — one bf16 rounding
+             of the output —, exact for K4) and train rows: K5 (y as K1;
+             its f32 sums of the bf16 y ≤ 1e-3·max|plain|, where one bf16
+             step of some y may differ), K1 as the input gradient (as K1),
+             K6 (f32 dW ≤ 1e-3·max|plain|: sums over 1-4 M pixels in
+             another order), K7 forward and backward (f32, ≤ 1e-5·max).
 4. main    — 64 synthetic 512x512 crops scored file → file through the
              port's CLI (-b 16, cuda) with seeded random weights in a
              reference-format .tar; every event must carry 3 score
@@ -23,7 +28,26 @@ Phases, each printing JSON lines; any failure exits non-zero:
              agree with the plain f32 path (TF32 off) on the argmax of
              the 16 crops of the timed forward for ≥ 99% of pixels.
              Also forward-only crops/s and a second, warm CLI run.
-5. summary — the kernels line, the card line, then the result line.
+5. train_parity — one seeded 512² batch of 16, the same weights: the
+             train kernel path (bf16), the plain path (bf16, fused_train
+             off) and the f32 plain path (TF32 off): loss and every
+             parameter gradient. Gates: the kernel path is no further
+             from the f32 path than twice the plain bf16 path is (loss
+             and max|Δgrad|/max|grad|, with floors 1e-3 and 1e-2). Then
+             5 Adam steps (lr 1e-3) on the batch: the loss must fall;
+             steps 2-5 timed with CUDA events. A torch.profiler trace
+             of 2 more steps gives the zone kernels' device time per
+             step, the busy and idle shares and the largest other
+             kernels (reported, not gated).
+6. train   — the port's training CLI (--device cuda) on 64 synthetic
+             512² events: batch 16, 8 iterations, validation every 4
+             (1 batch), checkpoints every 4, the default sparse
+             transfer. Gates: no error, final_iter 8, a finite loss at
+             every iteration, launch counts = the per-step table × 8
+             (K5 16, K1 18, K6 17, K4 1, K7 1 + 1) + 11 per validation
+             forward, and the final .tar scores a crop through the eval
+             model with probability sums 1 ± 1e-2.
+7. summary — the kernels line (K1-K7), the card line, the result line.
 
 Scratch files go under build/chip_smoke in the checkout.
 """
@@ -31,6 +55,7 @@ import contextlib
 import io
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -44,17 +69,46 @@ F32_FLOPS = 67e12           # H100 SXM float32 outside the tensor cores
 EVENTS, BATCH_MAIN, HW = 64, 16, (512, 512)
 LAUNCHES_PER_BATCH = {"conv_bn_act": 2, "basic_block": 6, "deconv2x": 2,
                       "maxpool3x3s2": 1}
+LAUNCHES_PER_TRAIN_STEP = {"conv_stats": 16, "conv_bn_act": 18,
+                           "conv_dw": 17, "maxpool3x3s2": 1,
+                           "weighted_nll": 1, "weighted_nll_bwd": 1}
+TRAIN_ITERS, VALID_EVERY = 8, 4
+# kernels line entry → (source, the TPU kernel it replaces, row kernels)
 SOURCES = {
     "conv_bn_act": ("ubresnet_tpu_torch/ops/csrc/conv_bn_act.cu",
-                    "ubresnet_tpu/ops/pallas_conv.py:315 fused_packed_conv"),
+                    "ubresnet_tpu/ops/pallas_conv.py:315 fused_packed_conv"
+                    " + :1811 pallas_conv_ad (forward, dx)",
+                    ("conv_bn_act",)),
     "basic_block": ("ubresnet_tpu_torch/ops/csrc/basic_block.cu",
                     "ubresnet_tpu/ops/pallas_conv.py:1483 fused_basic_block"
-                    " + :699 fused_dual_block"),
+                    " + :699 fused_dual_block", ("basic_block",)),
     "deconv2x": ("ubresnet_tpu_torch/ops/csrc/deconv2x.cu",
-                 "ubresnet_tpu/ops/pallas_conv.py:898 fused_packed_deconv2x"),
+                 "ubresnet_tpu/ops/pallas_conv.py:898 fused_packed_deconv2x",
+                 ("deconv2x",)),
     "maxpool3x3s2": ("ubresnet_tpu_torch/ops/csrc/maxpool3x3s2.cu",
-                     "ubresnet_tpu/ops/pallas_conv.py:525 fused_pool3x3s2"),
+                     "ubresnet_tpu/ops/pallas_conv.py:525 fused_pool3x3s2"
+                     " + ubresnet_tpu/ops/pool_ad.py:133 packed_pool_ad "
+                     "(forward)", ("maxpool3x3s2",)),
+    "conv_stats": ("ubresnet_tpu_torch/ops/csrc/conv_stats.cu",
+                   "ubresnet_tpu/ops/pallas_train.py:206 train_conv_stats",
+                   ("conv_stats",)),
+    "conv_dw": ("ubresnet_tpu_torch/ops/csrc/conv_dw.cu",
+                "ubresnet_tpu/ops/pallas_conv.py:1677 pallas_conv_dw",
+                ("conv_dw",)),
+    "weighted_nll": ("ubresnet_tpu_torch/ops/csrc/weighted_nll.cu",
+                     "ubresnet_tpu/ops/pallas_loss.py:100 "
+                     "pallas_weighted_nll", ("weighted_nll",
+                                             "weighted_nll_bwd")),
 }
+# the train zone at batch 16: (ci, co, k) of each distinct conv, the
+# resolution it runs at and how many of the step's 16 BN-fed zone convs
+# have that shape (models/uresnet.py:TrainUResNet)
+TRAIN_ZONE = [((16, 32, 3), 256, 1), ((16, 32, 1), 256, 1),
+              ((32, 32, 3), 256, 6), ((64, 32, 3), 256, 1),
+              ((64, 32, 1), 256, 1), ((32, 16, 3), 512, 1),
+              ((32, 16, 1), 512, 1), ((16, 16, 3), 512, 3),
+              ((16, 16, 7), 512, 1)]
+CLASSIFIER = ((16, 3, 7), 512, 1)
 
 
 def emit(obj):
@@ -95,9 +149,60 @@ def time_ms(fn, budget_ms=150.0):
     return start.elapsed_time(end) / iters
 
 
+def _max_err(got, want):
+    return (float((got.float() - want.float()).abs().max()),
+            float(want.float().abs().max()))
+
+
+def bf16_check(got, want):
+    """One bf16 rounding step of the output: ≤ 1e-2·max|plain|."""
+    require(got.shape == want.shape and got.dtype == want.dtype,
+            f"kernel {tuple(got.shape)} {got.dtype} vs plain "
+            f"{tuple(want.shape)} {want.dtype}")
+    err, ref = _max_err(got, want)
+    return err, ref, 1e-2 * ref, {}
+
+
+def exact_check(got, want):
+    err, ref = _max_err(got, want)
+    return err, ref, 0.0, {}
+
+
+def f32_check(rel):
+    def check(got, want):
+        require(got.shape == want.shape and got.dtype == want.dtype,
+                f"kernel {tuple(got.shape)} {got.dtype} vs plain "
+                f"{tuple(want.shape)} {want.dtype}")
+        err, ref = _max_err(got, want)
+        return err, ref, rel * ref, {}
+    return check
+
+
+def stats_check(got, want):
+    """K5: y as a bf16 output; s1 and s2 (f32 sums of the bf16 y) within
+    1e-3·max|plain| each (reported beside y's error)."""
+    err, ref, tol, _ = bf16_check(got[0], want[0])
+    extra = {}
+    for name, g, w in (("s1", got[1], want[1]), ("s2", got[2], want[2])):
+        e, r = _max_err(g, w)
+        extra[f"{name}_err"], extra[f"{name}_ref"] = e, r
+        require(e <= 1e-3 * r, f"conv_stats {name}: max abs err {e} > "
+                               f"1e-3·{r}")
+    return err, ref, tol, extra
+
+
+def _row(layer, kernel, kfn, pfn, lfn, nbytes, ops, peak, check=bf16_check,
+         library=None, per_step=0):
+    """``per_step``: launches of this row's kernel at this shape in one
+    train step."""
+    return {"layer": layer, "kernel": kernel, "kfn": kfn, "pfn": pfn,
+            "lfn": lfn, "bytes": nbytes, "ops": ops, "peak": peak,
+            "check": check, "library": library, "per_step": per_step}
+
+
 def kernel_rows(dev):
-    """One row per kernel-zone layer: (layer, kernel, kernel fn, plain
-    fn, library fn, bytes moved, operations, operation peak)."""
+    """One row per kernel-zone layer of the eval forward at its
+    main-path shape and batch."""
     import torch
     import torch.nn.functional as F
 
@@ -131,11 +236,12 @@ def kernel_rows(dev):
     # K4 stem pool: 512^2 x 16 -> 256^2 x 16
     x = act(B, 512, 512, 16)
     out_elems = B * 256 * 256 * 16
-    rows.append(("stem pool", "maxpool3x3s2",
-                 lambda x=x: pool.maxpool3x3s2(x),
-                 lambda x=x: pool.maxpool3x3s2_plain(x),
-                 lambda x=x: F.max_pool2d(cl(x), 3, 2, 1),
-                 n2(x) + out_elems * 2, 8 * out_elems, F32_FLOPS))
+    rows.append(_row("stem pool", "maxpool3x3s2",
+                     lambda x=x: pool.maxpool3x3s2(x),
+                     lambda x=x: pool.maxpool3x3s2_plain(x),
+                     lambda x=x: F.max_pool2d(cl(x), 3, 2, 1),
+                     n2(x) + out_elems * 2, 8 * out_elems, F32_FLOPS,
+                     check=exact_check, library="F.max_pool2d", per_step=1))
 
     # K2 blocks
     def block_row(name, hw, ca, cb, co, proj):
@@ -163,10 +269,11 @@ def kernel_rows(dev):
         pix = B * hw * hw
         macs = pix * (9 * cin * co + 9 * co * co + (cin * co if proj else 0))
         nbytes = n2(a) + (n2(b) if cb else 0) + pix * co * 2 + n2(w1) + n2(w2)
-        rows.append((name, "basic_block",
-                     lambda: block.basic_block(*args),
-                     lambda: block.basic_block_plain(*args),
-                     library, nbytes, 2 * macs, BF16_TENSOR_FLOPS))
+        rows.append(_row(name, "basic_block",
+                         lambda: block.basic_block(*args),
+                         lambda: block.basic_block_plain(*args),
+                         library, nbytes, 2 * macs, BF16_TENSOR_FLOPS,
+                         library="cuDNN block sequence"))
 
     block_row("enc1.res1", 256, 16, 0, 32, True)
     block_row("enc1.res2", 256, 32, 0, 32, False)
@@ -176,13 +283,14 @@ def kernel_rows(dev):
         w = weight(4, 4, ci, co, fan=16 * co)
         w_iohw = w.permute(2, 3, 0, 1).contiguous()
         out_pix = B * 4 * hw * hw
-        rows.append((name, "deconv2x",
-                     lambda: deconv.deconv2x(x, w),
-                     lambda: deconv.deconv2x_plain(x, w),
-                     lambda: F.conv_transpose2d(cl(x), w_iohw, stride=2,
-                                                padding=1),
-                     n2(x) + out_pix * co * 2 + n2(w),
-                     2 * out_pix * 4 * ci * co, BF16_TENSOR_FLOPS))
+        rows.append(_row(name, "deconv2x",
+                         lambda: deconv.deconv2x(x, w),
+                         lambda: deconv.deconv2x_plain(x, w),
+                         lambda: F.conv_transpose2d(cl(x), w_iohw, stride=2,
+                                                    padding=1),
+                         n2(x) + out_pix * co * 2 + n2(w),
+                         2 * out_pix * 4 * ci * co, BF16_TENSOR_FLOPS,
+                         library="F.conv_transpose2d"))
 
     deconv_row("dec2.deconv", 128, 64, 32)
     block_row("dec2.res.res1", 256, 32, 32, 32, True)
@@ -205,58 +313,197 @@ def kernel_rows(dev):
             return torch.relu_(y) if act_on else y
 
         pix = B * 512 * 512
-        rows.append((name, "conv_bn_act",
-                     lambda: conv.conv_bn_act(x, w, g, b, act=act_on),
-                     lambda: conv.conv_bn_act_plain(x, w, g, b, act=act_on),
-                     library, n2(x) + pix * co * 2 + n2(w),
-                     2 * pix * 49 * 16 * co, BF16_TENSOR_FLOPS))
+        rows.append(_row(name, "conv_bn_act",
+                         lambda: conv.conv_bn_act(x, w, g, b, act=act_on),
+                         lambda: conv.conv_bn_act_plain(x, w, g, b,
+                                                        act=act_on),
+                         library, n2(x) + pix * co * 2 + n2(w),
+                         2 * pix * 49 * 16 * co, BF16_TENSOR_FLOPS,
+                         library="F.conv2d + folded affine",
+                         per_step=int(not act_on)))  # conv_ad's forward
 
     conv_row("head conv10", 16, True)
     conv_row("classifier conv11", 3, False)
     return rows
 
 
-def check_kernels(dev):
+def train_kernel_rows(dev):
+    """One row per distinct shape of the train zone at batch 16 and its
+    own resolution: K5 forward (9), K1 input gradient (10), K6 weight
+    gradient (10), K7 forward and backward at (16, 512, 512, 3)."""
+    import torch
+    import torch.nn.functional as F
+
+    from ubresnet_tpu_torch.ops import conv, loss, train_conv
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    bf = torch.bfloat16
+    B = BATCH_MAIN
+    rows = []
+
+    def act(*shape):
+        return torch.relu(torch.randn(*shape, generator=gen, device=dev)).to(bf)
+
+    def grad(*shape):
+        return (0.01 * torch.randn(*shape, generator=gen, device=dev)).to(bf)
+
+    def weight(k, ci, co):
+        return (torch.randn(k, k, ci, co, generator=gen, device=dev)
+                * (2.0 / (k * k * co)) ** 0.5).to(bf).contiguous()
+
+    def cl(x):
+        return x.permute(0, 3, 1, 2)
+
+    def oihw(w):
+        return w.permute(3, 2, 0, 1).contiguous()
+
+    for (ci, co, k), hw, count in TRAIN_ZONE:
+        x = act(B, hw, hw, ci)
+        w = weight(k, ci, co)
+        bias = 0.05 * torch.randn(co, generator=gen, device=dev)
+        pix = B * hw * hw
+        macs = pix * k * k * ci * co
+        lw, lb = oihw(w), bias.to(bf)
+
+        def library(x=x, lw=lw, lb=lb, k=k):
+            y = F.conv2d(cl(x), lw, lb, padding=k // 2).float()
+            return y.sum((0, 2, 3)), (y * y).sum((0, 2, 3))
+
+        rows.append(_row(
+            f"K5 {ci}->{co} k{k} @{hw}", "conv_stats",
+            lambda x=x, w=w, b=bias: train_conv.conv_stats(x, w, b),
+            lambda x=x, w=w, b=bias: train_conv.conv_stats_plain(x, w, b),
+            library, pix * (ci + co) * 2 + w.numel() * 2 + co * 8,
+            2 * macs, BF16_TENSOR_FLOPS, check=stats_check,
+            library="F.conv2d + two channel sums", per_step=count))
+
+    for (ci, co, k), hw, count in TRAIN_ZONE + [CLASSIFIER]:
+        dy = grad(B, hw, hw, co)
+        w = weight(k, ci, co)
+        wt = w.flip((0, 1)).transpose(2, 3)
+        ones = torch.ones(ci, device=dev)
+        zeros = torch.zeros(ci, device=dev)
+        pix = B * hw * hw
+        macs = pix * k * k * ci * co
+        lw = oihw(w)
+        rows.append(_row(
+            f"K1 dx {ci}<-{co} k{k} @{hw}", "conv_bn_act",
+            lambda dy=dy, w=w: conv.conv_input_grad(dy, w),
+            lambda dy=dy, wt=wt, o=ones, z=zeros: conv.conv_bn_act_plain(
+                dy, wt, o, z, act=False),
+            lambda dy=dy, lw=lw, ci=ci, hw=hw, k=k:
+                torch.nn.grad.conv2d_input((B, ci, hw, hw), lw, cl(dy),
+                                           padding=k // 2),
+            pix * (ci + co) * 2 + w.numel() * 2, 2 * macs, BF16_TENSOR_FLOPS,
+            library="torch.nn.grad.conv2d_input", per_step=count))
+
+        x = act(B, hw, hw, ci)
+        rows.append(_row(
+            f"K6 dW {ci}->{co} k{k} @{hw}", "conv_dw",
+            lambda x=x, dy=dy, k=k: conv.conv_dw(x, dy, k),
+            lambda x=x, dy=dy, k=k: conv.conv_dw_plain(x, dy, k),
+            lambda x=x, dy=dy, ci=ci, co=co, k=k:
+                torch.nn.grad.conv2d_weight(cl(x), (co, ci, k, k), cl(dy),
+                                            padding=k // 2),
+            pix * (ci + co) * 2 + k * k * ci * co * 4, 2 * macs,
+            BF16_TENSOR_FLOPS, check=f32_check(1e-3),
+            library="torch.nn.grad.conv2d_weight", per_step=count))
+
+    n = B * 512 * 512
+    logits = 3 * torch.randn(B, 512, 512, 3, generator=gen, device=dev)
+    labels = torch.randint(0, 3, (B, 512, 512), generator=gen, device=dev,
+                           dtype=torch.int32)
+    weights = 2 * torch.rand(B, 512, 512, generator=gen, device=dev)
+    g = torch.tensor(1.0, device=dev)
+    lt = logits.permute(0, 3, 1, 2)
+    lab64 = labels.long()
+
+    def library_fwd(lt=lt):
+        return (F.cross_entropy(lt, lab64, reduction="none") * weights).mean()
+
+    lreq = lt.detach().clone().requires_grad_(True)
+    lib_loss = library_fwd(lreq)
+    rows.append(_row(
+        "K7 loss forward (16,512,512,3)", "weighted_nll",
+        lambda: loss.weighted_nll_fwd(logits, labels, weights),
+        lambda: loss.weighted_nll_fwd_plain(logits, labels, weights),
+        library_fwd, n * (12 + 4 + 4) + 4, 20 * n, F32_FLOPS,
+        check=f32_check(1e-5),
+        library="F.cross_entropy(reduction='none')·w, mean", per_step=1))
+    rows.append(_row(
+        "K7 loss backward (16,512,512,3)", "weighted_nll_bwd",
+        lambda: loss.weighted_nll_bwd(logits, labels, weights, g),
+        lambda: loss.weighted_nll_bwd_plain(logits, labels, weights, g),
+        lambda: torch.autograd.grad(lib_loss, lreq, retain_graph=True),
+        n * (12 + 4 + 4 + 12), 30 * n, F32_FLOPS, check=f32_check(1e-5),
+        library="autograd backward of the forward's sequence", per_step=1))
+    return rows
+
+
+def check_kernels(rows):
     import torch
 
     results = []
-    for layer, kname, kfn, pfn, lfn, nbytes, ops, peak in kernel_rows(dev):
-        got = kfn()
-        want = pfn()
+    for r in rows:
+        got = r["kfn"]()
+        want = r["pfn"]()
         torch.cuda.synchronize()
-        require(got.shape == want.shape and got.dtype == want.dtype,
-                f"{layer}: kernel {tuple(got.shape)} {got.dtype} vs plain "
-                f"{tuple(want.shape)} {want.dtype}")
-        err = float((got.float() - want.float()).abs().max())
-        ref = float(want.float().abs().max())
-        tol = 0.0 if kname == "maxpool3x3s2" else 1e-2 * ref
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / peak * 1e3
+        err, ref, tol, extra = r["check"](got, want)
+        t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
+        t_ops = r["ops"] / r["peak"] * 1e3
         row = {
-            "phase": "kernel", "layer": layer, "kernel": kname,
-            "shape": list(got.shape), "max_abs_err": err, "max_abs_ref": ref,
-            "tolerance": tol, "ms": time_ms(kfn), "plain_ms": time_ms(pfn),
-            "library_ms": time_ms(lfn), "bound_ms": max(t_bytes, t_ops),
+            "phase": "kernel", "layer": r["layer"], "kernel": r["kernel"],
+            "shape": list((got[0] if isinstance(got, tuple) else got).shape),
+            "max_abs_err": err, "max_abs_ref": ref, "tolerance": tol,
+            **extra, "ms": time_ms(r["kfn"]), "plain_ms": time_ms(r["pfn"]),
+            "library_ms": time_ms(r["lfn"]), "library": r["library"],
+            "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": nbytes, "operations": ops, "bytes_ms": t_bytes,
-            "ops_ms": t_ops,
+            "bytes": r["bytes"], "operations": r["ops"], "bytes_ms": t_bytes,
+            "ops_ms": t_ops, "per_step": r["per_step"],
         }
         emit(row)
-        require(err <= tol, f"{layer}: kernel disagrees with its plain "
+        require(err <= tol, f"{r['layer']}: kernel disagrees with its plain "
                             f"version: max abs err {err} > {tol}")
         results.append(row)
     return results
 
 
-def kernels_line(rows, launches):
+def train_zone_per_step(rows):
+    """Each kernel's share of one b16 train step: the rows' times
+    weighted by their launches per step (their multiplicity on the
+    main train path), beside the same sums of bound, plain and library
+    times."""
+    out = {}
+    for r in rows:
+        if not r["per_step"]:
+            continue
+        k = out.setdefault(r["kernel"], {"launches": 0, "ms": 0.0,
+                                         "plain_ms": 0.0, "library_ms": 0.0,
+                                         "bound_ms": 0.0})
+        k["launches"] += r["per_step"]
+        for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+            k[key] += r["per_step"] * r[key]
+    require({k: v["launches"] for k, v in out.items()}
+            == LAUNCHES_PER_TRAIN_STEP,
+            f"per-step rows {out} != {LAUNCHES_PER_TRAIN_STEP}")
+    return {"phase": "train_zone_per_step", "kernels": out,
+            "ms": sum(v["ms"] for v in out.values()),
+            "bound_ms": sum(v["bound_ms"] for v in out.values())}
+
+
+def kernels_line(rows, launches_by_path):
     out = []
-    for name, (src, replaces) in SOURCES.items():
-        mine = [r for r in rows if r["kernel"] == name]
+    for name, (src, replaces, kernels) in SOURCES.items():
+        mine = [r for r in rows if r["kernel"] in kernels]
+        by_path = {path: sum(counts[k] for k in kernels)
+                   for path, counts in launches_by_path.items()}
         t_bytes = sum(r["bytes_ms"] for r in mine)
         t_ops = sum(r["ops_ms"] for r in mine)
         out.append({
             "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": sum(r["ms"] for r in mine),
             "plain_ms": sum(r["plain_ms"] for r in mine),
@@ -316,7 +563,7 @@ def stage_breakdown(model, x, reps=5):
     return out
 
 
-def main_path(dev, card):
+def main_path(dev, card, work):
     import numpy as np
     import torch
 
@@ -331,8 +578,6 @@ def main_path(dev, card):
     )
     from ubresnet_tpu_torch.models import get_model
 
-    work = os.path.join(HERE, "build", "chip_smoke")
-    os.makedirs(work, exist_ok=True)
     src, out, tar = (os.path.join(work, f) for f in
                      ("crops.uevt", "scores.uevt", "weights.tar"))
     t0 = time.time()
@@ -356,7 +601,7 @@ def main_path(dev, card):
     wall, timing = run_cli()
     launches = ops.launch_counts()
     batches = -(-EVENTS // BATCH_MAIN)
-    want = {k: v * batches for k, v in LAUNCHES_PER_BATCH.items()}
+    want = {k: LAUNCHES_PER_BATCH.get(k, 0) * batches for k in launches}
     require(launches == want, f"launch counts {launches} != {want}")
 
     reader = EventFileReader(out)
@@ -407,6 +652,246 @@ def main_path(dev, card):
     return launches
 
 
+def _train_batch(seed):
+    """One seeded batch of 16 synthetic 512² events (image, label,
+    weight), as the loader assembles it."""
+    import numpy as np
+
+    from ubresnet_tpu_torch.data.synthetic import synth_event
+
+    rng = np.random.RandomState(seed)
+    evs = [synth_event(rng, HW) for _ in range(BATCH_MAIN)]
+    return {"image": np.stack([e["wire"] for e in evs])[..., None],
+            "label": np.stack([e["segment"] for e in evs]).astype(np.int32),
+            "weight": np.stack([e["weight"] for e in evs])}
+
+
+ZONE_KERNELS = ("conv_stats_kernel", "conv_dw_kernel", "conv_bn_act_kernel",
+                "nll_fwd_kernel", "nll_bwd_kernel", "maxpool3x3s2_kernel",
+                "sum_rows_kernel")
+
+
+def step_profile(step, state, batch, step_ms, steps=2):
+    """Device time of ``steps`` train steps by kernel (torch.profiler):
+    the train zone's kernels (ops/csrc) against everything else, the
+    busy share of the CUDA-event step time, and the largest other
+    kernels. None of it gates; if the profiler sees no device time it
+    says so."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            state, _ = step(state, batch)
+        torch.cuda.synchronize()
+    def is_kernel(e):  # device work, not a range annotated around it
+        return (e.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)
+                and not e.key.startswith("Optimizer."))
+
+    kernels = {}
+    for e in prof.key_averages():
+        if not is_kernel(e):
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        kernels[e.key] = kernels.get(e.key, 0.0) + us / 1e3 / steps
+    if not kernels:
+        return {"device_time": "not measured (no CUDA events in the trace)"}
+    zone = sum(ms for k, ms in kernels.items()
+               if any(z in k for z in ZONE_KERNELS))
+    busy = sum(kernels.values())
+    others = sorted(((ms, k[:90]) for k, ms in kernels.items()
+                     if not any(z in k for z in ZONE_KERNELS)), reverse=True)
+    return {"device_busy_ms_per_step": busy, "zone_kernel_ms_per_step": zone,
+            "other_kernel_ms_per_step": busy - zone,
+            "zone_share_of_step": zone / step_ms,
+            "idle_share_of_step": max(0.0, 1 - busy / step_ms),
+            "kernel_launches_per_step": sum(
+                e.count for e in prof.key_averages() if is_kernel(e)) / steps,
+            "top_other_kernels_ms": [[k, ms] for ms, k in others[:12]]}
+
+
+def train_parity(dev, card):
+    """Loss and gradients of the train kernel path against the plain
+    bf16 and f32 paths on one batch, then 5 Adam steps."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from ubresnet_tpu_torch.core.precision import Policy
+    from ubresnet_tpu_torch.deploy.weights import random_state_dict
+    from ubresnet_tpu_torch.losses import pixelwise_weighted_nll_from_logits
+    from ubresnet_tpu_torch.models import get_model
+    from ubresnet_tpu_torch.ops.loss import weighted_nll
+    from ubresnet_tpu_torch.train import (
+        build_train_step,
+        create_train_state,
+        make_optimizer,
+    )
+
+    sd = random_state_dict(seed=0)
+    batch = _train_batch(7)
+    b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    kernel_pol = Policy()
+    paths = {"kernel_bf16": kernel_pol,
+             "plain_bf16": dataclasses.replace(kernel_pol, fused_train=False),
+             "plain_f32": Policy.f32()}
+    res = {}
+    for name, pol in paths.items():
+        model = get_model("uresnet", sd, policy=pol, device=dev, train=True)
+        logits = model(b["image"], logits=True)
+        if pol.fused_train:
+            loss = weighted_nll(logits, b["label"], b["weight"])
+        else:
+            loss = pixelwise_weighted_nll_from_logits(logits, b["label"],
+                                                      b["weight"])
+        loss.backward()
+        res[name] = (loss.item(), {k: p.grad.float().clone()
+                                   for k, p in model.named_parameters()})
+        del model, logits, loss
+        torch.cuda.empty_cache()
+    l32, g32 = res["plain_f32"]
+    gsc = max(float(g.abs().max()) for g in g32.values())
+
+    def compare(name):
+        loss, grads = res[name]
+        per = {k: float((grads[k] - g32[k]).abs().max()) / gsc for k in g32}
+        worst = max(per, key=per.get)
+        return {"loss": loss, "loss_rel_vs_f32": abs(loss - l32) / abs(l32),
+                "grad_err_vs_f32": per[worst], "worst_param": worst,
+                "grad_err_median_vs_f32": float(np.median(list(per.values())))}
+
+    kern, plain = compare("kernel_bf16"), compare("plain_bf16")
+    lk, gk = res["kernel_bf16"]
+    lp, gp = res["plain_bf16"]
+    kp = max(float((gk[k] - gp[k]).abs().max()) for k in gk) / gsc
+    loss_gate = max(2 * plain["loss_rel_vs_f32"], 1e-3)
+    grad_gate = max(2 * plain["grad_err_vs_f32"], 1e-2)
+    result = {"phase": "train_parity", "card": card, "batch": BATCH_MAIN,
+              "hw": list(HW), "loss_f32": l32, "grad_scale_f32": gsc,
+              "kernel_bf16": kern, "plain_bf16": plain,
+              "kernel_vs_plain_bf16": {
+                  "loss_rel": abs(lk - lp) / abs(lp), "grad_err": kp},
+              "gates": {"loss_rel_vs_f32": loss_gate,
+                        "grad_err_vs_f32": grad_gate}}
+    del res, gk, gp, g32
+    torch.cuda.empty_cache()
+
+    # 5 Adam steps on the batch: the loss must fall; steps 2-5 timed
+    model = get_model("uresnet", sd, policy=kernel_pol, device=dev,
+                      train=True)
+    opt = make_optimizer(model.parameters(), "adam", 1e-3, weight_decay=1e-4)
+    step = build_train_step(use_pallas_loss=True, device=dev)
+    state = create_train_state(model, opt)
+    losses, times = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, m = step(state, b)
+        end.record()
+        end.synchronize()
+        losses.append(m["loss"])
+        times.append(start.elapsed_time(end))
+    step_ms = sum(times[1:]) / len(times[1:])
+    result.update({"adam_losses": losses, "adam_step_ms": times,
+                   "train_step_ms_b16": step_ms,
+                   "train_crops_per_s_b16": BATCH_MAIN / step_ms * 1e3,
+                   "train_peak_mem_gib":
+                       torch.cuda.max_memory_allocated() / 2 ** 30,
+                   "step_profile": step_profile(step, state, b, step_ms)})
+    emit(result)
+    require(kern["loss_rel_vs_f32"] <= loss_gate,
+            f"kernel path loss {kern['loss_rel_vs_f32']} from f32 > "
+            f"{loss_gate}")
+    require(kern["grad_err_vs_f32"] <= grad_gate,
+            f"kernel path grads {kern['grad_err_vs_f32']} from f32 > "
+            f"{grad_gate}")
+    require(all(np.isfinite(losses)) and losses[-1] < losses[0],
+            f"5 Adam steps did not lower the loss: {losses}")
+
+
+def train_path(dev, card, work):
+    import numpy as np
+    import torch
+
+    from ubresnet_tpu_torch import ops
+    from ubresnet_tpu_torch.cli.train import main as train_cli
+    from ubresnet_tpu_torch.data.synthetic import make_synthetic_file
+    from ubresnet_tpu_torch.deploy.weights import load_reference_checkpoint
+    from ubresnet_tpu_torch.models import get_model
+
+    data = os.path.join(work, "train.uevt")
+    ckpt = os.path.join(work, "train_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    t0 = time.time()
+    make_synthetic_file(data, n_events=EVENTS, hw=HW, seed=1)
+    cfg = {"model": {"precision": "bf16"},
+           "optim": {"name": "adam", "lr": 1e-3},
+           "train_data": {"files": [data], "batch_size": BATCH_MAIN},
+           "valid_data": {"files": [data], "batch_size": BATCH_MAIN},
+           "num_iters": TRAIN_ITERS, "print_every": 1,
+           "valid_every": VALID_EVERY, "valid_batches": 1,
+           "checkpoint_every": 4, "checkpoint_dir": ckpt, "seed": 0}
+    cfg_path = os.path.join(work, "train.json")
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f)
+    setup_s = time.time() - t0
+
+    printed = io.StringIO()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.time()
+    with contextlib.redirect_stdout(printed):
+        rc = train_cli(["--config", cfg_path, "--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = ops.launch_counts()
+    out = printed.getvalue()
+    summary = json.loads(out[out.rfind("\n{\n") + 1:])
+    losses = [float(line.split()[3]) for line in out.splitlines()
+              if line.startswith("iter ")]
+    valid_forwards = TRAIN_ITERS // VALID_EVERY
+    want = {k: (LAUNCHES_PER_TRAIN_STEP.get(k, 0) * TRAIN_ITERS
+                + LAUNCHES_PER_BATCH.get(k, 0) * valid_forwards)
+            for k in launches}
+
+    final = summary.get("final_checkpoint")
+    sums_dev = None
+    if final and os.path.exists(final):
+        sd, _ = load_reference_checkpoint(final)
+        crop = _train_batch(11)["image"][:1]
+        with torch.inference_mode():
+            lp = get_model("uresnet", sd, device=dev)(
+                torch.from_numpy(crop).to(dev))
+        sums_dev = float((lp.exp().sum(-1) - 1).abs().max())
+    step_s = summary.get("meters", {}).get("time/step")
+    result = {"phase": "train", "card": card, "events": EVENTS,
+              "batch": BATCH_MAIN, "hw": list(HW), "iters": TRAIN_ITERS,
+              "rc": rc, "setup_s": setup_s, "cli_wall_s": wall,
+              "losses": losses, "final_iter": summary.get("final_iter"),
+              "launches": launches, "launches_want": want,
+              "host_step_ms_mean": step_s * 1e3 if step_s else None,
+              "meters": summary.get("meters"),
+              "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+              "final_tar_prob_sum_max_dev": sums_dev}
+    emit(result)
+    require(rc == 0 and "error" not in summary, f"train CLI failed:\n{out}")
+    require(summary["final_iter"] == TRAIN_ITERS,
+            f"final_iter {summary['final_iter']}")
+    require(len(losses) == TRAIN_ITERS and np.isfinite(losses).all(),
+            f"losses {losses}")
+    require(launches == want, f"train launch counts {launches} != {want}")
+    require(sums_dev is not None and sums_dev <= 1e-2,
+            f"final .tar scores: probability sums off by {sums_dev}")
+    return launches
+
+
 def main():
     import torch
 
@@ -429,9 +914,23 @@ def main():
 
     strict_f32()  # the plain versions are f32 cuDNN convs: no TF32
     dev = torch.device("cuda", 0)
-    rows = check_kernels(dev)
-    launches = main_path(dev, card)
-    emit(kernels_line(rows, launches))
+    work = os.path.join(HERE, "build", "chip_smoke")
+    os.makedirs(work, exist_ok=True)
+    rows = check_kernels(kernel_rows(dev))
+    rows += check_kernels(train_kernel_rows(dev))
+    emit(train_zone_per_step(rows))
+    torch.cuda.empty_cache()
+    launches = {"precropped": main_path(dev, card, work)}
+    train_parity(dev, card)
+    torch.cuda.empty_cache()
+    launches["train"] = train_path(dev, card, work)
+    line = kernels_line(rows, launches)
+    for k in line["kernels"]:
+        require(all(n > 0 for path, n in k["launches_by_path"].items()
+                    if path == "train" or k["name"] in LAUNCHES_PER_BATCH),
+                f"{k['name']} was not launched on its main path: "
+                f"{k['launches_by_path']}")
+    emit(line)
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

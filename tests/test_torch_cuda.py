@@ -5,13 +5,16 @@ and at the border of the image), and the model and runner on the card.
 Marked ``cuda``: each test skips without an NVIDIA card. On the card:
     python -m pytest tests/test_torch_cuda.py -m cuda -q
 Tolerance: one bf16 rounding step of the output, ≤ 1e-2·max|plain|
-(f32 sums in another order); the max pool is exact."""
+(f32 sums in another order); the max pool is exact. The train kernels'
+f32 outputs (K5's sums, K6's dW, K7) are sums in another order: within
+1e-4·max|plain| (K5's sums are over the bf16 y, which may round one step
+apart, hence 1e-3 for them)."""
 import numpy as np
 import pytest
 import torch
 
 from ubresnet_tpu_torch import ops
-from ubresnet_tpu_torch.ops import block, conv, deconv, pool
+from ubresnet_tpu_torch.ops import block, conv, deconv, loss, pool, train_conv
 
 pytestmark = pytest.mark.cuda
 
@@ -108,8 +111,98 @@ def test_model_on_the_card(dev):
         counts = ops.launch_counts()
         ref = get_model("uresnet", sd, policy=Policy.f32(), device=dev)(x)
     assert counts == {"conv_bn_act": 2, "basic_block": 6, "deconv2x": 2,
-                      "maxpool3x3s2": 1}
+                      "maxpool3x3s2": 1, "conv_stats": 0, "conv_dw": 0,
+                      "weighted_nll": 0, "weighted_nll_bwd": 0}
     assert torch.isfinite(lp).all()
     torch.testing.assert_close(lp.exp().sum(-1),
                                torch.ones(2, 64, 64, device=dev))
     assert float((lp.argmax(-1) == ref.argmax(-1)).float().mean()) >= 0.98
+
+
+def _close_f32(got, want, tol):
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == want.dtype == torch.float32
+    err = float((got - want).abs().max())
+    assert err <= tol * float(want.abs().max()), err
+
+
+@pytest.mark.parametrize("hw", HW)
+@pytest.mark.parametrize("shape", sorted(train_conv.SHAPES))
+def test_conv_stats_kernel(dev, hw, shape):
+    ci, co, k = shape
+    x = _rand(dev, 2, *hw, ci, relu=True)
+    w = _rand(dev, k, k, ci, co, scale=0.05)
+    b = torch.randn(co, device=dev) * 0.1
+    for bias in (None, b):
+        y, s1, s2 = train_conv.conv_stats(x, w, bias)
+        py, p1, p2 = train_conv.conv_stats_plain(x, w, bias)
+        _close(y, py)
+        _close_f32(s1, p1, 1e-3)
+        _close_f32(s2, p2, 1e-3)
+
+
+@pytest.mark.parametrize("hw", HW)
+@pytest.mark.parametrize("shape", sorted(conv.DW_SHAPES))
+def test_conv_dw_kernel(dev, hw, shape):
+    ci, co, k = shape
+    x = _rand(dev, 2, *hw, ci, relu=True)
+    dy = _rand(dev, 2, *hw, co, scale=0.1)
+    _close_f32(conv.conv_dw(x, dy, k), conv.conv_dw_plain(x, dy, k), 1e-4)
+
+
+@pytest.mark.parametrize("hw", HW)
+@pytest.mark.parametrize("shape", sorted(train_conv.SHAPES) + [(16, 3, 7)])
+def test_conv_input_grad_kernel(dev, hw, shape):
+    """K1 at the transposed shapes: dx of each train-zone conv and of
+    the classifier (3 channels zero-padded to 4)."""
+    ci, co, k = shape
+    dy = _rand(dev, 2, *hw, co, scale=0.1)
+    w = _rand(dev, k, k, ci, co, scale=0.05)
+    wt = w.float().flip((0, 1)).transpose(2, 3)
+    want = conv.conv_bn_act_plain(dy, wt, torch.ones(ci, device=dev),
+                                  torch.zeros(ci, device=dev), act=False)
+    _close(conv.conv_input_grad(dy, w), want)
+
+
+@pytest.mark.parametrize("n", [(2, 20, 37), (3, 33, 16)])
+def test_weighted_nll_kernels(dev, n):
+    g = torch.Generator().manual_seed(sum(n))
+    logits = (torch.randn(*n, 3, generator=g) * 3).to(dev)
+    labels = torch.randint(0, 3, n, generator=g).to(dev, torch.int32)
+    weights = (torch.rand(*n, generator=g) * 2).to(dev)
+    _close_f32(loss.weighted_nll_fwd(logits, labels, weights),
+               loss.weighted_nll_fwd_plain(logits, labels, weights), 1e-5)
+    gl = torch.tensor(0.7, device=dev)
+    _close_f32(loss.weighted_nll_bwd(logits, labels, weights, gl),
+               loss.weighted_nll_bwd_plain(logits, labels, weights, gl), 1e-5)
+
+
+def test_train_step_on_the_card(dev):
+    """One bf16 train step with the kernel zone: the per-step launch
+    table (K5 16, K1 18, K6 17, K4 1, K7 1 + 1), a finite loss, and an
+    update that moved the parameters."""
+    from ubresnet_tpu_torch.deploy.weights import random_state_dict
+    from ubresnet_tpu_torch.models import get_model
+    from ubresnet_tpu_torch.train import (
+        build_train_step,
+        create_train_state,
+        make_optimizer,
+    )
+
+    model = get_model("uresnet", random_state_dict(seed=2), device=dev,
+                      train=True)
+    opt = make_optimizer(model.parameters(), "adam", 1e-3)
+    rng = np.random.RandomState(0)
+    batch = {"image": (rng.rand(2, 64, 64, 1) * 10).astype(np.float32),
+             "label": rng.randint(0, 3, (2, 64, 64)).astype(np.int32),
+             "weight": np.ones((2, 64, 64), np.float32)}
+    w0 = model.conv10.weight.detach().clone()
+    ops.reset_launch_counts()
+    _, m = build_train_step(use_pallas_loss=True, device=dev)(
+        create_train_state(model, opt), batch)
+    assert ops.launch_counts() == {
+        "conv_bn_act": 18, "basic_block": 0, "deconv2x": 0,
+        "maxpool3x3s2": 1, "conv_stats": 16, "conv_dw": 17,
+        "weighted_nll": 1, "weighted_nll_bwd": 1}
+    assert np.isfinite(m["loss"]) and m["nan_skipped"] == 0
+    assert not torch.equal(model.conv10.weight, w0)

@@ -56,7 +56,8 @@ def test_resolve_device_raises_without_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("build", ["UResNet", "ConvBN", "BasicBlock",
-                                   "Deconv2x", "get_model"])
+                                   "Deconv2x", "get_model", "TrainUResNet",
+                                   "get_model_train"])
 def test_models_default_to_cuda(monkeypatch, build):
     """A model or block built with no device asks for the card and
     raises without one; it never lands on the CPU unasked."""
@@ -70,6 +71,9 @@ def test_models_default_to_cuda(monkeypatch, build):
         "BasicBlock": lambda: models.BasicBlock(sd, "enc_layer1.res1"),
         "Deconv2x": lambda: models.Deconv2x(sd, "dec_layer1.deconv"),
         "get_model": lambda: models.get_model("uresnet", sd),
+        "TrainUResNet": lambda: models.TrainUResNet(sd),
+        "get_model_train": lambda: models.get_model("uresnet", sd,
+                                                    train=True),
     }[build]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -79,19 +83,53 @@ def test_models_default_to_cuda(monkeypatch, build):
 def test_kernel_shapes_have_one_table():
     """The .cu entry points instantiate and dispatch from the X-macro
     lists that _build writes from SHAPES, the table the wrappers' shape
-    gates read; no source spells a shape of its own."""
-    from ubresnet_tpu_torch.ops import _build, block, conv, deconv
+    gates read; no source spells a shape of its own. The train zone's
+    shapes (K5, K6 and K1's input gradients) are there too, and the
+    gates cover every leg."""
+    from ubresnet_tpu_torch.ops import _build, block, conv, deconv, train_conv
 
     header = _build.shapes_header()
-    for name, mod in (("conv_bn_act", conv), ("basic_block", block),
-                      ("deconv2x", deconv)):
+    for name, table in (("conv_bn_act", conv.SHAPES),
+                        ("basic_block", block.SHAPES),
+                        ("deconv2x", deconv.SHAPES),
+                        ("conv_stats", train_conv.SHAPES),
+                        ("conv_dw", conv.DW_SHAPES)):
         macro = f"UBR_{name.upper()}_SHAPES"
-        assert mod.SHAPES is _build.SHAPES[name]
+        assert table is _build.SHAPES[name]
         line = next(ln for ln in header.splitlines() if macro + "(X)" in ln)
-        assert line.count(" X(") == len(mod.SHAPES)
+        assert line.count(" X(") == len(table)
         src = (_build.CSRC / f"{name}.cu").read_text()
         assert f"{macro}(" in src and "return launch<" in src
         assert not re.search(r"launch<\d", src)
+    assert len(train_conv.SHAPES) == 9 and len(conv.DW_SHAPES) == 10
+    assert all(train_conv.supports(*s) for s in train_conv.SHAPES)
+    assert conv.ad_supports(16, 3, 7) and (4, 16, 7) in conv.SHAPES
+
+
+@pytest.mark.parametrize("entry", ["Trainer", "build_train_step",
+                                   "build_eval_step", "cli.train"])
+def test_train_entry_points_default_to_cuda(monkeypatch, tmp_path, entry):
+    """Training asks for the card and raises without one, unless the
+    caller asks for the CPU by name."""
+    from ubresnet_tpu_torch.cli.train import main
+    from ubresnet_tpu_torch.core.config import TrainConfig
+    from ubresnet_tpu_torch.train import build_eval_step, build_train_step
+    from ubresnet_tpu_torch.train.trainer import Trainer
+
+    cfg = tmp_path / "cfg.json"
+    cfg.write_text("{}")
+    make = {
+        "Trainer": lambda **kw: Trainer(TrainConfig(), **kw),
+        "build_train_step": lambda **kw: build_train_step(**kw),
+        "build_eval_step": lambda **kw: build_eval_step(**kw),
+        "cli.train": lambda **kw: main(["--config", str(cfg)]
+                                       + (["--device", "cpu"] if kw else [])),
+    }[entry]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make()
+    if entry in ("build_train_step", "build_eval_step"):
+        assert callable(make(device="cpu"))
 
 
 def test_cli_defaults_to_cuda(monkeypatch, tmp_path):

@@ -3,7 +3,7 @@
 Parameters and BatchNorm statistics are read and folded in float32;
 convolutions run in bfloat16 by default and the network head is
 float32 so the log-softmax is stable. ``Policy.f32()`` is the full-float32 parity
-mode: it also turns the kernel zone off, so every layer runs as a
+mode: it also turns the kernel zones off, so every layer runs as a
 float32 torch.nn.functional op (with TF32 off on the card, see
 utils/platform.py:strict_f32).
 """
@@ -23,13 +23,23 @@ class Policy:
                    kernels of ops/ wherever their shape qualifies. The
                    kernels take bfloat16 only; on the CPU the wrappers
                    run their plain versions in any dtype.
+    fused_train:   the same for the train-mode model: the train zone's
+                   stride-1 convs (enc1, dec2, dec1, head) run K5
+                   forward with K1 dx and K6 dW, the classifier K1/K6,
+                   the stem pool K4, the loss K7. On by default, as
+                   fused_eval: the JAX package keeps its Pallas train
+                   zone off on the TPU only for layout copies at the
+                   XLA/Pallas seams (docs/roofline.md), which the card
+                   does not have.
     """
 
     compute_dtype: torch.dtype = torch.bfloat16
     output_dtype: torch.dtype = torch.float32
     fused_eval: bool = True
+    fused_train: bool = True
 
     @staticmethod
     def f32() -> "Policy":
-        """Full float32, kernel zone off — numerical parity mode."""
-        return Policy(compute_dtype=torch.float32, fused_eval=False)
+        """Full float32, kernel zones off — numerical parity mode."""
+        return Policy(compute_dtype=torch.float32, fused_eval=False,
+                      fused_train=False)

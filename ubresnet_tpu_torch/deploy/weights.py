@@ -115,13 +115,16 @@ def save_reference_checkpoint(sd: StateDict, path: str) -> str:
     return path
 
 
-def random_state_dict(seed: int = 0) -> StateDict:
-    """Seeded random weights of the flagship UResNet (inplanes 16, 1
-    input channel, 3 classes, depth 5, final_conv_kernels 16) under the
-    reference key names: convs drawn as the reference initialises them
-    (normal with std sqrt(2 / (k·k·out)), ub_uresnet.py:72-79), BN near
-    identity with random running statistics, small conv biases."""
-    inplanes, input_channels, num_classes, fk, depth = 16, 1, 3, 16, 5
+def random_state_dict(seed: int = 0, *, inplanes: int = 16,
+                      input_channels: int = 1, num_classes: int = 3,
+                      depth: int = 5) -> StateDict:
+    """Seeded random weights of a UResNet — by default the flagship
+    (inplanes 16, 1 input channel, 3 classes, depth 5;
+    final_conv_kernels 16) — under the reference key names: convs drawn
+    as the reference initialises them (normal with std
+    sqrt(2 / (k·k·out)), ub_uresnet.py:72-79), BN near identity with
+    random running statistics, small conv biases."""
+    fk = 16
     rng = np.random.RandomState(seed)
     sd: StateDict = {}
 

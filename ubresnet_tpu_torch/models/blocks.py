@@ -1,7 +1,8 @@
-"""Eval-mode building blocks of the U-ResNet family, NHWC
-(counterpart of ubresnet_tpu/models/blocks.py).
+"""Building blocks of the U-ResNet family, NHWC (counterpart of
+ubresnet_tpu/models/blocks.py): the eval modules first, then their
+train-mode counterparts (see "train mode" below).
 
-Every module is built from a reference-format state_dict (the
+Every eval module is built from a reference-format state_dict (the
 ``parity/torch_oracle.py`` key names) and prepares its weights once, at
 construction, on its device (cuda unless ``device="cpu"`` is passed;
 no card and no explicit cpu raises, utils/platform.py):
@@ -37,6 +38,7 @@ from ubresnet_tpu_torch.ops import block as block_ops
 from ubresnet_tpu_torch.ops import conv as conv_ops
 from ubresnet_tpu_torch.ops import deconv as deconv_ops
 from ubresnet_tpu_torch.ops import pool as pool_ops
+from ubresnet_tpu_torch.ops import train_conv as train_ops
 from ubresnet_tpu_torch.utils.platform import resolve_device
 
 BN_EPS = 1e-5
@@ -44,12 +46,18 @@ BN_EPS = 1e-5
 StateDict = Dict[str, torch.Tensor]
 
 
+def _f32(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in float32, or in float64 when it is float64."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
 def fold_bn(scale, bias, mean, var, cbias=None, eps: float = BN_EPS):
-    """Eval BN (+ optional conv bias) → one f32 affine y = conv·g + b."""
-    g = scale.float() * torch.rsqrt(var.float() + eps)
-    b = bias.float() - mean.float() * g
+    """BN (+ optional conv bias) → one f32 affine y = conv·g + b (f64
+    for f64 inputs)."""
+    g = _f32(scale) * torch.rsqrt(_f32(var) + eps)
+    b = _f32(bias) - _f32(mean) * g
     if cbias is not None:
-        b = b + g * cbias.float()
+        b = b + g * _f32(cbias)
     return g, b
 
 
@@ -219,15 +227,25 @@ class Deconv2x(nn.Module):
         th, tw = target_hw if target_hw is not None else (2 * h, 2 * w)
         if self.kernel and (th, tw) == (2 * h, 2 * w):
             return deconv_ops.deconv2x(x, self.wk)
-        ops = []
-        for d, t in ((h, th), (w, tw)):
-            if not 2 * d - 2 <= t <= 2 * d + 1:
-                raise ValueError(f"deconv target size {t} unreachable from "
-                                 f"input {d}")
-            ops.append(max(0, t - 2 * d))
-        y = F.conv_transpose2d(_nchw(x), self.w, stride=2, padding=1,
-                               output_padding=tuple(ops))
-        return _nhwc(y[:, :, :th, :tw])
+        return deconv_to(x, self.w, (th, tw))
+
+
+def deconv_to(x: torch.Tensor, w: torch.Tensor,
+              target_hw: Tuple[int, int]) -> torch.Tensor:
+    """ConvTranspose2d(k=4, s=2, p=1) of NHWC ``x`` with IOHW ``w`` to
+    ``target_hw``: output_padding and a high-side crop reach every
+    target in [2d - 2, 2d + 1], as the JAX package's static padding."""
+    h, w_in = x.shape[1], x.shape[2]
+    th, tw = target_hw
+    ops = []
+    for d, t in ((h, th), (w_in, tw)):
+        if not 2 * d - 2 <= t <= 2 * d + 1:
+            raise ValueError(f"deconv target size {t} unreachable from "
+                             f"input {d}")
+        ops.append(max(0, t - 2 * d))
+    y = F.conv_transpose2d(_nchw(x), w, stride=2, padding=1,
+                           output_padding=tuple(ops))
+    return _nhwc(y[:, :, :th, :tw])
 
 
 class DecoderBlock(nn.Module):
@@ -247,9 +265,205 @@ class DecoderBlock(nn.Module):
         return self.res(up, dual=skip)
 
 
-def stem_pool(x: torch.Tensor, fused: bool) -> torch.Tensor:
+def stem_pool(x: torch.Tensor, fused: bool, train: bool = False
+              ) -> torch.Tensor:
     """MaxPool2d(3, 2, 1) on NHWC; K4 when ``fused`` and the shape
-    qualifies (ops/pool.py:supports)."""
+    qualifies (ops/pool.py:supports) — under autograd with the dense
+    first-match backward when ``train``."""
     if fused and pool_ops.supports(x.shape[3], x.shape[1], x.shape[2]):
+        if train:
+            return pool_ops.maxpool3x3s2_ad(x)
         return pool_ops.maxpool3x3s2(x)
     return _nhwc(F.max_pool2d(_nchw(x), 3, 2, 1))
+
+
+# ------------------------------------------------------------ train mode
+#
+# Trainable counterparts of the blocks above: f32 nn.Parameters and
+# BN running-stat buffers under the reference key names, so a module's
+# state_dict() is a reference state_dict. The eval modules above keep
+# folding the BN at construction; these fold it per call (fold_bn) from
+# the batch statistics (train) or the running ones (eval).
+#
+# Kernel routing, by shape as in the eval model: a conv feeding a BN is
+# in the train zone when the policy fuses, its stride is 1 and every
+# leg of ops/train_conv.py has a kernel for its (ci, co, k); the
+# classifier when ops/conv.py:ad_supports(ci, co, k). At the flagship
+# width that is enc1, dec2, dec1, conv10 and conv11. Other layers are
+# torch.nn.functional ops under autograd, as they are XLA in JAX.
+
+BN_DECAY = 0.9  # running-average decay (flax momentum; torch's 0.1)
+
+
+class Conv(nn.Module):
+    """A reference Conv2d's parameters — ``weight`` (co, ci, k, k) and
+    optional ``bias``, f32 — and its train-mode forward. ``bn``: the
+    conv feeds a BatchNorm, so the zone form is K5 with its statistics
+    (``with_stats``); otherwise it is conv_ad + bias (``forward``)."""
+
+    def __init__(self, sd: StateDict, key: str, *, stride: int = 1,
+                 bn: bool = True, policy: Policy = Policy(), device=None):
+        super().__init__()
+        device = resolve_device(device)
+        w = sd[f"{key}.weight"].float()
+        co, ci, k, _ = w.shape
+        self.weight = nn.Parameter(w.to(device).clone())
+        b = sd.get(f"{key}.bias")
+        self.bias = (nn.Parameter(b.float().to(device).clone())
+                     if b is not None else None)
+        self.stride, self.pad = stride, k // 2
+        self.cdt = policy.compute_dtype
+        fits = (train_ops.supports(ci, co, k) if bn
+                else conv_ops.ad_supports(ci, co, k))
+        self.zone = policy.fused_train and stride == 1 and fits
+
+    def _kernel_weight(self) -> torch.Tensor:
+        """(k, k, ci, co) in the compute dtype, under autograd."""
+        return self.weight.permute(2, 3, 1, 0).to(self.cdt)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.zone:
+            y = conv_ops.conv_ad(x, self._kernel_weight())
+            return y if self.bias is None else y + self.bias.to(y.dtype)
+        b = None if self.bias is None else self.bias.to(self.cdt)
+        return _nhwc(F.conv2d(_nchw(x), self.weight.to(self.cdt), b,
+                              stride=self.stride, padding=self.pad))
+
+    def with_stats(self, x: torch.Tensor):
+        """(y, (Σy, Σy²)) from K5 in the zone, else (y, None)."""
+        if self.zone:
+            y, s1, s2 = train_ops.train_conv_stats(x, self._kernel_weight(),
+                                                   self.bias)
+            return y, (s1, s2)
+        return self(x), None
+
+
+class BatchNorm(nn.Module):
+    """A reference BatchNorm2d: ``weight``/``bias`` parameters and the
+    ``running_mean``/``running_var`` buffers, f32. Training: batch
+    moments mean = Σy/n, var = Σy²/n − mean² (f32, clipped at 0 as
+    flax's BatchNorm does), from K5's sums when given, else from torch
+    reductions of y in the same form; running stats ← 0.9·running +
+    0.1·batch with the biased var. Eval: the running stats. Normalises
+    through fold_bn in the compute dtype."""
+
+    def __init__(self, sd: StateDict, key: str, *, policy: Policy = Policy(),
+                 device=None):
+        super().__init__()
+        device = resolve_device(device)
+        def own(name):  # a copy: training must not write the caller's sd
+            return sd[f"{key}.{name}"].float().to(device).clone()
+
+        self.weight = nn.Parameter(own("weight"))
+        self.bias = nn.Parameter(own("bias"))
+        self.register_buffer("running_mean", own("running_mean"))
+        self.register_buffer("running_var", own("running_var"))
+        self.cdt = policy.compute_dtype
+
+    def forward(self, y: torch.Tensor, stats=None) -> torch.Tensor:
+        if self.training:
+            if stats is None:
+                yf = _f32(y)
+                mean = yf.mean((0, 1, 2))
+                var = (yf * yf).mean((0, 1, 2)) - mean * mean
+            else:
+                n = y.numel() // y.shape[-1]
+                mean = stats[0] / n
+                var = stats[1] / n - mean * mean
+            var = var.clamp_min(0.0)
+            with torch.no_grad():
+                self.running_mean.copy_(BN_DECAY * self.running_mean
+                                        + (1 - BN_DECAY) * mean)
+                self.running_var.copy_(BN_DECAY * self.running_var
+                                       + (1 - BN_DECAY) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        g, b = fold_bn(self.weight, self.bias, mean, var)
+        return y.to(self.cdt) * g.to(self.cdt) + b.to(self.cdt)
+
+
+def conv_bn(conv: Conv, bn: BatchNorm, x: torch.Tensor, *,
+            act: bool) -> torch.Tensor:
+    """Train-mode ConvBN: conv → BN (batch statistics) → [ReLU]."""
+    y, stats = conv.with_stats(x)
+    y = bn(y, stats)
+    return torch.relu(y) if act else y
+
+
+class TrainBasicBlock(nn.Module):
+    """Train-mode BasicBlock: conv1-BN-ReLU, conv2-BN-ReLU (the
+    pre-add ReLU), + bypass (1x1 conv-BN or identity), ReLU. A ``dual``
+    input is joined by an explicit concat [x, dual]."""
+
+    def __init__(self, sd: StateDict, pref: str, *, stride: int = 1,
+                 policy: Policy = Policy(), device=None):
+        super().__init__()
+        kw = dict(policy=policy, device=device)
+        self.conv1 = Conv(sd, f"{pref}.conv1", stride=stride, **kw)
+        self.bn1 = BatchNorm(sd, f"{pref}.bn1", **kw)
+        self.conv2 = Conv(sd, f"{pref}.conv2", **kw)
+        self.bn2 = BatchNorm(sd, f"{pref}.bn2", **kw)
+        self.bypass = self.bnpass = None
+        if f"{pref}.bypass.weight" in sd:
+            self.bypass = Conv(sd, f"{pref}.bypass", stride=stride, **kw)
+            self.bnpass = BatchNorm(sd, f"{pref}.bnpass", **kw)
+
+    def forward(self, x: torch.Tensor,
+                dual: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if dual is not None:
+            x = torch.cat([x, dual.to(x.dtype)], dim=-1)
+        y = conv_bn(self.conv1, self.bn1, x, act=True)
+        r = (x if self.bypass is None
+             else conv_bn(self.bypass, self.bnpass, x, act=False))
+        y = conv_bn(self.conv2, self.bn2, y, act=True)
+        return torch.relu(y + r)
+
+
+class TrainDoubleResNet(nn.Module):
+    """Two stacked train-mode BasicBlocks (res1 carries the stride and
+    the dual input)."""
+
+    def __init__(self, sd: StateDict, pref: str, *, stride: int = 1,
+                 policy: Policy = Policy(), device=None):
+        super().__init__()
+        self.res1 = TrainBasicBlock(sd, f"{pref}.res1", stride=stride,
+                                    policy=policy, device=device)
+        self.res2 = TrainBasicBlock(sd, f"{pref}.res2", policy=policy,
+                                    device=device)
+
+    def forward(self, x, dual=None):
+        return self.res2(self.res1(x, dual))
+
+
+class TrainDeconv2x(nn.Module):
+    """Train-mode ConvTranspose2d(k=4, s=2, p=1, no bias): ``weight``
+    (ci, co, 4, 4) f32, run as F.conv_transpose2d under autograd (XLA
+    in JAX's train configuration too)."""
+
+    def __init__(self, sd: StateDict, key: str, *, policy: Policy = Policy(),
+                 device=None):
+        super().__init__()
+        device = resolve_device(device)
+        self.weight = nn.Parameter(sd[f"{key}.weight"].float().to(device)
+                                   .clone())
+        self.cdt = policy.compute_dtype
+
+    def forward(self, x: torch.Tensor,
+                target_hw: Tuple[int, int]) -> torch.Tensor:
+        return deconv_to(x, self.weight.to(self.cdt), target_hw)
+
+
+class TrainDecoderBlock(nn.Module):
+    """Train-mode decoder stage: deconv 2x → [up, skip] → DoubleResNet."""
+
+    def __init__(self, sd: StateDict, pref: str, *, policy: Policy = Policy(),
+                 device=None):
+        super().__init__()
+        self.deconv = TrainDeconv2x(sd, f"{pref}.deconv", policy=policy,
+                                    device=device)
+        self.res = TrainDoubleResNet(sd, f"{pref}.res", policy=policy,
+                                     device=device)
+
+    def forward(self, x, skip):
+        up = self.deconv(x, (skip.shape[1], skip.shape[2]))
+        return self.res(up, dual=skip)

@@ -8,16 +8,18 @@ from typing import Dict
 import torch
 
 from ubresnet_tpu_torch.core.precision import Policy
-from ubresnet_tpu_torch.models.uresnet import UResNet
+from ubresnet_tpu_torch.models.uresnet import TrainUResNet, UResNet
 
-MODEL_REGISTRY = {"uresnet": UResNet}
+# name → (eval class, trainable class)
+MODEL_REGISTRY = {"uresnet": (UResNet, TrainUResNet)}
 
 
 def get_model(name: str, state_dict: Dict[str, torch.Tensor],
-              policy: Policy = Policy(), device=None):
+              policy: Policy = Policy(), device=None, train: bool = False):
     """Instantiate a registered model on ``device`` (default cuda; the
-    CPU only when asked for), in eval mode."""
+    CPU only when asked for): the eval model in eval mode, or with
+    ``train`` the trainable model in train mode."""
     if name not in MODEL_REGISTRY:
         raise KeyError(f"unknown model '{name}'; have {sorted(MODEL_REGISTRY)}")
-    return MODEL_REGISTRY[name](state_dict, policy=policy,
-                                device=device).eval()
+    cls = MODEL_REGISTRY[name][1 if train else 0]
+    return cls(state_dict, policy=policy, device=device).train(train)

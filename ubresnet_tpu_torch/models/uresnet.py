@@ -1,5 +1,6 @@
-"""U-ResNet, the flagship MicroBooNE SSNet model, eval mode, NHWC
-(counterpart of ubresnet_tpu/models/uresnet.py):
+"""U-ResNet, the flagship MicroBooNE SSNet model, NHWC (counterpart of
+ubresnet_tpu/models/uresnet.py): ``UResNet`` in eval mode and
+``TrainUResNet``, its trainable form.
 
   stem:    7x7 conv(bias) → BN → ReLU → 3x3 maxpool s2
   encoder: ``depth`` × DoubleResNet, channels ×2 per stage, strides
@@ -25,9 +26,14 @@ from torch import nn
 
 from ubresnet_tpu_torch.core.precision import Policy
 from ubresnet_tpu_torch.models.blocks import (
+    BatchNorm,
+    Conv,
     ConvBN,
     DecoderBlock,
     DoubleResNet,
+    TrainDecoderBlock,
+    TrainDoubleResNet,
+    conv_bn,
     stem_pool,
 )
 from ubresnet_tpu_torch.utils.platform import resolve_device
@@ -90,6 +96,60 @@ class UResNet(nn.Module):
         for dec, skip in zip(self.dec, reversed(skips[:-1])):
             y = dec(y, skip)
         y = self.conv11(self.conv10(y)).to(pol.output_dtype)
+        if logits:
+            return y
+        return torch.log_softmax(y, dim=-1)
+
+
+class TrainUResNet(nn.Module):
+    """The trainable UResNet: the same network as ``UResNet`` with f32
+    parameters and BN running stats as nn.Parameters and buffers under
+    the reference key names, so ``state_dict()`` is a reference
+    state_dict (deploy/weights.py:save_reference_checkpoint writes it,
+    ``UResNet`` loads it). In train mode BN normalises by the batch
+    moments and updates the running stats.
+
+    With ``policy.fused_train`` the train zone — the stem pool, enc1,
+    dec2, dec1, conv10 and conv11 at the flagship width — runs on the
+    Hopper kernels forward and backward (per step: K5 x16, K1 x18, K6
+    x17, K4 x1); the rest are torch.nn.functional ops under autograd.
+    Input (b, h, w, c) NHWC; output (b, h, w, num_classes) logits (or
+    log-probabilities) in ``policy.output_dtype``."""
+
+    def __init__(self, state_dict: Dict[str, torch.Tensor],
+                 policy: Policy = Policy(), device=None):
+        super().__init__()
+        sd = {k: v.detach().cpu() for k, v in state_dict.items()}
+        self.config = config_from_state_dict(sd)
+        self.policy = policy
+        kw = dict(policy=policy, device=resolve_device(device))
+        self.conv1 = Conv(sd, "conv1", **kw)
+        self.bn1 = BatchNorm(sd, "bn1", **kw)
+        depth = self.config.depth
+        for i in range(1, depth + 1):
+            self.add_module(f"enc_layer{i}", TrainDoubleResNet(
+                sd, f"enc_layer{i}", stride=1 if i == 1 else 2, **kw))
+        for i in range(depth, 0, -1):
+            self.add_module(f"dec_layer{i}",
+                            TrainDecoderBlock(sd, f"dec_layer{i}", **kw))
+        self.conv10 = Conv(sd, "conv10", **kw)
+        self.bn10 = BatchNorm(sd, "bn10", **kw)
+        self.conv11 = Conv(sd, "conv11", bn=False, **kw)
+
+    def forward(self, x: torch.Tensor, logits: bool = False) -> torch.Tensor:
+        pol = self.policy
+        depth = self.config.depth
+        x0 = conv_bn(self.conv1, self.bn1,
+                     x.to(pol.compute_dtype).contiguous(), act=True)
+        y = stem_pool(x0, fused=pol.fused_train, train=True)
+        skips = [x0]
+        for i in range(1, depth + 1):
+            y = getattr(self, f"enc_layer{i}")(y)
+            skips.append(y)
+        for i in range(depth, 0, -1):
+            y = getattr(self, f"dec_layer{i}")(y, skips[i - 1])
+        y = conv_bn(self.conv10, self.bn10, y, act=True)
+        y = self.conv11(y).to(pol.output_dtype)
         if logits:
             return y
         return torch.log_softmax(y, dim=-1)

@@ -1,18 +1,30 @@
 """Hopper kernels of the port and their plain PyTorch versions.
 
-K1 conv.conv_bn_act, K2 block.basic_block, K3 deconv.deconv2x and
-K4 pool.maxpool3x3s2 each count their launches in ``<wrapper>.launches``.
+Eval: K1 conv.conv_bn_act, K2 block.basic_block, K3 deconv.deconv2x,
+K4 pool.maxpool3x3s2. Train: K5 train_conv.conv_stats, K6
+conv.conv_dw, K7 loss.weighted_nll_fwd / weighted_nll_bwd; K1 also
+runs the train zone's input gradients and K4 the stem pool's forward.
+Each wrapper counts its launches in ``<wrapper>.launches``.
 """
 from ubresnet_tpu_torch.ops.block import basic_block  # noqa: F401
-from ubresnet_tpu_torch.ops.conv import conv_bn_act  # noqa: F401
+from ubresnet_tpu_torch.ops.conv import conv_bn_act, conv_dw  # noqa: F401
 from ubresnet_tpu_torch.ops.deconv import deconv2x  # noqa: F401
+from ubresnet_tpu_torch.ops.loss import (  # noqa: F401
+    weighted_nll_bwd,
+    weighted_nll_fwd,
+)
 from ubresnet_tpu_torch.ops.pool import maxpool3x3s2  # noqa: F401
+from ubresnet_tpu_torch.ops.train_conv import conv_stats  # noqa: F401
 
 KERNELS = {
     "conv_bn_act": conv_bn_act,
     "basic_block": basic_block,
     "deconv2x": deconv2x,
     "maxpool3x3s2": maxpool3x3s2,
+    "conv_stats": conv_stats,
+    "conv_dw": conv_dw,
+    "weighted_nll": weighted_nll_fwd,
+    "weighted_nll_bwd": weighted_nll_bwd,
 }
 
 

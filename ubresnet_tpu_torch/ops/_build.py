@@ -35,7 +35,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 LIB_NAME = "libubresnet_kernels.so"
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # entry point → argtypes (pointers and the trailing stream are void*)
 SIGNATURES = {
     # x, w, g, b, residual, out | B, H, W, ci, co, k, pre_act, act | stream
@@ -46,13 +46,39 @@ SIGNATURES = {
     "ubr_deconv2x": [_P] * 3 + [_I] * 5 + [_P],
     # x, out | B, H, W, C
     "ubr_maxpool3x3s2": [_P] * 2 + [_I] * 4 + [_P],
+    # x, w, bias, y, partials, sums | B, H, W, ci, co, k, blocks
+    "ubr_conv_stats": [_P] * 6 + [_I] * 7 + [_P],
+    # x, dy, partials, dw | B, H, W, ci, co, k, blocks
+    "ubr_conv_dw": [_P] * 4 + [_I] * 7 + [_P],
+    # logits, labels, weights, partials, loss | N, C, blocks | N as float
+    "ubr_weighted_nll": [_P] * 5 + [_I] * 3 + [_F, _P],
+    # logits, labels, weights, g, grad | N, C | N as float
+    "ubr_weighted_nll_bwd": [_P] * 5 + [_I] * 2 + [_F, _P],
 }
+
+# The train zone's convolutions (stride 1, flagship width), as
+# (ci, co, k): enc1, dec2 and dec1 BasicBlocks (3x3 convs and 1x1
+# projections) and the head conv10. K5 runs their forward and K6 their
+# weight gradient; K1 runs their input gradient at the transposed
+# shape (co, ci, k).
+_TRAIN_ZONE = {(16, 32, 3), (16, 32, 1), (32, 32, 3), (64, 32, 3),
+               (64, 32, 1), (32, 16, 3), (32, 16, 1), (16, 16, 3),
+               (16, 16, 7)}
+_CLASSIFIER = (16, 3, 7)
 
 # kernel → the template arguments instantiated in its .cu entry point,
 # the kernel-zone layers of the flagship UResNet
 SHAPES = {
-    # (ci, co, k): head conv10, classifier conv11
-    "conv_bn_act": frozenset({(16, 16, 7), (16, 3, 7)}),
+    # (ci, co, k): head conv10 and classifier conv11 (eval, and the
+    # classifier's train forward); the input gradients of the train
+    # zone and of the classifier, whose 3 channels K1 reads zero-padded
+    # to 4
+    "conv_bn_act": frozenset({(16, 16, 7), _CLASSIFIER, (4, 16, 7)}
+                             | {(co, ci, k) for ci, co, k in _TRAIN_ZONE}),
+    # (ci, co, k): the train zone's forward
+    "conv_stats": frozenset(_TRAIN_ZONE),
+    # (ci, co, k): the train zone's and the classifier's weight gradient
+    "conv_dw": frozenset(_TRAIN_ZONE | {_CLASSIFIER}),
     # (ca, cb, co, projection); cb == 0 is the single-stream block
     "basic_block": frozenset({
         (16, 0, 32, True),    # enc1.res1
@@ -177,13 +203,14 @@ def _ptr(t):
 
 def launch(name: str, tensors, ints, device: torch.device):
     """Call entry point ``name`` with tensor pointers (None → NULL),
-    int arguments and the current stream of ``device``; raise on a
-    non-zero cudaGetLastError()."""
+    scalar arguments (ints; floats stay floats) and the current stream
+    of ``device``; raise on a non-zero cudaGetLastError()."""
     lib = library()
     stream = torch.cuda.current_stream(device).cuda_stream
+    scalars = [v if isinstance(v, float) else int(v) for v in ints]
     with torch.cuda.device(device):
-        rc = getattr(lib, name)(*[_ptr(t) for t in tensors],
-                                *[int(i) for i in ints], stream)
+        rc = getattr(lib, name)(*[_ptr(t) for t in tensors], *scalars,
+                                stream)
     if rc:
         msg = lib.ubr_error_string(rc).decode()
         raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")

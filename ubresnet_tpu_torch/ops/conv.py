@@ -1,12 +1,26 @@
 """K1 — stride-1 odd k x k 'same' conv with the fused eval epilogue
-``y = conv(x)·g + b → [pre-ReLU] → [+ residual] → [ReLU]``.
+``y = conv(x)·g + b → [pre-ReLU] → [+ residual] → [ReLU]``, and K6 —
+that conv's weight gradient; with them ``conv_ad``, the differentiable
+stride-1 conv of the train zone's classifier.
 
-Replaces ubresnet_tpu/ops/pallas_conv.py:fused_packed_conv
+K1 replaces ubresnet_tpu/ops/pallas_conv.py:fused_packed_conv
 (_conv_kernel); in the UResNet it runs the 7x7 head conv10 (+bias+BN+
-ReLU) and classifier conv11 (g = 1, b = bias, no ReLU). Kernel:
-ops/csrc/conv_bn_act.cu — operations-bound on the H100 (392 op/B at
-7x7 16→16); a 16x16 output tile per block with the haloed input and
-all weights in shared memory and f32 FMA accumulation per pixel.
+ReLU) and classifier conv11 (g = 1, b = bias, no ReLU) of the eval
+forward, the classifier's train forward (g = 1, b = 0: _conv_noepi),
+and every input gradient of the train zone (``conv_input_grad``: the
+conv of dy with the flipped, in/out-transposed kernel, as
+_conv_ad_bwd). Kernel: ops/csrc/conv_bn_act.cu — operations-bound on
+the H100 (392 op/B at 7x7 16→16); a 16x16 output tile per block with
+the haloed input and all weights in shared memory and f32 FMA
+accumulation per pixel.
+
+K6 replaces ubresnet_tpu/ops/pallas_conv.py:pallas_conv_dw
+(_dw_kernel). Kernel: ops/csrc/conv_dw.cu — operations-bound; per-block
+partial dW over a strided share of 16x16 pixel tiles, added across
+blocks in a fixed order (two passes, no atomics).
+
+``conv_ad`` replaces pallas_conv_ad (_conv_ad_fwd, _conv_ad_bwd):
+forward K1, dx K1, dW K6 rounded to the kernel's dtype.
 
 Weights are (k, k, ci, co) — the JAX kernel layout, i.e. the
 reference OIHW checkpoint permuted (2, 3, 1, 0).
@@ -22,10 +36,30 @@ from ubresnet_tpu_torch.ops import _build
 
 # (ci, co, k) compiled into the kernel library
 SHAPES = _build.SHAPES["conv_bn_act"]
+DW_SHAPES = _build.SHAPES["conv_dw"]
+# blocks of the weight-gradient kernel: each walks a strided share of
+# the 16x16 pixel tiles and leaves one row of partial dW
+DW_MAX_BLOCKS = 264
 
 
 def supports(ci: int, co: int, k: int) -> bool:
     return (ci, co, k) in SHAPES
+
+
+def dw_supports(ci: int, co: int, k: int) -> bool:
+    return (ci, co, k) in DW_SHAPES
+
+
+def _in_channels(c: int) -> int:
+    """K1 reads its input channels in groups of 4."""
+    return -(-c // 4) * 4
+
+
+def ad_supports(ci: int, co: int, k: int) -> bool:
+    """conv_ad has a kernel on every leg: K1 forward, K1 input gradient
+    (co zero-padded to a multiple of 4), K6 weight gradient."""
+    return (supports(ci, co, k) and supports(_in_channels(co), ci, k)
+            and dw_supports(ci, co, k))
 
 
 def conv_bn_act_plain(x, w, g, b, residual=None, *, pre_act=False,
@@ -75,3 +109,81 @@ def conv_bn_act(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
 
 
 conv_bn_act.launches = 0
+
+
+def conv_input_grad(dy: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """dx of the stride-1 'same' conv with kernel ``w`` (k, k, ci, co)
+    at output cotangent ``dy`` (B, H, W, co): the same conv of dy with
+    the spatially flipped, in/out-transposed kernel, on K1 (g = 1,
+    b = 0, no ReLU). A co that is no multiple of 4 (the 3-class
+    classifier) is zero-padded, as _conv_ad_bwd pads to _pad_channels."""
+    k, _, ci, co = w.shape
+    wt = w.flip((0, 1)).transpose(2, 3)
+    cp = _in_channels(co)
+    if cp != co:
+        dy = F.pad(dy, (0, cp - co))
+        wt = F.pad(wt, (0, 0, 0, cp - co))
+    ones = torch.ones(ci, device=dy.device)
+    return conv_bn_act(dy.contiguous(), wt.contiguous(), ones,
+                       torch.zeros_like(ones), act=False)
+
+
+def conv_dw_plain(x: torch.Tensor, dy: torch.Tensor, k: int) -> torch.Tensor:
+    """Plain PyTorch version of K6: f32 weight gradient, (k, k, ci, co)."""
+    dw = torch.nn.grad.conv2d_weight(
+        x.float().permute(0, 3, 1, 2), (dy.shape[-1], x.shape[-1], k, k),
+        dy.float().permute(0, 3, 1, 2), padding=k // 2)
+    return dw.permute(2, 3, 1, 0).contiguous()
+
+
+def conv_dw(x: torch.Tensor, dy: torch.Tensor, k: int) -> torch.Tensor:
+    """Weight gradient of the stride-1 'same' k x k conv: x (B, H, W, ci)
+    its input, dy (B, H, W, co) its output cotangent → (k, k, ci, co)
+    f32. CPU tensors take the plain version; CUDA tensors (bf16) launch
+    K6."""
+    if x.device.type == "cpu":
+        return conv_dw_plain(x, dy, k)
+    bsz, h, wd, ci = x.shape
+    co = dy.shape[-1]
+    if not dw_supports(ci, co, k):
+        raise ValueError(f"conv_dw kernel has no (ci, co, k) = "
+                         f"{(ci, co, k)}; compiled: {sorted(DW_SHAPES)}")
+    dev = x.device
+    _build.check(x, "x", torch.bfloat16, (bsz, h, wd, ci), dev)
+    _build.check(dy, "dy", torch.bfloat16, (bsz, h, wd, co), dev)
+    tiles = bsz * -(-h // 16) * -(-wd // 16)
+    blocks = min(tiles, DW_MAX_BLOCKS)
+    part = torch.empty((blocks, k * k * ci * co), dtype=torch.float32,
+                       device=dev)
+    dw = torch.empty((k, k, ci, co), dtype=torch.float32, device=dev)
+    _build.launch("ubr_conv_dw", [x, dy, part, dw],
+                  [bsz, h, wd, ci, co, k, blocks], dev)
+    conv_dw.launches += 1
+    return dw
+
+
+conv_dw.launches = 0
+
+
+class _ConvAD(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w):
+        x, w = x.contiguous(), w.contiguous()
+        co = w.shape[-1]
+        ones = torch.ones(co, device=x.device)
+        ctx.save_for_backward(x, w)
+        return conv_bn_act(x, w, ones, torch.zeros_like(ones), act=False)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dy = dy.to(x.dtype).contiguous()
+        dx = conv_input_grad(dy, w)
+        dw = conv_dw(x, dy, w.shape[0]).to(w.dtype)
+        return dx, dw
+
+
+def conv_ad(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Differentiable stride-1 'same' conv, no bias: x (B, H, W, ci),
+    w (k, k, ci, co) → (B, H, W, co) in x's dtype."""
+    return _ConvAD.apply(x, w)

@@ -1,6 +1,9 @@
-"""K4 — 3x3 stride-2 pad-1 max pool (the UResNet stem pool).
+"""K4 — 3x3 stride-2 pad-1 max pool (the UResNet stem pool), and its
+differentiable form ``maxpool3x3s2_ad`` (forward K4, dense first-match
+backward in plain torch) for training.
 
-Replaces ubresnet_tpu/ops/pallas_conv.py:fused_pool3x3s2. Kernel:
+Replaces ubresnet_tpu/ops/pallas_conv.py:fused_pool3x3s2 and, with
+the backward, ops/pool_ad.py:packed_pool_ad. Kernel:
 ops/csrc/maxpool3x3s2.cu — bytes-bound on the H100 (one read of the
 input, a quarter-size write); one thread per (output pixel, 8
 channels) with 16-byte loads and bf16x2 max, bit-exact. It pads with
@@ -44,3 +47,55 @@ def maxpool3x3s2(x: torch.Tensor) -> torch.Tensor:
 
 
 maxpool3x3s2.launches = 0
+
+
+def pool_backward(x: torch.Tensor, y: torch.Tensor,
+                  dy: torch.Tensor) -> torch.Tensor:
+    """dx of MaxPool2d(3, 2, 1) over NHWC ``x`` with output ``y`` and
+    output cotangent ``dy``: each window's cotangent goes to its first
+    maximum in row-major window order (the tie rule of XLA's
+    SelectAndScatter and of torch's argmax), padding is -inf. The dense
+    form of ubresnet_tpu/ops/pool_ad.py:pool_backward — per-tap
+    first-match masks, no scatter — with its sums in the same order:
+    per column tap, row taps (0 + 2) then 1; then column taps 0 + 2,
+    then 1."""
+    b, h, w, c = x.shape
+    ho, wo = y.shape[1], y.shape[2]
+    xp = F.pad(x, (0, 0, 1, 1, 1, 1), value=float("-inf"))
+    found = torch.zeros(y.shape, dtype=torch.bool, device=x.device)
+    contrib = {}
+    for kr in range(3):
+        for kc in range(3):
+            xk = xp[:, kr:kr + 2 * ho - 1:2, kc:kc + 2 * wo - 1:2]
+            eq = (xk == y) & ~found
+            found |= eq
+            contrib[kr, kc] = torch.where(eq, dy, torch.zeros_like(dy))
+    dxp = dy.new_zeros((b, 2 * ho + 2, 2 * wo + 2, c))
+    for kc in range(3):
+        col = dy.new_zeros((b, 2 * ho + 2, wo, c))
+        col[:, 0:2 * ho:2] += contrib[0, kc]
+        col[:, 2:2 * ho + 2:2] += contrib[2, kc]
+        col[:, 1:2 * ho:2] += contrib[1, kc]
+        dxp[:, :, kc:kc + 2 * wo:2] += col
+    return dxp[:, 1:h + 1, 1:w + 1].contiguous()
+
+
+class _MaxPoolAD(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        y = maxpool3x3s2(x.contiguous())
+        ctx.save_for_backward(x, y)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, y = ctx.saved_tensors
+        return pool_backward(x, y, dy)
+
+
+def maxpool3x3s2_ad(x: torch.Tensor) -> torch.Tensor:
+    """Differentiable stem pool, the counterpart of
+    ubresnet_tpu/ops/pool_ad.py:packed_pool_ad: forward K4 (non-negative
+    input, as after the stem ReLU), backward ``pool_backward`` in plain
+    torch, as JAX computes it in XLA."""
+    return _MaxPoolAD.apply(x)

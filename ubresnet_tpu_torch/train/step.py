@@ -1,0 +1,172 @@
+"""Train and eval steps (counterpart of ubresnet_tpu/train/step.py).
+
+The reference's training iteration (train_ubresnet2018_wlarcv2.py:
+319-396: forward → PixelWiseNLLLoss → backward → optimizer step →
+accuracy meters) as one call on the card: the step densifies a sparse
+batch on the device, runs forward and backward (``accum_steps``
+microbatches, gradients averaged before one update), and updates the
+parameters unless the loss or any gradient is non-finite — then it
+skips the whole update: parameters, optimizer state and the BN running
+stats, which the forward already moved, are left as they were
+(step.py:187-212 of the JAX package). Checking that needs the result
+on the host: the step synchronises once, where the JAX step keeps the
+check on the device.
+
+``build_train_step`` and ``build_eval_step`` run on the card unless
+``device="cpu"`` is passed; without a card they raise.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from ubresnet_tpu_torch.losses import pixelwise_weighted_nll_from_logits
+from ubresnet_tpu_torch.ops import loss as loss_ops
+from ubresnet_tpu_torch.ops.sparse import densify_batch
+from ubresnet_tpu_torch.train.metrics import pixel_accuracy
+from ubresnet_tpu_torch.train.optimizers import Optimizer
+from ubresnet_tpu_torch.utils.platform import resolve_device
+
+
+@dataclasses.dataclass
+class TrainState:
+    """What training carries from step to step; the reference
+    checkpoint payload {iter, epoch, state_dict, best_prec1, optimizer}
+    is (step, model.state_dict(), best_metric, optimizer.state_dict()).
+    ``nan_count``: update steps skipped by the non-finite guard (not
+    checkpointed)."""
+
+    model: torch.nn.Module
+    optimizer: Optimizer
+    step: int = 0
+    best_metric: float = 0.0
+    nan_count: int = 0
+
+
+def create_train_state(model: torch.nn.Module,
+                       optimizer: Optimizer) -> TrainState:
+    return TrainState(model=model, optimizer=optimizer)
+
+
+def to_device(batch: dict, device: torch.device) -> dict:
+    """numpy arrays or tensors → tensors on ``device`` (asynchronous
+    from pinned host memory)."""
+    out = {}
+    for k, v in batch.items():
+        t = torch.as_tensor(v)
+        out[k] = t.to(device, non_blocking=True)
+    return out
+
+
+def _scalars(metrics: dict) -> dict:
+    """0-d tensors → Python floats with one device→host copy."""
+    keys = list(metrics)
+    vals = torch.stack([metrics[k].float() for k in keys]).tolist()
+    return dict(zip(keys, vals))
+
+
+def build_train_step(num_classes: int = 3,
+                     class_weights: Optional[Sequence[float]] = None,
+                     use_pallas_loss: bool = False,
+                     sparse_hw: Optional[tuple] = None,
+                     accum_steps: int = 1, device=None):
+    """Returns step(state, batch) -> (state, metrics).
+
+    batch: image (b, h, w, c) f32, label (b, h, w) int32, weight
+    (b, h, w) f32 — numpy or tensors — or, with ``sparse_hw``, the
+    sparse transfer form of ops/sparse.py:sparsify_batch. metrics
+    (floats): loss, acc_class{c}, acc_total, acc_nonzero (means over
+    the microbatches) and nan_skipped, the run's count of skipped
+    updates. ``use_pallas_loss`` takes the loss kernel K7 (which has no
+    class weights) for the loss and its gradient."""
+    device = resolve_device(device)
+    if use_pallas_loss and class_weights is not None:
+        raise NotImplementedError(
+            "the loss kernel (K7) does not take class_weights")
+    cw = (None if class_weights is None else
+          torch.as_tensor(np.asarray(class_weights, np.float32),
+                          device=device))
+
+    def loss_impl(logits, labels, weights):
+        if use_pallas_loss:
+            return loss_ops.weighted_nll(logits, labels, weights)
+        return pixelwise_weighted_nll_from_logits(logits, labels, weights, cw)
+
+    def step(state: TrainState, batch: dict):
+        batch = to_device(batch, device)
+        if sparse_hw is not None:
+            batch = densify_batch(batch, tuple(sparse_hw))
+        model, opt = state.model, state.optimizer
+        model.train()
+        running = list(model.buffers())
+        saved = [b.clone() for b in running]
+        b = batch["image"].shape[0]
+        if b % accum_steps:
+            raise ValueError(f"batch {b} not divisible by accum_steps "
+                             f"{accum_steps}")
+        mb = b // accum_steps
+        opt.zero_grad()
+        micro = []
+        for i in range(accum_steps):
+            part = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+            logits = model(part["image"], logits=True)
+            loss = loss_impl(logits, part["label"], part["weight"])
+            loss.backward()
+            m = {"loss": loss.detach()}
+            m.update(pixel_accuracy(logits.detach(), part["label"],
+                                    num_classes))
+            micro.append(m)
+        grads = [p.grad for p in model.parameters() if p.grad is not None]
+        if accum_steps > 1:
+            torch._foreach_div_(grads, float(accum_steps))
+        metrics = {k: torch.stack([m[k] for m in micro]).mean()
+                   for k in micro[0]}
+        # max |g| per tensor carries any inf or NaN through
+        worst = torch.stack(torch._foreach_norm(grads, float("inf")))
+        ok = bool(torch.isfinite(metrics["loss"])
+                  & torch.isfinite(worst).all())
+        if ok:
+            opt.step()
+        else:
+            with torch.no_grad():
+                for buf, old in zip(running, saved):
+                    buf.copy_(old)
+            state.nan_count += 1
+        state.step += 1
+        out = _scalars(metrics)
+        out["nan_skipped"] = state.nan_count
+        return state, out
+
+    return step
+
+
+def build_eval_step(num_classes: int = 3,
+                    class_weights: Optional[Sequence[float]] = None,
+                    device=None):
+    """Returns step(state, batch) -> metrics: the eval UResNet built
+    from the live state_dict (running-stats BN folded, the eval kernel
+    zone under the model's policy), then the plain loss and the
+    accuracies, no update."""
+    from ubresnet_tpu_torch.models.uresnet import UResNet
+
+    device = resolve_device(device)
+    cw = (None if class_weights is None else
+          torch.as_tensor(np.asarray(class_weights, np.float32),
+                          device=device))
+
+    def step(state: TrainState, batch: dict) -> dict:
+        batch = to_device(batch, device)
+        with torch.inference_mode():
+            model = UResNet(state.model.state_dict(),
+                            policy=state.model.policy, device=device)
+            logits = model(batch["image"], logits=True)
+            metrics = {"loss": pixelwise_weighted_nll_from_logits(
+                logits, batch["label"], batch["weight"], cw)}
+            metrics.update(pixel_accuracy(logits, batch["label"],
+                                          num_classes))
+            return _scalars(metrics)
+
+    return step

@@ -7,7 +7,7 @@ Phases, each printing JSON lines; any failure exits non-zero:
 
 1. device  — the card's name and power limit (nvidia-smi); no card,
              no run: without CUDA the script exits 1 before anything.
-2. build   — nvcc builds the seven Hopper kernels from
+2. build   — nvcc builds the ten Hopper kernels from
              ubresnet_tpu_torch/ops/csrc for sm_90a.
 3. kernels — every kernel-zone layer of the flagship UResNet at its
              main-path shape and batch (16): the kernel against its plain
@@ -15,7 +15,14 @@ Phases, each printing JSON lines; any failure exits non-zero:
              plain version's and the library call's time (CUDA events),
              and the bound from the bytes and operations. Eval rows (K1-K4,
              max abs error ≤ 1e-2·max|plain| for K1-K3 — one bf16 rounding
-             of the output —, exact for K4) and train rows: K5 (y as K1;
+             of the output —, exact for K4), int8 rows (K1-s8 head, K2-s8
+             ×6, K3-s8 ×2 on int8 inputs: the float32 output bit-identical
+             to the plain version's — exact s32 sums, with g = 1, b = 0
+             for the conv and deconv the accumulator itself —, the bf16
+             output within one bf16 step; bound from the int8 tensor-core
+             rate; library_ms null — no PyTorch call computes an int8
+             conv — with the same layer's bf16 kernel and cuDNN bf16
+             times beside it) and train rows: K5 (y as K1;
              its f32 sums of the bf16 y ≤ 1e-3·max|plain|, where one bf16
              step of some y may differ), K1 as the input gradient (as K1),
              K6 (f32 dW ≤ 1e-3·max|plain|: sums over 1-4 M pixels in
@@ -47,7 +54,17 @@ Phases, each printing JSON lines; any failure exits non-zero:
              (K5 16, K1 18, K6 17, K4 1, K7 1 + 1) + 11 per validation
              forward, and the final .tar scores a crop through the eval
              model with probability sums 1 ± 1e-2.
-7. summary — the kernels line (K1-K7), the card line, the result line.
+7. int8    — the deploy smoke's 64 crops through the CLI with --int8
+             (calibrated on the first 32, -b 16, cuda): launch counts
+             exactly K1-s8 1, K2-s8 6, K3-s8 2, K4 1, K1 1 per batch,
+             score sums 1 ± 1e-2; on one b16 batch the int8 kernel path
+             against the int8 plain path with the same scales (argmax
+             ≥ 0.99), int8 vs bf16 forward ms, the int8 stage breakdown,
+             and (not gated: random weights) mean|Δp| and argmax
+             agreement against the f32 path for abs-max and
+             percentile-99.9 scales.
+8. summary — the kernels line (K1-K7, K1-s8, K2-s8, K3-s8), the card
+             line, the result line.
 
 Scratch files go under build/chip_smoke in the checkout.
 """
@@ -65,40 +82,61 @@ sys.path.insert(0, HERE)
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 BF16_TENSOR_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores
+INT8_TENSOR_OPS = 1979e12   # H100 SXM dense int8 tensor cores
 F32_FLOPS = 67e12           # H100 SXM float32 outside the tensor cores
 EVENTS, BATCH_MAIN, HW = 64, 16, (512, 512)
+INT8_CALIB = 32             # --int8-calib: crops the CLI calibrates on
 LAUNCHES_PER_BATCH = {"conv_bn_act": 2, "basic_block": 6, "deconv2x": 2,
                       "maxpool3x3s2": 1}
+# the int8 forward: 9 of its 11 launches int8 (2 of the 6 blocks dual)
+LAUNCHES_PER_BATCH_INT8 = {"conv_bn_act_s8": 1, "basic_block_s8": 6,
+                           "deconv2x_s8": 2, "maxpool3x3s2": 1,
+                           "conv_bn_act": 1}
 LAUNCHES_PER_TRAIN_STEP = {"conv_stats": 16, "conv_bn_act": 18,
                            "conv_dw": 17, "maxpool3x3s2": 1,
                            "weighted_nll": 1, "weighted_nll_bwd": 1}
 TRAIN_ITERS, VALID_EVERY = 8, 4
-# kernels line entry → (source, the TPU kernel it replaces, row kernels)
+# kernels line entry → (source, the TPU kernel it replaces, row kernels,
+# the paths that must launch it)
+PALLAS = "ubresnet_tpu/ops/pallas_conv.py"
 SOURCES = {
     "conv_bn_act": ("ubresnet_tpu_torch/ops/csrc/conv_bn_act.cu",
-                    "ubresnet_tpu/ops/pallas_conv.py:315 fused_packed_conv"
+                    f"{PALLAS}:315 fused_packed_conv"
                     " + :1811 pallas_conv_ad (forward, dx)",
-                    ("conv_bn_act",)),
+                    ("conv_bn_act",), ("precropped", "train", "int8")),
     "basic_block": ("ubresnet_tpu_torch/ops/csrc/basic_block.cu",
-                    "ubresnet_tpu/ops/pallas_conv.py:1483 fused_basic_block"
-                    " + :699 fused_dual_block", ("basic_block",)),
+                    f"{PALLAS}:1483 fused_basic_block"
+                    " + :699 fused_dual_block", ("basic_block",),
+                    ("precropped", "train")),
     "deconv2x": ("ubresnet_tpu_torch/ops/csrc/deconv2x.cu",
-                 "ubresnet_tpu/ops/pallas_conv.py:898 fused_packed_deconv2x",
-                 ("deconv2x",)),
+                 f"{PALLAS}:898 fused_packed_deconv2x",
+                 ("deconv2x",), ("precropped", "train")),
     "maxpool3x3s2": ("ubresnet_tpu_torch/ops/csrc/maxpool3x3s2.cu",
-                     "ubresnet_tpu/ops/pallas_conv.py:525 fused_pool3x3s2"
+                     f"{PALLAS}:525 fused_pool3x3s2"
                      " + ubresnet_tpu/ops/pool_ad.py:133 packed_pool_ad "
-                     "(forward)", ("maxpool3x3s2",)),
+                     "(forward)", ("maxpool3x3s2",),
+                     ("precropped", "train", "int8")),
     "conv_stats": ("ubresnet_tpu_torch/ops/csrc/conv_stats.cu",
                    "ubresnet_tpu/ops/pallas_train.py:206 train_conv_stats",
-                   ("conv_stats",)),
+                   ("conv_stats",), ("train",)),
     "conv_dw": ("ubresnet_tpu_torch/ops/csrc/conv_dw.cu",
-                "ubresnet_tpu/ops/pallas_conv.py:1677 pallas_conv_dw",
-                ("conv_dw",)),
+                f"{PALLAS}:1677 pallas_conv_dw", ("conv_dw",), ("train",)),
     "weighted_nll": ("ubresnet_tpu_torch/ops/csrc/weighted_nll.cu",
                      "ubresnet_tpu/ops/pallas_loss.py:100 "
                      "pallas_weighted_nll", ("weighted_nll",
-                                             "weighted_nll_bwd")),
+                                             "weighted_nll_bwd"),
+                     ("train",)),
+    "conv_bn_act_s8": ("ubresnet_tpu_torch/ops/csrc/conv_bn_act_s8.cu",
+                       f"{PALLAS}:315 fused_packed_conv (_conv_kernel :251,"
+                       " quantized :282-300)", ("conv_bn_act_s8",),
+                       ("int8",)),
+    "basic_block_s8": ("ubresnet_tpu_torch/ops/csrc/basic_block_s8.cu",
+                       f"{PALLAS}:1483 fused_basic_block (_block_kernel "
+                       ":1372) + :699 fused_dual_block (_dual_block_kernel"
+                       " :587), quantized", ("basic_block_s8",), ("int8",)),
+    "deconv2x_s8": ("ubresnet_tpu_torch/ops/csrc/deconv2x_s8.cu",
+                    f"{PALLAS}:898 fused_packed_deconv2x (_deconv_kernel "
+                    ":847), quantized", ("deconv2x_s8",), ("int8",)),
 }
 # the train zone at batch 16: (ci, co, k) of each distinct conv, the
 # resolution it runs at and how many of the step's 16 BN-fed zone convs
@@ -440,6 +478,126 @@ def train_kernel_rows(dev):
     return rows
 
 
+def s8_check(exact):
+    """int8 rows: the kernel's and the plain version's float32 outputs
+    (``exact()`` runs both; with g = 1, b = 0 for the conv and the
+    deconv that output is the s32 accumulator itself) must be
+    bit-identical — exact integer sums, the same f32 epilogue steps —
+    and the bf16 outputs of the main path within one bf16 step."""
+    def check(got, want):
+        import torch
+
+        err, ref, tol, _ = bf16_check(got, want)
+        k32, p32 = exact()
+        torch.cuda.synchronize()
+        e32, _ = _max_err(k32, p32)
+        require(torch.equal(k32, p32), f"int8 kernel's f32 output differs "
+                                       f"from its plain version's by {e32}")
+        return err, ref, tol, {"f32_exact": True, "f32_max_abs_err": e32}
+    return check
+
+
+def int8_kernel_rows(dev, eval_rows):
+    """One row per int8-zone layer of the int8 forward at its main-path
+    shape and batch: K1-s8 (head conv10), K2-s8 (the six blocks, two
+    dual), K3-s8 (dec2, dec1 upsamples). Inputs are int8 on the grid a
+    calibrated model gives (post-ReLU activations, 0..127), weights
+    int8, gains as the model folds them. No single PyTorch call computes
+    an int8 conv, so library_ms is null; the bf16 kernel's and the cuDNN
+    bf16 sequence's times of the same layer (``eval_rows``, this run)
+    stand beside it for scale."""
+    import torch
+
+    from ubresnet_tpu_torch.ops import block, conv, deconv
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    bf, f32 = torch.bfloat16, torch.float32
+    B = BATCH_MAIN
+    bf16_rows = {r["layer"]: r for r in eval_rows}
+    rows = []
+    n2 = lambda t: t.numel() * t.element_size()  # noqa: E731
+
+    def act(*shape):  # post-ReLU int8 activations
+        return torch.randint(0, 128, shape, generator=gen, device=dev,
+                             dtype=torch.int8)
+
+    def weight(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, device=dev,
+                             dtype=torch.int8)
+
+    def gain(c, scale):
+        g = torch.rand(c, generator=gen, device=dev) * scale
+        return g, torch.randn(c, generator=gen, device=dev)
+
+    def add(layer, kernel, kfn, pfn, exact, nbytes, macs):
+        r = _row(layer, kernel, kfn, pfn, None, nbytes, 2 * macs,
+                 INT8_TENSOR_OPS, check=s8_check(exact))
+        r["bf16"] = bf16_rows[layer]
+        rows.append(r)
+
+    # K1-s8 head conv10: 512^2, 16 -> 16, 7x7
+    x, w = act(B, 512, 512, 16), weight(7, 7, 16, 16)
+    g, b = gain(16, 2e-5)
+    one, zero = torch.ones(16, device=dev), torch.zeros(16, device=dev)
+    pix = B * 512 * 512
+    add("head conv10", "conv_bn_act_s8",
+        lambda: conv.conv_bn_act_s8(x, w, g, b),
+        lambda: conv.conv_bn_act_s8_plain(x, w, g, b),
+        lambda: (conv.conv_bn_act_s8(x, w, one, zero, act=False,
+                                     out_dtype=f32),
+                 conv.conv_bn_act_s8_plain(x, w, one, zero, act=False,
+                                           out_dtype=f32)),
+        n2(x) + pix * 16 * 2 + n2(w), pix * 49 * 16 * 16)
+
+    def block_row(name, hw, ca, cb, co, proj):
+        a = act(B, hw, hw, ca)
+        bq = act(B, hw, hw, cb) if cb else None
+        cin = ca + cb
+        # conv1's s32 sum has std ≈ 5370·sqrt(9·cin) on these inputs:
+        # this g1 spreads m over the int8 grid (std ≈ 30, tail at 127)
+        g1, b1 = gain(co, 0.011 / (9 * cin) ** 0.5)
+        g2, b2 = gain(co, 1e-4)
+        if proj:
+            gb, bb = gain(co, 1e-4)
+        else:
+            gb, bb = torch.full((co,), 0.05, device=dev), torch.zeros(
+                co, device=dev)
+        args = (a, bq, weight(3, 3, cin, co), g1, b1, weight(3, 3, co, co),
+                g2, b2, weight(cin, co) if proj else None, gb, bb)
+        p = B * hw * hw
+        macs = p * (9 * cin * co + 9 * co * co + (cin * co if proj else 0))
+        nbytes = (p * cin + p * co * 2 + n2(args[2]) + n2(args[5])
+                  + (n2(args[8]) if proj else 0))
+        add(name, "basic_block_s8",
+            lambda: block.basic_block_s8(*args),
+            lambda: block.basic_block_s8_plain(*args),
+            lambda: (block.basic_block_s8(*args, out_dtype=f32),
+                     block.basic_block_s8_plain(*args, out_dtype=f32)),
+            nbytes, macs)
+
+    def deconv_row(name, hw, ci, co):
+        xq, wq = act(B, hw, hw, ci), weight(4, 4, ci, co)
+        gq, _ = gain(co, 1e-4)
+        ones = torch.ones(co, device=dev)
+        p = B * 4 * hw * hw
+        add(name, "deconv2x_s8",
+            lambda: deconv.deconv2x_s8(xq, wq, gq),
+            lambda: deconv.deconv2x_s8_plain(xq, wq, gq),
+            lambda: (deconv.deconv2x_s8(xq, wq, ones, out_dtype=f32),
+                     deconv.deconv2x_s8_plain(xq, wq, ones, f32)),
+            n2(xq) + p * co * 2 + n2(wq), p * 4 * ci * co)
+
+    block_row("enc1.res1", 256, 16, 0, 32, True)
+    block_row("enc1.res2", 256, 32, 0, 32, False)
+    deconv_row("dec2.deconv", 128, 64, 32)
+    block_row("dec2.res.res1", 256, 32, 32, 32, True)
+    block_row("dec2.res.res2", 256, 32, 0, 32, False)
+    deconv_row("dec1.deconv", 256, 32, 16)
+    block_row("dec1.res.res1", 512, 16, 16, 16, True)
+    block_row("dec1.res.res2", 512, 16, 0, 16, False)
+    return rows
+
+
 def check_kernels(rows):
     import torch
 
@@ -451,12 +609,17 @@ def check_kernels(rows):
         err, ref, tol, extra = r["check"](got, want)
         t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
         t_ops = r["ops"] / r["peak"] * 1e3
+        if "bf16" in r:  # int8 rows: the same layer's bf16 times
+            extra = {**extra, "bf16_kernel_ms": r["bf16"]["ms"],
+                     "cudnn_bf16_ms": r["bf16"]["library_ms"],
+                     "cudnn_bf16": r["bf16"]["library"]}
         row = {
             "phase": "kernel", "layer": r["layer"], "kernel": r["kernel"],
             "shape": list((got[0] if isinstance(got, tuple) else got).shape),
             "max_abs_err": err, "max_abs_ref": ref, "tolerance": tol,
             **extra, "ms": time_ms(r["kfn"]), "plain_ms": time_ms(r["pfn"]),
-            "library_ms": time_ms(r["lfn"]), "library": r["library"],
+            "library_ms": None if r["lfn"] is None else time_ms(r["lfn"]),
+            "library": r["library"],
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": r["bytes"], "operations": r["ops"], "bytes_ms": t_bytes,
@@ -494,12 +657,13 @@ def train_zone_per_step(rows):
 
 def kernels_line(rows, launches_by_path):
     out = []
-    for name, (src, replaces, kernels) in SOURCES.items():
+    for name, (src, replaces, kernels, _) in SOURCES.items():
         mine = [r for r in rows if r["kernel"] in kernels]
         by_path = {path: sum(counts[k] for k in kernels)
                    for path, counts in launches_by_path.items()}
         t_bytes = sum(r["bytes_ms"] for r in mine)
         t_ops = sum(r["ops_ms"] for r in mine)
+        lib = [r["library_ms"] for r in mine]
         out.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": sum(by_path.values()),
@@ -509,7 +673,7 @@ def kernels_line(rows, launches_by_path):
             "plain_ms": sum(r["plain_ms"] for r in mine),
             "bound_ms": sum(r["bound_ms"] for r in mine),
             "bound_by": "operations" if t_ops > t_bytes else "bytes",
-            "library_ms": sum(r["library_ms"] for r in mine),
+            "library_ms": None if None in lib else sum(lib),
             "layers": [r["layer"] for r in mine],
         })
     return {"kernels": out}
@@ -652,6 +816,142 @@ def main_path(dev, card, work):
     return launches
 
 
+@contextlib.contextmanager
+def plain_kernels():
+    """Route every kernel wrapper the eval model calls to its plain
+    PyTorch version (on the card too): the model's plain path, for
+    holding the kernel path against it."""
+    from ubresnet_tpu_torch.ops import block, conv, deconv, pool
+
+    swaps = [(conv, "conv_bn_act", conv.conv_bn_act_plain),
+             (conv, "conv_bn_act_s8", conv.conv_bn_act_s8_plain),
+             (block, "basic_block", block.basic_block_plain),
+             (block, "basic_block_s8", block.basic_block_s8_plain),
+             (deconv, "deconv2x", deconv.deconv2x_plain),
+             (deconv, "deconv2x_s8", deconv.deconv2x_s8_plain),
+             (pool, "maxpool3x3s2", pool.maxpool3x3s2_plain)]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    try:
+        for mod, name, fn in swaps:
+            setattr(mod, name, fn)
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def int8_path(dev, card, work):
+    """int8 precropped deploy: the deploy smoke's 64 crops and weights
+    through the CLI with --int8 (calibrated on the first 32 crops, -b
+    16, cuda): 11 launches per batch, 9 of them int8; score sums. Then on
+    the first 16 crops with the CLI's calibration: the int8 kernel path
+    against the int8 plain path (same scales; gate: argmax ≥ 0.99), the
+    int8 and bf16 forward ms at b16, the int8 stage breakdown, and —
+    reported, not gated (random weights) — mean|Δp| and argmax agreement
+    against the f32 path for abs-max and percentile-99.9 scales."""
+    import numpy as np
+    import torch
+
+    from ubresnet_tpu_torch import ops
+    from ubresnet_tpu_torch.cli.infer_precropped import main as cli
+    from ubresnet_tpu_torch.core.precision import Policy
+    from ubresnet_tpu_torch.data.uevt import EventFileReader
+    from ubresnet_tpu_torch.deploy import PrecroppedRunner
+    from ubresnet_tpu_torch.deploy.weights import load_reference_checkpoint
+    from ubresnet_tpu_torch.models import get_model
+    from ubresnet_tpu_torch.ops.quant import calibrate
+
+    src, out, tar = (os.path.join(work, f) for f in
+                     ("crops.uevt", "scores_int8.uevt", "weights.tar"))
+    printed = io.StringIO()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.time()
+    with contextlib.redirect_stdout(printed):
+        rc = cli(["-i", src, "-o", out, "-c", tar, "-b", str(BATCH_MAIN),
+                  "--int8", "--int8-calib", str(INT8_CALIB), "-v",
+                  "--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = ops.launch_counts()
+    require(rc == 0, f"int8 CLI returned {rc}")
+    lines = printed.getvalue().strip().splitlines()
+    require(f"int8: calibrated on {INT8_CALIB} images" in lines,
+            f"int8 CLI did not calibrate on {INT8_CALIB} images: {lines[:3]}")
+    timing = json.loads(lines[-1])
+    batches = -(-EVENTS // BATCH_MAIN)
+    want = {k: LAUNCHES_PER_BATCH_INT8.get(k, 0) * batches for k in launches}
+    require(launches == want, f"int8 launch counts {launches} != {want}")
+
+    reader = EventFileReader(out)
+    require(len(reader) == EVENTS, f"{len(reader)} events written")
+    worst = 0.0
+    for i in range(EVENTS):
+        imgs = reader.read_entry(i)["uburn_plane2"]
+        require(len(imgs) == 3, f"event {i}: {len(imgs)} score images")
+        s = np.stack([im.pixels for im in imgs], -1).astype(np.float32)
+        require(s.shape == HW + (3,) and np.isfinite(s).all(),
+                f"event {i}: bad scores {s.shape}")
+        worst = max(worst, float(np.abs(s.sum(-1) - 1.0).max()))
+    require(worst <= 1e-2, f"int8 score sums off by {worst}")
+
+    sd, _ = load_reference_checkpoint(tar)
+    inp = EventFileReader(src)
+    x = torch.from_numpy(np.stack(
+        [inp.read_entry(i, producers=["wire"])["wire"][0].pixels
+         for i in range(BATCH_MAIN)])[..., None]).to(dev)
+    model = get_model("uresnet", sd, policy=Policy.int8(), device=dev)
+    runner = PrecroppedRunner(model, batch_size=BATCH_MAIN)
+    t0 = time.time()
+    runner.calibrate_from(src, n_images=INT8_CALIB)
+    torch.cuda.synchronize()
+    calib_s = time.time() - t0
+    bf16 = get_model("uresnet", sd, device=dev)
+    with torch.inference_mode():
+        int8_ms = time_ms(lambda: model(x), budget_ms=1000.0)
+        bf16_ms = time_ms(lambda: bf16(x), budget_ms=1000.0)
+        stages = stage_breakdown(model, x)
+        profile_int8 = forward_profile(lambda: model(x), int8_ms)
+        lp_kernel = model(x)
+        with plain_kernels():
+            lp_plain = model(x)
+        lp_f32 = get_model("uresnet", sd, policy=Policy.f32(), device=dev)(x)
+    p_f32 = lp_f32.exp()
+    agree_plain = float((lp_kernel.argmax(-1) == lp_plain.argmax(-1))
+                        .float().mean())
+
+    def vs_f32(lp):
+        return {"mean_abs_dp": float((lp.exp() - p_f32).abs().mean()),
+                "argmax_agreement": float((lp.argmax(-1) == lp_f32.argmax(-1))
+                                          .float().mean())}
+
+    accuracy = {"absmax": vs_f32(lp_kernel)}
+    crops = np.stack([inp.read_entry(i, producers=["wire"])["wire"][0].pixels
+                      for i in range(INT8_CALIB)])[..., None]
+    model.set_quant_scales(calibrate(model, [crops], percentile=99.9))
+    with torch.inference_mode():
+        accuracy["percentile_99.9"] = vs_f32(model(x))
+    result = {
+        "phase": "int8", "card": card, "events": EVENTS, "batch": BATCH_MAIN,
+        "hw": list(HW), "calib_images": INT8_CALIB, "cli_wall_s": wall,
+        "crops_per_s_file_to_file": EVENTS / wall, "timing": timing,
+        "calibrate_s_api": calib_s, "launches": launches,
+        "score_sum_max_dev": worst,
+        "forward_ms_b16_int8": int8_ms, "forward_ms_b16_bf16": bf16_ms,
+        "crops_per_s_forward_b16_int8": BATCH_MAIN / int8_ms * 1e3,
+        "stage_ms_b16_int8": stages, "profile_b16_int8": profile_int8,
+        "argmax_agreement_kernel_vs_plain_int8": agree_plain,
+        "max_abs_dlogprob_kernel_vs_plain_int8": float(
+            (lp_kernel - lp_plain).abs().max()),
+        "vs_f32_not_gated": accuracy,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+    }
+    emit(result)
+    require(agree_plain >= 0.99, f"int8 kernel path vs int8 plain path "
+                                 f"argmax agreement {agree_plain}")
+    return launches
+
+
 def _train_batch(seed):
     """One seeded batch of 16 synthetic 512² events (image, label,
     weight), as the loader assembles it."""
@@ -685,19 +985,7 @@ def step_profile(step, state, batch, step_ms, steps=2):
         for _ in range(steps):
             state, _ = step(state, batch)
         torch.cuda.synchronize()
-    def is_kernel(e):  # device work, not a range annotated around it
-        return (e.device_type == torch.autograd.DeviceType.CUDA
-                and not getattr(e, "is_user_annotation", False)
-                and not e.key.startswith("Optimizer."))
-
-    kernels = {}
-    for e in prof.key_averages():
-        if not is_kernel(e):
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        kernels[e.key] = kernels.get(e.key, 0.0) + us / 1e3 / steps
+    kernels, launches = _kernel_times(prof, steps)
     if not kernels:
         return {"device_time": "not measured (no CUDA events in the trace)"}
     zone = sum(ms for k, ms in kernels.items()
@@ -709,9 +997,53 @@ def step_profile(step, state, batch, step_ms, steps=2):
             "other_kernel_ms_per_step": busy - zone,
             "zone_share_of_step": zone / step_ms,
             "idle_share_of_step": max(0.0, 1 - busy / step_ms),
-            "kernel_launches_per_step": sum(
-                e.count for e in prof.key_averages() if is_kernel(e)) / steps,
+            "kernel_launches_per_step": launches,
             "top_other_kernels_ms": [[k, ms] for ms, k in others[:12]]}
+
+
+def _kernel_times(prof, reps):
+    """{kernel name: device ms per repetition} and launches per
+    repetition from a torch.profiler run of ``reps`` repetitions."""
+    import torch
+
+    def is_kernel(e):  # device work, not a range annotated around it
+        return (e.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)
+                and not e.key.startswith("Optimizer."))
+
+    kernels, launches = {}, 0
+    for e in prof.key_averages():
+        if not is_kernel(e):
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        kernels[e.key] = kernels.get(e.key, 0.0) + us / 1e3 / reps
+        launches += e.count
+    return kernels, launches / reps
+
+
+def forward_profile(fn, fwd_ms, reps=3):
+    """Device time of ``reps`` forwards by kernel (torch.profiler): the
+    busy and idle shares of the CUDA-event forward time and the largest
+    kernels. Reported, not gated."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kernels, launches = _kernel_times(prof, reps)
+    if not kernels:
+        return {"device_time": "not measured (no CUDA events in the trace)"}
+    busy = sum(kernels.values())
+    top = sorted(((ms, k[:90]) for k, ms in kernels.items()), reverse=True)
+    return {"device_busy_ms_per_forward": busy,
+            "idle_share_of_forward": max(0.0, 1 - busy / fwd_ms),
+            "kernel_launches_per_forward": launches,
+            "top_kernels_ms": [[k, ms] for ms, k in top[:16]]}
 
 
 def train_parity(dev, card):
@@ -917,6 +1249,7 @@ def main():
     work = os.path.join(HERE, "build", "chip_smoke")
     os.makedirs(work, exist_ok=True)
     rows = check_kernels(kernel_rows(dev))
+    rows += check_kernels(int8_kernel_rows(dev, rows))
     rows += check_kernels(train_kernel_rows(dev))
     emit(train_zone_per_step(rows))
     torch.cuda.empty_cache()
@@ -924,12 +1257,14 @@ def main():
     train_parity(dev, card)
     torch.cuda.empty_cache()
     launches["train"] = train_path(dev, card, work)
+    torch.cuda.empty_cache()
+    launches["int8"] = int8_path(dev, card, work)
     line = kernels_line(rows, launches)
     for k in line["kernels"]:
-        require(all(n > 0 for path, n in k["launches_by_path"].items()
-                    if path == "train" or k["name"] in LAUNCHES_PER_BATCH),
-                f"{k['name']} was not launched on its main path: "
-                f"{k['launches_by_path']}")
+        paths = SOURCES[k["name"]][3]
+        require(all(k["launches_by_path"][p] > 0 for p in paths),
+                f"{k['name']} was not launched on its main path "
+                f"{paths}: {k['launches_by_path']}")
     emit(line)
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -89,6 +89,102 @@ def test_deconv_kernel(dev, hw, shape):
     _close(deconv.deconv2x(x, w), deconv.deconv2x_plain(x, w))
 
 
+def _s8(dev, *shape, lo=-127, hi=128):
+    g = torch.Generator().manual_seed(sum(shape) * 11 + len(shape))
+    return torch.randint(lo, hi, shape, generator=g,
+                         dtype=torch.int8).to(dev)
+
+
+def _gain(dev, co, scale, seed):
+    g = torch.Generator().manual_seed(seed)
+    return ((torch.randn(co, generator=g).abs() * scale).to(dev),
+            (torch.randn(co, generator=g) * 3).to(dev))
+
+
+def _s8_close(got, want, out_dtype):
+    """float32 outputs bit-identical (exact s32 sums, the same f32
+    epilogue steps); bf16 outputs within one bf16 step."""
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == want.dtype == out_dtype
+    if out_dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    else:
+        _close(got, want)
+
+
+S8_OUT = [torch.float32, torch.bfloat16]
+
+
+@pytest.mark.parametrize("out_dtype", S8_OUT, ids=["f32", "bf16"])
+@pytest.mark.parametrize("hw", HW)
+@pytest.mark.parametrize("shape", sorted(conv.S8_SHAPES))
+def test_conv_s8_kernel(dev, hw, shape, out_dtype):
+    """K1-s8 at batch 16: with g = 1, b = 0 the float32 output is the
+    s32 accumulator itself, exactly; then the BN epilogues."""
+    ci, co, k = shape
+    x = _s8(dev, 16, *hw, ci)
+    w = _s8(dev, k, k, ci, co)
+    ones, zeros = torch.ones(co, device=dev), torch.zeros(co, device=dev)
+    acc = conv.conv_bn_act_s8(x, w, ones, zeros, act=False,
+                              out_dtype=torch.float32)
+    torch.testing.assert_close(
+        acc, conv.conv_bn_act_s8_plain(x, w, ones, zeros, act=False,
+                                       out_dtype=torch.float32),
+        rtol=0, atol=0)
+    g, b = _gain(dev, co, 1e-4, ci + co)
+    r = torch.randn(16, *hw, co, device=dev).to(out_dtype)
+    for res, pre, act in ((None, False, True), (r, True, True)):
+        _s8_close(conv.conv_bn_act_s8(x, w, g, b, res, pre_act=pre, act=act,
+                                      out_dtype=out_dtype),
+                  conv.conv_bn_act_s8_plain(x, w, g, b, res, pre_act=pre,
+                                            act=act, out_dtype=out_dtype),
+                  out_dtype)
+
+
+@pytest.mark.parametrize("out_dtype", S8_OUT, ids=["f32", "bf16"])
+@pytest.mark.parametrize("hw", HW)
+@pytest.mark.parametrize("shape", sorted(block.S8_SHAPES))
+def test_block_s8_kernel(dev, hw, shape, out_dtype):
+    """K2-s8 at batch 16 (single and dual stream, projection and
+    identity), g1 scaled so the requantized m spans the int8 grid and
+    saturates at 127."""
+    ca, cb, co, proj = shape
+    cin = ca + cb
+    a = _s8(dev, 16, *hw, ca)
+    b = _s8(dev, 16, *hw, cb) if cb else None
+    g1, b1 = _gain(dev, co, 1e-3, 1)
+    g2, b2 = _gain(dev, co, 1e-3, 2)
+    if proj:
+        gb, bb = _gain(dev, co, 1e-3, 3)
+    else:
+        gb = torch.full((co,), 0.05, device=dev)
+        bb = torch.zeros(co, device=dev)
+    args = (a, b, _s8(dev, 3, 3, cin, co, lo=-64, hi=65), g1, b1,
+            _s8(dev, 3, 3, co, co, lo=-64, hi=65), g2, b2,
+            _s8(dev, cin, co, lo=-64, hi=65) if proj else None, gb, bb)
+    want, m = block.basic_block_s8_plain(*args, out_dtype=out_dtype,
+                                         with_mid=True)
+    assert int(m.max()) == 127 and int(m.min()) == 0
+    _s8_close(block.basic_block_s8(*args, out_dtype=out_dtype), want,
+              out_dtype)
+
+
+@pytest.mark.parametrize("out_dtype", S8_OUT, ids=["f32", "bf16"])
+@pytest.mark.parametrize("hw", HW)
+@pytest.mark.parametrize("shape", sorted(deconv.S8_SHAPES))
+def test_deconv_s8_kernel(dev, hw, shape, out_dtype):
+    ci, co = shape
+    x = _s8(dev, 16, *hw, ci)
+    w = _s8(dev, 4, 4, ci, co)
+    ones = torch.ones(co, device=dev)
+    torch.testing.assert_close(
+        deconv.deconv2x_s8(x, w, ones, out_dtype=torch.float32),
+        deconv.deconv2x_s8_plain(x, w, ones, torch.float32), rtol=0, atol=0)
+    g, _ = _gain(dev, co, 1e-3, ci)
+    _s8_close(deconv.deconv2x_s8(x, w, g, out_dtype=out_dtype),
+              deconv.deconv2x_s8_plain(x, w, g, out_dtype), out_dtype)
+
+
 def test_kernels_refuse_f32(dev):
     x = torch.zeros(1, 8, 8, 16, device=dev)
     with pytest.raises(ValueError, match="dtype"):
@@ -112,7 +208,9 @@ def test_model_on_the_card(dev):
         ref = get_model("uresnet", sd, policy=Policy.f32(), device=dev)(x)
     assert counts == {"conv_bn_act": 2, "basic_block": 6, "deconv2x": 2,
                       "maxpool3x3s2": 1, "conv_stats": 0, "conv_dw": 0,
-                      "weighted_nll": 0, "weighted_nll_bwd": 0}
+                      "weighted_nll": 0, "weighted_nll_bwd": 0,
+                      "conv_bn_act_s8": 0, "basic_block_s8": 0,
+                      "deconv2x_s8": 0}
     assert torch.isfinite(lp).all()
     torch.testing.assert_close(lp.exp().sum(-1),
                                torch.ones(2, 64, 64, device=dev))
@@ -203,6 +301,7 @@ def test_train_step_on_the_card(dev):
     assert ops.launch_counts() == {
         "conv_bn_act": 18, "basic_block": 0, "deconv2x": 0,
         "maxpool3x3s2": 1, "conv_stats": 16, "conv_dw": 17,
-        "weighted_nll": 1, "weighted_nll_bwd": 1}
+        "weighted_nll": 1, "weighted_nll_bwd": 1, "conv_bn_act_s8": 0,
+        "basic_block_s8": 0, "deconv2x_s8": 0}
     assert np.isfinite(m["loss"]) and m["nan_skipped"] == 0
     assert not torch.equal(model.conv10.weight, w0)

@@ -34,6 +34,23 @@ def test_import_pulls_in_no_jax():
     assert int(n) >= 20 and bad.strip() == "[]", proc.stdout
 
 
+@pytest.mark.parametrize("module", ["ubresnet_tpu_torch.ops.quant",
+                                    "ubresnet_tpu_torch.deploy.precropped",
+                                    "ubresnet_tpu_torch.cli.infer_precropped"])
+def test_int8_modules_pull_in_no_jax(module):
+    """The int8 deploy path's modules (PTQ, calibration, the --int8 CLI)
+    import without jax or the JAX package, as a fresh process sees."""
+    code = (f"import sys, {module}\n"
+            "print(sorted(n for n in sys.modules if n == 'jax'\n"
+            "             or n.startswith(('jax.', 'jaxlib', 'flax'))\n"
+            "             or n == 'ubresnet_tpu'\n"
+            "             or n.startswith('ubresnet_tpu.')))\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, cwd=ROOT, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]", proc.stdout
+
+
 def test_sources_name_no_jax():
     files = [p for p in PORT.rglob("*") if p.suffix in (".py", ".cu", ".cuh")]
     files.append(ROOT / "chip_smoke.py")

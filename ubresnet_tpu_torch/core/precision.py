@@ -31,15 +31,33 @@ class Policy:
                    zone off on the TPU only for layout copies at the
                    XLA/Pallas seams (docs/roofline.md), which the card
                    does not have.
+    quant_eval:    int8 post-training quantization (ops/quant.py) of
+                   the eval model's int8 zone — the JAX package's packed
+                   zone: stem, enc1, dec2, dec1 and the head conv10.
+                   Its convs multiply s8 x s8 into s32 and dequantize
+                   into the BN fold; the model needs calibrated
+                   activation scales (``calibrate``) before it runs.
+    quant_percentile: calibration statistic — 0 records the abs-max of
+                   each conv input, P > 0 the P-th percentile of its
+                   nonzero |x| (ops/quant.py:calib_batch_range).
     """
 
     compute_dtype: torch.dtype = torch.bfloat16
     output_dtype: torch.dtype = torch.float32
     fused_eval: bool = True
     fused_train: bool = True
+    quant_eval: bool = False
+    quant_percentile: float = 0.0
 
     @staticmethod
     def f32() -> "Policy":
         """Full float32, kernel zones off — numerical parity mode."""
         return Policy(compute_dtype=torch.float32, fused_eval=False,
                       fused_train=False)
+
+    @staticmethod
+    def int8() -> "Policy":
+        """int8 PTQ deploy (the JAX package's ``Policy.tpu_int8()`` in
+        its fused form): bf16 compute, the kernel zone on, the int8
+        zone on the s8 kernels."""
+        return Policy(fused_eval=True, quant_eval=True)

@@ -12,7 +12,9 @@ for the whole run; the host ships COO pixels and the device densifies
 them; the tail batch is zero-padded to the batch shape; a one-deep
 pipeline dispatches batch k before it drains batch k-1, and a writer
 thread owns the output file; ``run`` returns the cumulative timing
-dict (total / read / forward / write). On the card the drain overlaps
+dict (total / read / forward / write). ``calibrate_from`` calibrates
+an int8 model's activation scales on the input's first images (JAX's
+deploy-time PTQ). On the card the drain overlaps
 the next batch's compute: each dispatch enqueues its device→host copy
 into pinned memory right behind the forward and records an event, so
 draining waits for that batch only.
@@ -30,6 +32,7 @@ import torch
 
 from ubresnet_tpu_torch.data.meta import Image2D
 from ubresnet_tpu_torch.data.uevt import MAGIC, EventFileReader, EventFileWriter
+from ubresnet_tpu_torch.ops.quant import calibrate
 from ubresnet_tpu_torch.ops.sparse import densify, round_capacity, sparsify
 
 SPARSE_BUCKET = 4096  # COO capacity grain (pixels per crop)
@@ -121,6 +124,27 @@ class PrecroppedRunner:
             rest = np.clip(1.0 - out.sum(axis=-1, keepdims=True), 0.0, 1.0)
             out = np.concatenate([out, rest], axis=-1)
         return out
+
+    def calibrate_from(self, input_file: str, plane: int = 2,
+                       producer: str = "wire", n_images: int = 32,
+                       percentile: Optional[float] = None) -> int:
+        """int8 PTQ calibration (ops/quant.py) from the first
+        ``n_images`` of the input itself, in one batch, with the plane
+        selection of ``run``; the model (``Policy.int8()``) takes the
+        scales. ``percentile`` overrides the policy's statistic. Returns
+        the number of images used."""
+        reader = open_event_file(input_file)
+        images = []
+        for i in range(min(n_images, len(reader))):
+            imgs = reader.read_entry(i, producers=[producer])[producer]
+            images.append(([im for im in imgs if im.meta.plane == plane]
+                           or imgs)[0].pixels)
+        if not images:
+            raise ValueError(f"no '{producer}' images in {input_file}")
+        batch = np.stack(images)[..., None].astype(np.float32)
+        self.model.set_quant_scales(
+            calibrate(self.model, [batch], percentile=percentile))
+        return len(images)
 
     def run(self, input_file: str, output_file: str, plane: int = 2,
             producer: str = "wire", n_entries: Optional[int] = None,

@@ -4,7 +4,8 @@ ubresnet_tpu/deploy/importers.py and exporters.py).
 The port's models read the reference's state_dict key names directly,
 so a reference ``.tar`` checkpoint ({iter, epoch, state_dict,
 best_prec1, optimizer}) loads as it is; JAX-package variables cross
-over through ``state_dict_from_jax``.
+over through ``state_dict_from_jax``, and a calibrated int8 'quant'
+collection through ``quant_scales_from_jax``.
 
 Layouts: conv OIHW ↔ JAX HWIO (transpose 3, 2, 0, 1); deconv IOHW ↔
 JAX (kh, kw, ci, co) (transpose 2, 3, 0, 1); BN weight/bias ↔
@@ -68,6 +69,25 @@ def state_dict_from_jax(variables: Dict) -> StateDict:
         i += 1
     convbn("conv10", "bn10", p["head"], s["head"])
     conv("conv11", p["classifier"])
+    return out
+
+
+def quant_scales_from_jax(quant: Dict) -> Dict[str, torch.Tensor]:
+    """JAX-package calibrated 'quant' collection (nested dicts ending in
+    ``act_scale`` scalars) → the port's scales, {JAX layer path joined
+    by dots: float32 scalar}, e.g. ``enc1.res1.cb1`` — what
+    ``ops.quant.calibrate`` returns and ``UResNet.set_quant_scales``
+    takes."""
+    out: Dict[str, torch.Tensor] = {}
+
+    def walk(prefix, node):
+        for k, v in node.items():
+            if k == "act_scale":
+                out[prefix] = torch.tensor(np.float32(np.asarray(v)))
+            else:
+                walk(f"{prefix}.{k}" if prefix else k, v)
+
+    walk("", quant)
     return out
 
 

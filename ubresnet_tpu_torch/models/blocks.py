@@ -24,9 +24,24 @@ even pool input). Nothing routes by catching a failure.
 Reference semantics kept (common_layers.py via the JAX package):
 BasicBlock applies ReLU to the residual branch before the add and again
 after it; BN eps is 1e-5; the decoder concat order is [up, skip].
+
+int8 (``policy.quant_eval``, ops/quant.py): a module built with
+``quant=True`` belongs to the int8 zone — the JAX package's packed zone
+(stem, enc1, dec2, dec1, head). It keeps its raw conv weight (the BN is
+NOT folded into it: int8 quantizes the raw kernel per output channel
+and folds the BN into the gain, as JAX's ``fold_q``) until
+``set_scales`` gets the calibrated activation scales; then it holds the
+int8 weights and folded f32 gains and runs K1-s8 / K2-s8 / K3-s8, or,
+where no kernel is compiled for its shape (the 1-channel stem, as XLA
+in JAX), the exact integer conv in plain torch dequantized into the
+BN. Before ``set_scales`` an int8 module raises. Every module also
+reports its inputs to ``observer`` during calibration (``qname`` is the
+layer's name in the JAX package's 'quant' collection, ``qpack`` the
+W-packing factor its input has there).
 """
 from __future__ import annotations
 
+import re
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -38,12 +53,29 @@ from ubresnet_tpu_torch.ops import block as block_ops
 from ubresnet_tpu_torch.ops import conv as conv_ops
 from ubresnet_tpu_torch.ops import deconv as deconv_ops
 from ubresnet_tpu_torch.ops import pool as pool_ops
+from ubresnet_tpu_torch.ops import quant as quant_ops
 from ubresnet_tpu_torch.ops import train_conv as train_ops
 from ubresnet_tpu_torch.utils.platform import resolve_device
 
 BN_EPS = 1e-5
 
 StateDict = Dict[str, torch.Tensor]
+
+NO_SCALES = ("quant_eval=True but no calibrated scales — run "
+             "ubresnet_tpu_torch.ops.quant.calibrate and "
+             "UResNet.set_quant_scales first")
+
+
+def jax_name(key: str) -> Optional[str]:
+    """The JAX package's module path of a reference layer prefix, as its
+    'quant' collection names it: conv1 → stem, conv10 → head,
+    enc_layer1.res1 → enc1.res1, dec_layer2.res.res1 → dec2.res.res1,
+    dec_layer2.deconv → dec2.deconv; None for the classifier (JAX's
+    PackedConv records no scale)."""
+    if key in ("conv1", "conv10"):
+        return {"conv1": "stem", "conv10": "head"}[key]
+    name = re.sub(r"^(enc|dec)_layer(\d+)", r"\1\2", key)
+    return None if name == key else name
 
 
 def _f32(t: torch.Tensor) -> torch.Tensor:
@@ -89,17 +121,43 @@ class ConvBN(nn.Module):
     """Stride-1 'same' conv (+bias) → eval BN → [ReLU]; ``bn_key=None``
     drops the BN (the classifier). Runs on K1 (ops/conv.py) when the
     policy fuses and (ci, co, k) is compiled, else as one F.conv2d with
-    BN folded into its weight and bias."""
+    BN folded into its weight and bias. In the int8 zone: K1-s8 with the
+    dequant and BN folded into its gain when the policy fuses and the
+    shape is compiled, else the exact integer conv, ``acc·(sx·sw) +
+    bias`` in f32, cast to the compute dtype, BN in the compute dtype
+    (JAX's PackedBN), ReLU — the XLA route of blocks.py:400-414."""
 
     def __init__(self, sd: StateDict, conv_key: str, bn_key: Optional[str],
-                 *, act: bool = True, policy: Policy = Policy(), device=None):
+                 *, act: bool = True, policy: Policy = Policy(), device=None,
+                 quant: bool = False, qpack: int = 1):
         super().__init__()
         device = resolve_device(device)
         w = sd[f"{conv_key}.weight"].float()  # OIHW
         co, ci, k, _ = w.shape
         g, b = _affine(sd, conv_key, bn_key)
         cdt = policy.compute_dtype
-        self.pad, self.act = k // 2, act
+        self.pad, self.act, self.cdt = k // 2, act, cdt
+        self.qname, self.qpack, self.observer = jax_name(conv_key), qpack, None
+        self.quant = quant and policy.quant_eval
+        if self.quant:
+            if bn_key is None:
+                raise ValueError(f"{conv_key}: an int8 ConvBN needs its BN")
+            self.kernel = policy.fused_eval and conv_ops.s8_supports(ci, co, k)
+            self._device = device
+            # the raw HWIO kernel and, for K1-s8's epilogue, the BN folded
+            # with the conv bias; for the plain route the conv bias and
+            # the BN apart (JAX's PackedBN)
+            self._qsrc = {"w": w.permute(2, 3, 1, 0).contiguous()}
+            if self.kernel:
+                self._qsrc.update(g=g, b=b)
+            else:
+                cbias = sd.get(f"{conv_key}.bias")
+                self._qsrc.update(
+                    cbias=None if cbias is None else cbias.float(),
+                    bn=fold_bn(sd[f"{bn_key}.weight"], sd[f"{bn_key}.bias"],
+                               sd[f"{bn_key}.running_mean"],
+                               sd[f"{bn_key}.running_var"]))
+            return
         self.kernel = policy.fused_eval and conv_ops.supports(ci, co, k)
         if self.kernel:
             self.register_buffer(
@@ -111,7 +169,46 @@ class ConvBN(nn.Module):
                 device, cdt).contiguous(memory_format=torch.channels_last))
             self.register_buffer("b", b.to(device, cdt))
 
+    def set_scales(self, scales: Dict[str, torch.Tensor]) -> None:
+        """Quantize the kernel and fold the dequant (f32, in JAX's
+        order) once, from this layer's calibrated input scale."""
+        src, dev = self._qsrc, self._device
+        sx = scales[self.qname].float()
+        sw = quant_ops.weight_scales(src["w"])
+        self.register_buffer("sx", sx.to(dev))
+        self.register_buffer("wq", quant_ops.quantize_weight(src["w"], sw)
+                             .to(dev))
+        if self.kernel:  # blocks.py:381-386: g·sw·sx, beta
+            self.register_buffer("g", (src["g"] * sw * sx).to(dev))
+            self.register_buffer("b", src["b"].to(dev))
+            return
+        g, b = src["bn"]  # blocks.py:407-411
+        self.register_buffer("gq", (sx * sw).to(dev))
+        self.register_buffer("cbias", None if src["cbias"] is None
+                             else src["cbias"].to(dev))
+        self.register_buffer("gbn", g.to(dev, self.cdt))
+        self.register_buffer("bbn", b.to(dev, self.cdt))
+
+    def _forward_int8(self, x: torch.Tensor) -> torch.Tensor:
+        if not hasattr(self, "sx"):
+            raise ValueError(NO_SCALES)
+        xq = quant_ops.quantize_act(x, self.sx)
+        if self.kernel:
+            return conv_ops.conv_bn_act_s8(xq, self.wq, self.g, self.b,
+                                           act=self.act, out_dtype=self.cdt)
+        acc = quant_ops.int_conv2d(xq, self.wq, self.pad)
+        # dequant (+ conv bias), cast, BN: each affine one FMA, as XLA
+        # compiles blocks.py:407-411
+        y = (acc * self.gq if self.cbias is None
+             else quant_ops.fma(acc, self.gq, self.cbias))
+        y = quant_ops.fma(y.to(self.cdt), self.gbn, self.bbn).to(self.cdt)
+        return (torch.relu(y) if self.act else y).contiguous()
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.observer is not None and self.qname is not None:
+            self.observer(self.qname, x, self.qpack)
+        if self.quant:
+            return self._forward_int8(x)
         if self.kernel:
             return conv_ops.conv_bn_act(x, self.w, self.g, self.b,
                                         act=self.act)
@@ -128,11 +225,18 @@ class BasicBlock(nn.Module):
     ``dual_split``: the block's input is the channel concat of two
     streams and the first ``dual_split`` channels come from the first
     (the decoder's [up, skip] join); ``forward(x, dual=skip)``. On K2
-    the concat never materialises; the F.conv2d path concatenates."""
+    the concat never materialises; the F.conv2d path concatenates.
+
+    In the int8 zone the block runs on K2-s8 (JAX's fused int8 block,
+    blocks.py:643-704): both streams quantized with cb1's scale sx1, m
+    requantized on chip on cb2's grid s_mid, the identity bypass
+    dequantized as sx1·xq. The port has no per-conv int8 route for a
+    block: an int8-zone block whose shape K2-s8 is not compiled for
+    raises at construction."""
 
     def __init__(self, sd: StateDict, pref: str, *, stride: int = 1,
                  dual_split: int = 0, policy: Policy = Policy(),
-                 device=None):
+                 device=None, quant: bool = False, qpack: int = 1):
         super().__init__()
         device = resolve_device(device)
         w1 = sd[f"{pref}.conv1.weight"].float()
@@ -141,12 +245,28 @@ class BasicBlock(nn.Module):
         self.stride = stride
         ca = dual_split or cin
         cb = cin - ca
-        self.kernel = (policy.fused_eval and stride == 1
-                       and block_ops.supports(ca, cb, co, self.proj))
+        self.qname, self.qpack, self.observer = jax_name(pref), qpack, None
+        self.quant = quant and policy.quant_eval
         cdt = policy.compute_dtype
         convs = [("1", "conv1", "bn1"), ("2", "conv2", "bn2")]
         if self.proj:
             convs.append(("b", "bypass", "bnpass"))
+        if self.quant:
+            if not (policy.fused_eval and stride == 1
+                    and block_ops.s8_supports(ca, cb, co, self.proj)):
+                raise ValueError(
+                    f"{pref}: int8 blocks run on K2-s8, compiled for "
+                    f"{sorted(block_ops.S8_SHAPES)} with fused_eval; got "
+                    f"{(ca, cb, co, self.proj)}, stride {stride}")
+            self.kernel, self.cdt, self._device = True, cdt, device
+            self._qsrc = {
+                tag: (sd[f"{pref}.{ck}.weight"].float().permute(2, 3, 1, 0)
+                      .contiguous(),
+                      *_affine(sd, f"{pref}.{ck}", f"{pref}.{bk}"))
+                for tag, ck, bk in convs}
+            return
+        self.kernel = (policy.fused_eval and stride == 1
+                       and block_ops.supports(ca, cb, co, self.proj))
         for tag, ck, bk in convs:
             w = sd[f"{pref}.{ck}.weight"].float()
             g, b = _affine(sd, f"{pref}.{ck}", f"{pref}.{bk}")
@@ -162,8 +282,47 @@ class BasicBlock(nn.Module):
                     device, cdt).contiguous(memory_format=torch.channels_last))
                 self.register_buffer(f"b{tag}", b.to(device, cdt))
 
+    def set_scales(self, scales: Dict[str, torch.Tensor]) -> None:
+        """int8 weights and folded gains from cb1's and cb2's calibrated
+        input scales (JAX's fold_q, f32, in its order)."""
+        sx1 = scales[f"{self.qname}.cb1"].float()
+        s_mid = scales[f"{self.qname}.cb2"].float()
+
+        def fold_q(tag, s_in, s_out=None):
+            w, g, beta = self._qsrc[tag]
+            g = g * (s_in * quant_ops.weight_scales(w))
+            if s_out is not None:
+                g, beta = g / s_out, beta / s_out
+            return quant_ops.quantize_weight(w, quant_ops.weight_scales(w)), \
+                g, beta
+
+        params = {"sx": sx1}
+        params["w1"], params["g1"], params["b1"] = fold_q("1", sx1, s_mid)
+        params["w2"], params["g2"], params["b2"] = fold_q("2", s_mid)
+        if self.proj:
+            wb, params["gb"], params["bb"] = fold_q("b", sx1)
+            params["wb"] = wb[0, 0].contiguous()  # (cin, co)
+        else:  # identity bypass: dequant sx1·xq + 0
+            co = params["g1"].shape[0]
+            params["gb"] = sx1 * torch.ones(co)
+            params["bb"] = torch.zeros(co)
+        for name, t in params.items():
+            self.register_buffer(name, t.to(self._device))
+
+    def _forward_int8(self, x, dual):
+        if not hasattr(self, "sx"):
+            raise ValueError(NO_SCALES)
+        return block_ops.basic_block_s8(
+            quant_ops.quantize_act(x, self.sx),
+            None if dual is None else quant_ops.quantize_act(dual, self.sx),
+            self.w1, self.g1, self.b1, self.w2, self.g2, self.b2,
+            self.wb if self.proj else None, self.gb, self.bb,
+            out_dtype=self.cdt)
+
     def forward(self, x: torch.Tensor,
                 dual: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if self.quant:
+            return self._forward_int8(x, dual)
         if self.kernel:
             if self.proj:
                 return block_ops.basic_block(
@@ -173,9 +332,16 @@ class BasicBlock(nn.Module):
                                          self.w2, self.g2, self.b2)
         if dual is not None:
             x = torch.cat([x, dual], dim=-1)
+        observe = self.observer
+        if observe is not None:  # calibration: cb1's (and bypass's) input
+            observe(f"{self.qname}.cb1", x, self.qpack)
+            if self.proj:
+                observe(f"{self.qname}.bypass", x, self.qpack)
         xc = _nchw(x)
         y = torch.relu(F.conv2d(xc, self.w1, self.b1, stride=self.stride,
                                 padding=1))
+        if observe is not None:  # cb2's input: conv1's post-ReLU output
+            observe(f"{self.qname}.cb2", _nhwc(y), self.qpack)
         y = torch.relu(F.conv2d(y, self.w2, self.b2, padding=1))
         if self.proj:
             xc = F.conv2d(xc, self.wb, self.bb, stride=self.stride)
@@ -188,13 +354,12 @@ class DoubleResNet(nn.Module):
 
     def __init__(self, sd: StateDict, pref: str, *, stride: int = 1,
                  dual_split: int = 0, policy: Policy = Policy(),
-                 device=None):
+                 device=None, quant: bool = False, qpack: int = 1):
         super().__init__()
+        kw = dict(policy=policy, device=device, quant=quant, qpack=qpack)
         self.res1 = BasicBlock(sd, f"{pref}.res1", stride=stride,
-                               dual_split=dual_split, policy=policy,
-                               device=device)
-        self.res2 = BasicBlock(sd, f"{pref}.res2", policy=policy,
-                               device=device)
+                               dual_split=dual_split, **kw)
+        self.res2 = BasicBlock(sd, f"{pref}.res2", **kw)
 
     def forward(self, x, dual=None):
         return self.res2(self.res1(x, dual))
@@ -206,25 +371,58 @@ class Deconv2x(nn.Module):
     (the reference's ``output_size=skip.size()`` for odd shapes) run
     F.conv_transpose2d with output_padding and a high-side crop, which
     reproduces the JAX package's static padding for every target in
-    [2d - 2, 2d + 1] (blocks.py Deconv2x)."""
+    [2d - 2, 2d + 1] (blocks.py Deconv2x). In the int8 zone: K3-s8 with
+    the dequant sx·sw, exact 2x only (a compiled shape is required at
+    construction, an exact 2x target per call)."""
 
     def __init__(self, sd: StateDict, key: str, *, policy: Policy = Policy(),
-                 device=None):
+                 device=None, quant: bool = False, qpack: int = 1):
         super().__init__()
         device = resolve_device(device)
         w = sd[f"{key}.weight"].float()  # IOHW
         ci, co = w.shape[:2]
         cdt = policy.compute_dtype
+        self.qname, self.qpack, self.observer = jax_name(key), qpack, None
+        self.quant = quant and policy.quant_eval
+        if self.quant:
+            if not (policy.fused_eval and deconv_ops.s8_supports(ci, co)):
+                raise ValueError(
+                    f"{key}: int8 deconvs run on K3-s8, compiled for "
+                    f"{sorted(deconv_ops.S8_SHAPES)} with fused_eval; got "
+                    f"{(ci, co)}")
+            self.kernel, self.cdt, self._device = True, cdt, device
+            self._qsrc = w.permute(2, 3, 0, 1).contiguous()  # (4, 4, ci, co)
+            return
         self.kernel = policy.fused_eval and deconv_ops.supports(ci, co)
         self.register_buffer("w", w.to(device, cdt).contiguous())
         if self.kernel:
             self.register_buffer(
                 "wk", w.permute(2, 3, 0, 1).to(device, cdt).contiguous())
 
+    def set_scales(self, scales: Dict[str, torch.Tensor]) -> None:
+        """int8 kernel and the dequant vector sw·sx (blocks.py:849-866)."""
+        sx = scales[self.qname].float()
+        sw = quant_ops.weight_scales(self._qsrc)
+        self.register_buffer("sx", sx.to(self._device))
+        self.register_buffer("wq", quant_ops.quantize_weight(self._qsrc, sw)
+                             .to(self._device))
+        self.register_buffer("g", (sw * sx).to(self._device))
+
     def forward(self, x: torch.Tensor,
                 target_hw: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+        if self.observer is not None:
+            self.observer(self.qname, x, self.qpack)
         h, w = x.shape[1], x.shape[2]
         th, tw = target_hw if target_hw is not None else (2 * h, 2 * w)
+        if self.quant:
+            if not hasattr(self, "sx"):
+                raise ValueError(NO_SCALES)
+            if (th, tw) != (2 * h, 2 * w):
+                raise ValueError(f"int8 deconv {self.qname}: target "
+                                 f"{(th, tw)} is not 2x {(h, w)}")
+            return deconv_ops.deconv2x_s8(quant_ops.quantize_act(x, self.sx),
+                                          self.wq, self.g,
+                                          out_dtype=self.cdt)
         if self.kernel and (th, tw) == (2 * h, 2 * w):
             return deconv_ops.deconv2x(x, self.wk)
         return deconv_to(x, self.w, (th, tw))
@@ -252,13 +450,12 @@ class DecoderBlock(nn.Module):
     """Deconv 2x upsample → [up, skip] join → DoubleResNet."""
 
     def __init__(self, sd: StateDict, pref: str, *, policy: Policy = Policy(),
-                 device=None):
+                 device=None, quant: bool = False, qpack: int = 1):
         super().__init__()
-        self.deconv = Deconv2x(sd, f"{pref}.deconv", policy=policy,
-                               device=device)
+        kw = dict(policy=policy, device=device, quant=quant, qpack=qpack)
+        self.deconv = Deconv2x(sd, f"{pref}.deconv", **kw)
         c_up = sd[f"{pref}.deconv.weight"].shape[1]
-        self.res = DoubleResNet(sd, f"{pref}.res", dual_split=c_up,
-                                policy=policy, device=device)
+        self.res = DoubleResNet(sd, f"{pref}.res", dual_split=c_up, **kw)
 
     def forward(self, x, skip):
         up = self.deconv(x, (skip.shape[1], skip.shape[2]))

@@ -13,8 +13,10 @@ Built from a reference-format state_dict (``enc_layer{i}``,
 its geometry. With the default policy the stem pool, enc1, dec2, dec1,
 the head and the classifier run on the Hopper kernels of ops/ (11
 launches per forward at the flagship width); the rest are
-torch.nn.functional ops. It is built on the card unless
-``device="cpu"`` is passed; with no card and no explicit cpu it raises.
+torch.nn.functional ops. Under ``Policy.int8()`` nine of those eleven
+launches are the int8 kernels (``UResNet`` docstring). It is built on
+the card unless ``device="cpu"`` is passed; with no card and no
+explicit cpu it raises.
 """
 from __future__ import annotations
 
@@ -63,30 +65,99 @@ def config_from_state_dict(sd: Dict[str, torch.Tensor]) -> UResNetConfig:
     )
 
 
+PACK_MAX = 8  # the JAX package's pack_width (Policy.tpu / tpu_int8)
+
+
+def zone_packs(cfg: UResNetConfig) -> Dict[str, int]:
+    """W-packing factor of each packed-zone stage in the JAX package
+    (uresnet.py:63-67,111,123,134): min(8, 128 // channels). The int8
+    zone is this zone; its factors shape calibration's strided subsample
+    (ops/quant.py:packed_view)."""
+    def p_for(c):
+        return max(1, min(PACK_MAX, 128 // c))
+
+    return {"stem": p_for(cfg.inplanes), "enc1": p_for(2 * cfg.inplanes),
+            "dec2": p_for(2 * cfg.inplanes), "dec1": p_for(cfg.inplanes),
+            "head": p_for(cfg.final_conv_kernels)}
+
+
 class UResNet(nn.Module):
     """Input (b, h, w, c) NHWC; output (b, h, w, num_classes)
-    log-probabilities (or logits) in ``policy.output_dtype``."""
+    log-probabilities (or logits) in ``policy.output_dtype``.
+
+    With ``policy.quant_eval`` the int8 zone — the stem conv, enc1,
+    dec2, dec1 and the head conv10, the JAX package's packed zone, which
+    exists at depth 5 — runs int8 (per forward K1-s8 x1, K2-s8 x6, K3-s8
+    x2, beside the bf16 K4 pool and K1 classifier) once
+    ``set_quant_scales`` has the scales of ``ops.quant.calibrate``; the
+    input width must be a multiple of 2·p_stem (16), as JAX packs it."""
 
     def __init__(self, state_dict: Dict[str, torch.Tensor],
                  policy: Policy = Policy(), device=None):
         super().__init__()
         sd = {k: v.detach().cpu() for k, v in state_dict.items()}
-        self.config = config_from_state_dict(sd)
+        self.config = cfg = config_from_state_dict(sd)
         self.policy = policy
-        kw = dict(policy=policy, device=resolve_device(device))
-        self.conv1 = ConvBN(sd, "conv1", "bn1", **kw)
+        self.device = resolve_device(device)
+        self._sd = sd  # the source weights, for calibration_model()
+        q = policy.quant_eval
+        if q and cfg.depth != 5:
+            raise ValueError("int8: the JAX package quantizes its packed "
+                             f"zone, which exists at depth 5 (got "
+                             f"{cfg.depth})")
+        packs = zone_packs(cfg)
+        kw = dict(policy=policy, device=self.device)
+        self.conv1 = ConvBN(sd, "conv1", "bn1", quant=q, qpack=packs["stem"],
+                            **kw)
         self.enc = nn.ModuleList(
-            DoubleResNet(sd, f"enc_layer{i}", stride=1 if i == 1 else 2, **kw)
-            for i in range(1, self.config.depth + 1))
+            DoubleResNet(sd, f"enc_layer{i}", stride=1 if i == 1 else 2,
+                         quant=q and i == 1,
+                         qpack=packs["enc1"] if i == 1 else 1, **kw)
+            for i in range(1, cfg.depth + 1))
         # dec[0] is dec_layer{depth}, the deepest, which runs first
         self.dec = nn.ModuleList(
-            DecoderBlock(sd, f"dec_layer{i}", **kw)
-            for i in range(self.config.depth, 0, -1))
-        self.conv10 = ConvBN(sd, "conv10", "bn10", **kw)
+            DecoderBlock(sd, f"dec_layer{i}", quant=q and i <= 2,
+                         qpack=packs.get(f"dec{i}", 1), **kw)
+            for i in range(cfg.depth, 0, -1))
+        self.conv10 = ConvBN(sd, "conv10", "bn10", quant=q,
+                             qpack=packs["head"], **kw)
         self.conv11 = ConvBN(sd, "conv11", None, act=False, **kw)
+
+    def packed_zone(self, width: int) -> bool:
+        """Whether the JAX package runs its packed (and int8) zone for
+        inputs of this width (uresnet.py:68-70)."""
+        return (self.config.depth == 5
+                and width % (2 * zone_packs(self.config)["stem"]) == 0)
+
+    def calibration_model(self) -> "UResNet":
+        """The same weights unfused and unquantized on the same device:
+        the forward ``ops.quant.calibrate`` observes, as JAX calibrates
+        (ops/quant.py:154-167)."""
+        pol = dataclasses.replace(self.policy, fused_eval=False,
+                                  quant_eval=False)
+        return UResNet(self._sd, policy=pol, device=self.device)
+
+    def observe(self, fn) -> None:
+        """Route every layer's input to ``fn(name, x, pack)`` (None
+        stops it)."""
+        for m in self.modules():
+            if hasattr(m, "observer"):
+                m.observer = fn
+
+    def set_quant_scales(self, scales: Dict[str, torch.Tensor]) -> None:
+        """Quantize the int8 zone's weights and fold its gains from the
+        calibrated activation scales ({JAX layer name: scalar})."""
+        for m in self.modules():
+            if getattr(m, "quant", False):
+                m.set_scales(scales)
 
     def forward(self, x: torch.Tensor, logits: bool = False) -> torch.Tensor:
         pol = self.policy
+        if pol.quant_eval and not self.packed_zone(x.shape[2]):
+            raise ValueError(
+                f"int8: input width {x.shape[2]} is not a multiple of "
+                f"{2 * zone_packs(self.config)['stem']}; the JAX package "
+                "runs such inputs unpacked, without its int8 zone")
         x0 = self.conv1(x.to(pol.compute_dtype).contiguous())
         y = stem_pool(x0, fused=pol.fused_eval)
         skips = [x0]

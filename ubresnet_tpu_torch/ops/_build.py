@@ -12,7 +12,17 @@ turns into an exception.
 ``SHAPES`` is the one table of the shapes each kernel is compiled for:
 the build writes it as X-macro lists into ``ubr_shapes.h`` beside the
 objects, the ``.cu`` entry points instantiate and dispatch from those
-lists, and the wrappers' ``supports()`` gates read the same table.
+lists, and the wrappers' ``supports()`` / ``s8_supports()`` gates read
+the same table.
+
+The int8 entry points (K1-s8, K2-s8, K3-s8: ``ubr_conv_bn_act_s8``,
+``ubr_basic_block_s8``, ``ubr_deconv2x_s8``) take int8 activations and
+int8 weights in the same layouts and argument order as their bf16
+counterparts, f32 affines that carry the dequant scales, and one more
+int before the stream, ``out_f32``: 1 writes a float32 output (and
+reads a float32 residual), 0 bf16. K2-s8 always takes ``gb``/``bb``:
+with the identity bypass (``wb`` NULL) they dequantize the int8 input
+(gb = sx, bb = 0).
 
 Nothing here runs at import: the first kernel launch builds (or finds
 an up-to-date build, keyed by a hash of the sources) and loads the
@@ -54,6 +64,15 @@ SIGNATURES = {
     "ubr_weighted_nll": [_P] * 5 + [_I] * 3 + [_F, _P],
     # logits, labels, weights, g, grad | N, C | N as float
     "ubr_weighted_nll_bwd": [_P] * 5 + [_I] * 2 + [_F, _P],
+    # int8 (s8 x s8 -> s32; out_f32: float output instead of bf16)
+    # xq, wq, g, b, residual, out | B, H, W, ci, co, k, pre_act, act,
+    # out_f32
+    "ubr_conv_bn_act_s8": [_P] * 6 + [_I] * 9 + [_P],
+    # aq, bq, w1q, g1, b1, w2q, g2, b2, wbq, gb, bb, out | B, H, W, ca,
+    # cb, co, out_f32
+    "ubr_basic_block_s8": [_P] * 12 + [_I] * 7 + [_P],
+    # xq, wq, g, out | B, H, W, ci, co, out_f32
+    "ubr_deconv2x_s8": [_P] * 4 + [_I] * 6 + [_P],
 }
 
 # The train zone's convolutions (stride 1, flagship width), as
@@ -65,6 +84,16 @@ _TRAIN_ZONE = {(16, 32, 3), (16, 32, 1), (32, 32, 3), (64, 32, 3),
                (64, 32, 1), (32, 16, 3), (32, 16, 1), (16, 16, 3),
                (16, 16, 7)}
 _CLASSIFIER = (16, 3, 7)
+# (ca, cb, co, projection) of the eval model's BasicBlocks in the zone
+_BLOCKS = frozenset({
+    (16, 0, 32, True),    # enc1.res1
+    (32, 0, 32, False),   # enc1.res2, dec2.res.res2
+    (32, 32, 32, True),   # dec2.res.res1
+    (16, 16, 16, True),   # dec1.res.res1
+    (16, 0, 16, False),   # dec1.res.res2
+})
+# (ci, co): dec2 and dec1 upsamples
+_DECONVS = frozenset({(64, 32), (32, 16)})
 
 # kernel → the template arguments instantiated in its .cu entry point,
 # the kernel-zone layers of the flagship UResNet
@@ -80,15 +109,15 @@ SHAPES = {
     # (ci, co, k): the train zone's and the classifier's weight gradient
     "conv_dw": frozenset(_TRAIN_ZONE | {_CLASSIFIER}),
     # (ca, cb, co, projection); cb == 0 is the single-stream block
-    "basic_block": frozenset({
-        (16, 0, 32, True),    # enc1.res1
-        (32, 0, 32, False),   # enc1.res2, dec2.res.res2
-        (32, 32, 32, True),   # dec2.res.res1
-        (16, 16, 16, True),   # dec1.res.res1
-        (16, 0, 16, False),   # dec1.res.res2
-    }),
-    # (ci, co): dec2 and dec1 upsamples
-    "deconv2x": frozenset({(64, 32), (32, 16)}),
+    "basic_block": _BLOCKS,
+    "deconv2x": _DECONVS,
+    # int8 deploy (Policy.int8): the head conv10 on K1-s8 (the 1-channel
+    # stem is an exact plain-torch integer conv, as XLA in JAX; the
+    # classifier stays bf16 K1), the same blocks on K2-s8, the same
+    # upsamples on K3-s8
+    "conv_bn_act_s8": frozenset({(16, 16, 7)}),
+    "basic_block_s8": _BLOCKS,
+    "deconv2x_s8": _DECONVS,
 }
 SHAPES_HEADER = "ubr_shapes.h"
 
@@ -214,6 +243,13 @@ def launch(name: str, tensors, ints, device: torch.device):
     if rc:
         msg = lib.ubr_error_string(rc).decode()
         raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
+
+
+def out_f32(dtype) -> int:
+    """The int8 entry points' ``out_f32`` flag for an output dtype."""
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"int8 kernels write bfloat16 or float32, not {dtype}")
+    return int(dtype == torch.float32)
 
 
 def check(t, name: str, dtype, shape, device) -> None:

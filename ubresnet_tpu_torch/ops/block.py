@@ -17,6 +17,13 @@ output.
 
 Weights: w1 (3, 3, ca+cb, co), w2 (3, 3, co, co), wb (ca+cb, co) —
 JAX kernel layouts; the first ``ca`` input channels read stream a.
+
+K2-s8 (``basic_block_s8``) replaces the quantized=True modes of
+fused_basic_block and fused_dual_block: int8 streams sharing one scale,
+s8 x s8 → s32, m requantized on chip to int8 as
+rint(min(relu(acc1·g1 + b1), 127)) with conv2's scale folded into
+g1/b1, the identity bypass dequantized as gb·x + bb. Kernel:
+ops/csrc/basic_block_s8.cu — K2's tiling with __dp4a.
 """
 from __future__ import annotations
 
@@ -25,14 +32,19 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from ubresnet_tpu_torch.ops import _build
+from ubresnet_tpu_torch.ops import _build, quant
 
 # (ca, cb, co, projection) compiled into the kernel library
 SHAPES = _build.SHAPES["basic_block"]
+S8_SHAPES = _build.SHAPES["basic_block_s8"]
 
 
 def supports(ca: int, cb: int, co: int, proj: bool) -> bool:
     return (ca, cb, co, bool(proj)) in SHAPES
+
+
+def s8_supports(ca: int, cb: int, co: int, proj: bool) -> bool:
+    return (ca, cb, co, bool(proj)) in S8_SHAPES
 
 
 def _conv(x, w, pad):
@@ -103,3 +115,68 @@ def basic_block(a: torch.Tensor, b: Optional[torch.Tensor],
 
 
 basic_block.launches = 0
+
+
+def basic_block_s8_plain(aq, bq, w1q, g1, b1, w2q, g2, b2, wbq, gb, bb,
+                         out_dtype=torch.bfloat16, with_mid=False):
+    """Plain PyTorch version of K2-s8: exact integer convs
+    (ops/quant.py:int_conv2d), float32 epilogues in the kernel's order
+    (each affine one FMA, ops/quant.py:fma), output ``out_dtype``;
+    ``with_mid`` also returns the requantized int8 intermediate m."""
+    xq = aq if bq is None else torch.cat([aq, bq], -1)
+    aff = quant.fma
+    y1 = torch.relu(aff(quant.int_conv2d(xq, w1q, 1), g1, b1))
+    m = torch.round(torch.clamp(y1, max=quant.INT8_MAX)).to(torch.int8)
+    y = torch.relu(aff(quant.int_conv2d(m, w2q, 1), g2, b2))
+    if wbq is not None:
+        r = aff(quant.int_conv2d(xq, wbq.view(1, 1, *wbq.shape), 0), gb, bb)
+    else:
+        r = aff(xq.float(), gb, bb)
+    out = torch.relu(y + r).to(out_dtype).contiguous()
+    return (out, m) if with_mid else out
+
+
+def basic_block_s8(aq: torch.Tensor, bq: Optional[torch.Tensor],
+                   w1q: torch.Tensor, g1: torch.Tensor, b1: torch.Tensor,
+                   w2q: torch.Tensor, g2: torch.Tensor, b2: torch.Tensor,
+                   wbq: Optional[torch.Tensor], gb: torch.Tensor,
+                   bb: torch.Tensor, *,
+                   out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """int8 K2: aq (B, H, W, ca) and bq None or (B, H, W, cb) int8
+    (one shared scale); int8 weights in the layouts of the module
+    docstring; g1/b1 carry sx·sw1/s_mid, g2 s_mid·sw2, gb/bb the bypass
+    dequant (gb = sx, bb = 0 with the identity, wbq None). CPU tensors
+    take the plain version; CUDA tensors launch K2-s8."""
+    if aq.device.type == "cpu":
+        return basic_block_s8_plain(aq, bq, w1q, g1, b1, w2q, g2, b2, wbq,
+                                    gb, bb, out_dtype)
+    bsz, h, wd, ca = aq.shape
+    cb = 0 if bq is None else bq.shape[-1]
+    co = w1q.shape[-1]
+    proj = wbq is not None
+    if not s8_supports(ca, cb, co, proj):
+        raise ValueError(f"basic_block_s8 kernel has no (ca, cb, co, proj) "
+                         f"= {(ca, cb, co, proj)}; compiled: "
+                         f"{sorted(S8_SHAPES)}")
+    dev = aq.device
+    s8, f32 = torch.int8, torch.float32
+    flag = _build.out_f32(out_dtype)
+    _build.check(aq, "aq", s8, (bsz, h, wd, ca), dev)
+    if bq is not None:
+        _build.check(bq, "bq", s8, (bsz, h, wd, cb), dev)
+    _build.check(w1q, "w1q", s8, (3, 3, ca + cb, co), dev)
+    _build.check(w2q, "w2q", s8, (3, 3, co, co), dev)
+    for name, t in (("g1", g1), ("b1", b1), ("g2", g2), ("b2", b2),
+                    ("gb", gb), ("bb", bb)):
+        _build.check(t, name, f32, (co,), dev)
+    if proj:
+        _build.check(wbq, "wbq", s8, (ca + cb, co), dev)
+    out = torch.empty((bsz, h, wd, co), dtype=out_dtype, device=dev)
+    _build.launch("ubr_basic_block_s8",
+                  [aq, bq, w1q, g1, b1, w2q, g2, b2, wbq, gb, bb, out],
+                  [bsz, h, wd, ca, cb, co, flag], dev)
+    basic_block_s8.launches += 1
+    return out
+
+
+basic_block_s8.launches = 0

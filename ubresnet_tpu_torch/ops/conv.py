@@ -22,6 +22,12 @@ blocks in a fixed order (two passes, no atomics).
 ``conv_ad`` replaces pallas_conv_ad (_conv_ad_fwd, _conv_ad_bwd):
 forward K1, dx K1, dW K6 rounded to the kernel's dtype.
 
+K1-s8 (``conv_bn_act_s8``) replaces the quantized=True mode of
+fused_packed_conv (_conv_kernel): the head conv10 under int8 deploy,
+s8 x s8 → s32 with the dequant scale folded into g. Kernel:
+ops/csrc/conv_bn_act_s8.cu — K1's tiling with __dp4a over 4-channel
+groups.
+
 Weights are (k, k, ci, co) — the JAX kernel layout, i.e. the
 reference OIHW checkpoint permuted (2, 3, 1, 0).
 """
@@ -32,11 +38,12 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from ubresnet_tpu_torch.ops import _build
+from ubresnet_tpu_torch.ops import _build, quant
 
 # (ci, co, k) compiled into the kernel library
 SHAPES = _build.SHAPES["conv_bn_act"]
 DW_SHAPES = _build.SHAPES["conv_dw"]
+S8_SHAPES = _build.SHAPES["conv_bn_act_s8"]
 # blocks of the weight-gradient kernel: each walks a strided share of
 # the 16x16 pixel tiles and leaves one row of partial dW
 DW_MAX_BLOCKS = 264
@@ -109,6 +116,60 @@ def conv_bn_act(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
 
 
 conv_bn_act.launches = 0
+
+
+def s8_supports(ci: int, co: int, k: int) -> bool:
+    return (ci, co, k) in S8_SHAPES
+
+
+def conv_bn_act_s8_plain(xq, wq, g, b, residual=None, *, pre_act=False,
+                         act=True, out_dtype=torch.bfloat16):
+    """Plain PyTorch version of K1-s8: the exact integer conv
+    (ops/quant.py:int_conv2d), then the epilogue in float32 in K1-s8's
+    order (the affine one FMA, ops/quant.py:fma), output ``out_dtype``
+    (NHWC, contiguous)."""
+    y = quant.fma(quant.int_conv2d(xq, wq, wq.shape[0] // 2), g, b)
+    if pre_act:
+        y = torch.relu(y)
+    if residual is not None:
+        y = y + residual.float()
+    if act:
+        y = torch.relu(y)
+    return y.to(out_dtype).contiguous()
+
+
+def conv_bn_act_s8(xq: torch.Tensor, wq: torch.Tensor, g: torch.Tensor,
+                   b: torch.Tensor, residual: Optional[torch.Tensor] = None,
+                   *, pre_act: bool = False, act: bool = True,
+                   out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """int8 K1: xq (B, H, W, ci) int8 NHWC; wq (k, k, ci, co) int8;
+    g, b (co,) f32 with the dequant scale folded into g; residual
+    optional (B, H, W, co) in ``out_dtype``. CPU tensors take the plain
+    version; CUDA tensors launch K1-s8 (bf16 or f32 output)."""
+    if xq.device.type == "cpu":
+        return conv_bn_act_s8_plain(xq, wq, g, b, residual, pre_act=pre_act,
+                                    act=act, out_dtype=out_dtype)
+    bsz, h, wd, ci = xq.shape
+    k, _, _, co = wq.shape
+    if not s8_supports(ci, co, k):
+        raise ValueError(f"conv_bn_act_s8 kernel has no (ci, co, k) = "
+                         f"{(ci, co, k)}; compiled: {sorted(S8_SHAPES)}")
+    dev = xq.device
+    f32 = _build.out_f32(out_dtype)
+    _build.check(xq, "xq", torch.int8, (bsz, h, wd, ci), dev)
+    _build.check(wq, "wq", torch.int8, (k, k, ci, co), dev)
+    _build.check(g, "g", torch.float32, (co,), dev)
+    _build.check(b, "b", torch.float32, (co,), dev)
+    if residual is not None:
+        _build.check(residual, "residual", out_dtype, (bsz, h, wd, co), dev)
+    out = torch.empty((bsz, h, wd, co), dtype=out_dtype, device=dev)
+    _build.launch("ubr_conv_bn_act_s8", [xq, wq, g, b, residual, out],
+                  [bsz, h, wd, ci, co, k, pre_act, act, f32], dev)
+    conv_bn_act_s8.launches += 1
+    return out
+
+
+conv_bn_act_s8.launches = 0
 
 
 def conv_input_grad(dy: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

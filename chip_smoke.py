@@ -7,7 +7,7 @@ Phases, each printing JSON lines; any failure exits non-zero:
 
 1. device  — the card's name and power limit (nvidia-smi); no card,
              no run: without CUDA the script exits 1 before anything.
-2. build   — nvcc builds the ten Hopper kernels from
+2. build   — nvcc builds the twelve Hopper kernels from
              ubresnet_tpu_torch/ops/csrc for sm_90a.
 3. kernels — every kernel-zone layer of the flagship UResNet at its
              main-path shape and batch (16): the kernel against its plain
@@ -26,7 +26,11 @@ Phases, each printing JSON lines; any failure exits non-zero:
              its f32 sums of the bf16 y ≤ 1e-3·max|plain|, where one bf16
              step of some y may differ), K1 as the input gradient (as K1),
              K6 (f32 dW ≤ 1e-3·max|plain|: sums over 1-4 M pixels in
-             another order), K7 forward and backward (f32, ≤ 1e-5·max).
+             another order), K7 forward and backward (f32, ≤ 1e-5·max);
+             deconv-AD rows at dec2's and dec1's b16 shapes: K8 (dx, as
+             K1), K9 (f32 dW ≤ 1e-3·max|plain|, as K6) and deconv2x_ad
+             forward + backward against F.conv_transpose2d's f32
+             autograd (y, dx and the bf16 dW each ≤ 1e-2·max|plain|).
 4. main    — 64 synthetic 512x512 crops scored file → file through the
              port's CLI (-b 16, cuda) with seeded random weights in a
              reference-format .tar; every event must carry 3 score
@@ -46,6 +50,14 @@ Phases, each printing JSON lines; any failure exits non-zero:
              of 2 more steps gives the zone kernels' device time per
              step, the busy and idle shares and the largest other
              kernels (reported, not gated).
+   train_deconv — the same batch and weights through the train step
+             with Policy.fused_train_deconv (K3 forward, K8 dx, K9 dW at
+             dec2 and dec1): loss and gradients under the same gates
+             against the same plain paths, then 5 Adam steps whose
+             launches are exactly 5 × (K5 16, K1 18, K6 17, K4 1, K7
+             1 + 1, K3 2, K8 2, K9 2); the loss must fall. Step ms beside
+             the default zone's, and the profiler's K3/K8/K9 device
+             time per step (reported).
 6. train   — the port's training CLI (--device cuda) on 64 synthetic
              512² events: batch 16, 8 iterations, validation every 4
              (1 batch), checkpoints every 4, the default sparse
@@ -54,6 +66,13 @@ Phases, each printing JSON lines; any failure exits non-zero:
              (K5 16, K1 18, K6 17, K4 1, K7 1 + 1) + 11 per validation
              forward, and the final .tar scores a crop through the eval
              model with probability sums 1 ± 1e-2.
+   qat     — the training CLI with --set model.qat=true on the same
+             64 events: 4 iterations, one validation (fake-quantized,
+             per-conv blocks: no K2); launches exactly 4 × the step table
+             + K4 1, K3 2, K1 2; finite losses; the final .tar scores a
+             crop with probability sums 1 ± 1e-2. Then the int8 ladder
+             (python -m ubresnet_tpu_torch.tools.int8_ladder 10, 512²,
+             batch 32): its JSON, reported, not gated.
 7. int8    — the deploy smoke's 64 crops through the CLI with --int8
              (calibrated on the first 32, -b 16, cuda): launch counts
              exactly K1-s8 1, K2-s8 6, K3-s8 2, K4 1, K1 1 per batch,
@@ -63,8 +82,8 @@ Phases, each printing JSON lines; any failure exits non-zero:
              and (not gated: random weights) mean|Δp| and argmax
              agreement against the f32 path for abs-max and
              percentile-99.9 scales.
-8. summary — the kernels line (K1-K7, K1-s8, K2-s8, K3-s8), the card
-             line, the result line.
+8. summary — the kernels line (K1-K9, K1-s8, K2-s8, K3-s8) with the
+             launches of every path, the card line, the result line.
 
 Scratch files go under build/chip_smoke in the checkout.
 """
@@ -95,7 +114,14 @@ LAUNCHES_PER_BATCH_INT8 = {"conv_bn_act_s8": 1, "basic_block_s8": 6,
 LAUNCHES_PER_TRAIN_STEP = {"conv_stats": 16, "conv_bn_act": 18,
                            "conv_dw": 17, "maxpool3x3s2": 1,
                            "weighted_nll": 1, "weighted_nll_bwd": 1}
+# with Policy.fused_train_deconv: the decoder upsamples' three legs
+LAUNCHES_PER_DECONV_STEP = {**LAUNCHES_PER_TRAIN_STEP, "deconv2x": 2,
+                            "conv_s2k4": 2, "deconv_dw": 2}
+# a validation forward under QAT: blocks per conv (cuDNN), no K2
+LAUNCHES_PER_QAT_VALID = {"conv_bn_act": 2, "deconv2x": 2,
+                          "maxpool3x3s2": 1}
 TRAIN_ITERS, VALID_EVERY = 8, 4
+QAT_ITERS, LADDER_STEPS = 4, 10
 # kernels line entry → (source, the TPU kernel it replaces, row kernels,
 # the paths that must launch it)
 PALLAS = "ubresnet_tpu/ops/pallas_conv.py"
@@ -103,29 +129,39 @@ SOURCES = {
     "conv_bn_act": ("ubresnet_tpu_torch/ops/csrc/conv_bn_act.cu",
                     f"{PALLAS}:315 fused_packed_conv"
                     " + :1811 pallas_conv_ad (forward, dx)",
-                    ("conv_bn_act",), ("precropped", "train", "int8")),
+                    ("conv_bn_act",),
+                    ("precropped", "train", "train_deconv", "qat", "int8")),
     "basic_block": ("ubresnet_tpu_torch/ops/csrc/basic_block.cu",
                     f"{PALLAS}:1483 fused_basic_block"
                     " + :699 fused_dual_block", ("basic_block",),
                     ("precropped", "train")),
     "deconv2x": ("ubresnet_tpu_torch/ops/csrc/deconv2x.cu",
-                 f"{PALLAS}:898 fused_packed_deconv2x",
-                 ("deconv2x",), ("precropped", "train")),
+                 f"{PALLAS}:898 fused_packed_deconv2x"
+                 " + :1341 pallas_deconv2x_ad (forward)",
+                 ("deconv2x",), ("precropped", "train", "train_deconv",
+                                 "qat")),
     "maxpool3x3s2": ("ubresnet_tpu_torch/ops/csrc/maxpool3x3s2.cu",
                      f"{PALLAS}:525 fused_pool3x3s2"
                      " + ubresnet_tpu/ops/pool_ad.py:133 packed_pool_ad "
                      "(forward)", ("maxpool3x3s2",),
-                     ("precropped", "train", "int8")),
+                     ("precropped", "train", "train_deconv", "qat", "int8")),
     "conv_stats": ("ubresnet_tpu_torch/ops/csrc/conv_stats.cu",
                    "ubresnet_tpu/ops/pallas_train.py:206 train_conv_stats",
-                   ("conv_stats",), ("train",)),
+                   ("conv_stats",), ("train", "train_deconv", "qat")),
     "conv_dw": ("ubresnet_tpu_torch/ops/csrc/conv_dw.cu",
-                f"{PALLAS}:1677 pallas_conv_dw", ("conv_dw",), ("train",)),
+                f"{PALLAS}:1677 pallas_conv_dw", ("conv_dw",),
+                ("train", "train_deconv", "qat")),
     "weighted_nll": ("ubresnet_tpu_torch/ops/csrc/weighted_nll.cu",
                      "ubresnet_tpu/ops/pallas_loss.py:100 "
                      "pallas_weighted_nll", ("weighted_nll",
                                              "weighted_nll_bwd"),
-                     ("train",)),
+                     ("train", "train_deconv", "qat")),
+    "conv_s2k4": ("ubresnet_tpu_torch/ops/csrc/conv_s2k4.cu",
+                  f"{PALLAS}:1148 fused_conv_s2k4 (the dx leg of :1341 "
+                  "pallas_deconv2x_ad)", ("conv_s2k4",), ("train_deconv",)),
+    "deconv_dw": ("ubresnet_tpu_torch/ops/csrc/deconv_dw.cu",
+                  f"{PALLAS}:1265 pallas_deconv_dw (the dW leg of :1341 "
+                  "pallas_deconv2x_ad)", ("deconv_dw",), ("train_deconv",)),
     "conv_bn_act_s8": ("ubresnet_tpu_torch/ops/csrc/conv_bn_act_s8.cu",
                        f"{PALLAS}:315 fused_packed_conv (_conv_kernel :251,"
                        " quantized :282-300)", ("conv_bn_act_s8",),
@@ -230,12 +266,14 @@ def stats_check(got, want):
 
 
 def _row(layer, kernel, kfn, pfn, lfn, nbytes, ops, peak, check=bf16_check,
-         library=None, per_step=0):
+         library=None, per_step=0, per_step_ad=None):
     """``per_step``: launches of this row's kernel at this shape in one
-    train step."""
+    train step; ``per_step_ad`` the same with fused_train_deconv
+    (default: ``per_step``)."""
     return {"layer": layer, "kernel": kernel, "kfn": kfn, "pfn": pfn,
             "lfn": lfn, "bytes": nbytes, "ops": ops, "peak": peak,
-            "check": check, "library": library, "per_step": per_step}
+            "check": check, "library": library, "per_step": per_step,
+            "per_step_ad": per_step if per_step_ad is None else per_step_ad}
 
 
 def kernel_rows(dev):
@@ -328,7 +366,7 @@ def kernel_rows(dev):
                                                     padding=1),
                          n2(x) + out_pix * co * 2 + n2(w),
                          2 * out_pix * 4 * ci * co, BF16_TENSOR_FLOPS,
-                         library="F.conv_transpose2d"))
+                         library="F.conv_transpose2d", per_step_ad=1))
 
     deconv_row("dec2.deconv", 128, 64, 32)
     block_row("dec2.res.res1", 256, 32, 32, 32, True)
@@ -478,6 +516,91 @@ def train_kernel_rows(dev):
     return rows
 
 
+def ad_check(got, want):
+    """deconv2x_ad forward + backward: y and dx as bf16 outputs, the
+    bf16 dW (rounded to the kernel's dtype, as in JAX) against the f32
+    plain dW — each within one bf16 step, ≤ 1e-2·max|plain|."""
+    err, ref, tol, _ = bf16_check(got[0], want[0].to(got[0].dtype))
+    extra = {}
+    for name, g, w in (("dx", got[1], want[1]), ("dw", got[2], want[2])):
+        e, r = _max_err(g, w)
+        extra[f"{name}_err"], extra[f"{name}_ref"] = e, r
+        require(e <= 1e-2 * r, f"deconv2x_ad {name}: max abs err {e} > "
+                               f"1e-2·{r}")
+    return err, ref, tol, extra
+
+
+def deconv_ad_rows(dev):
+    """The decoder upsamples' backward at batch 16 and their own
+    resolution (dec2: x 128² x 64 → 256² x 32, dec1: 256² x 32 → 512² x
+    16): K8 dx and K9 dW, one launch each per deconv-AD step, and
+    deconv2x_ad forward + backward (K3, K8, K9) against
+    F.conv_transpose2d's autograd — its plain version in f32, its
+    library call in bf16 (cuDNN)."""
+    import torch
+    import torch.nn.functional as F
+
+    from ubresnet_tpu_torch.ops import deconv
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    bf = torch.bfloat16
+    B = BATCH_MAIN
+    rows = []
+    n2 = lambda t: t.numel() * t.element_size()  # noqa: E731
+
+    for name, hw, ci, co in (("dec2", 128, 64, 32), ("dec1", 256, 32, 16)):
+        x = torch.relu(torch.randn(B, hw, hw, ci, generator=gen,
+                                   device=dev)).to(bf)
+        dy = (0.01 * torch.randn(B, 2 * hw, 2 * hw, co, generator=gen,
+                                 device=dev)).to(bf)
+        w = (torch.randn(4, 4, ci, co, generator=gen, device=dev)
+             * (2.0 / (16 * co)) ** 0.5).to(bf).contiguous()
+        w_oihw = w.permute(2, 3, 0, 1).contiguous()  # (ci, co, 4, 4)
+        macs = B * hw * hw * 16 * ci * co
+
+        def cl(t):
+            return t.permute(0, 3, 1, 2)
+
+        rows.append(_row(
+            f"K8 dx {name} {ci}<-{co} @{2 * hw}", "conv_s2k4",
+            lambda dy=dy, w=w: deconv.conv_s2k4(dy, w),
+            lambda dy=dy, w=w: deconv.conv_s2k4_plain(dy, w),
+            lambda dy=dy, wo=w_oihw: F.conv2d(cl(dy), wo, stride=2,
+                                              padding=1),
+            n2(dy) + n2(x) + n2(w), 2 * macs, BF16_TENSOR_FLOPS,
+            library="F.conv2d stride 2", per_step_ad=1))
+        rows.append(_row(
+            f"K9 dW {name} {ci}->{co} @{hw}", "deconv_dw",
+            lambda x=x, dy=dy: deconv.deconv_dw(x, dy),
+            lambda x=x, dy=dy: deconv.deconv_dw_plain(x, dy),
+            lambda x=x, dy=dy, ci=ci, co=co: torch.nn.grad.conv2d_weight(
+                cl(dy), (ci, co, 4, 4), cl(x), stride=2, padding=1),
+            n2(x) + n2(dy) + 16 * ci * co * 4, 2 * macs, BF16_TENSOR_FLOPS,
+            check=f32_check(1e-3), library="torch.nn.grad.conv2d_weight",
+            per_step_ad=1))
+
+        def ad(x=x, w=w, dy=dy):
+            xr, wr = x.detach().requires_grad_(), w.detach().requires_grad_()
+            y = deconv.deconv2x_ad(xr, wr)
+            return (y.detach(), *torch.autograd.grad(y, (xr, wr), dy))
+
+        def ad_plain(x=x, w=w, dy=dy, dtype=torch.float32):
+            xr = x.detach().to(dtype).requires_grad_()
+            wr = w.detach().permute(2, 3, 0, 1).to(dtype).requires_grad_()
+            y = F.conv_transpose2d(cl(xr), wr, stride=2, padding=1)
+            dx, dw = torch.autograd.grad(y, (xr, wr), cl(dy).to(dtype))
+            return (y.permute(0, 2, 3, 1).detach(), dx,
+                    dw.permute(2, 3, 0, 1))
+
+        rows.append(_row(
+            f"deconv2x_ad fwd+bwd {name} {ci}->{co} @{hw}", "deconv2x_ad",
+            ad, ad_plain, lambda f=ad_plain: f(dtype=bf),
+            3 * (n2(x) + n2(dy)) + 2 * n2(w) + 16 * ci * co * 4,
+            3 * 2 * macs, BF16_TENSOR_FLOPS, check=ad_check,
+            library="F.conv_transpose2d + autograd (cuDNN bf16)"))
+    return rows
+
+
 def s8_check(exact):
     """int8 rows: the kernel's and the plain version's float32 outputs
     (``exact()`` runs both; with g = 1, b = 0 for the conv and the
@@ -624,6 +747,7 @@ def check_kernels(rows):
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": r["bytes"], "operations": r["ops"], "bytes_ms": t_bytes,
             "ops_ms": t_ops, "per_step": r["per_step"],
+            "per_step_ad": r["per_step_ad"],
         }
         emit(row)
         require(err <= tol, f"{r['layer']}: kernel disagrees with its plain "
@@ -632,25 +756,26 @@ def check_kernels(rows):
     return results
 
 
-def train_zone_per_step(rows):
+def train_zone_per_step(rows, key="per_step", want=LAUNCHES_PER_TRAIN_STEP,
+                        phase="train_zone_per_step"):
     """Each kernel's share of one b16 train step: the rows' times
-    weighted by their launches per step (their multiplicity on the
-    main train path), beside the same sums of bound, plain and library
-    times."""
+    weighted by their launches per step (``key``: their multiplicity on
+    the default train path, or with fused_train_deconv), beside the
+    same sums of bound, plain and library times."""
     out = {}
     for r in rows:
-        if not r["per_step"]:
+        n = r.get(key, 0)
+        if not n:
             continue
         k = out.setdefault(r["kernel"], {"launches": 0, "ms": 0.0,
                                          "plain_ms": 0.0, "library_ms": 0.0,
                                          "bound_ms": 0.0})
-        k["launches"] += r["per_step"]
-        for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
-            k[key] += r["per_step"] * r[key]
-    require({k: v["launches"] for k, v in out.items()}
-            == LAUNCHES_PER_TRAIN_STEP,
-            f"per-step rows {out} != {LAUNCHES_PER_TRAIN_STEP}")
-    return {"phase": "train_zone_per_step", "kernels": out,
+        k["launches"] += n
+        for field in ("ms", "plain_ms", "library_ms", "bound_ms"):
+            k[field] += n * r[field]
+    require({k: v["launches"] for k, v in out.items()} == want,
+            f"per-step rows {out} != {want}")
+    return {"phase": phase, "kernels": out,
             "ms": sum(v["ms"] for v in out.values()),
             "bound_ms": sum(v["bound_ms"] for v in out.values())}
 
@@ -968,15 +1093,16 @@ def _train_batch(seed):
 
 ZONE_KERNELS = ("conv_stats_kernel", "conv_dw_kernel", "conv_bn_act_kernel",
                 "nll_fwd_kernel", "nll_bwd_kernel", "maxpool3x3s2_kernel",
-                "sum_rows_kernel")
+                "sum_rows_kernel", "deconv2x_kernel", "conv_s2k4_kernel",
+                "deconv_dw_kernel")
 
 
-def step_profile(step, state, batch, step_ms, steps=2):
+def step_profile(step, state, batch, step_ms, steps=2, detail=()):
     """Device time of ``steps`` train steps by kernel (torch.profiler):
     the train zone's kernels (ops/csrc) against everything else, the
-    busy share of the CUDA-event step time, and the largest other
-    kernels. None of it gates; if the profiler sees no device time it
-    says so."""
+    busy share of the CUDA-event step time, the largest other kernels
+    and the per-step time of each kernel named in ``detail``. None of it
+    gates; if the profiler sees no device time it says so."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -993,7 +1119,10 @@ def step_profile(step, state, batch, step_ms, steps=2):
     busy = sum(kernels.values())
     others = sorted(((ms, k[:90]) for k, ms in kernels.items()
                      if not any(z in k for z in ZONE_KERNELS)), reverse=True)
+    mine = {d: sum(ms for k, ms in kernels.items() if d in k)
+            for d in detail}
     return {"device_busy_ms_per_step": busy, "zone_kernel_ms_per_step": zone,
+            "kernel_ms_per_step": mine,
             "other_kernel_ms_per_step": busy - zone,
             "zone_share_of_step": zone / step_ms,
             "idle_share_of_step": max(0.0, 1 - busy / step_ms),
@@ -1046,9 +1175,67 @@ def forward_profile(fn, fwd_ms, reps=3):
             "top_kernels_ms": [[k, ms] for ms, k in top[:16]]}
 
 
+def _adam_steps(step, state, b, n=5):
+    """``n`` train steps on one batch, each timed with CUDA events:
+    (state, losses, ms per step)."""
+    import torch
+
+    losses, times = [], []
+    for _ in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, m = step(state, b)
+        end.record()
+        end.synchronize()
+        losses.append(m["loss"])
+        times.append(start.elapsed_time(end))
+    return state, losses, times
+
+
+def _loss_grads(sd, pol, b, dev):
+    """Loss and parameter gradients (f32 copies) of one train-mode
+    forward and backward of ``sd`` under ``pol`` on batch ``b``: the
+    loss kernel where the train zone is on, as the trainer runs it."""
+    import torch
+
+    from ubresnet_tpu_torch.losses import pixelwise_weighted_nll_from_logits
+    from ubresnet_tpu_torch.models import get_model
+    from ubresnet_tpu_torch.ops.loss import weighted_nll
+
+    model = get_model("uresnet", sd, policy=pol, device=dev, train=True)
+    logits = model(b["image"], logits=True)
+    if pol.fused_train:
+        loss = weighted_nll(logits, b["label"], b["weight"])
+    else:
+        loss = pixelwise_weighted_nll_from_logits(logits, b["label"],
+                                                  b["weight"])
+    loss.backward()
+    out = (loss.item(), {k: p.grad.float().clone()
+                         for k, p in model.named_parameters()})
+    del model, logits, loss
+    torch.cuda.empty_cache()
+    return out
+
+
+def _vs_f32(loss, grads, ref):
+    """A path's loss and max|Δgrad|/max|grad| from the f32 path's
+    (``ref``), with the worst parameter and the median."""
+    import numpy as np
+
+    l32, g32, gsc = ref["loss_f32"], ref["grads_f32"], ref["grad_scale"]
+    per = {k: float((grads[k] - g32[k]).abs().max()) / gsc for k in g32}
+    worst = max(per, key=per.get)
+    return {"loss": loss, "loss_rel_vs_f32": abs(loss - l32) / abs(l32),
+            "grad_err_vs_f32": per[worst], "worst_param": worst,
+            "grad_err_median_vs_f32": float(np.median(list(per.values())))}
+
+
 def train_parity(dev, card):
     """Loss and gradients of the train kernel path against the plain
-    bf16 and f32 paths on one batch, then 5 Adam steps."""
+    bf16 and f32 paths on one batch, then 5 Adam steps. Returns what
+    ``train_deconv`` holds its path against: the plain paths' results
+    and gates, and this path's step ms."""
     import dataclasses
 
     import numpy as np
@@ -1056,9 +1243,7 @@ def train_parity(dev, card):
 
     from ubresnet_tpu_torch.core.precision import Policy
     from ubresnet_tpu_torch.deploy.weights import random_state_dict
-    from ubresnet_tpu_torch.losses import pixelwise_weighted_nll_from_logits
     from ubresnet_tpu_torch.models import get_model
-    from ubresnet_tpu_torch.ops.loss import weighted_nll
     from ubresnet_tpu_torch.train import (
         build_train_step,
         create_train_state,
@@ -1072,32 +1257,12 @@ def train_parity(dev, card):
     paths = {"kernel_bf16": kernel_pol,
              "plain_bf16": dataclasses.replace(kernel_pol, fused_train=False),
              "plain_f32": Policy.f32()}
-    res = {}
-    for name, pol in paths.items():
-        model = get_model("uresnet", sd, policy=pol, device=dev, train=True)
-        logits = model(b["image"], logits=True)
-        if pol.fused_train:
-            loss = weighted_nll(logits, b["label"], b["weight"])
-        else:
-            loss = pixelwise_weighted_nll_from_logits(logits, b["label"],
-                                                      b["weight"])
-        loss.backward()
-        res[name] = (loss.item(), {k: p.grad.float().clone()
-                                   for k, p in model.named_parameters()})
-        del model, logits, loss
-        torch.cuda.empty_cache()
+    res = {name: _loss_grads(sd, pol, b, dev) for name, pol in paths.items()}
     l32, g32 = res["plain_f32"]
     gsc = max(float(g.abs().max()) for g in g32.values())
-
-    def compare(name):
-        loss, grads = res[name]
-        per = {k: float((grads[k] - g32[k]).abs().max()) / gsc for k in g32}
-        worst = max(per, key=per.get)
-        return {"loss": loss, "loss_rel_vs_f32": abs(loss - l32) / abs(l32),
-                "grad_err_vs_f32": per[worst], "worst_param": worst,
-                "grad_err_median_vs_f32": float(np.median(list(per.values())))}
-
-    kern, plain = compare("kernel_bf16"), compare("plain_bf16")
+    ref = {"loss_f32": l32, "grads_f32": g32, "grad_scale": gsc}
+    kern = _vs_f32(*res["kernel_bf16"], ref)
+    plain = _vs_f32(*res["plain_bf16"], ref)
     lk, gk = res["kernel_bf16"]
     lp, gp = res["plain_bf16"]
     kp = max(float((gk[k] - gp[k]).abs().max()) for k in gk) / gsc
@@ -1110,7 +1275,8 @@ def train_parity(dev, card):
                   "loss_rel": abs(lk - lp) / abs(lp), "grad_err": kp},
               "gates": {"loss_rel_vs_f32": loss_gate,
                         "grad_err_vs_f32": grad_gate}}
-    del res, gk, gp, g32
+    ref.update(plain_bf16=plain, gates=result["gates"])
+    del res, gk, gp
     torch.cuda.empty_cache()
 
     # 5 Adam steps on the batch: the loss must fall; steps 2-5 timed
@@ -1119,17 +1285,8 @@ def train_parity(dev, card):
     opt = make_optimizer(model.parameters(), "adam", 1e-3, weight_decay=1e-4)
     step = build_train_step(use_pallas_loss=True, device=dev)
     state = create_train_state(model, opt)
-    losses, times = [], []
     torch.cuda.reset_peak_memory_stats()
-    for i in range(5):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        state, m = step(state, b)
-        end.record()
-        end.synchronize()
-        losses.append(m["loss"])
-        times.append(start.elapsed_time(end))
+    state, losses, times = _adam_steps(step, state, b)
     step_ms = sum(times[1:]) / len(times[1:])
     result.update({"adam_losses": losses, "adam_step_ms": times,
                    "train_step_ms_b16": step_ms,
@@ -1146,6 +1303,75 @@ def train_parity(dev, card):
             f"{grad_gate}")
     require(all(np.isfinite(losses)) and losses[-1] < losses[0],
             f"5 Adam steps did not lower the loss: {losses}")
+    ref["step_ms"] = step_ms
+    return ref
+
+
+DECONV_KERNELS = ("deconv2x_kernel", "conv_s2k4_kernel", "deconv_dw_kernel")
+
+
+def train_deconv(dev, card, ref):
+    """train_parity's batch and weights through the train step with
+    Policy.fused_train_deconv: loss and gradients against the plain
+    paths ``ref`` holds, under train_parity's gates; then 5 Adam steps
+    with exact launch counts (the main path of this configuration,
+    counted from 0 just before them). Returns those launches."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from ubresnet_tpu_torch import ops
+    from ubresnet_tpu_torch.core.precision import Policy
+    from ubresnet_tpu_torch.deploy.weights import random_state_dict
+    from ubresnet_tpu_torch.models import get_model
+    from ubresnet_tpu_torch.train import (
+        build_train_step,
+        create_train_state,
+        make_optimizer,
+    )
+
+    sd = random_state_dict(seed=0)
+    b = {k: torch.from_numpy(v).to(dev)
+         for k, v in _train_batch(7).items()}
+    pol = dataclasses.replace(Policy(), fused_train_deconv=True)
+    kern = _vs_f32(*_loss_grads(sd, pol, b, dev), ref)
+    model = get_model("uresnet", sd, policy=pol, device=dev, train=True)
+    require(sum(getattr(m, "ad", False) for m in model.modules()) == 2,
+            "fused_train_deconv routes other than dec2 and dec1")
+    opt = make_optimizer(model.parameters(), "adam", 1e-3, weight_decay=1e-4)
+    step = build_train_step(use_pallas_loss=True, device=dev)
+    state = create_train_state(model, opt)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    state, losses, times = _adam_steps(step, state, b)
+    launches = ops.launch_counts()
+    want = {k: 5 * LAUNCHES_PER_DECONV_STEP.get(k, 0) for k in launches}
+    step_ms = sum(times[1:]) / len(times[1:])
+    gates = ref["gates"]
+    result = {"phase": "train_deconv", "card": card, "batch": BATCH_MAIN,
+              "hw": list(HW), "kernel_bf16_deconv_ad": kern,
+              "plain_bf16": ref["plain_bf16"], "gates": gates,
+              "launches": launches, "launches_want": want,
+              "adam_losses": losses, "adam_step_ms": times,
+              "train_step_ms_b16": step_ms,
+              "train_step_ms_b16_default_zone": ref["step_ms"],
+              "train_crops_per_s_b16": BATCH_MAIN / step_ms * 1e3,
+              "train_peak_mem_gib":
+                  torch.cuda.max_memory_allocated() / 2 ** 30,
+              "step_profile": step_profile(step, state, b, step_ms,
+                                           detail=DECONV_KERNELS)}
+    emit(result)
+    require(kern["loss_rel_vs_f32"] <= gates["loss_rel_vs_f32"],
+            f"deconv-AD path loss {kern['loss_rel_vs_f32']} from f32 > "
+            f"{gates['loss_rel_vs_f32']}")
+    require(kern["grad_err_vs_f32"] <= gates["grad_err_vs_f32"],
+            f"deconv-AD path grads {kern['grad_err_vs_f32']} from f32 > "
+            f"{gates['grad_err_vs_f32']}")
+    require(launches == want, f"deconv-AD launch counts {launches} != {want}")
+    require(all(np.isfinite(losses)) and losses[-1] < losses[0],
+            f"5 Adam steps did not lower the loss: {losses}")
+    return launches
 
 
 def train_path(dev, card, work):
@@ -1224,6 +1450,92 @@ def train_path(dev, card, work):
     return launches
 
 
+def qat_path(dev, card, work):
+    """int8 QAT through the training CLI (--set model.qat=true) on the
+    train phase's 64 events: 4 iterations and one validation, exact
+    launch counts, finite losses, a final .tar that scores; then the
+    int8 ladder tool at 512², reported. Returns the CLI's launches."""
+    import numpy as np
+    import torch
+
+    from ubresnet_tpu_torch import ops
+    from ubresnet_tpu_torch.cli.train import main as train_cli
+    from ubresnet_tpu_torch.deploy.weights import load_reference_checkpoint
+    from ubresnet_tpu_torch.models import get_model
+    from ubresnet_tpu_torch.tools import int8_ladder
+
+    data = os.path.join(work, "train.uevt")  # written by train_path
+    ckpt = os.path.join(work, "qat_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    cfg = {"model": {"precision": "bf16"},
+           "optim": {"name": "adam", "lr": 1e-4},
+           "train_data": {"files": [data], "batch_size": BATCH_MAIN},
+           "valid_data": {"files": [data], "batch_size": BATCH_MAIN},
+           "num_iters": QAT_ITERS, "print_every": 1,
+           "valid_every": QAT_ITERS, "valid_batches": 1,
+           "checkpoint_every": QAT_ITERS, "checkpoint_dir": ckpt, "seed": 2}
+    cfg_path = os.path.join(work, "qat.json")
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f)
+    printed = io.StringIO()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.time()
+    with contextlib.redirect_stdout(printed):
+        rc = train_cli(["--config", cfg_path, "--set", "model.qat=true",
+                        "--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = ops.launch_counts()
+    out = printed.getvalue()
+    summary = json.loads(out[out.rfind("\n{\n") + 1:])
+    losses = [float(line.split()[3]) for line in out.splitlines()
+              if line.startswith("iter ")]
+    want = {k: (LAUNCHES_PER_TRAIN_STEP.get(k, 0) * QAT_ITERS
+                + LAUNCHES_PER_QAT_VALID.get(k, 0)) for k in launches}
+    final = summary.get("final_checkpoint")
+    sums_dev = None
+    if final and os.path.exists(final):
+        sd, _ = load_reference_checkpoint(final)
+        crop = _train_batch(11)["image"][:1]
+        with torch.inference_mode():
+            lp = get_model("uresnet", sd, device=dev)(
+                torch.from_numpy(crop).to(dev))
+        sums_dev = float((lp.exp().sum(-1) - 1).abs().max())
+    step_s = summary.get("meters", {}).get("time/step")
+    result = {"phase": "qat", "card": card, "events": EVENTS,
+              "batch": BATCH_MAIN, "hw": list(HW), "iters": QAT_ITERS,
+              "rc": rc, "cli_wall_s": wall, "losses": losses,
+              "final_iter": summary.get("final_iter"),
+              "launches": launches, "launches_want": want,
+              "host_step_ms_mean": step_s * 1e3 if step_s else None,
+              "meters": summary.get("meters"),
+              "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+              "final_tar_prob_sum_max_dev": sums_dev}
+    emit(result)
+    require(rc == 0 and "error" not in summary,
+            f"QAT train CLI failed:\n{out}")
+    require(summary["final_iter"] == QAT_ITERS,
+            f"final_iter {summary['final_iter']}")
+    require(len(losses) == QAT_ITERS and np.isfinite(losses).all(),
+            f"losses {losses}")
+    require(launches == want, f"QAT launch counts {launches} != {want}")
+    require(sums_dev is not None and sums_dev <= 1e-2,
+            f"final .tar scores: probability sums off by {sums_dev}")
+
+    printed = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(printed):
+        rc = int8_ladder.main([str(LADDER_STEPS), "--device", "cuda"])
+    torch.cuda.synchronize()
+    lines = printed.getvalue().strip().splitlines()
+    require(rc == 0 and len(lines) == 1, f"int8 ladder printed {lines}")
+    emit({"phase": "int8_ladder", "card": card, "seconds": time.time() - t0,
+          "train_batch": int8_ladder.TRAIN_BATCH,
+          "result_not_gated": json.loads(lines[0])})
+    return launches
+
+
 def main():
     import torch
 
@@ -1251,12 +1563,20 @@ def main():
     rows = check_kernels(kernel_rows(dev))
     rows += check_kernels(int8_kernel_rows(dev, rows))
     rows += check_kernels(train_kernel_rows(dev))
+    rows += check_kernels(deconv_ad_rows(dev))
     emit(train_zone_per_step(rows))
+    emit(train_zone_per_step(rows, "per_step_ad", LAUNCHES_PER_DECONV_STEP,
+                             "train_deconv_per_step"))
     torch.cuda.empty_cache()
     launches = {"precropped": main_path(dev, card, work)}
-    train_parity(dev, card)
+    ref = train_parity(dev, card)
+    torch.cuda.empty_cache()
+    launches["train_deconv"] = train_deconv(dev, card, ref)
+    del ref
     torch.cuda.empty_cache()
     launches["train"] = train_path(dev, card, work)
+    torch.cuda.empty_cache()
+    launches["qat"] = qat_path(dev, card, work)
     torch.cuda.empty_cache()
     launches["int8"] = int8_path(dev, card, work)
     line = kernels_line(rows, launches)

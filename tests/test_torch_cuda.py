@@ -6,9 +6,9 @@ Marked ``cuda``: each test skips without an NVIDIA card. On the card:
     python -m pytest tests/test_torch_cuda.py -m cuda -q
 Tolerance: one bf16 rounding step of the output, ≤ 1e-2·max|plain|
 (f32 sums in another order); the max pool is exact. The train kernels'
-f32 outputs (K5's sums, K6's dW, K7) are sums in another order: within
-1e-4·max|plain| (K5's sums are over the bf16 y, which may round one step
-apart, hence 1e-3 for them)."""
+f32 outputs (K5's sums, K6's and K9's dW, K7) are sums in another order:
+within 1e-4·max|plain| (K5's sums are over the bf16 y, which may round
+one step apart, hence 1e-3 for them)."""
 import numpy as np
 import pytest
 import torch
@@ -210,7 +210,7 @@ def test_model_on_the_card(dev):
                       "maxpool3x3s2": 1, "conv_stats": 0, "conv_dw": 0,
                       "weighted_nll": 0, "weighted_nll_bwd": 0,
                       "conv_bn_act_s8": 0, "basic_block_s8": 0,
-                      "deconv2x_s8": 0}
+                      "deconv2x_s8": 0, "conv_s2k4": 0, "deconv_dw": 0}
     assert torch.isfinite(lp).all()
     torch.testing.assert_close(lp.exp().sum(-1),
                                torch.ones(2, 64, 64, device=dev))
@@ -302,6 +302,67 @@ def test_train_step_on_the_card(dev):
         "conv_bn_act": 18, "basic_block": 0, "deconv2x": 0,
         "maxpool3x3s2": 1, "conv_stats": 16, "conv_dw": 17,
         "weighted_nll": 1, "weighted_nll_bwd": 1, "conv_bn_act_s8": 0,
-        "basic_block_s8": 0, "deconv2x_s8": 0}
+        "basic_block_s8": 0, "deconv2x_s8": 0, "conv_s2k4": 0,
+        "deconv_dw": 0}
     assert np.isfinite(m["loss"]) and m["nan_skipped"] == 0
     assert not torch.equal(model.conv10.weight, w0)
+
+
+@pytest.mark.parametrize("hw", HW)
+@pytest.mark.parametrize("shape", sorted(deconv.S2K4_SHAPES))
+def test_conv_s2k4_kernel(dev, hw, shape):
+    """K8 at every compiled (ci, co), ragged dx tiles at both edges."""
+    ci, co = shape
+    dy = _rand(dev, 2, 2 * hw[0], 2 * hw[1], co, scale=0.1)
+    w = _rand(dev, 4, 4, ci, co, scale=0.1)
+    _close(deconv.conv_s2k4(dy, w), deconv.conv_s2k4_plain(dy, w))
+
+
+@pytest.mark.parametrize("hw", HW)
+@pytest.mark.parametrize("shape", sorted(deconv.DW_SHAPES))
+def test_deconv_dw_kernel(dev, hw, shape):
+    """K9 at every compiled (ci, co): f32 dW, the same bits twice."""
+    ci, co = shape
+    x = _rand(dev, 2, *hw, ci, relu=True)
+    dy = _rand(dev, 2, 2 * hw[0], 2 * hw[1], co, scale=0.1)
+    got = deconv.deconv_dw(x, dy)
+    _close_f32(got, deconv.deconv_dw_plain(x, dy), 1e-4)
+    assert torch.equal(got, deconv.deconv_dw(x, dy))
+
+
+def test_deconv_ad_train_step_on_the_card(dev):
+    """One bf16 step with fused_train_deconv: the zone's table plus K3
+    2, K8 2, K9 2, a finite loss, and the dec1 upsample's weight
+    moved."""
+    import dataclasses
+
+    from ubresnet_tpu_torch.core.precision import Policy
+    from ubresnet_tpu_torch.deploy.weights import random_state_dict
+    from ubresnet_tpu_torch.models import get_model
+    from ubresnet_tpu_torch.train import (
+        build_train_step,
+        create_train_state,
+        make_optimizer,
+    )
+
+    pol = dataclasses.replace(Policy(), fused_train_deconv=True)
+    model = get_model("uresnet", random_state_dict(seed=2), policy=pol,
+                      device=dev, train=True)
+    opt = make_optimizer(model.parameters(), "adam", 1e-3)
+    rng = np.random.RandomState(0)
+    batch = {"image": (rng.rand(2, 64, 64, 1) * 10).astype(np.float32),
+             "label": rng.randint(0, 3, (2, 64, 64)).astype(np.int32),
+             "weight": np.ones((2, 64, 64), np.float32)}
+    w0 = model.dec_layer1.deconv.weight.detach().clone()
+    ops.reset_launch_counts()
+    _, m = build_train_step(use_pallas_loss=True, device=dev)(
+        create_train_state(model, opt), batch)
+    counts = ops.launch_counts()
+    assert counts == {
+        "conv_bn_act": 18, "basic_block": 0, "deconv2x": 2,
+        "maxpool3x3s2": 1, "conv_stats": 16, "conv_dw": 17,
+        "weighted_nll": 1, "weighted_nll_bwd": 1, "conv_bn_act_s8": 0,
+        "basic_block_s8": 0, "deconv2x_s8": 0, "conv_s2k4": 2,
+        "deconv_dw": 2}
+    assert np.isfinite(m["loss"]) and m["nan_skipped"] == 0
+    assert not torch.equal(model.dec_layer1.deconv.weight, w0)

@@ -51,6 +51,27 @@ def test_int8_modules_pull_in_no_jax(module):
     assert proc.stdout.strip() == "[]", proc.stdout
 
 
+@pytest.mark.parametrize("module", ["ubresnet_tpu_torch.tools.int8_ladder",
+                                    "ubresnet_tpu_torch.tools.profile_train"])
+def test_tools_pull_in_no_jax_and_no_bench(module):
+    """The port's tools keep their own copies of what the JAX tools take
+    from the repo-root bench.py: importing one (a fresh process) brings
+    in neither jax, the JAX package nor bench, and no source line of
+    the tools imports bench."""
+    code = (f"import sys, {module}\n"
+            "print(sorted(n for n in sys.modules if n in ('jax', 'bench')\n"
+            "             or n.startswith(('jax.', 'jaxlib', 'flax'))\n"
+            "             or n == 'ubresnet_tpu'\n"
+            "             or n.startswith('ubresnet_tpu.')))\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, cwd=ROOT, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]", proc.stdout
+    pat = re.compile(r"^\s*(import bench\b|from bench\b)")
+    src = (PORT / "tools" / (module.rsplit(".", 1)[1] + ".py")).read_text()
+    assert not any(pat.search(line) for line in src.splitlines())
+
+
 def test_sources_name_no_jax():
     files = [p for p in PORT.rglob("*") if p.suffix in (".py", ".cu", ".cuh")]
     files.append(ROOT / "chip_smoke.py")
@@ -110,7 +131,9 @@ def test_kernel_shapes_have_one_table():
                         ("basic_block", block.SHAPES),
                         ("deconv2x", deconv.SHAPES),
                         ("conv_stats", train_conv.SHAPES),
-                        ("conv_dw", conv.DW_SHAPES)):
+                        ("conv_dw", conv.DW_SHAPES),
+                        ("conv_s2k4", deconv.S2K4_SHAPES),
+                        ("deconv_dw", deconv.DW_SHAPES)):
         macro = f"UBR_{name.upper()}_SHAPES"
         assert table is _build.SHAPES[name]
         line = next(ln for ln in header.splitlines() if macro + "(X)" in ln)
@@ -121,6 +144,8 @@ def test_kernel_shapes_have_one_table():
     assert len(train_conv.SHAPES) == 9 and len(conv.DW_SHAPES) == 10
     assert all(train_conv.supports(*s) for s in train_conv.SHAPES)
     assert conv.ad_supports(16, 3, 7) and (4, 16, 7) in conv.SHAPES
+    assert all(deconv.ad_supports(*s) for s in deconv.SHAPES)
+    assert deconv.S2K4_SHAPES == deconv.DW_SHAPES == {(64, 32), (32, 16)}
 
 
 @pytest.mark.parametrize("entry", ["Trainer", "build_train_step",

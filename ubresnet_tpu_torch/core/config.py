@@ -11,7 +11,7 @@ configs keep working, and any dataclass config round-trips to/from the
 PSet text form.
 
 Keys the port does not run yet raise in the trainer (train/trainer.py):
-model_axis > 1, remat, model.remat, model.qat. ``native`` is read and
+model_axis > 1, remat, model.remat. ``native`` is read and
 the Python loader runs, as the JAX trainer does without its C++ build.
 """
 from __future__ import annotations

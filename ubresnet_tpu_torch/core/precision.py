@@ -30,7 +30,14 @@ class Policy:
                    fused_eval: the JAX package keeps its Pallas train
                    zone off on the TPU only for layout copies at the
                    XLA/Pallas seams (docs/roofline.md), which the card
-                   does not have.
+                   does not have. Per b16 step at the flagship width:
+                   K5 x16, K1 x18, K6 x17, K4 x1, K7 1 + 1.
+    fused_train_deconv: the train-mode decoder upsamples (dec2, dec1)
+                   at exact 2x run ops/deconv.py:deconv2x_ad — K3
+                   forward, K8 input and K9 weight gradient (per step
+                   2 each) — instead of F.conv_transpose2d under
+                   autograd. Off by default, as in the JAX package;
+                   independent of fused_train, as there.
     quant_eval:    int8 post-training quantization (ops/quant.py) of
                    the eval model's int8 zone — the JAX package's packed
                    zone: stem, enc1, dec2, dec1 and the head conv10.
@@ -40,14 +47,27 @@ class Policy:
     quant_percentile: calibration statistic — 0 records the abs-max of
                    each conv input, P > 0 the P-th percentile of its
                    nonzero |x| (ops/quant.py:calib_batch_range).
+    quant_train:   int8 QAT (ops/quant.py:fake_quant_act and
+                   fake_quant_weight, straight-through gradients,
+                   dynamic per-batch activation scales) at the JAX
+                   package's QAT points — the inputs and kernels of
+                   the packed zone's convs (stem, enc1, dec2, dec1,
+                   head; the classifier's kernel only) and the dec2 and
+                   dec1 deconvs' input and kernel — in train AND eval
+                   passes while set. The percentile of its activation
+                   grid is ``quant_percentile``. The zone exists at
+                   depth 5 for input widths that are a multiple of 16;
+                   elsewhere the models raise.
     """
 
     compute_dtype: torch.dtype = torch.bfloat16
     output_dtype: torch.dtype = torch.float32
     fused_eval: bool = True
     fused_train: bool = True
+    fused_train_deconv: bool = False
     quant_eval: bool = False
     quant_percentile: float = 0.0
+    quant_train: bool = False
 
     @staticmethod
     def f32() -> "Policy":

@@ -25,6 +25,15 @@ Reference semantics kept (common_layers.py via the JAX package):
 BasicBlock applies ReLU to the residual branch before the add and again
 after it; BN eps is 1e-5; the decoder concat order is [up, skip].
 
+QAT (``policy.quant_train``, ops/quant.py): a module built with
+``qat=True`` is in the JAX package's packed zone and fake-quantizes its
+input and kernel per call (the classifier its kernel only), as JAX's
+eval passes do while QAT trains; its BN stays apart from the
+fake-quantized kernel (K1's epilogue, or a compute-dtype affine after
+the F.conv2d), and a BasicBlock leaves K2 for per-conv F.conv2d with
+cb2's input fake-quantized in between (JAX keeps QAT off its
+whole-block kernel for that reason).
+
 int8 (``policy.quant_eval``, ops/quant.py): a module built with
 ``quant=True`` belongs to the int8 zone — the JAX package's packed zone
 (stem, enc1, dec2, dec1, head). It keeps its raw conv weight (the BN is
@@ -41,6 +50,7 @@ W-packing factor its input has there).
 """
 from __future__ import annotations
 
+import dataclasses
 import re
 from typing import Dict, Optional, Tuple
 
@@ -129,7 +139,7 @@ class ConvBN(nn.Module):
 
     def __init__(self, sd: StateDict, conv_key: str, bn_key: Optional[str],
                  *, act: bool = True, policy: Policy = Policy(), device=None,
-                 quant: bool = False, qpack: int = 1):
+                 quant: bool = False, qpack: int = 1, qat: bool = False):
         super().__init__()
         device = resolve_device(device)
         w = sd[f"{conv_key}.weight"].float()  # OIHW
@@ -139,6 +149,11 @@ class ConvBN(nn.Module):
         self.pad, self.act, self.cdt = k // 2, act, cdt
         self.qname, self.qpack, self.observer = jax_name(conv_key), qpack, None
         self.quant = quant and policy.quant_eval
+        # QAT: the input is fake-quantized where a BN follows (a ConvBN),
+        # the kernel always
+        self.qat = qat and policy.quant_train and not self.quant
+        self.qat_input = self.qat and bn_key is not None
+        self.pct = policy.quant_percentile
         if self.quant:
             if bn_key is None:
                 raise ValueError(f"{conv_key}: an int8 ConvBN needs its BN")
@@ -159,6 +174,15 @@ class ConvBN(nn.Module):
                                sd[f"{bn_key}.running_var"]))
             return
         self.kernel = policy.fused_eval and conv_ops.supports(ci, co, k)
+        if self.qat:
+            wq = quant_ops.fake_quant_weight(w.permute(2, 3, 1, 0))
+            if self.kernel:
+                self.register_buffer("w", wq.to(device, cdt).contiguous())
+                self.register_buffer("g", g.to(device))
+                self.register_buffer("b", b.to(device))
+            else:
+                self._qat_plain(sd, conv_key, bn_key, wq, device, cdt)
+            return
         if self.kernel:
             self.register_buffer(
                 "w", w.permute(2, 3, 1, 0).to(device, cdt).contiguous())
@@ -168,6 +192,23 @@ class ConvBN(nn.Module):
             self.register_buffer("w", (w * g.view(-1, 1, 1, 1)).to(
                 device, cdt).contiguous(memory_format=torch.channels_last))
             self.register_buffer("b", b.to(device, cdt))
+
+    def _qat_plain(self, sd, conv_key, bn_key, wq, device, cdt) -> None:
+        """The F.conv2d route under QAT: the fake-quantized kernel and
+        the conv bias, then the BN as its own affine in the compute
+        dtype (JAX's PackedConv then PackedBN)."""
+        self.register_buffer("w", wq.permute(3, 2, 0, 1).to(device, cdt)
+                             .contiguous(memory_format=torch.channels_last))
+        cbias = sd.get(f"{conv_key}.bias")
+        self.register_buffer("cbias", None if cbias is None
+                             else cbias.float().to(device, cdt))
+        self.register_buffer("gbn", None)
+        self.register_buffer("bbn", None)
+        if bn_key is not None:
+            g, b = fold_bn(sd[f"{bn_key}.weight"], sd[f"{bn_key}.bias"],
+                           sd[f"{bn_key}.running_mean"],
+                           sd[f"{bn_key}.running_var"])
+            self.gbn, self.bbn = g.to(device, cdt), b.to(device, cdt)
 
     def set_scales(self, scales: Dict[str, torch.Tensor]) -> None:
         """Quantize the kernel and fold the dequant (f32, in JAX's
@@ -209,10 +250,17 @@ class ConvBN(nn.Module):
             self.observer(self.qname, x, self.qpack)
         if self.quant:
             return self._forward_int8(x)
+        if self.qat_input:
+            x = quant_ops.fake_quant_act(x, self.pct, self.qpack)
         if self.kernel:
             return conv_ops.conv_bn_act(x, self.w, self.g, self.b,
                                         act=self.act)
-        y = F.conv2d(_nchw(x), self.w, self.b, padding=self.pad)
+        if self.qat:
+            y = F.conv2d(_nchw(x), self.w, self.cbias, padding=self.pad)
+            if self.gbn is not None:
+                y = y * self.gbn.view(1, -1, 1, 1) + self.bbn.view(1, -1, 1, 1)
+        else:
+            y = F.conv2d(_nchw(x), self.w, self.b, padding=self.pad)
         if self.act:
             y = torch.relu(y)
         return _nhwc(y)
@@ -232,11 +280,15 @@ class BasicBlock(nn.Module):
     requantized on chip on cb2's grid s_mid, the identity bypass
     dequantized as sx1·xq. The port has no per-conv int8 route for a
     block: an int8-zone block whose shape K2-s8 is not compiled for
-    raises at construction."""
+    raises at construction.
+
+    Under QAT (``qat``) the block runs per conv: ConvBNs cb1, bypass and
+    cb2, each fake-quantizing its own input, never K2."""
 
     def __init__(self, sd: StateDict, pref: str, *, stride: int = 1,
                  dual_split: int = 0, policy: Policy = Policy(),
-                 device=None, quant: bool = False, qpack: int = 1):
+                 device=None, quant: bool = False, qpack: int = 1,
+                 qat: bool = False):
         super().__init__()
         device = resolve_device(device)
         w1 = sd[f"{pref}.conv1.weight"].float()
@@ -251,6 +303,19 @@ class BasicBlock(nn.Module):
         convs = [("1", "conv1", "bn1"), ("2", "conv2", "bn2")]
         if self.proj:
             convs.append(("b", "bypass", "bnpass"))
+        self.qat = qat and policy.quant_train and not self.quant
+        if self.qat:
+            self.kernel = False
+            pol = dataclasses.replace(policy, fused_eval=False)
+            self.cb = nn.ModuleDict({
+                tag: ConvBN(sd, f"{pref}.{ck}", f"{pref}.{bk}",
+                            act=tag != "b", policy=pol, device=device,
+                            qpack=qpack, qat=True)
+                for tag, ck, bk in convs})
+            for tag, name in (("1", "cb1"), ("2", "cb2"), ("b", "bypass")):
+                if tag in self.cb:  # calibration names, as JAX's
+                    self.cb[tag].qname = f"{self.qname}.{name}"
+            return
         if self.quant:
             if not (policy.fused_eval and stride == 1
                     and block_ops.s8_supports(ca, cb, co, self.proj)):
@@ -323,6 +388,11 @@ class BasicBlock(nn.Module):
                 dual: Optional[torch.Tensor] = None) -> torch.Tensor:
         if self.quant:
             return self._forward_int8(x, dual)
+        if self.qat:
+            if dual is not None:
+                x = torch.cat([x, dual], dim=-1)
+            r = self.cb["b"](x) if self.proj else x
+            return torch.relu(self.cb["2"](self.cb["1"](x)) + r)
         if self.kernel:
             if self.proj:
                 return block_ops.basic_block(
@@ -354,9 +424,11 @@ class DoubleResNet(nn.Module):
 
     def __init__(self, sd: StateDict, pref: str, *, stride: int = 1,
                  dual_split: int = 0, policy: Policy = Policy(),
-                 device=None, quant: bool = False, qpack: int = 1):
+                 device=None, quant: bool = False, qpack: int = 1,
+                 qat: bool = False):
         super().__init__()
-        kw = dict(policy=policy, device=device, quant=quant, qpack=qpack)
+        kw = dict(policy=policy, device=device, quant=quant, qpack=qpack,
+                  qat=qat)
         self.res1 = BasicBlock(sd, f"{pref}.res1", stride=stride,
                                dual_split=dual_split, **kw)
         self.res2 = BasicBlock(sd, f"{pref}.res2", **kw)
@@ -373,10 +445,12 @@ class Deconv2x(nn.Module):
     reproduces the JAX package's static padding for every target in
     [2d - 2, 2d + 1] (blocks.py Deconv2x). In the int8 zone: K3-s8 with
     the dequant sx·sw, exact 2x only (a compiled shape is required at
-    construction, an exact 2x target per call)."""
+    construction, an exact 2x target per call). Under QAT the input
+    and the kernel are fake-quantized before either route."""
 
     def __init__(self, sd: StateDict, key: str, *, policy: Policy = Policy(),
-                 device=None, quant: bool = False, qpack: int = 1):
+                 device=None, quant: bool = False, qpack: int = 1,
+                 qat: bool = False):
         super().__init__()
         device = resolve_device(device)
         w = sd[f"{key}.weight"].float()  # IOHW
@@ -384,6 +458,8 @@ class Deconv2x(nn.Module):
         cdt = policy.compute_dtype
         self.qname, self.qpack, self.observer = jax_name(key), qpack, None
         self.quant = quant and policy.quant_eval
+        self.qat = qat and policy.quant_train and not self.quant
+        self.pct = policy.quant_percentile
         if self.quant:
             if not (policy.fused_eval and deconv_ops.s8_supports(ci, co)):
                 raise ValueError(
@@ -394,6 +470,9 @@ class Deconv2x(nn.Module):
             self._qsrc = w.permute(2, 3, 0, 1).contiguous()  # (4, 4, ci, co)
             return
         self.kernel = policy.fused_eval and deconv_ops.supports(ci, co)
+        if self.qat:
+            w = quant_ops.fake_quant_weight(w.permute(2, 3, 0, 1)).permute(
+                2, 3, 0, 1)
         self.register_buffer("w", w.to(device, cdt).contiguous())
         if self.kernel:
             self.register_buffer(
@@ -412,6 +491,8 @@ class Deconv2x(nn.Module):
                 target_hw: Optional[Tuple[int, int]] = None) -> torch.Tensor:
         if self.observer is not None:
             self.observer(self.qname, x, self.qpack)
+        if self.qat:
+            x = quant_ops.fake_quant_act(x, self.pct, self.qpack)
         h, w = x.shape[1], x.shape[2]
         th, tw = target_hw if target_hw is not None else (2 * h, 2 * w)
         if self.quant:
@@ -450,9 +531,11 @@ class DecoderBlock(nn.Module):
     """Deconv 2x upsample → [up, skip] join → DoubleResNet."""
 
     def __init__(self, sd: StateDict, pref: str, *, policy: Policy = Policy(),
-                 device=None, quant: bool = False, qpack: int = 1):
+                 device=None, quant: bool = False, qpack: int = 1,
+                 qat: bool = False):
         super().__init__()
-        kw = dict(policy=policy, device=device, quant=quant, qpack=qpack)
+        kw = dict(policy=policy, device=device, quant=quant, qpack=qpack,
+                  qat=qat)
         self.deconv = Deconv2x(sd, f"{pref}.deconv", **kw)
         c_up = sd[f"{pref}.deconv.weight"].shape[1]
         self.res = DoubleResNet(sd, f"{pref}.res", dual_split=c_up, **kw)
@@ -486,8 +569,19 @@ def stem_pool(x: torch.Tensor, fused: bool, train: bool = False
 # in the train zone when the policy fuses, its stride is 1 and every
 # leg of ops/train_conv.py has a kernel for its (ci, co, k); the
 # classifier when ops/conv.py:ad_supports(ci, co, k). At the flagship
-# width that is enc1, dec2, dec1, conv10 and conv11. Other layers are
-# torch.nn.functional ops under autograd, as they are XLA in JAX.
+# width that is enc1, dec2, dec1, conv10 and conv11. A decoder upsample
+# runs ops/deconv.py:deconv2x_ad (K3 forward, K8 dx, K9 dW) when
+# ``policy.fused_train_deconv`` is set, its target is exactly 2x and
+# deconv.ad_supports(ci, co): dec2 and dec1 at the flagship width.
+# Other layers are torch.nn.functional ops under autograd, as they are
+# XLA in JAX.
+#
+# QAT (``policy.quant_train``): a module built with ``qat=True`` is in
+# the JAX package's packed zone (stem, enc1, dec2, dec1, head and the
+# classifier) and fake-quantizes (ops/quant.py) what JAX's does there:
+# every ConvBN's input and kernel, the classifier's kernel only, the
+# deconv's input and kernel; ``qpack`` is the W-packing factor JAX's
+# tensor has there, which shapes a percentile's subsample.
 
 BN_DECAY = 0.9  # running-average decay (flax momentum; torch's 0.1)
 
@@ -496,10 +590,12 @@ class Conv(nn.Module):
     """A reference Conv2d's parameters — ``weight`` (co, ci, k, k) and
     optional ``bias``, f32 — and its train-mode forward. ``bn``: the
     conv feeds a BatchNorm, so the zone form is K5 with its statistics
-    (``with_stats``); otherwise it is conv_ad + bias (``forward``)."""
+    (``with_stats``, which also fake-quantizes the input under QAT);
+    otherwise it is conv_ad + bias (``forward``)."""
 
     def __init__(self, sd: StateDict, key: str, *, stride: int = 1,
-                 bn: bool = True, policy: Policy = Policy(), device=None):
+                 bn: bool = True, policy: Policy = Policy(), device=None,
+                 qat: bool = False, qpack: int = 1):
         super().__init__()
         device = resolve_device(device)
         w = sd[f"{key}.weight"].float()
@@ -510,24 +606,34 @@ class Conv(nn.Module):
                      if b is not None else None)
         self.stride, self.pad = stride, k // 2
         self.cdt = policy.compute_dtype
+        self.qat = qat and policy.quant_train
+        self.qpack, self.pct = qpack, policy.quant_percentile
         fits = (train_ops.supports(ci, co, k) if bn
                 else conv_ops.ad_supports(ci, co, k))
         self.zone = policy.fused_train and stride == 1 and fits
 
     def _kernel_weight(self) -> torch.Tensor:
-        """(k, k, ci, co) in the compute dtype, under autograd."""
-        return self.weight.permute(2, 3, 1, 0).to(self.cdt)
+        """(k, k, ci, co) in the compute dtype, under autograd
+        (fake-quantized under QAT)."""
+        w = self.weight.permute(2, 3, 1, 0)
+        if self.qat:
+            w = quant_ops.fake_quant_weight(w)
+        return w.to(self.cdt)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.zone:
             y = conv_ops.conv_ad(x, self._kernel_weight())
             return y if self.bias is None else y + self.bias.to(y.dtype)
         b = None if self.bias is None else self.bias.to(self.cdt)
-        return _nhwc(F.conv2d(_nchw(x), self.weight.to(self.cdt), b,
-                              stride=self.stride, padding=self.pad))
+        w = (self._kernel_weight().permute(3, 2, 0, 1) if self.qat
+             else self.weight.to(self.cdt))
+        return _nhwc(F.conv2d(_nchw(x), w, b, stride=self.stride,
+                              padding=self.pad))
 
     def with_stats(self, x: torch.Tensor):
         """(y, (Σy, Σy²)) from K5 in the zone, else (y, None)."""
+        if self.qat:
+            x = quant_ops.fake_quant_act(x, self.pct, self.qpack)
         if self.zone:
             y, s1, s2 = train_ops.train_conv_stats(x, self._kernel_weight(),
                                                    self.bias)
@@ -593,16 +699,18 @@ class TrainBasicBlock(nn.Module):
     input is joined by an explicit concat [x, dual]."""
 
     def __init__(self, sd: StateDict, pref: str, *, stride: int = 1,
-                 policy: Policy = Policy(), device=None):
+                 policy: Policy = Policy(), device=None, qat: bool = False,
+                 qpack: int = 1):
         super().__init__()
         kw = dict(policy=policy, device=device)
-        self.conv1 = Conv(sd, f"{pref}.conv1", stride=stride, **kw)
+        ckw = dict(kw, qat=qat, qpack=qpack)
+        self.conv1 = Conv(sd, f"{pref}.conv1", stride=stride, **ckw)
         self.bn1 = BatchNorm(sd, f"{pref}.bn1", **kw)
-        self.conv2 = Conv(sd, f"{pref}.conv2", **kw)
+        self.conv2 = Conv(sd, f"{pref}.conv2", **ckw)
         self.bn2 = BatchNorm(sd, f"{pref}.bn2", **kw)
         self.bypass = self.bnpass = None
         if f"{pref}.bypass.weight" in sd:
-            self.bypass = Conv(sd, f"{pref}.bypass", stride=stride, **kw)
+            self.bypass = Conv(sd, f"{pref}.bypass", stride=stride, **ckw)
             self.bnpass = BatchNorm(sd, f"{pref}.bnpass", **kw)
 
     def forward(self, x: torch.Tensor,
@@ -621,12 +729,12 @@ class TrainDoubleResNet(nn.Module):
     the dual input)."""
 
     def __init__(self, sd: StateDict, pref: str, *, stride: int = 1,
-                 policy: Policy = Policy(), device=None):
+                 policy: Policy = Policy(), device=None, qat: bool = False,
+                 qpack: int = 1):
         super().__init__()
-        self.res1 = TrainBasicBlock(sd, f"{pref}.res1", stride=stride,
-                                    policy=policy, device=device)
-        self.res2 = TrainBasicBlock(sd, f"{pref}.res2", policy=policy,
-                                    device=device)
+        kw = dict(policy=policy, device=device, qat=qat, qpack=qpack)
+        self.res1 = TrainBasicBlock(sd, f"{pref}.res1", stride=stride, **kw)
+        self.res2 = TrainBasicBlock(sd, f"{pref}.res2", **kw)
 
     def forward(self, x, dual=None):
         return self.res2(self.res1(x, dual))
@@ -634,32 +742,47 @@ class TrainDoubleResNet(nn.Module):
 
 class TrainDeconv2x(nn.Module):
     """Train-mode ConvTranspose2d(k=4, s=2, p=1, no bias): ``weight``
-    (ci, co, 4, 4) f32, run as F.conv_transpose2d under autograd (XLA
-    in JAX's train configuration too)."""
+    (ci, co, 4, 4) f32. ``ad`` (policy.fused_train_deconv and every leg
+    compiled for (ci, co)): an exact 2x target runs deconv2x_ad (K3, K8,
+    K9, dW rounded to the compute dtype as in JAX); otherwise
+    F.conv_transpose2d under autograd (XLA in JAX). Under QAT the input
+    and the kernel are fake-quantized first, as JAX's packed Deconv2x
+    does before it routes."""
 
     def __init__(self, sd: StateDict, key: str, *, policy: Policy = Policy(),
-                 device=None):
+                 device=None, qat: bool = False, qpack: int = 1):
         super().__init__()
         device = resolve_device(device)
         self.weight = nn.Parameter(sd[f"{key}.weight"].float().to(device)
                                    .clone())
+        ci, co = self.weight.shape[:2]
         self.cdt = policy.compute_dtype
+        self.ad = policy.fused_train_deconv and deconv_ops.ad_supports(ci, co)
+        self.qat = qat and policy.quant_train
+        self.qpack, self.pct = qpack, policy.quant_percentile
 
     def forward(self, x: torch.Tensor,
                 target_hw: Tuple[int, int]) -> torch.Tensor:
-        return deconv_to(x, self.weight.to(self.cdt), target_hw)
+        w = self.weight
+        if self.qat:
+            x = quant_ops.fake_quant_act(x, self.pct, self.qpack)
+            w = quant_ops.fake_quant_weight(w.permute(2, 3, 0, 1)).permute(
+                2, 3, 0, 1)
+        if self.ad and tuple(target_hw) == (2 * x.shape[1], 2 * x.shape[2]):
+            return deconv_ops.deconv2x_ad(x, w.permute(2, 3, 0, 1)
+                                          .to(self.cdt))
+        return deconv_to(x, w.to(self.cdt), target_hw)
 
 
 class TrainDecoderBlock(nn.Module):
     """Train-mode decoder stage: deconv 2x → [up, skip] → DoubleResNet."""
 
     def __init__(self, sd: StateDict, pref: str, *, policy: Policy = Policy(),
-                 device=None):
+                 device=None, qat: bool = False, qpack: int = 1):
         super().__init__()
-        self.deconv = TrainDeconv2x(sd, f"{pref}.deconv", policy=policy,
-                                    device=device)
-        self.res = TrainDoubleResNet(sd, f"{pref}.res", policy=policy,
-                                     device=device)
+        kw = dict(policy=policy, device=device, qat=qat, qpack=qpack)
+        self.deconv = TrainDeconv2x(sd, f"{pref}.deconv", **kw)
+        self.res = TrainDoubleResNet(sd, f"{pref}.res", **kw)
 
     def forward(self, x, skip):
         up = self.deconv(x, (skip.shape[1], skip.shape[2]))

@@ -14,9 +14,11 @@ its geometry. With the default policy the stem pool, enc1, dec2, dec1,
 the head and the classifier run on the Hopper kernels of ops/ (11
 launches per forward at the flagship width); the rest are
 torch.nn.functional ops. Under ``Policy.int8()`` nine of those eleven
-launches are the int8 kernels (``UResNet`` docstring). It is built on
-the card unless ``device="cpu"`` is passed; with no card and no
-explicit cpu it raises.
+launches are the int8 kernels (``UResNet`` docstring). Under
+``Policy.quant_train`` (QAT) both models fake-quantize the JAX
+package's packed zone (``zone_packs``). It is built on the card unless
+``device="cpu"`` is passed; with no card and no explicit cpu it
+raises.
 """
 from __future__ import annotations
 
@@ -68,6 +70,27 @@ def config_from_state_dict(sd: Dict[str, torch.Tensor]) -> UResNetConfig:
 PACK_MAX = 8  # the JAX package's pack_width (Policy.tpu / tpu_int8)
 
 
+def check_zone(cfg: UResNetConfig, policy: Policy, width: int = None
+               ) -> None:
+    """Raise where the JAX package would run without its packed zone
+    (uresnet.py:68-70), and so silently without the int8 or QAT zone
+    the policy asks for: depth other than 5, or (given) an input width
+    that is no multiple of 2·p_stem."""
+    what = ("int8" if policy.quant_eval else "QAT" if policy.quant_train
+            else None)
+    if what is None:
+        return
+    if cfg.depth != 5:
+        raise ValueError(f"{what}: the JAX package quantizes its packed "
+                         f"zone, which exists at depth 5 (got {cfg.depth})")
+    step = 2 * zone_packs(cfg)["stem"]
+    if width is not None and width % step:
+        raise ValueError(
+            f"{what}: input width {width} is not a multiple of {step}; "
+            f"the JAX package runs such inputs unpacked, without its "
+            f"{what} zone")
+
+
 def zone_packs(cfg: UResNetConfig) -> Dict[str, int]:
     """W-packing factor of each packed-zone stage in the JAX package
     (uresnet.py:63-67,111,123,134): min(8, 128 // channels). The int8
@@ -90,7 +113,12 @@ class UResNet(nn.Module):
     exists at depth 5 — runs int8 (per forward K1-s8 x1, K2-s8 x6, K3-s8
     x2, beside the bf16 K4 pool and K1 classifier) once
     ``set_quant_scales`` has the scales of ``ops.quant.calibrate``; the
-    input width must be a multiple of 2·p_stem (16), as JAX packs it."""
+    input width must be a multiple of 2·p_stem (16), as JAX packs it.
+
+    With ``policy.quant_train`` (QAT, the validation model of a QAT
+    run) the same zone plus the classifier's kernel is fake-quantized
+    per call; its blocks run per conv, so a forward launches K4 x1, K3
+    x2 and K1 x2 (head, classifier) under fused_eval, no K2."""
 
     def __init__(self, state_dict: Dict[str, torch.Tensor],
                  policy: Policy = Policy(), device=None):
@@ -100,28 +128,26 @@ class UResNet(nn.Module):
         self.policy = policy
         self.device = resolve_device(device)
         self._sd = sd  # the source weights, for calibration_model()
+        check_zone(cfg, policy)
         q = policy.quant_eval
-        if q and cfg.depth != 5:
-            raise ValueError("int8: the JAX package quantizes its packed "
-                             f"zone, which exists at depth 5 (got "
-                             f"{cfg.depth})")
         packs = zone_packs(cfg)
         kw = dict(policy=policy, device=self.device)
+        # the packed zone: int8 (quant) or QAT (qat) as the policy asks
         self.conv1 = ConvBN(sd, "conv1", "bn1", quant=q, qpack=packs["stem"],
-                            **kw)
+                            qat=True, **kw)
         self.enc = nn.ModuleList(
             DoubleResNet(sd, f"enc_layer{i}", stride=1 if i == 1 else 2,
-                         quant=q and i == 1,
+                         quant=q and i == 1, qat=i == 1,
                          qpack=packs["enc1"] if i == 1 else 1, **kw)
             for i in range(1, cfg.depth + 1))
         # dec[0] is dec_layer{depth}, the deepest, which runs first
         self.dec = nn.ModuleList(
             DecoderBlock(sd, f"dec_layer{i}", quant=q and i <= 2,
-                         qpack=packs.get(f"dec{i}", 1), **kw)
+                         qat=i <= 2, qpack=packs.get(f"dec{i}", 1), **kw)
             for i in range(cfg.depth, 0, -1))
         self.conv10 = ConvBN(sd, "conv10", "bn10", quant=q,
-                             qpack=packs["head"], **kw)
-        self.conv11 = ConvBN(sd, "conv11", None, act=False, **kw)
+                             qpack=packs["head"], qat=True, **kw)
+        self.conv11 = ConvBN(sd, "conv11", None, act=False, qat=True, **kw)
 
     def packed_zone(self, width: int) -> bool:
         """Whether the JAX package runs its packed (and int8) zone for
@@ -153,11 +179,7 @@ class UResNet(nn.Module):
 
     def forward(self, x: torch.Tensor, logits: bool = False) -> torch.Tensor:
         pol = self.policy
-        if pol.quant_eval and not self.packed_zone(x.shape[2]):
-            raise ValueError(
-                f"int8: input width {x.shape[2]} is not a multiple of "
-                f"{2 * zone_packs(self.config)['stem']}; the JAX package "
-                "runs such inputs unpacked, without its int8 zone")
+        check_zone(self.config, pol, x.shape[2])
         x0 = self.conv1(x.to(pol.compute_dtype).contiguous())
         y = stem_pool(x0, fused=pol.fused_eval)
         skips = [x0]
@@ -183,7 +205,12 @@ class TrainUResNet(nn.Module):
     With ``policy.fused_train`` the train zone — the stem pool, enc1,
     dec2, dec1, conv10 and conv11 at the flagship width — runs on the
     Hopper kernels forward and backward (per step: K5 x16, K1 x18, K6
-    x17, K4 x1); the rest are torch.nn.functional ops under autograd.
+    x17, K4 x1); with ``policy.fused_train_deconv`` the dec2 and dec1
+    upsamples too (K3 x2 forward, K8 x2 dx, K9 x2 dW); the rest are
+    torch.nn.functional ops under autograd. With ``policy.quant_train``
+    (QAT) the JAX package's packed zone — stem, enc1, dec2, dec1, head,
+    the classifier's kernel — is fake-quantized; it needs depth 5 and
+    input widths that are a multiple of 16, and raises otherwise.
     Input (b, h, w, c) NHWC; output (b, h, w, num_classes) logits (or
     log-probabilities) in ``policy.output_dtype``."""
 
@@ -191,25 +218,30 @@ class TrainUResNet(nn.Module):
                  policy: Policy = Policy(), device=None):
         super().__init__()
         sd = {k: v.detach().cpu() for k, v in state_dict.items()}
-        self.config = config_from_state_dict(sd)
+        self.config = cfg = config_from_state_dict(sd)
         self.policy = policy
+        check_zone(cfg, policy)
+        packs = zone_packs(cfg)
         kw = dict(policy=policy, device=resolve_device(device))
-        self.conv1 = Conv(sd, "conv1", **kw)
+        self.conv1 = Conv(sd, "conv1", qat=True, qpack=packs["stem"], **kw)
         self.bn1 = BatchNorm(sd, "bn1", **kw)
-        depth = self.config.depth
+        depth = cfg.depth
         for i in range(1, depth + 1):
             self.add_module(f"enc_layer{i}", TrainDoubleResNet(
-                sd, f"enc_layer{i}", stride=1 if i == 1 else 2, **kw))
+                sd, f"enc_layer{i}", stride=1 if i == 1 else 2, qat=i == 1,
+                qpack=packs["enc1"] if i == 1 else 1, **kw))
         for i in range(depth, 0, -1):
-            self.add_module(f"dec_layer{i}",
-                            TrainDecoderBlock(sd, f"dec_layer{i}", **kw))
-        self.conv10 = Conv(sd, "conv10", **kw)
+            self.add_module(f"dec_layer{i}", TrainDecoderBlock(
+                sd, f"dec_layer{i}", qat=i <= 2,
+                qpack=packs.get(f"dec{i}", 1), **kw))
+        self.conv10 = Conv(sd, "conv10", qat=True, qpack=packs["head"], **kw)
         self.bn10 = BatchNorm(sd, "bn10", **kw)
-        self.conv11 = Conv(sd, "conv11", bn=False, **kw)
+        self.conv11 = Conv(sd, "conv11", bn=False, qat=True, **kw)
 
     def forward(self, x: torch.Tensor, logits: bool = False) -> torch.Tensor:
         pol = self.policy
         depth = self.config.depth
+        check_zone(self.config, pol, x.shape[2])
         x0 = conv_bn(self.conv1, self.bn1,
                      x.to(pol.compute_dtype).contiguous(), act=True)
         y = stem_pool(x0, fused=pol.fused_train, train=True)

@@ -4,6 +4,9 @@ Eval: K1 conv.conv_bn_act, K2 block.basic_block, K3 deconv.deconv2x,
 K4 pool.maxpool3x3s2. Train: K5 train_conv.conv_stats, K6
 conv.conv_dw, K7 loss.weighted_nll_fwd / weighted_nll_bwd; K1 also
 runs the train zone's input gradients and K4 the stem pool's forward.
+Train with Policy.fused_train_deconv: K3 runs the decoder upsamples
+forward, K8 deconv.conv_s2k4 their input and K9 deconv.deconv_dw their
+weight gradients (deconv.deconv2x_ad).
 int8 deploy: K1-s8 conv.conv_bn_act_s8, K2-s8 block.basic_block_s8,
 K3-s8 deconv.deconv2x_s8 (PTQ pieces in quant). Each wrapper counts
 its launches in ``<wrapper>.launches``.
@@ -17,7 +20,12 @@ from ubresnet_tpu_torch.ops.conv import (  # noqa: F401
     conv_bn_act_s8,
     conv_dw,
 )
-from ubresnet_tpu_torch.ops.deconv import deconv2x, deconv2x_s8  # noqa: F401
+from ubresnet_tpu_torch.ops.deconv import (  # noqa: F401
+    conv_s2k4,
+    deconv2x,
+    deconv2x_s8,
+    deconv_dw,
+)
 from ubresnet_tpu_torch.ops.loss import (  # noqa: F401
     weighted_nll_bwd,
     weighted_nll_fwd,
@@ -37,6 +45,8 @@ KERNELS = {
     "conv_bn_act_s8": conv_bn_act_s8,
     "basic_block_s8": basic_block_s8,
     "deconv2x_s8": deconv2x_s8,
+    "conv_s2k4": conv_s2k4,
+    "deconv_dw": deconv_dw,
 }
 
 

@@ -15,6 +15,10 @@ objects, the ``.cu`` entry points instantiate and dispatch from those
 lists, and the wrappers' ``supports()`` / ``s8_supports()`` gates read
 the same table.
 
+The deconv's backward (K8 ``ubr_conv_s2k4``, K9 ``ubr_deconv_dw``)
+takes the deconv's own (ci, co) and its input-side H, W; dy is
+(B, 2H, 2W, co).
+
 The int8 entry points (K1-s8, K2-s8, K3-s8: ``ubr_conv_bn_act_s8``,
 ``ubr_basic_block_s8``, ``ubr_deconv2x_s8``) take int8 activations and
 int8 weights in the same layouts and argument order as their bf16
@@ -73,6 +77,11 @@ SIGNATURES = {
     "ubr_basic_block_s8": [_P] * 12 + [_I] * 7 + [_P],
     # xq, wq, g, out | B, H, W, ci, co, out_f32
     "ubr_deconv2x_s8": [_P] * 4 + [_I] * 6 + [_P],
+    # the deconv's backward (H, W: the deconv's input side)
+    # dy, w, dx | B, H, W, ci, co
+    "ubr_conv_s2k4": [_P] * 3 + [_I] * 5 + [_P],
+    # x, dy, partials, dw | B, H, W, ci, co, blocks
+    "ubr_deconv_dw": [_P] * 4 + [_I] * 6 + [_P],
 }
 
 # The train zone's convolutions (stride 1, flagship width), as
@@ -111,6 +120,10 @@ SHAPES = {
     # (ca, cb, co, projection); cb == 0 is the single-stream block
     "basic_block": _BLOCKS,
     "deconv2x": _DECONVS,
+    # (ci, co) of the deconv: its input gradient (K8) and weight
+    # gradient (K9) under Policy.fused_train_deconv
+    "conv_s2k4": _DECONVS,
+    "deconv_dw": _DECONVS,
     # int8 deploy (Policy.int8): the head conv10 on K1-s8 (the 1-channel
     # stem is an exact plain-torch integer conv, as XLA in JAX; the
     # classifier stays bf16 K1), the same blocks on K2-s8, the same

@@ -1,5 +1,7 @@
 """K3 — ConvTranspose2d(k=4, stride=2, padding=1, bias=False) at
-exactly 2x.
+exactly 2x; K8 and K9 — its input and weight gradients; and
+``deconv2x_ad``, the differentiable deconv of the train configuration
+``Policy.fused_train_deconv``.
 
 Replaces ubresnet_tpu/ops/pallas_conv.py:fused_packed_deconv2x
 (_deconv_kernel); in the UResNet it runs the dec2 and dec1 upsamples.
@@ -10,6 +12,21 @@ of the 16 taps' weights sit in shared memory next to the input tile.
 K3-s8 (``deconv2x_s8``) replaces the quantized=True mode of
 fused_packed_deconv2x: s8 x s8 → s32, out = f32(acc)·g with g = sx·sw.
 Kernel: ops/csrc/deconv2x_s8.cu — K3's parity blocks with __dp4a.
+
+K8 (``conv_s2k4``) replaces fused_conv_s2k4 (_s2k4_kernel): the
+stride-2 k4 pad-1 cross-correlation ``dx[i] = Σ_k w[k]·dy[2i + k - 1]``
+(per spatial axis, contracting co) of the deconv's output cotangent
+with its own kernel. Kernel: ops/csrc/conv_s2k4.cu — a 16x16 dx tile
+per block, all 16 taps of the weights in shared memory.
+
+K9 (``deconv_dw``) replaces pallas_deconv_dw (_deconv_dw_kernel):
+``dW[k] = Σ x[i]·dy[2i + k - 1]``. Kernel: ops/csrc/deconv_dw.cu —
+per-block partial dW over a strided share of x tiles, added across
+blocks in a fixed order (two passes, no atomics), as K6.
+
+``deconv2x_ad`` replaces pallas_deconv2x_ad (_deconv_ad_fwd,
+_deconv_ad_bwd): forward K3, dx K8 cast to x's dtype, dW K9 rounded to
+the kernel's dtype.
 
 Weights are (4, 4, ci, co): the reference IOHW checkpoint permuted
 (2, 3, 0, 1), with no spatial flip (torch semantics
@@ -25,6 +42,12 @@ from ubresnet_tpu_torch.ops import _build, quant
 # (ci, co) compiled into the kernel library
 SHAPES = _build.SHAPES["deconv2x"]
 S8_SHAPES = _build.SHAPES["deconv2x_s8"]
+S2K4_SHAPES = _build.SHAPES["conv_s2k4"]
+DW_SHAPES = _build.SHAPES["deconv_dw"]
+# blocks of the weight-gradient kernel (one per SM of an H100: its
+# shared memory and registers hold one block per SM): each walks a
+# strided share of the 8x16 x tiles and leaves one row of partial dW
+DW_MAX_BLOCKS = 132
 
 
 def supports(ci: int, co: int) -> bool:
@@ -33,6 +56,13 @@ def supports(ci: int, co: int) -> bool:
 
 def s8_supports(ci: int, co: int) -> bool:
     return (ci, co) in S8_SHAPES
+
+
+def ad_supports(ci: int, co: int) -> bool:
+    """deconv2x_ad has a kernel on every leg: K3 forward, K8 input
+    gradient, K9 weight gradient."""
+    return (supports(ci, co) and (ci, co) in S2K4_SHAPES
+            and (ci, co) in DW_SHAPES)
 
 
 def deconv2x_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -98,3 +128,105 @@ def deconv2x_s8(xq: torch.Tensor, wq: torch.Tensor, g: torch.Tensor, *,
 
 
 deconv2x_s8.launches = 0
+
+
+def conv_s2k4_plain(dy: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K8: one f32 ``F.conv2d`` of dy with w
+    viewed as OIHW (O = ci, I = co), stride 2, padding 1; output in
+    ``dy.dtype`` (NHWC)."""
+    y = F.conv2d(dy.float().permute(0, 3, 1, 2),
+                 w.float().permute(2, 3, 0, 1), stride=2, padding=1)
+    return y.permute(0, 2, 3, 1).to(dy.dtype).contiguous()
+
+
+def _aligned(t: torch.Tensor, name: str) -> None:
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def conv_s2k4(dy: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Input gradient of the 2x deconv with kernel ``w`` (4, 4, ci, co)
+    at output cotangent ``dy`` (B, 2H, 2W, co) → (B, H, W, ci). CPU
+    tensors take the plain version; CUDA tensors (bf16) launch K8."""
+    if dy.device.type == "cpu":
+        return conv_s2k4_plain(dy, w)
+    bsz, h2, w2, co = dy.shape
+    ci = w.shape[2]
+    if h2 % 2 or w2 % 2:
+        raise ValueError(f"conv_s2k4: dy spatial {(h2, w2)} is not even")
+    if (ci, co) not in S2K4_SHAPES:
+        raise ValueError(f"conv_s2k4 kernel has no (ci, co) = {(ci, co)}; "
+                         f"compiled: {sorted(S2K4_SHAPES)}")
+    dev = dy.device
+    h, wd = h2 // 2, w2 // 2
+    _build.check(dy, "dy", torch.bfloat16, (bsz, h2, w2, co), dev)
+    _build.check(w, "w", torch.bfloat16, (4, 4, ci, co), dev)
+    _aligned(w, "w")
+    out = torch.empty((bsz, h, wd, ci), dtype=dy.dtype, device=dev)
+    _build.launch("ubr_conv_s2k4", [dy, w, out], [bsz, h, wd, ci, co], dev)
+    conv_s2k4.launches += 1
+    return out
+
+
+conv_s2k4.launches = 0
+
+
+def deconv_dw_plain(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K9: f32 weight gradient, (4, 4, ci, co)
+    — the gradient of the stride-2 conv dy → x with respect to its
+    (ci, co, 4, 4) kernel."""
+    dw = torch.nn.grad.conv2d_weight(
+        dy.float().permute(0, 3, 1, 2), (x.shape[-1], dy.shape[-1], 4, 4),
+        x.float().permute(0, 3, 1, 2), stride=2, padding=1)
+    return dw.permute(2, 3, 0, 1).contiguous()
+
+
+def deconv_dw(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    """Weight gradient of the 2x deconv: x (B, H, W, ci) its input, dy
+    (B, 2H, 2W, co) its output cotangent → (4, 4, ci, co) f32. CPU
+    tensors take the plain version; CUDA tensors (bf16) launch K9."""
+    if x.device.type == "cpu":
+        return deconv_dw_plain(x, dy)
+    bsz, h, wd, ci = x.shape
+    co = dy.shape[-1]
+    if (ci, co) not in DW_SHAPES:
+        raise ValueError(f"deconv_dw kernel has no (ci, co) = {(ci, co)}; "
+                         f"compiled: {sorted(DW_SHAPES)}")
+    dev = x.device
+    _build.check(x, "x", torch.bfloat16, (bsz, h, wd, ci), dev)
+    _build.check(dy, "dy", torch.bfloat16, (bsz, 2 * h, 2 * wd, co), dev)
+    tiles = bsz * -(-h // 8) * -(-wd // 16)
+    blocks = min(tiles, DW_MAX_BLOCKS)
+    part = torch.empty((blocks, 16 * ci * co), dtype=torch.float32,
+                       device=dev)
+    dw = torch.empty((4, 4, ci, co), dtype=torch.float32, device=dev)
+    _build.launch("ubr_deconv_dw", [x, dy, part, dw],
+                  [bsz, h, wd, ci, co, blocks], dev)
+    deconv_dw.launches += 1
+    return dw
+
+
+deconv_dw.launches = 0
+
+
+class _Deconv2xAD(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w):
+        x, w = x.contiguous(), w.contiguous()
+        ctx.save_for_backward(x, w)
+        return deconv2x(x, w)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dy = dy.to(x.dtype).contiguous()
+        dx = conv_s2k4(dy, w.to(dy.dtype)).to(x.dtype)
+        dw = deconv_dw(x, dy).to(w.dtype)
+        return dx, dw
+
+
+def deconv2x_ad(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Differentiable exact-2x ConvTranspose2d(k=4, s=2, p=1): x
+    (B, H, W, ci), w (4, 4, ci, co) → (B, 2H, 2W, co) in x's dtype;
+    dW is rounded to w's dtype, as the JAX package's custom VJP."""
+    return _Deconv2xAD.apply(x, w)

@@ -1,7 +1,9 @@
 """int8 post-training quantization (counterpart of
 ubresnet_tpu/ops/quant.py): symmetric per-output-channel weight scales,
 scalar activation scales calibrated on a few eval batches, and the
-exact integer convolutions of the plain int8 routes.
+exact integer convolutions of the plain int8 routes; and the QAT
+fake-quantizers (``fake_quant_weight``, ``fake_quant_act``) that
+``Policy.quant_train`` puts at the same layers' inputs and kernels.
 
 Numerics follow the JAX package operation for operation, in float32:
 rounding is half to even (``torch.round``, as ``jnp.round`` and CUDA's
@@ -77,7 +79,9 @@ def calib_batch_range(x: torch.Tensor, percentile: float = 0.0
     n = vals.numel()
     if n == 0:
         return torch.zeros((), dtype=torch.float32, device=x.device)
-    # jnp.nanpercentile, method 'linear', in float32
+    # jnp.nanpercentile, method 'linear', in float32, as XLA compiles it
+    # inside a jitted caller: q / 100 folded exactly, the interpolation
+    # lo·lw + hi·hw as one FMA over the rounded lo·lw
     q = torch.tensor(percentile, dtype=torch.float32) / 100.0
     q = q * (torch.tensor(float(n), dtype=torch.float32) - 1.0)
     low, high = torch.floor(q), torch.ceil(q)
@@ -85,7 +89,7 @@ def calib_batch_range(x: torch.Tensor, percentile: float = 0.0
     lw = 1.0 - hw
     lo = vals[int(min(max(low.item(), 0), n - 1))]
     hi = vals[int(min(max(high.item(), 0), n - 1))]
-    return lo * lw.to(lo.device) + hi * hw.to(hi.device)
+    return fma(hi, hw.to(hi.device), lo * lw.to(lo.device))
 
 
 def weight_scales(w: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
@@ -104,6 +108,48 @@ def quantize_act(x: torch.Tensor, sx: torch.Tensor) -> torch.Tensor:
     scale (clips to ±127)."""
     y = x.float() / sx
     return y.clamp_(-INT8_MAX, INT8_MAX).round_().to(torch.int8)
+
+
+# The QAT fake-quantizers follow the JAX package's functions as its
+# models run them, under jit, where XLA compiles every ``/ 127`` as a
+# multiply by the rounded reciprocal: bit for bit.
+INV_INT8_MAX = 1.0 / INT8_MAX
+
+
+def _inv127(t: torch.Tensor) -> torch.Tensor:
+    return t * torch.tensor(INV_INT8_MAX, dtype=torch.float32,
+                            device=t.device)
+
+
+def fake_quant_weight(w: torch.Tensor) -> torch.Tensor:
+    """QAT fake-quantization of a (kh, kw, ci, co) kernel: round to the
+    per-output-channel int8 grid and dequantize, in float32, with an
+    identity straight-through gradient (the scales track the live
+    weights, so nothing clips); output in ``w.dtype``."""
+    wf = w.float()
+    sw = _inv127(torch.clamp_min(wf.detach().abs().amax(dim=(0, 1, 2)),
+                                 1e-12))
+    wq = torch.round(wf / sw) * sw
+    return (wf + (wq - wf).detach()).to(w.dtype)
+
+
+def fake_quant_act(x: torch.Tensor, percentile: float = 0.0,
+                   pack: int = 1) -> torch.Tensor:
+    """QAT fake-quantization of an activation with a dynamic per-batch
+    scale s = range / 127 (``calib_batch_range`` of ``packed_view(x,
+    pack)``, the shape JAX's packed ConvBN sees, detached): clip to
+    [-lim, lim] with lim = s·127 through a where — gradient exactly 1
+    inside, ties at the bound included, 0 outside —, round to the grid,
+    dequantize, straight through. An all-zero batch (s = 0) passes
+    unchanged. float32 math, output in ``x.dtype``."""
+    xf = x.float()
+    s = _inv127(calib_batch_range(packed_view(xf.detach(), pack),
+                                  percentile))
+    lim = s * INT8_MAX
+    xc = torch.where(xf.abs() <= lim, xf, torch.sign(xf) * lim)
+    xq = torch.round(xc / torch.clamp_min(s, 1e-12)) * s
+    y = xc + (xq - xc).detach()
+    return torch.where(s > 0, y, xf).to(x.dtype)
 
 
 def fma(a: torch.Tensor, g: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

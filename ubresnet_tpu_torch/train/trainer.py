@@ -11,12 +11,15 @@ non-finite loss or gradients (train/step.py), and the run aborts once
 more than ``max_nan_recoveries`` steps were skipped.
 
 The model starts from deploy/weights.py:random_state_dict(seed), the
-reference initialisation. Runs on the card unless ``device="cpu"``.
-Not in the port yet, and refused: model_axis > 1 (and multi-process
-runs), remat / model.remat, model.qat.
+reference initialisation. ``model.qat`` (and ``model.qat_percentile``)
+set the policy's int8 QAT (``quant_train``, ``quant_percentile``), as
+the JAX trainer does; validation then runs fake-quantized too. Runs
+on the card unless ``device="cpu"``. Not in the port yet, and refused:
+model_axis > 1 (and multi-process runs), remat / model.remat.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import os
 import sys
@@ -84,9 +87,6 @@ def _refuse_unported(cfg: TrainConfig) -> None:
             "model_axis > 1: multi-device training is not in the port yet")
     if cfg.remat or cfg.model.remat:
         raise NotImplementedError("remat is not in the port yet")
-    if cfg.model.qat:
-        raise NotImplementedError("model.qat (int8 QAT) is not in the port "
-                                  "yet")
     if cfg.model.name != "uresnet":
         raise NotImplementedError(f"model '{cfg.model.name}' is not in the "
                                   "port yet (uresnet is)")
@@ -98,6 +98,10 @@ class Trainer:
         self.cfg = cfg
         self.device = resolve_device(device)
         policy = Policy.f32() if cfg.model.precision == "f32" else Policy()
+        if cfg.model.qat:  # ubresnet_tpu/train/trainer.py:104-117
+            policy = dataclasses.replace(
+                policy, quant_train=True,
+                quant_percentile=cfg.model.qat_percentile)
         if cfg.model.precision == "f32" and self.device.type == "cuda":
             strict_f32()
         self.policy = policy

@@ -8,7 +8,8 @@ Phases, each printing JSON lines; any failure exits non-zero:
 1. device  — the card's name and power limit (nvidia-smi); no card,
              no run: without CUDA the script exits 1 before anything.
 2. build   — nvcc builds the twelve Hopper kernels from
-             ubresnet_tpu_torch/ops/csrc for sm_90a.
+             ubresnet_tpu_torch/ops/csrc for sm_90a (-Xptxas -v): every
+             kernel's registers, spills and static shared memory.
 3. kernels — every kernel-zone layer of the flagship UResNet at its
              main-path shape and batch (16): the kernel against its plain
              PyTorch version on the same bf16 inputs, the kernel's, the
@@ -31,6 +32,14 @@ Phases, each printing JSON lines; any failure exits non-zero:
              K1), K9 (f32 dW ≤ 1e-3·max|plain|, as K6) and deconv2x_ad
              forward + backward against F.conv_transpose2d's f32
              autograd (y, dx and the bf16 dW each ≤ 1e-2·max|plain|).
+             Each row also gives pct_of_bound (bound_ms / ms) and
+             vs_library (ms / library_ms). K2 and K3 are bf16
+             tensor-core kernels (mma.sync m16n8k16, f32 accumulators)
+             in a persistent grid: each block stages its
+             layer's weights in shared memory once and walks 16x16 tiles,
+             the next tile's input arriving by double-buffered cp.async;
+             K2 keeps m (with its halo) on chip, K3 computes all four
+             output parity classes of a tile from one read of its input.
 4. main    — 64 synthetic 512x512 crops scored file → file through the
              port's CLI (-b 16, cuda) with seeded random weights in a
              reference-format .tar; every event must carry 3 score
@@ -38,7 +47,9 @@ Phases, each printing JSON lines; any failure exits non-zero:
              11-launches-per-batch share, and the kernel path must
              agree with the plain f32 path (TF32 off) on the argmax of
              the 16 crops of the timed forward for ≥ 99% of pixels.
-             Also forward-only crops/s and a second, warm CLI run.
+             Also forward-only crops/s, the stage breakdown and a
+             torch.profiler view of the b16 forward (device busy and idle
+             shares, largest kernels), and a second, warm CLI run.
 5. train_parity — one seeded 512² batch of 16, the same weights: the
              train kernel path (bf16), the plain path (bf16, fused_train
              off) and the f32 plain path (TF32 off): loss and every
@@ -721,6 +732,14 @@ def int8_kernel_rows(dev, eval_rows):
     return rows
 
 
+def _ratios(r):
+    """pct_of_bound = bound_ms / ms; vs_library = ms / library_ms (None
+    without a library call): the same call's measurements."""
+    lib = r["library_ms"]
+    return {"pct_of_bound": r["bound_ms"] / r["ms"],
+            "vs_library": None if lib is None else r["ms"] / lib}
+
+
 def check_kernels(rows):
     import torch
 
@@ -749,6 +768,7 @@ def check_kernels(rows):
             "ops_ms": t_ops, "per_step": r["per_step"],
             "per_step_ad": r["per_step_ad"],
         }
+        row.update(_ratios(row))
         emit(row)
         require(err <= tol, f"{r['layer']}: kernel disagrees with its plain "
                             f"version: max abs err {err} > {tol}")
@@ -801,6 +821,7 @@ def kernels_line(rows, launches_by_path):
             "library_ms": None if None in lib else sum(lib),
             "layers": [r["layer"] for r in mine],
         })
+        out[-1].update(_ratios(out[-1]))
     return {"kernels": out}
 
 
@@ -918,6 +939,7 @@ def main_path(dev, card, work):
     with torch.inference_mode():
         fwd_ms = time_ms(lambda: model(x), budget_ms=1000.0)
         stages = stage_breakdown(model, x)
+        profile = forward_profile(lambda: model(x), fwd_ms)
         fused = model(x).argmax(-1)
         plain = get_model("uresnet", sd, policy=Policy.f32(), device=dev)
         ref = plain(x).argmax(-1)
@@ -930,7 +952,7 @@ def main_path(dev, card, work):
         "crops_per_s_file_to_file_warm": EVENTS / wall_warm,
         "forward_ms_b16": fwd_ms,
         "crops_per_s_forward_b16": BATCH_MAIN / fwd_ms * 1e3,
-        "stage_ms_b16": stages,
+        "stage_ms_b16": stages, "profile_b16": profile,
         "argmax_agreement_b16_vs_f32": agree, "score_sum_max_dev": worst,
         "launches": launches, "timing": timing, "timing_warm": timing_warm,
         "crops_per_s_runner": EVENTS / timing["total"],
@@ -1554,7 +1576,8 @@ def main():
           "count": torch.cuda.device_count()})
     t0 = time.time()
     lib = _build.build()
-    emit({"phase": "build", "seconds": time.time() - t0, "library": str(lib)})
+    emit({"phase": "build", "seconds": time.time() - t0, "library": str(lib),
+          "ptxas": _build.ptxas_report()})
 
     strict_f32()  # the plain versions are f32 cuDNN convs: no TF32
     dev = torch.device("cuda", 0)

@@ -67,16 +67,7 @@ def test_conv_kernel(dev, hw, shape):
 @pytest.mark.parametrize("hw", HW)
 @pytest.mark.parametrize("shape", sorted(block.SHAPES))
 def test_block_kernel(dev, hw, shape):
-    ca, cb, co, proj = shape
-    cin = ca + cb
-    a = _rand(dev, 2, *hw, ca, relu=True)
-    b = _rand(dev, 2, *hw, cb, relu=True) if cb else None
-    aff = [torch.rand(co, device=dev) + 0.5 if i % 2 == 0
-           else torch.randn(co, device=dev) * 0.1 for i in range(6)]
-    args = (a, b, _rand(dev, 3, 3, cin, co, scale=0.1), aff[0], aff[1],
-            _rand(dev, 3, 3, co, co, scale=0.1), aff[2], aff[3],
-            _rand(dev, cin, co, scale=0.1) if proj else None,
-            aff[4] if proj else None, aff[5] if proj else None)
+    args = _block_args(dev, 2, hw, shape)
     _close(block.basic_block(*args), block.basic_block_plain(*args))
 
 
@@ -87,6 +78,51 @@ def test_deconv_kernel(dev, hw, shape):
     x = _rand(dev, 2, *hw, ci)
     w = _rand(dev, 4, 4, ci, co, scale=0.1)
     _close(deconv.deconv2x(x, w), deconv.deconv2x_plain(x, w))
+
+
+# K2 and K3 walk their tiles in a persistent grid (SMs x blocks per SM):
+# B=4 at 256x200 gives more tiles than the grid holds (and a ragged last
+# tile column), B=1 at 20x37 fewer.
+PERSISTENT = [(4, 256, 200), (1, 20, 37)]
+
+
+def _block_args(dev, bsz, hw, shape):
+    ca, cb, co, proj = shape
+    cin = ca + cb
+    a = _rand(dev, bsz, *hw, ca, relu=True)
+    b = _rand(dev, bsz, *hw, cb, relu=True) if cb else None
+    aff = [torch.rand(co, device=dev) + 0.5 if i % 2 == 0
+           else torch.randn(co, device=dev) * 0.1 for i in range(6)]
+    return (a, b, _rand(dev, 3, 3, cin, co, scale=0.1), aff[0], aff[1],
+            _rand(dev, 3, 3, co, co, scale=0.1), aff[2], aff[3],
+            _rand(dev, cin, co, scale=0.1) if proj else None,
+            aff[4] if proj else None, aff[5] if proj else None)
+
+
+@pytest.mark.parametrize("bhw", PERSISTENT, ids=["B4-256x200", "B1-20x37"])
+@pytest.mark.parametrize("shape", sorted(block.SHAPES))
+def test_block_kernel_persistent(dev, bhw, shape):
+    """K2 at more (and fewer) tiles than its grid: right against the
+    plain version, and two launches give the same bits."""
+    bsz, *hw = bhw
+    args = _block_args(dev, bsz, hw, shape)
+    got = block.basic_block(*args)
+    _close(got, block.basic_block_plain(*args))
+    assert torch.equal(got, block.basic_block(*args))
+
+
+@pytest.mark.parametrize("bhw", PERSISTENT, ids=["B4-256x200", "B1-20x37"])
+@pytest.mark.parametrize("shape", sorted(deconv.SHAPES))
+def test_deconv_kernel_persistent(dev, bhw, shape):
+    """K3 at more (and fewer) tiles than its grid: right against the
+    plain version, and two launches give the same bits."""
+    bsz, *hw = bhw
+    ci, co = shape
+    x = _rand(dev, bsz, *hw, ci)
+    w = _rand(dev, 4, 4, ci, co, scale=0.1)
+    got = deconv.deconv2x(x, w)
+    _close(got, deconv.deconv2x_plain(x, w))
+    assert torch.equal(got, deconv.deconv2x(x, w))
 
 
 def _s8(dev, *shape, lo=-127, hi=128):

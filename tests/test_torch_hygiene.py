@@ -194,3 +194,26 @@ def test_chip_smoke_refuses_without_a_card():
                           timeout=120)
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+def test_ptxas_log_is_read():
+    """The build keeps each source's `nvcc -Xptxas -v` log; the parser
+    takes every entry function's registers, spills and static shared
+    memory from it (chip_smoke.py prints them in its build phase)."""
+    from ubresnet_tpu_torch.ops import _build
+
+    log = (
+        "ptxas info    : 0 bytes gmem\n"
+        "ptxas info    : Compiling entry function '_Z1fv' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _Z1fv\n"
+        "    8 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads\n"
+        "ptxas info    : Used 96 registers, used 1 barriers, 1024 bytes "
+        "smem, 388 bytes cmem[0]\n"
+        "ptxas info    : Compiling entry function '_Z1gv' for 'sm_90a'\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 255 registers, 388 bytes cmem[0]\n")
+    assert _build.parse_ptxas(log) == [
+        {"kernel": "_Z1fv", "stack_bytes": 8, "spill_stores": 8,
+         "spill_loads": 4, "registers": 96, "smem_static": 1024},
+        {"kernel": "_Z1gv", "stack_bytes": 0, "spill_stores": 0,
+         "spill_loads": 0, "registers": 255, "smem_static": 0}]

@@ -28,6 +28,10 @@ reads a float32 residual), 0 bf16. K2-s8 always takes ``gb``/``bb``:
 with the identity bypass (``wb`` NULL) they dequantize the int8 input
 (gb = sx, bb = 0).
 
+Each compile runs with ``-Xptxas -v`` and keeps its log beside its
+object (``<source>.log``); ``ptxas_report`` reads every kernel's
+registers, spills and static shared memory from those logs.
+
 Nothing here runs at import: the first kernel launch builds (or finds
 an up-to-date build, keyed by a hash of the sources) and loads the
 library. A CPU-only host may have no nvcc at all; the CPU path never calls
@@ -38,6 +42,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -195,8 +200,8 @@ def build() -> Path:
     header = out / (SHAPES_HEADER + f".{os.getpid()}.tmp")
     header.write_text(shapes_header())
     os.replace(header, out / SHAPES_HEADER)
-    flags = [ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
-             "-I", str(CSRC), "-I", str(out)]
+    flags = [ARCH, "-std=c++17", "-O3", "-Xptxas", "-v", "-Xcompiler",
+             "-fPIC", "-I", str(CSRC), "-I", str(out)]
     procs = []
     for src in _sources():
         obj = out / (src.stem + ".o")
@@ -207,6 +212,7 @@ def build() -> Path:
     errors = []
     for src, _, proc in procs:  # wait for every compile, even on failure
         log, _ = proc.communicate()
+        (out / (src.stem + ".log")).write_text(log)
         if proc.returncode:
             errors.append(f"nvcc failed on {src.name}:\n{log}")
     if errors:
@@ -258,11 +264,78 @@ def launch(name: str, tensors, ints, device: torch.device):
         raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
 
 
+_PTXAS_ENTRY = re.compile(r"Compiling entry function '([^']+)'")
+_PTXAS_SPILL = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads")
+_PTXAS_USED = re.compile(r"Used (\d+) registers")
+_PTXAS_SMEM = re.compile(r"(\d+) bytes smem")
+
+
+def _demangle(names):
+    tool = next((t for t in (shutil.which("cu++filt"),
+                             "/usr/local/cuda/bin/cu++filt",
+                             shutil.which("c++filt"))
+                 if t and os.path.exists(t)), None)
+    if tool is None:
+        return list(names)
+    run = subprocess.run([tool], input="\n".join(names), text=True,
+                         capture_output=True)
+    lines = run.stdout.splitlines()
+    return lines if run.returncode == 0 and len(lines) == len(names) \
+        else list(names)
+
+
+def parse_ptxas(log: str) -> list:
+    """[{kernel (mangled), registers, spill_stores, spill_loads,
+    stack_bytes, smem_static}] from one ``nvcc -Xptxas -v`` log."""
+    out = []
+    for line in log.splitlines():
+        m = _PTXAS_ENTRY.search(line)
+        if m:
+            out.append({"kernel": m.group(1)})
+            continue
+        if not out:
+            continue
+        m = _PTXAS_SPILL.search(line)
+        if m:
+            out[-1].update(stack_bytes=int(m.group(1)),
+                           spill_stores=int(m.group(2)),
+                           spill_loads=int(m.group(3)))
+        m = _PTXAS_USED.search(line)
+        if m:
+            out[-1]["registers"] = int(m.group(1))
+            s = _PTXAS_SMEM.search(line)
+            out[-1]["smem_static"] = int(s.group(1)) if s else 0
+    return out
+
+
+def ptxas_report() -> list:
+    """Every kernel's ptxas figures from the build's compile logs, with
+    its source and demangled name."""
+    rows = []
+    for src in _sources():
+        log = build_dir() / (src.stem + ".log")
+        if log.exists():
+            rows += [{"source": src.name, **r}
+                     for r in parse_ptxas(log.read_text())]
+    for r, name in zip(rows, _demangle([r["kernel"] for r in rows])):
+        cut = name.find(">(")  # the template, not the argument list
+        r["kernel"] = name[:cut + 1] if cut >= 0 else name
+    return rows
+
+
 def out_f32(dtype) -> int:
     """The int8 entry points' ``out_f32`` flag for an output dtype."""
     if dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"int8 kernels write bfloat16 or float32, not {dtype}")
     return int(dtype == torch.float32)
+
+
+def check_aligned(t, name: str) -> None:
+    """Raise unless ``t``'s data starts on a 16-byte boundary (the
+    tensor-core kernels copy activations in 16-byte chunks)."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned")
 
 
 def check(t, name: str, dtype, shape, device) -> None:

@@ -10,10 +10,12 @@ affine (gb, bb), or the identity when ``wb`` is None.
 
 Replaces ubresnet_tpu/ops/pallas_conv.py:fused_basic_block
 (_block_kernel) and fused_dual_block (_dual_block_kernel). Kernel:
-ops/csrc/basic_block.cu — m for the output tile plus a one-pixel halo
-is recomputed per tile and stays in shared memory; at the image border
-m is zero (conv2's own padding), inside it the halo is real conv1
-output.
+ops/csrc/basic_block.cu — bf16 tensor-core implicit GEMMs (mma.sync)
+over 16x16 output tiles in a persistent grid whose blocks hold the
+weights in shared memory and stream x tiles in with double-buffered
+cp.async; m for the output tile plus a one-pixel halo is recomputed per
+tile and stays in shared memory; at the image border m is zero (conv2's
+own padding), inside it the halo is real conv1 output.
 
 Weights: w1 (3, 3, ca+cb, co), w2 (3, 3, co, co), wb (ca+cb, co) —
 JAX kernel layouts; the first ``ca`` input channels read stream a.
@@ -104,6 +106,9 @@ def basic_block(a: torch.Tensor, b: Optional[torch.Tensor],
         _build.check(wb, "wb", bf, (ca + cb, co), dev)
         _build.check(gb, "gb", f32, (co,), dev)
         _build.check(bb, "bb", f32, (co,), dev)
+    _build.check_aligned(a, "a")
+    if b is not None:
+        _build.check_aligned(b, "b")
     out = torch.empty((bsz, h, wd, co), dtype=a.dtype, device=dev)
     _build.launch(
         "ubr_basic_block",

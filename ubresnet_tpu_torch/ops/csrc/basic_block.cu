@@ -16,63 +16,147 @@
 // rounds it; outside the image m is zero (conv2's own 'same' padding),
 // not relu(bn1(conv1(padding))).
 //
-// Bound on the H100: operations (two 3x3 convs of 32 channels per 128
-// bytes moved). Design (first, simple form): one block computes an
-// 8x16 output tile with 256 threads; the input tile with a two-pixel
-// halo and m are bf16 in shared memory with an odd-word pixel stride
-// (conflict-free per-thread reads), the weights are f32 in shared
-// memory read as warp-wide 16-byte broadcasts, and each thread
-// accumulates 16 output channels of one pixel in registers with f32
-// FMAs. Tensor cores are the next step, not this one.
-#include "common.cuh"
+// Bound on the H100 (b16, bf16 tensor cores at 989 TFLOP/s, 3.35 TB/s):
+// bytes, except enc1.res1 (16 -> 32 channels at 256^2), which sits at
+// the ops/bytes ridge: 30.1 GFLOP (0.0304 ms) against 101 MB (0.0301
+// ms). The dec1 blocks (512^2, 16 channels) move the most bytes: 403 MB
+// (res1) and 268 MB (res2), 0.120 and 0.080 ms.
+//
+// Design (tensor cores): conv1, conv2 and the 1x1 bypass are implicit
+// GEMMs (M = pixels of the tile, N = co, K = taps x channels, tap-major)
+// on bf16 mma.sync m16n8k16 with f32 accumulators.
+// - Tiles of 16x16 output pixels (m 18x18, x 20x20): conv1 recomputes
+//   1.27x of m for the halo and x is read 1.56x, against 1.41x and 1.88x
+//   for the first form's 8x16 tiles.
+// - Weights once per block: a persistent grid (SMs x blocks per SM)
+//   walks tiles t = blockIdx.x + k * gridDim.x. Each block lays w1, w2
+//   and wb out once as bf16 B fragments in shared memory (59 KB at
+//   dec2.res1) — the first form converted them to f32 for every 8x16
+//   tile, 0.49 GB of weight reads per layer.
+// - Double-buffered cp.async: the next tile's 20x20 x tile (both streams
+//   in dual mode, zero-filled outside the image) arrives while this one
+//   runs conv1, conv2 and the epilogue.
+// - ldmatrix A fragments straight from the pixel-major x and m tiles,
+//   each lane giving its pixel's chunk at the tap's offset; chunks are
+//   swizzled (tensor_core.cuh) against bank conflicts.
+// - Work split: conv1's 21 M-tiles of 16 m pixels over 8 warps (up to 3
+//   a warp, sharing each B fragment); conv2 and the bypass take two
+//   output rows a warp, so no thread idles at co = 16 (the first form
+//   left half the block idle in conv2 there). conv1's accumulators go
+//   through BN1 + ReLU, are rounded to bf16 and stored to the m tile
+//   (zero outside the image); the bypass has its own accumulators, added
+//   after BN2 + ReLU; the identity bypass is read from the x tile.
+// - The output is staged in the m tile once conv2 is done with it and
+//   written as whole rows with 16-byte coalesced stores.
+// Shared memory per shape (weights + 2 x tiles + m tile + affines):
+// enc1.res1 28 + 25 + 20.3 KB = 74 KB; enc1.res2 / dec2.res2 36 + 50 +
+// 20.3 = 107 KB; dec2.res1 58 + 100 + 20.3 = 179 KB; dec1.res1 14.5 + 50
+// + 10.1 = 75 KB; dec1.res2 9 + 25 + 10.1 = 44.5 KB.
+#include "tensor_core.cuh"
 #include "ubr_shapes.h"  // UBR_BASIC_BLOCK_SHAPES (ops/_build.py:SHAPES)
 
 namespace {
 
-constexpr int TH = 8, TW = 16, NT = 256, G = 16;  // G: channels a thread
-constexpr int XH = TH + 4, XW = TW + 4;           // input tile, 2-px halo
-constexpr int MH = TH + 2, MW = TW + 2;           // intermediate, 1-px halo
+constexpr int TH = 16, TW = 16;
+constexpr int MH = TH + 2, MW = TW + 2;  // m: one-pixel halo
+constexpr int XH = TH + 4, XW = TW + 4;  // x: two-pixel halo
+constexpr int NWARP = 8, NT = 32 * NWARP;
+constexpr int MT1 = (MH * MW + 15) / 16;       // conv1 M-tiles (21)
+constexpr int J1 = (MT1 + NWARP - 1) / NWARP;  // conv1 M-tiles a warp
+constexpr int J2 = TH / NWARP;                 // output rows a warp
 
 template <int CA, int CB, int CO, bool PROJ>
 struct BlockShape {
   static constexpr int CIN = CA + CB;
-  static constexpr int CINP = CIN + 2;  // bf16 pixel strides: odd words
-  static constexpr int COP = CO + 2;
-  static constexpr int W1 = 9 * CIN * CO, W2 = 9 * CO * CO;
-  static constexpr int WB = PROJ ? CIN * CO : 0;
-  static constexpr int PRM = 6 * CO;  // g1 b1 g2 b2 gb bb
-  static constexpr int F32 = W1 + W2 + WB + PRM;
-  static constexpr int XS = XH * XW * CINP, MS = MH * MW * COP;
-  static constexpr int SMEM = F32 * 4 + (XS + MS) * 2;
+  static constexpr int NCI = CIN / 8, NCO = CO / 8;  // 16-byte chunks/pixel
+  static constexpr int NQ = CO / 16;                 // n-tile pairs
+  static constexpr int W1_UNITS = 9 * CIN * CO / 8;  // uint4 of B fragments
+  static constexpr int W2_UNITS = 9 * CO * CO / 8;
+  static constexpr int WB_UNITS = PROJ ? CIN * CO / 8 : 0;
+  static constexpr int PRM = 6 * CO;  // g1 b1 g2 b2 gb bb (f32)
+  static constexpr int X_ELEMS = XH * XW * CIN, M_ELEMS = MH * MW * CO;
+  static constexpr int SMEM = (W1_UNITS + W2_UNITS + WB_UNITS) * 16 +
+                              PRM * 4 + (2 * X_ELEMS + M_ELEMS) * 2;
+  static_assert(TH * TW * CO <= M_ELEMS, "output staging fits the m tile");
+  static_assert(PROJ || CIN == CO, "identity bypass needs ci == co");
 };
 
+template <int NQ, int J>
+__device__ __forceinline__ void zero(float (&acc)[J][2 * NQ][4]) {
+#pragma unroll
+  for (int j = 0; j < J; ++j)
+#pragma unroll
+    for (int nt = 0; nt < 2 * NQ; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[j][nt][i] = 0.f;
+}
+
+// acc[j] += A_j · B over TAPS x KC k-steps: lane's A row of M-tile j
+// is tile pixel pix[j] shifted by the tap (dy, dx) = (tap / 3, tap % 3)
+// in a tile of row pitch PW, chunk 2 kc + half; B fragments wf
+// (stage_b layout). M-tiles with on[j] false are skipped.
+template <int NC, int KC, int TAPS, int NQ, int J, int PW>
+__device__ __forceinline__ void gemm(float (&acc)[J][2 * NQ][4],
+                                     uint32_t tile, const uint4* wf,
+                                     const int (&pix)[J], const bool (&on)[J],
+                                     int lane) {
+  const int ah = tc::a_half(lane);
+#pragma unroll
+  for (int tap = 0; tap < TAPS; ++tap) {
+    const int shift = TAPS == 1 ? 0 : (tap / 3) * PW + tap % 3;
+    uint32_t off[J];
+#pragma unroll
+    for (int j = 0; j < J; ++j) off[j] = tc::a_off<NC>(pix[j] + shift, ah);
+#pragma unroll
+    for (int kc = 0; kc < KC; ++kc) {
+      uint4 bq[NQ];
+#pragma unroll
+      for (int q = 0; q < NQ; ++q)
+        bq[q] = wf[((tap * KC + kc) * NQ + q) * 32 + lane];
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        if (!on[j]) continue;
+        uint32_t a[4];
+        tc::ldsm_x4(tile + (off[j] ^ (kc << 5)), a);
+#pragma unroll
+        for (int q = 0; q < NQ; ++q) {
+          tc::mma(acc[j][2 * q], a, bq[q].x, bq[q].y);
+          tc::mma(acc[j][2 * q + 1], a, bq[q].z, bq[q].w);
+        }
+      }
+    }
+  }
+}
+
 template <int CA, int CB, int CO, bool PROJ>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(
+    NT, (tc::blocks_per_sm<BlockShape<CA, CB, CO, PROJ>::SMEM, 2>()))
 basic_block_kernel(const bf16* __restrict__ a, const bf16* __restrict__ bsrc,
                    const bf16* __restrict__ w1, const float* __restrict__ g1,
                    const float* __restrict__ b1, const bf16* __restrict__ w2,
                    const float* __restrict__ g2, const float* __restrict__ b2,
                    const bf16* __restrict__ wb, const float* __restrict__ gb,
                    const float* __restrict__ bb, bf16* __restrict__ out,
-                   int H, int W) {
+                   int B, int H, int W) {
   using S = BlockShape<CA, CB, CO, PROJ>;
-  constexpr int CIN = S::CIN, NG = CO / G;
-  extern __shared__ float4 smem4[];
-  float* w1s = reinterpret_cast<float*>(smem4);
-  float* w2s = w1s + S::W1;
-  float* wbs = w2s + S::W2;
-  float* prm = wbs + S::WB;
+  constexpr int CIN = S::CIN, NCI = S::NCI, NCO = S::NCO, NQ = S::NQ;
+  extern __shared__ uint4 smem[];
+  uint4* w1f = smem;
+  uint4* w2f = w1f + S::W1_UNITS;
+  uint4* wbf = w2f + S::W2_UNITS;
+  float* prm = reinterpret_cast<float*>(wbf + S::WB_UNITS);
   bf16* xs = reinterpret_cast<bf16*>(prm + S::PRM);
-  bf16* ms = xs + S::XS;
+  bf16* ms = xs + 2 * S::X_ELEMS;
 
-  const int tid = threadIdx.x;
-  const int n = blockIdx.z;
-  const int oh0 = blockIdx.y * TH, ow0 = blockIdx.x * TW;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, q4 = lane & 3, ar = tc::a_row(lane);
+  const int tiles_x = (W + TW - 1) / TW, tiles_y = (H + TH - 1) / TH;
+  const int per_img = tiles_x * tiles_y, ntiles = B * per_img;
 
-  for (int e = tid; e < S::W1; e += NT) w1s[e] = __bfloat162float(w1[e]);
-  for (int e = tid; e < S::W2; e += NT) w2s[e] = __bfloat162float(w2[e]);
-  if (PROJ)
-    for (int e = tid; e < S::WB; e += NT) wbs[e] = __bfloat162float(wb[e]);
+  tc::stage_b<9 * CIN, CO>(w1f, [&](int k) { return w1 + k * CO; }, tid, NT);
+  tc::stage_b<9 * CO, CO>(w2f, [&](int k) { return w2 + k * CO; }, tid, NT);
+  if constexpr (PROJ)
+    tc::stage_b<CIN, CO>(wbf, [&](int k) { return wb + k * CO; }, tid, NT);
   for (int e = tid; e < CO; e += NT) {
     prm[e] = g1[e];
     prm[CO + e] = b1[e];
@@ -81,133 +165,141 @@ basic_block_kernel(const bf16* __restrict__ a, const bf16* __restrict__ bsrc,
     prm[4 * CO + e] = PROJ ? gb[e] : 0.f;
     prm[5 * CO + e] = PROJ ? bb[e] : 0.f;
   }
-  // input tile [a | b] with a two-pixel halo, zero outside the image
-  for (int e = tid; e < XH * XW * (CIN / 2); e += NT) {
-    const int c = 2 * (e % (CIN / 2)), pix = e / (CIN / 2);
-    const int ih = oh0 - 2 + pix / XW, iw = ow0 - 2 + pix % XW;
-    bf162 v = __floats2bfloat162_rn(0.f, 0.f);
-    if (ih >= 0 && ih < H && iw >= 0 && iw < W) {
-      const long p = ((long)n * H + ih) * W + iw;
-      v = c < CA ? *reinterpret_cast<const bf162*>(a + p * CA + c)
-                 : *reinterpret_cast<const bf162*>(bsrc + p * CB + c - CA);
-    }
-    *reinterpret_cast<bf162*>(xs + pix * S::CINP + c) = v;
-  }
-  __syncthreads();
 
-  // conv1 + BN1 + ReLU over the tile and its one-pixel halo -> ms (bf16)
-  for (int it = tid; it < NG * MH * MW; it += NT) {
-    const int grp = it / (MH * MW), pos = it % (MH * MW);
-    const int my = pos / MW, mx = pos % MW;
-    const int ih = oh0 - 1 + my, iw = ow0 - 1 + mx;
-    bf16* mp = ms + pos * S::COP + grp * G;
-    if (ih < 0 || ih >= H || iw < 0 || iw >= W) {
-#pragma unroll
-      for (int j = 0; j < G; j += 2)
-        *reinterpret_cast<bf162*>(mp + j) = __floats2bfloat162_rn(0.f, 0.f);
-      continue;
+  // x tile [a | b] with a two-pixel halo, zero outside the image
+  auto load = [=](int t, bf16* dst) {
+    const int n = t / per_img, r = t % per_img;
+    const int y0 = (r / tiles_x) * TH - 2, x0 = (r % tiles_x) * TW - 2;
+    for (int e = tid; e < XH * XW * NCI; e += NT) {
+      const int p = e / NCI, c = e % NCI;
+      const int ih = y0 + p / XW, iw = x0 + p % XW;
+      const bool in = ih >= 0 && ih < H && iw >= 0 && iw < W;
+      const long pix = ((long)n * H + ih) * W + iw;
+      const bf16* src = a;
+      if (in)
+        src = c < CA / 8 ? a + pix * CA + c * 8 : bsrc + pix * CB + c * 8 - CA;
+      tc::cp_async16(tc::smem_u32(dst + tc::chunk_at<NCI>(p, c) * 8), src,
+                     in);
     }
-    float acc[G];
-#pragma unroll
-    for (int j = 0; j < G; ++j) acc[j] = 0.f;
-#pragma unroll 1
-    for (int t = 0; t < 9; ++t) {
-      const bf16* xp = xs + ((my + t / 3) * XW + mx + t % 3) * S::CINP;
-      const float* wp = w1s + t * CIN * CO + grp * G;
-#pragma unroll 8
-      for (int ci = 0; ci < CIN; ci += 2) {
-        const float2 xv = ld_bf16x2(xp + ci);
-        const float4* r0 = reinterpret_cast<const float4*>(wp + ci * CO);
-        const float4* r1 = reinterpret_cast<const float4*>(wp + (ci + 1) * CO);
-#pragma unroll
-        for (int q = 0; q < G / 4; ++q) {
-          const float4 u = r0[q], v = r1[q];
-          acc[4 * q + 0] = fmaf(xv.y, v.x, fmaf(xv.x, u.x, acc[4 * q + 0]));
-          acc[4 * q + 1] = fmaf(xv.y, v.y, fmaf(xv.x, u.y, acc[4 * q + 1]));
-          acc[4 * q + 2] = fmaf(xv.y, v.z, fmaf(xv.x, u.z, acc[4 * q + 2]));
-          acc[4 * q + 3] = fmaf(xv.y, v.w, fmaf(xv.x, u.w, acc[4 * q + 3]));
-        }
-      }
-    }
-    const float* gg = prm + grp * G;
-    const float* bbias = prm + CO + grp * G;
-#pragma unroll
-    for (int j = 0; j < G; j += 2) {
-      const float y0 = fmaxf(acc[j] * gg[j] + bbias[j], 0.f);
-      const float y1 = fmaxf(acc[j + 1] * gg[j + 1] + bbias[j + 1], 0.f);
-      *reinterpret_cast<bf162*>(mp + j) = __floats2bfloat162_rn(y0, y1);
-    }
-  }
-  __syncthreads();
+    tc::cp_async_commit();
+  };
 
-  // conv2 + BN2 + pre-add ReLU, bypass, add, ReLU -> out
-  for (int it = tid; it < NG * TH * TW; it += NT) {
-    const int grp = it / (TH * TW), pos = it % (TH * TW);
-    const int py = pos / TW, px = pos % TW;
-    const int oh = oh0 + py, ow = ow0 + px;
-    if (oh >= H || ow >= W) continue;
-    float acc[G];
+  // lane's A pixels: conv1 M-tile j covers m pixels 16 (warp + 8j) ..,
+  // conv2 / bypass M-tile j is output row warp * J2 + j
+  int pix1[J1], pix2[J2], pixb[J2];
+  bool on1[J1], on2[J2];
 #pragma unroll
-    for (int j = 0; j < G; ++j) acc[j] = 0.f;
+  for (int j = 0; j < J1; ++j) {
+    const int mt = warp + NWARP * j;
+    const int mi = min(mt * 16 + ar, MH * MW - 1);
+    pix1[j] = (mi / MW) * XW + mi % MW;
+    on1[j] = mt < MT1;
+  }
+#pragma unroll
+  for (int j = 0; j < J2; ++j) {
+    pix2[j] = (warp * J2 + j) * MW + ar;
+    pixb[j] = (warp * J2 + j + 2) * XW + ar + 2;
+    on2[j] = true;
+  }
+
+  const uint32_t ms_u = tc::smem_u32(ms);
+  int buf = 0;
+  if ((int)blockIdx.x < ntiles) load(blockIdx.x, xs);
 #pragma unroll 1
-    for (int t = 0; t < 9; ++t) {
-      const bf16* mp = ms + ((py + t / 3) * MW + px + t % 3) * S::COP;
-      const float* wp = w2s + t * CO * CO + grp * G;
-#pragma unroll 8
-      for (int ci = 0; ci < CO; ci += 2) {
-        const float2 xv = ld_bf16x2(mp + ci);
-        const float4* r0 = reinterpret_cast<const float4*>(wp + ci * CO);
-        const float4* r1 = reinterpret_cast<const float4*>(wp + (ci + 1) * CO);
+  for (int t = blockIdx.x; t < ntiles; t += gridDim.x, buf ^= 1) {
+    tc::cp_async_wait_all();
+    __syncthreads();  // x of tile t landed; the last tile's reads are done
+    if (t + (int)gridDim.x < ntiles)
+      load(t + gridDim.x, xs + (buf ^ 1) * S::X_ELEMS);
+    const bf16* xt = xs + buf * S::X_ELEMS;
+    const uint32_t xt_u = tc::smem_u32(xt);
+    const int n = t / per_img, r = t % per_img;
+    const int oh0 = (r / tiles_x) * TH, ow0 = (r % tiles_x) * TW;
+
+    {  // conv1 + BN1 + ReLU over the tile and its halo -> m (bf16)
+      float acc[J1][2 * NQ][4];
+      zero<NQ>(acc);
+      gemm<NCI, CIN / 16, 9, NQ, J1, XW>(acc, xt_u, w1f, pix1, on1, lane);
 #pragma unroll
-        for (int q = 0; q < G / 4; ++q) {
-          const float4 u = r0[q], v = r1[q];
-          acc[4 * q + 0] = fmaf(xv.y, v.x, fmaf(xv.x, u.x, acc[4 * q + 0]));
-          acc[4 * q + 1] = fmaf(xv.y, v.y, fmaf(xv.x, u.y, acc[4 * q + 1]));
-          acc[4 * q + 2] = fmaf(xv.y, v.z, fmaf(xv.x, u.z, acc[4 * q + 2]));
-          acc[4 * q + 3] = fmaf(xv.y, v.w, fmaf(xv.x, u.w, acc[4 * q + 3]));
+      for (int nt = 0; nt < 2 * NQ; ++nt) {
+        const int ch = nt * 8 + 2 * q4;
+        const float2 gg = *reinterpret_cast<const float2*>(prm + ch);
+        const float2 be = *reinterpret_cast<const float2*>(prm + CO + ch);
+#pragma unroll
+        for (int j = 0; j < J1; ++j) {
+          if (!on1[j]) continue;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int mi = (warp + NWARP * j) * 16 + g + 8 * h;
+            if (mi >= MH * MW) continue;
+            const int ih = oh0 - 1 + mi / MW, iw = ow0 - 1 + mi % MW;
+            const bool in = ih >= 0 && ih < H && iw >= 0 && iw < W;
+            const float y0 =
+                in ? fmaxf(acc[j][nt][2 * h] * gg.x + be.x, 0.f) : 0.f;
+            const float y1 =
+                in ? fmaxf(acc[j][nt][2 * h + 1] * gg.y + be.y, 0.f) : 0.f;
+            *reinterpret_cast<bf162*>(ms + tc::elem_at<NCO>(mi, ch)) =
+                __floats2bfloat162_rn(y0, y1);
+          }
         }
       }
     }
-    const bf16* xc = xs + ((py + 2) * XW + px + 2) * S::CINP;  // centre
-    float r[G];
-    if (PROJ) {
+    __syncthreads();  // m complete
+
+    float acc[J2][2 * NQ][4], accb[J2][2 * NQ][4];
+    zero<NQ>(acc);
+    gemm<NCO, CO / 16, 9, NQ, J2, MW>(acc, ms_u, w2f, pix2, on2, lane);
+    if constexpr (PROJ) {
+      zero<NQ>(accb);
+      gemm<NCI, CIN / 16, 1, NQ, J2, XW>(accb, xt_u, wbf, pixb, on2, lane);
+    }
+    __syncthreads();  // every warp is done reading m: it becomes staging
+
+    // BN2 + pre-add ReLU, bypass, add, ReLU -> staging (pixel py*TW+px)
 #pragma unroll
-      for (int j = 0; j < G; ++j) r[j] = 0.f;
-      const float* wp = wbs + grp * G;
-#pragma unroll 8
-      for (int ci = 0; ci < CIN; ci += 2) {
-        const float2 xv = ld_bf16x2(xc + ci);
-        const float4* r0 = reinterpret_cast<const float4*>(wp + ci * CO);
-        const float4* r1 = reinterpret_cast<const float4*>(wp + (ci + 1) * CO);
+    for (int nt = 0; nt < 2 * NQ; ++nt) {
+      const int ch = nt * 8 + 2 * q4;
+      const float2 gg = *reinterpret_cast<const float2*>(prm + 2 * CO + ch);
+      const float2 be = *reinterpret_cast<const float2*>(prm + 3 * CO + ch);
+      float2 gr = make_float2(0.f, 0.f), br = gr;
+      if constexpr (PROJ) {
+        gr = *reinterpret_cast<const float2*>(prm + 4 * CO + ch);
+        br = *reinterpret_cast<const float2*>(prm + 5 * CO + ch);
+      }
 #pragma unroll
-        for (int q = 0; q < G / 4; ++q) {
-          const float4 u = r0[q], v = r1[q];
-          r[4 * q + 0] = fmaf(xv.y, v.x, fmaf(xv.x, u.x, r[4 * q + 0]));
-          r[4 * q + 1] = fmaf(xv.y, v.y, fmaf(xv.x, u.y, r[4 * q + 1]));
-          r[4 * q + 2] = fmaf(xv.y, v.z, fmaf(xv.x, u.z, r[4 * q + 2]));
-          r[4 * q + 3] = fmaf(xv.y, v.w, fmaf(xv.x, u.w, r[4 * q + 3]));
+      for (int j = 0; j < J2; ++j) {
+        const int py = warp * J2 + j;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int px = g + 8 * h;
+          float r0, r1;
+          if constexpr (PROJ) {
+            r0 = accb[j][nt][2 * h] * gr.x + br.x;
+            r1 = accb[j][nt][2 * h + 1] * gr.y + br.y;
+          } else {
+            const float2 xv = ld_bf16x2(
+                xt + tc::elem_at<NCI>((py + 2) * XW + px + 2, ch));
+            r0 = xv.x;
+            r1 = xv.y;
+          }
+          const float y0 =
+              fmaxf(fmaxf(acc[j][nt][2 * h] * gg.x + be.x, 0.f) + r0, 0.f);
+          const float y1 =
+              fmaxf(fmaxf(acc[j][nt][2 * h + 1] * gg.y + be.y, 0.f) + r1, 0.f);
+          *reinterpret_cast<bf162*>(ms + tc::elem_at<NCO>(py * TW + px, ch)) =
+              __floats2bfloat162_rn(y0, y1);
         }
       }
-#pragma unroll
-      for (int j = 0; j < G; ++j)
-        r[j] = r[j] * prm[4 * CO + grp * G + j] + prm[5 * CO + grp * G + j];
-    } else {
-#pragma unroll
-      for (int j = 0; j < G; j += 2) {
-        const float2 xv = ld_bf16x2(xc + grp * G + j);
-        r[j] = xv.x;
-        r[j + 1] = xv.y;
-      }
     }
-    const float* gg = prm + 2 * CO + grp * G;
-    const float* bbias = prm + 3 * CO + grp * G;
-    bf16* op = out + (((long)n * H + oh) * W + ow) * CO + grp * G;
-#pragma unroll
-    for (int j = 0; j < G; j += 2) {
-      const float y0 = fmaxf(fmaxf(acc[j] * gg[j] + bbias[j], 0.f) + r[j], 0.f);
-      const float y1 = fmaxf(
-          fmaxf(acc[j + 1] * gg[j + 1] + bbias[j + 1], 0.f) + r[j + 1], 0.f);
-      *reinterpret_cast<bf162*>(op + j) = __floats2bfloat162_rn(y0, y1);
+    __syncwarp();
+    // this warp's output rows, whole 16-byte chunks
+    for (int e = lane; e < J2 * TW * NCO; e += 32) {
+      const int sp = warp * J2 * TW + e / NCO, c = e % NCO;
+      const int oh = oh0 + sp / TW, ow = ow0 + sp % TW;
+      if (oh < H && ow < W)
+        *reinterpret_cast<uint4*>(out + (((long)n * H + oh) * W + ow) * CO +
+                                  c * 8) =
+            *reinterpret_cast<const uint4*>(ms + tc::chunk_at<NCO>(sp, c) * 8);
     }
   }
 }
@@ -219,17 +311,23 @@ int launch(const void* a, const void* b, const void* w1, const void* g1,
            int H, int W, cudaStream_t stream) {
   using S = BlockShape<CA, CB, CO, PROJ>;
   static bool smem_set = false;
+  static int most = 0;
   cudaError_t e =
       allow_smem(basic_block_kernel<CA, CB, CO, PROJ>, S::SMEM, &smem_set);
+  if (e == cudaSuccess)
+    e = tc::resident_blocks(basic_block_kernel<CA, CB, CO, PROJ>, NT, S::SMEM,
+                            &most);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B);
+  const long tiles = (long)B * ((H + TH - 1) / TH) * ((W + TW - 1) / TW);
+  if (tiles == 0) return 0;
+  const int grid = (int)(tiles < most ? tiles : most);
   basic_block_kernel<CA, CB, CO, PROJ><<<grid, NT, S::SMEM, stream>>>(
       static_cast<const bf16*>(a), static_cast<const bf16*>(b),
       static_cast<const bf16*>(w1), static_cast<const float*>(g1),
       static_cast<const float*>(b1), static_cast<const bf16*>(w2),
       static_cast<const float*>(g2), static_cast<const float*>(b2),
       static_cast<const bf16*>(wb), static_cast<const float*>(gb),
-      static_cast<const float*>(bb), static_cast<bf16*>(out), H, W);
+      static_cast<const float*>(bb), static_cast<bf16*>(out), B, H, W);
   return (int)cudaGetLastError();
 }
 

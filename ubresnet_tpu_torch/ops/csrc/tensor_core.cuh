@@ -1,0 +1,153 @@
+// Tensor-core helpers of the port's Hopper kernels (K2 basic_block, K3
+// deconv2x; for the K1/K5/K6 redesigns to reuse): bf16 mma.sync
+// m16n8k16 with f32 accumulators, A fragments by ldmatrix from
+// pixel-major NHWC tiles in shared memory (one lane per pixel: the
+// im2col gather over the taps is the lane's address), B fragments laid
+// out per lane once per block, 16-byte cp.async copies with zero-fill,
+// the chunk swizzle of the tiles, and the persistent grid's size.
+//
+// A tile of C channels holds NC = C / 8 16-byte chunks per pixel. An
+// ldmatrix phase reads one chunk of 8 consecutive pixels; unswizzled,
+// with a pixel stride of 32, 64 or 128 bytes those land in 2, 4 or 8
+// pixels per 128-byte bank line and collide. chunk_at XORs the chunk
+// index with the pixel's line bits so any 8 consecutive pixels hit 8
+// distinct 16-byte bank groups (NC = 2, 4 or 8).
+#pragma once
+
+#include "common.cuh"
+
+namespace tc {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte unit of chunk c of pixel p in a swizzled tile of NC chunks
+// per pixel (multiply by 8 for a bf16 offset).
+template <int NC>
+__host__ __device__ constexpr int chunk_at(int p, int c) {
+  static_assert(NC == 2 || NC == 4 || NC == 8, "tile chunks per pixel");
+  return p * NC + (c ^ ((p * NC >> 3) & (NC - 1)));
+}
+
+// bf16 offset of channel ch (even) of pixel p in such a tile.
+template <int NC>
+__device__ __forceinline__ int elem_at(int p, int ch) {
+  return chunk_at<NC>(p, ch >> 3) * 8 + (ch & 7);
+}
+
+// Byte offset of chunk 2 kc + half of pixel p in such a tile, as
+// a_off(p, half) ^ (kc << 5): the XOR touches only the chunk bits of
+// the offset (a multiple of 16 NC bytes plus the chunk), so one offset
+// per lane, pixel and tap serves every k-step of that tap.
+template <int NC>
+__device__ __forceinline__ uint32_t a_off(int p, int half) {
+  return 16u * (uint32_t)chunk_at<NC>(p, half);
+}
+
+// Lane l's A row (of 16) and chunk half for ldmatrix.x4: matrices
+// 0..3 are (rows 0-7, k 0-7), (rows 8-15, k 0-7), (rows 0-7, k 8-15),
+// (rows 8-15, k 8-15) — the mma A fragment's a0..a3.
+__device__ __forceinline__ int a_row(int lane) {
+  return (lane & 7) + ((lane >> 3) & 1) * 8;
+}
+__device__ __forceinline__ int a_half(int lane) { return lane >> 4; }
+
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// c += a · b over one m16n8k16 step (bf16 in, f32 accumulate). c0, c1:
+// row lane/4, columns 2(lane%4) and +1; c2, c3: row lane/4 + 8.
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
+  return (uint32_t)__bfloat16_as_ushort(lo) |
+         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+}
+
+// The K x N bf16 matrix whose row k is row(k)[0 .. N) as mma B
+// fragments in shared memory: for k-step s (16 rows) and n-tile pair q
+// (16 columns) lane l owns one uint4 at dst[(s * N/16 + q) * 32 + l],
+// {b0, b1} of n-tile 2q then of n-tile 2q + 1, where b0 packs rows
+// 16s + 2(l%4) and +1 of column l/4 and b1 the same rows + 8. A warp
+// then reads a k-step's B with one conflict-free 16-byte load per lane
+// and n-tile pair. Written once per block.
+template <int K, int N, typename Row>
+__device__ __forceinline__ void stage_b(uint4* dst, Row row, int tid,
+                                        int nthreads) {
+  static_assert(K % 16 == 0 && N % 16 == 0, "B is 16 x 16 steps");
+  constexpr int NQ = N / 16;
+  for (int e = tid; e < (K / 16) * NQ * 32; e += nthreads) {
+    const int l = e & 31, q = (e >> 5) % NQ, s = (e >> 5) / NQ;
+    const int k = s * 16 + 2 * (l & 3), n = q * 16 + (l >> 2);
+    uint32_t v[4];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        v[2 * h + r] = pack_bf16(row(k + 8 * r)[n + 8 * h],
+                                 row(k + 8 * r + 1)[n + 8 * h]);
+    dst[e] = make_uint4(v[0], v[1], v[2], v[3]);
+  }
+}
+
+// 16 bytes global → shared, asynchronously; with valid false nothing
+// is read (src-size 0) and the destination is zero-filled: the 'same'
+// padding. src must still be a valid address.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Blocks of SMEM dynamic shared bytes that fit on one SM (228 KB, 1 KB
+// of it reserved per block), at most CAP: the kernel's minimum blocks
+// per SM for __launch_bounds__, so registers do not cap occupancy below
+// what shared memory allows.
+template <int SMEM, int CAP>
+__host__ __device__ constexpr int blocks_per_sm() {
+  return (233472 / (SMEM + 1024)) < CAP ? (233472 / (SMEM + 1024)) : CAP;
+}
+
+// Blocks of a kernel that fit on the card at once: SM count × blocks
+// per SM at this shared-memory size, the most a persistent launch
+// takes. Fixed for a kernel instance and device, so it is asked once:
+// the caller keeps *most in a static (0 until the first call), as
+// allow_smem's flag. The kernel's dynamic shared-memory limit must
+// already be raised (allow_smem).
+template <typename Kernel>
+static cudaError_t resident_blocks(Kernel kernel, int threads, int smem,
+                                   int* most) {
+  if (*most > 0) return cudaSuccess;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      threads, smem);
+  if (e != cudaSuccess) return e;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  *most = sms * per_sm;
+  return cudaSuccess;
+}
+
+}  // namespace tc

@@ -6,8 +6,10 @@ exactly 2x; K8 and K9 — its input and weight gradients; and
 Replaces ubresnet_tpu/ops/pallas_conv.py:fused_packed_deconv2x
 (_deconv_kernel); in the UResNet it runs the dec2 and dec1 upsamples.
 Kernel: ops/csrc/deconv2x.cu — each output pixel reads its 2x2 input
-taps by row/column parity; a block owns one parity class, so only 4
-of the 16 taps' weights sit in shared memory next to the input tile.
+taps by row/column parity, so each parity class is a GEMM [pixels x
+4·ci] x [4·ci x co] on bf16 tensor cores (mma.sync); a persistent block
+holds all 16 taps' weights in shared memory and takes each 16x16 input
+tile (double-buffered cp.async) with all four classes of its output.
 
 K3-s8 (``deconv2x_s8``) replaces the quantized=True mode of
 fused_packed_deconv2x: s8 x s8 → s32, out = f32(acc)·g with g = sx·sw.
@@ -86,6 +88,7 @@ def deconv2x(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     dev = x.device
     _build.check(x, "x", torch.bfloat16, (bsz, h, wd, ci), dev)
     _build.check(w, "w", torch.bfloat16, (4, 4, ci, co), dev)
+    _build.check_aligned(x, "x")
     out = torch.empty((bsz, 2 * h, 2 * wd, co), dtype=x.dtype, device=dev)
     _build.launch("ubr_deconv2x", [x, w, out], [bsz, h, wd, ci, co], dev)
     deconv2x.launches += 1
@@ -139,11 +142,6 @@ def conv_s2k4_plain(dy: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return y.permute(0, 2, 3, 1).to(dy.dtype).contiguous()
 
 
-def _aligned(t: torch.Tensor, name: str) -> None:
-    if t.data_ptr() % 16:
-        raise ValueError(f"{name} must be 16-byte aligned")
-
-
 def conv_s2k4(dy: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Input gradient of the 2x deconv with kernel ``w`` (4, 4, ci, co)
     at output cotangent ``dy`` (B, 2H, 2W, co) → (B, H, W, ci). CPU
@@ -161,7 +159,7 @@ def conv_s2k4(dy: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     h, wd = h2 // 2, w2 // 2
     _build.check(dy, "dy", torch.bfloat16, (bsz, h2, w2, co), dev)
     _build.check(w, "w", torch.bfloat16, (4, 4, ci, co), dev)
-    _aligned(w, "w")
+    _build.check_aligned(w, "w")
     out = torch.empty((bsz, h, wd, ci), dtype=dy.dtype, device=dev)
     _build.launch("ubr_conv_s2k4", [dy, w, out], [bsz, h, wd, ci, co], dev)
     conv_s2k4.launches += 1

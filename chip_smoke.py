@@ -33,13 +33,17 @@ Phases, each printing JSON lines; any failure exits non-zero:
              forward + backward against F.conv_transpose2d's f32
              autograd (y, dx and the bf16 dW each ≤ 1e-2·max|plain|).
              Each row also gives pct_of_bound (bound_ms / ms) and
-             vs_library (ms / library_ms). K2 and K3 are bf16
-             tensor-core kernels (mma.sync m16n8k16, f32 accumulators)
-             in a persistent grid: each block stages its
-             layer's weights in shared memory once and walks 16x16 tiles,
-             the next tile's input arriving by double-buffered cp.async;
-             K2 keeps m (with its halo) on chip, K3 computes all four
-             output parity classes of a tile from one read of its input.
+             vs_library (ms / library_ms); K1 and K6 rows also the
+             ptxas registers, spills and stack of the kernel instance
+             they launch. K1, K2, K3 and K6 are bf16 tensor-core kernels
+             (mma.sync m16n8k16, f32 accumulators) in a persistent grid:
+             each block walks 16x16 tiles, the next tile's input arriving
+             by double-buffered cp.async; K1-K3 stage their layer's
+             weights in shared memory once per block, K2 keeps m (with
+             its halo) on chip, K3 computes all four output parity
+             classes of a tile from one read of its input, K6 keeps its
+             block's share of dW in registers (dW = x_shiftᵀ·dy per
+             tile, both operands by ldmatrix.trans).
 4. main    — 64 synthetic 512x512 crops scored file → file through the
              port's CLI (-b 16, cuda) with seeded random weights in a
              reference-format .tar; every event must carry 3 score
@@ -102,6 +106,7 @@ import contextlib
 import io
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -277,14 +282,32 @@ def stats_check(got, want):
 
 
 def _row(layer, kernel, kfn, pfn, lfn, nbytes, ops, peak, check=bf16_check,
-         library=None, per_step=0, per_step_ad=None):
+         library=None, per_step=0, per_step_ad=None, instance=None):
     """``per_step``: launches of this row's kernel at this shape in one
     train step; ``per_step_ad`` the same with fused_train_deconv
-    (default: ``per_step``)."""
+    (default: ``per_step``); ``instance``: the template arguments of the
+    kernel this row launches, for its ptxas figures."""
     return {"layer": layer, "kernel": kernel, "kfn": kfn, "pfn": pfn,
             "lfn": lfn, "bytes": nbytes, "ops": ops, "peak": peak,
             "check": check, "library": library, "per_step": per_step,
-            "per_step_ad": per_step if per_step_ad is None else per_step_ad}
+            "per_step_ad": per_step if per_step_ad is None else per_step_ad,
+            "instance": instance}
+
+
+# demangled kernel name → its ptxas figures, filled after the build
+PTXAS = {}
+
+
+def ptxas_of(kernel, instance):
+    """Registers, spills and stack of ``<kernel>_kernel<instance>`` from
+    the build's ptxas logs (None where the row names no instance)."""
+    if instance is None:
+        return None
+    name = f"{kernel}_kernel<{', '.join(map(str, instance))}>"
+    # demangled template arguments carry casts: <(int)16, (int)3, (int)7>
+    hit = [v for k, v in PTXAS.items()
+           if re.sub(r"\((?:int|bool)\)", "", k).endswith(name)]
+    return hit[0] if hit else {"missing": name}
 
 
 def kernel_rows(dev):
@@ -407,7 +430,8 @@ def kernel_rows(dev):
                          library, n2(x) + pix * co * 2 + n2(w),
                          2 * pix * 49 * 16 * co, BF16_TENSOR_FLOPS,
                          library="F.conv2d + folded affine",
-                         per_step=int(not act_on)))  # conv_ad's forward
+                         per_step=int(not act_on),  # conv_ad's forward
+                         instance=(16, co, 7)))
 
     conv_row("head conv10", 16, True)
     conv_row("classifier conv11", 3, False)
@@ -482,7 +506,8 @@ def train_kernel_rows(dev):
                 torch.nn.grad.conv2d_input((B, ci, hw, hw), lw, cl(dy),
                                            padding=k // 2),
             pix * (ci + co) * 2 + w.numel() * 2, 2 * macs, BF16_TENSOR_FLOPS,
-            library="torch.nn.grad.conv2d_input", per_step=count))
+            library="torch.nn.grad.conv2d_input", per_step=count,
+            instance=(-(-co // 4) * 4, ci, k)))
 
         x = act(B, hw, hw, ci)
         rows.append(_row(
@@ -494,7 +519,8 @@ def train_kernel_rows(dev):
                                             padding=k // 2),
             pix * (ci + co) * 2 + k * k * ci * co * 4, 2 * macs,
             BF16_TENSOR_FLOPS, check=f32_check(1e-3),
-            library="torch.nn.grad.conv2d_weight", per_step=count))
+            library="torch.nn.grad.conv2d_weight", per_step=count,
+            instance=(ci, co, k)))
 
     n = B * 512 * 512
     logits = 3 * torch.randn(B, 512, 512, 3, generator=gen, device=dev)
@@ -767,6 +793,7 @@ def check_kernels(rows):
             "bytes": r["bytes"], "operations": r["ops"], "bytes_ms": t_bytes,
             "ops_ms": t_ops, "per_step": r["per_step"],
             "per_step_ad": r["per_step_ad"],
+            "ptxas": ptxas_of(r["kernel"], r["instance"]),
         }
         row.update(_ratios(row))
         emit(row)
@@ -1576,8 +1603,12 @@ def main():
           "count": torch.cuda.device_count()})
     t0 = time.time()
     lib = _build.build()
+    report = _build.ptxas_report()
+    PTXAS.update({r["kernel"]: {k: r.get(k) for k in (
+        "registers", "spill_stores", "spill_loads", "stack_bytes")}
+        for r in report})
     emit({"phase": "build", "seconds": time.time() - t0, "library": str(lib),
-          "ptxas": _build.ptxas_report()})
+          "ptxas": report})
 
     strict_f32()  # the plain versions are f32 cuDNN convs: no TF32
     dev = torch.device("cuda", 0)

@@ -125,6 +125,39 @@ def test_deconv_kernel_persistent(dev, bhw, shape):
     assert torch.equal(got, deconv.deconv2x(x, w))
 
 
+@pytest.mark.parametrize("bhw", PERSISTENT, ids=["B4-256x200", "B1-20x37"])
+@pytest.mark.parametrize("shape", sorted(conv.SHAPES))
+def test_conv_kernel_persistent(dev, bhw, shape):
+    """K1 at every compiled (ci, co, k) with more (and fewer) tiles than
+    its persistent grid: right against the plain version with the
+    residual, pre-ReLU and ReLU, and two launches give the same bits."""
+    bsz, *hw = bhw
+    ci, co, k = shape
+    x = _rand(dev, bsz, *hw, ci, relu=True)
+    w = _rand(dev, k, k, ci, co, scale=0.05)
+    g = torch.rand(co, device=dev) + 0.5
+    b = torch.randn(co, device=dev) * 0.1
+    r = _rand(dev, bsz, *hw, co)
+    got = conv.conv_bn_act(x, w, g, b, r, pre_act=True)
+    _close(got, conv.conv_bn_act_plain(x, w, g, b, r, pre_act=True))
+    assert torch.equal(got, conv.conv_bn_act(x, w, g, b, r, pre_act=True))
+
+
+@pytest.mark.parametrize("bhw", PERSISTENT, ids=["B4-256x200", "B1-20x37"])
+@pytest.mark.parametrize("shape", sorted(conv.DW_SHAPES))
+def test_conv_dw_kernel_persistent(dev, bhw, shape):
+    """K6 at every compiled (ci, co, k) with more (and fewer) tiles than
+    its persistent grid: f32 dW within 1e-4·max|plain| (sums in another
+    order), and the same bits on a second launch."""
+    bsz, *hw = bhw
+    ci, co, k = shape
+    x = _rand(dev, bsz, *hw, ci, relu=True)
+    dy = _rand(dev, bsz, *hw, co, scale=0.1)
+    got = conv.conv_dw(x, dy, k)
+    _close_f32(got, conv.conv_dw_plain(x, dy, k), 1e-4)
+    assert torch.equal(got, conv.conv_dw(x, dy, k))
+
+
 def _s8(dev, *shape, lo=-127, hi=128):
     g = torch.Generator().manual_seed(sum(shape) * 11 + len(shape))
     return torch.randint(lo, hi, shape, generator=g,

@@ -9,15 +9,17 @@ ReLU) and classifier conv11 (g = 1, b = bias, no ReLU) of the eval
 forward, the classifier's train forward (g = 1, b = 0: _conv_noepi),
 and every input gradient of the train zone (``conv_input_grad``: the
 conv of dy with the flipped, in/out-transposed kernel, as
-_conv_ad_bwd). Kernel: ops/csrc/conv_bn_act.cu — operations-bound on
-the H100 (392 op/B at 7x7 16→16); a 16x16 output tile per block with
-the haloed input and all weights in shared memory and f32 FMA
-accumulation per pixel.
+_conv_ad_bwd). Kernel: ops/csrc/conv_bn_act.cu — a bf16 tensor-core
+implicit GEMM (mma.sync; M = a 16x16 output tile's pixels, N = co,
+K = taps x ci) in a persistent grid, the weights laid out once per
+block, the haloed input tiles double-buffered by cp.async.
 
 K6 replaces ubresnet_tpu/ops/pallas_conv.py:pallas_conv_dw
-(_dw_kernel). Kernel: ops/csrc/conv_dw.cu — operations-bound; per-block
-partial dW over a strided share of 16x16 pixel tiles, added across
-blocks in a fixed order (two passes, no atomics).
+(_dw_kernel). Kernel: ops/csrc/conv_dw.cu — a bf16 tensor-core GEMM per
+16x16 pixel tile (M = taps x ci, N = co, K = pixels; both operands by
+ldmatrix.trans from the NHWC tiles), each block of a persistent grid
+keeping its partial dW in registers over a strided share of the tiles;
+the blocks' rows are added in a fixed order (two passes, no atomics).
 
 ``conv_ad`` replaces pallas_conv_ad (_conv_ad_fwd, _conv_ad_bwd):
 forward K1, dx K1, dW K6 rounded to the kernel's dtype.
@@ -44,9 +46,11 @@ from ubresnet_tpu_torch.ops import _build, quant
 SHAPES = _build.SHAPES["conv_bn_act"]
 DW_SHAPES = _build.SHAPES["conv_dw"]
 S8_SHAPES = _build.SHAPES["conv_bn_act_s8"]
-# blocks of the weight-gradient kernel: each walks a strided share of
-# the 16x16 pixel tiles and leaves one row of partial dW
-DW_MAX_BLOCKS = 264
+# rows of K6's partial-dW scratch per SM: at least the blocks of any K6
+# shape that one SM holds at once (conv_dw.cu: 3). The kernel runs
+# min(rows, resident blocks) blocks, each over a strided share of the
+# 16x16 pixel tiles, and adds that many rows.
+DW_BLOCKS_PER_SM = 4
 
 
 def supports(ci: int, co: int, k: int) -> bool:
@@ -213,7 +217,8 @@ def conv_dw(x: torch.Tensor, dy: torch.Tensor, k: int) -> torch.Tensor:
     _build.check(x, "x", torch.bfloat16, (bsz, h, wd, ci), dev)
     _build.check(dy, "dy", torch.bfloat16, (bsz, h, wd, co), dev)
     tiles = bsz * -(-h // 16) * -(-wd // 16)
-    blocks = min(tiles, DW_MAX_BLOCKS)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    blocks = min(tiles, sms * DW_BLOCKS_PER_SM)
     part = torch.empty((blocks, k * k * ci * co), dtype=torch.float32,
                        device=dev)
     dw = torch.empty((k, k, ci, co), dtype=torch.float32, device=dev)

@@ -1,0 +1,169 @@
+// The stride-1, odd k x k 'same' convolution as a tensor-core implicit
+// GEMM over one 16x16 output tile, the mainloop of K1 conv_bn_act (and
+// for K5 conv_stats to take with its own epilogue):
+//   M = the tile's 256 output pixels, 16 per M-tile (one tile row),
+//   N = co, padded to a multiple of 8 (co = 3: columns 3-7 are zero),
+//   K = taps x channels, tap-major, in k-steps of 16.
+// A fragments come by ldmatrix straight from the pixel-major x tile in
+// shared memory (the (16+k-1)^2 haloed input, zero outside the image):
+// each lane gives its pixel's 16-byte chunk at the tap's offset, so the
+// im2col gather is the lane's address. The weights are laid out once per
+// block as per-lane B fragments (tc::stage_b8).
+//
+// ci = 4 (the classifier's input gradient: its 3 channels padded to 4 by
+// the wrapper) does not fill a k-step with one tap. The tile then holds
+// 8 channels a pixel (channels 4-7 zero, written once) and a k-step
+// covers two taps: lanes 0-15 address the first tap's pixel, lanes 16-31
+// the second's (the A fragment's k 0-7 and 8-15), and the B rows of the
+// padded channels (and of the phantom 50th tap) are zero. Two times the
+// real MACs, against four with the tile zero-padded to 16 channels; the
+// 8-byte pixels are copied with 8-byte cp.async.
+#pragma once
+
+#include "tensor_core.cuh"
+
+namespace cg {
+
+constexpr int TH = 16, TW = 16;
+
+template <int CI, int CO, int K>
+struct Shape {
+  static constexpr int KSIZE = K, R = K / 2, TAPS = K * K;
+  static constexpr int XH = TH + K - 1, XW = TW + K - 1;
+  static constexpr int CT = CI == 4 ? 8 : CI;  // channels a tile pixel
+  static constexpr int NC = CT / 8;            // 16-byte chunks a pixel
+  static constexpr int KC = CT / 16;           // k-steps a tap (CT >= 16)
+  static constexpr int KSTEPS = CT >= 16 ? TAPS * KC : (TAPS + 1) / 2;
+  static constexpr int COP = (CO + 7) / 8 * 8;  // padded N
+  static constexpr int NT8 = COP / 8;           // n-tiles of 8
+  static constexpr int B_UNITS = KSTEPS * NT8 * 32;  // uint2 of B fragments
+  static constexpr int X_ELEMS = XH * XW * CT;       // bf16 of one x tile
+  static_assert(CI == 4 || CI % 16 == 0, "ci: 4 or a multiple of 16");
+};
+
+// The (k, k, ci, co) bf16 weight as B fragments (S::B_UNITS uint2).
+// Padded K row kp is tap kp / CT, channel kp % CT.
+template <class S>
+__device__ __forceinline__ void stage_w(uint2* dst, const bf16* w, int ci,
+                                        int co, int tid, int nthreads) {
+  tc::stage_b8<S::KSTEPS, S::COP>(
+      dst,
+      [=](int kp, int n) {
+        const int tap = kp / S::CT, c = kp % S::CT;
+        return tap < S::TAPS && c < ci && n < co
+                   ? w[(tap * ci + c) * co + n]
+                   : __float2bfloat16(0.f);
+      },
+      tid, nthreads);
+}
+
+// Zero the padded channels 4-7 of every pixel of nbuf x tiles (ci = 4
+// only; the copies never touch them).
+template <class S>
+__device__ __forceinline__ void zero_pad(bf16* xs, int nbuf, int tid,
+                                         int nthreads) {
+  if constexpr (S::CT == 8) {
+    for (int p = tid; p < nbuf * S::XH * S::XW; p += nthreads)
+      *reinterpret_cast<uint2*>(xs + p * 8 + 4) = make_uint2(0u, 0u);
+  }
+}
+
+// Start the copy of the x tile of image n whose output tile has its
+// top-left pixel at (oh0, ow0): rows oh0 - R .., zero outside the image.
+template <class S>
+__device__ __forceinline__ void load_x(bf16* dst, const bf16* __restrict__ x,
+                                       int n, int oh0, int ow0, int H, int W,
+                                       int tid, int nthreads) {
+  const int y0 = oh0 - S::R, x0 = ow0 - S::R;
+  if constexpr (S::CT == 8) {  // ci = 4: 8 bytes into a 16-byte pixel
+    for (int p = tid; p < S::XH * S::XW; p += nthreads) {
+      const int ih = y0 + p / S::XW, iw = x0 + p % S::XW;
+      const bool in = ih >= 0 && ih < H && iw >= 0 && iw < W;
+      const long pix = in ? ((long)n * H + ih) * W + iw : 0;
+      tc::cp_async8(tc::smem_u32(dst + p * 8), x + pix * 4, in);
+    }
+  } else {
+    for (int e = tid; e < S::XH * S::XW * S::NC; e += nthreads) {
+      const int p = e / S::NC, c = e % S::NC;
+      const int ih = y0 + p / S::XW, iw = x0 + p % S::XW;
+      const bool in = ih >= 0 && ih < H && iw >= 0 && iw < W;
+      const long pix = in ? ((long)n * H + ih) * W + iw : 0;
+      tc::cp_async16(tc::smem_u32(dst + tc::chunk_at<S::NC>(p, c) * 8),
+                     x + pix * S::CT + c * 8, in);
+    }
+  }
+  tc::cp_async_commit();
+}
+
+template <class S, int J>
+__device__ __forceinline__ void zero_acc(float (&acc)[J][S::NT8][4]) {
+#pragma unroll
+  for (int j = 0; j < J; ++j)
+#pragma unroll
+    for (int t = 0; t < S::NT8; ++t)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[j][t][i] = 0.f;
+}
+
+// acc[j] += the conv over output row row[j] of the tile in x tile xt
+// (shared address) with B fragments wf. acc[j][t] is the mma C fragment
+// of n-tile t: c0, c1 pixel lane/4 of the row, channels 8t + 2(lane%4)
+// and +1; c2, c3 pixel lane/4 + 8.
+template <class S, int J>
+__device__ __forceinline__ void conv_rows(float (&acc)[J][S::NT8][4],
+                                          uint32_t xt, const uint2* wf,
+                                          const int (&row)[J], int lane) {
+  constexpr int K = S::KSIZE;
+  const int ar = tc::a_row(lane), half = tc::a_half(lane);
+  int base[J];
+#pragma unroll
+  for (int j = 0; j < J; ++j) base[j] = row[j] * S::XW + ar;
+
+  auto step = [&](int s, const uint32_t (&off)[J]) {
+    uint2 b[S::NT8];
+#pragma unroll
+    for (int t = 0; t < S::NT8; ++t) b[t] = wf[(s * S::NT8 + t) * 32 + lane];
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      uint32_t a[4];
+      tc::ldsm_x4(xt + off[j], a);
+#pragma unroll
+      for (int t = 0; t < S::NT8; ++t) tc::mma(acc[j][t], a, b[t].x, b[t].y);
+    }
+  };
+
+  if constexpr (S::CT >= 16) {
+    // one tap a KC k-steps; lane's chunk 2 kc + half, kc by XOR
+#pragma unroll 1
+    for (int kh = 0; kh < K; ++kh) {
+#pragma unroll
+      for (int kw = 0; kw < K; ++kw) {
+        uint32_t off0[J];
+#pragma unroll
+        for (int j = 0; j < J; ++j)
+          off0[j] = tc::a_off<S::NC>(base[j] + kh * S::XW + kw, half);
+#pragma unroll
+        for (int kc = 0; kc < S::KC; ++kc) {
+          uint32_t off[J];
+#pragma unroll
+          for (int j = 0; j < J; ++j) off[j] = off0[j] ^ (kc << 5);
+          step((kh * K + kw) * S::KC + kc, off);
+        }
+      }
+    }
+  } else {
+    // two taps a k-step: lanes 16-31 on the second (the last step's
+    // second tap is a phantom with zero B rows: it reads tap TAPS - 1)
+#pragma unroll 5
+    for (int s = 0; s < S::KSTEPS; ++s) {
+      const int tap = min(2 * s + half, S::TAPS - 1);
+      uint32_t off[J];
+#pragma unroll
+      for (int j = 0; j < J; ++j)
+        off[j] = 16u * (uint32_t)(base[j] + (tap / K) * S::XW + tap % K);
+      step(s, off);
+    }
+  }
+}
+
+}  // namespace cg

@@ -1,17 +1,19 @@
-// Tensor-core helpers of the port's Hopper kernels (K2 basic_block, K3
-// deconv2x; for the K1/K5/K6 redesigns to reuse): bf16 mma.sync
-// m16n8k16 with f32 accumulators, A fragments by ldmatrix from
-// pixel-major NHWC tiles in shared memory (one lane per pixel: the
-// im2col gather over the taps is the lane's address), B fragments laid
-// out per lane once per block, 16-byte cp.async copies with zero-fill,
-// the chunk swizzle of the tiles, and the persistent grid's size.
+// Tensor-core helpers of the port's Hopper kernels (K1 conv_bn_act, K2
+// basic_block, K3 deconv2x, K6 conv_dw): bf16 mma.sync m16n8k16 with
+// f32 accumulators, A fragments by ldmatrix from pixel-major NHWC tiles
+// in shared memory (one lane per pixel: the im2col gather over the taps
+// is the lane's address; .trans where the pixels are the GEMM's K, as
+// in a weight gradient), B fragments laid out per lane once per block,
+// 16- and 8-byte cp.async copies with zero-fill, the chunk swizzle of
+// the tiles, and the persistent grid's size.
 //
 // A tile of C channels holds NC = C / 8 16-byte chunks per pixel. An
 // ldmatrix phase reads one chunk of 8 consecutive pixels; unswizzled,
 // with a pixel stride of 32, 64 or 128 bytes those land in 2, 4 or 8
 // pixels per 128-byte bank line and collide. chunk_at XORs the chunk
 // index with the pixel's line bits so any 8 consecutive pixels hit 8
-// distinct 16-byte bank groups (NC = 2, 4 or 8).
+// distinct 16-byte bank groups (NC = 2, 4 or 8; NC = 1 needs no swizzle:
+// 8 consecutive pixels fill one bank line).
 #pragma once
 
 #include "common.cuh"
@@ -26,7 +28,8 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 // per pixel (multiply by 8 for a bf16 offset).
 template <int NC>
 __host__ __device__ constexpr int chunk_at(int p, int c) {
-  static_assert(NC == 2 || NC == 4 || NC == 8, "tile chunks per pixel");
+  static_assert(NC == 1 || NC == 2 || NC == 4 || NC == 8,
+                "tile chunks per pixel");
   return p * NC + (c ^ ((p * NC >> 3) & (NC - 1)));
 }
 
@@ -57,6 +60,28 @@ __device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// The same four 8x8 matrices transposed: lane l gets elements (rows
+// 2(l%4), 2(l%4) + 1; column l/4) of each. Where a tile's pixels are a
+// GEMM's K and its channels M or N (a weight gradient: rows of the
+// stored matrix are pixels), this yields the mma A or B fragment.
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr,
+                                              uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// Two transposed matrices (lanes 0-15 give the row addresses).
+__device__ __forceinline__ void ldsm_x2_trans(uint32_t addr,
+                                              uint32_t (&r)[2]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
       : "r"(addr));
 }
 
@@ -102,6 +127,24 @@ __device__ __forceinline__ void stage_b(uint4* dst, Row row, int tid,
   }
 }
 
+// The same fragments one n-tile (8 columns) at a time, for any N that is
+// a multiple of 8 and a K of KS 16-row steps: lane l owns one uint2 {b0,
+// b1} at dst[(s * N/8 + t) * 32 + l]. val(k, n) gives element (k, n) as
+// a bf16, zero where the kernel pads K or N (taps or channels beyond the
+// real ones).
+template <int KS, int N, typename Val>
+__device__ __forceinline__ void stage_b8(uint2* dst, Val val, int tid,
+                                         int nthreads) {
+  static_assert(N % 8 == 0, "B is 16 x 8 steps");
+  constexpr int NT8 = N / 8;
+  for (int e = tid; e < KS * NT8 * 32; e += nthreads) {
+    const int l = e & 31, t = (e >> 5) % NT8, s = (e >> 5) / NT8;
+    const int k = s * 16 + 2 * (l & 3), n = t * 8 + (l >> 2);
+    dst[e] = make_uint2(pack_bf16(val(k, n), val(k + 1, n)),
+                        pack_bf16(val(k + 8, n), val(k + 9, n)));
+  }
+}
+
 // 16 bytes global → shared, asynchronously; with valid false nothing
 // is read (src-size 0) and the destination is zero-filled: the 'same'
 // padding. src must still be a valid address.
@@ -109,6 +152,13 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                                            bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
                "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+// 8 bytes the same way (cp.async.ca: .cg copies only 16).
+__device__ __forceinline__ void cp_async8(uint32_t dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 8 : 0)
                : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {

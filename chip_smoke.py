@@ -33,16 +33,21 @@ Phases, each printing JSON lines; any failure exits non-zero:
              forward + backward against F.conv_transpose2d's f32
              autograd (y, dx and the bf16 dW each ≤ 1e-2·max|plain|).
              Each row also gives pct_of_bound (bound_ms / ms) and
-             vs_library (ms / library_ms); K1 and K6 rows also the
-             ptxas registers, spills and stack of the kernel instance
-             they launch. K1, K2, K3 and K6 are bf16 tensor-core kernels
-             (mma.sync m16n8k16, f32 accumulators) in a persistent grid:
-             each block walks 16x16 tiles, the next tile's input arriving
-             by double-buffered cp.async; K1-K3 stage their layer's
-             weights in shared memory once per block, K2 keeps m (with
-             its halo) on chip, K3 computes all four output parity
-             classes of a tile from one read of its input, K6 keeps its
-             block's share of dW in registers (dW = x_shiftᵀ·dy per
+             vs_library (ms / library_ms); K1, K5, K6 and K8 rows also
+             the ptxas registers, spills and stack of the kernel
+             instance they launch, and K5 and K8 rows launch twice and
+             require the same bits (same_bits). K1, K2, K3, K5, K6 and
+             K8 are bf16 tensor-core kernels (mma.sync m16n8k16, f32
+             accumulators) in a persistent grid: each block walks its
+             tiles, the next tile's input arriving by double-buffered
+             cp.async; K1-K3, K5 and K8 stage their layer's weights in
+             shared memory once per block, K2 keeps m (with its halo) on
+             chip, K3 computes all four output parity classes of a tile
+             from one read of its input, K5 is K1's mainloop with the
+             sums of its bf16 y kept per lane and reduced per block in a
+             fixed order, K8 reads each haloed dy tile as its four
+             parity planes (each tap one plane at stride 1), K6 keeps
+             its block's share of dW in registers (dW = x_shiftᵀ·dy per
              tile, both operands by ldmatrix.trans).
 4. main    — 64 synthetic 512x512 crops scored file → file through the
              port's CLI (-b 16, cuda) with seeded random weights in a
@@ -270,9 +275,14 @@ def f32_check(rel):
 
 def stats_check(got, want):
     """K5: y as a bf16 output; s1 and s2 (f32 sums of the bf16 y) within
-    1e-3·max|plain| each (reported beside y's error)."""
+    1e-3·max|plain| each (reported beside y's error). Also reported, not
+    gated: the largest shift of a channel's mean of y from the plain
+    version's, over that channel's std — the bias BatchNorm would carry."""
     err, ref, tol, _ = bf16_check(got[0], want[0])
-    extra = {}
+    yk, yp = got[0].double(), want[0].double()
+    extra = {"y_mean_shift_over_std": float(
+        ((yk - yp).mean((0, 1, 2)) / yp.std((0, 1, 2))).abs().max())}
+    del yk, yp
     for name, g, w in (("s1", got[1], want[1]), ("s2", got[2], want[2])):
         e, r = _max_err(g, w)
         extra[f"{name}_err"], extra[f"{name}_ref"] = e, r
@@ -282,16 +292,18 @@ def stats_check(got, want):
 
 
 def _row(layer, kernel, kfn, pfn, lfn, nbytes, ops, peak, check=bf16_check,
-         library=None, per_step=0, per_step_ad=None, instance=None):
+         library=None, per_step=0, per_step_ad=None, instance=None,
+         same_bits=False):
     """``per_step``: launches of this row's kernel at this shape in one
     train step; ``per_step_ad`` the same with fused_train_deconv
     (default: ``per_step``); ``instance``: the template arguments of the
-    kernel this row launches, for its ptxas figures."""
+    kernel this row launches, for its ptxas figures; ``same_bits``: a
+    second launch must give the same bits in every output."""
     return {"layer": layer, "kernel": kernel, "kfn": kfn, "pfn": pfn,
             "lfn": lfn, "bytes": nbytes, "ops": ops, "peak": peak,
             "check": check, "library": library, "per_step": per_step,
             "per_step_ad": per_step if per_step_ad is None else per_step_ad,
-            "instance": instance}
+            "instance": instance, "same_bits": same_bits}
 
 
 # demangled kernel name → its ptxas figures, filled after the build
@@ -486,7 +498,8 @@ def train_kernel_rows(dev):
             lambda x=x, w=w, b=bias: train_conv.conv_stats_plain(x, w, b),
             library, pix * (ci + co) * 2 + w.numel() * 2 + co * 8,
             2 * macs, BF16_TENSOR_FLOPS, check=stats_check,
-            library="F.conv2d + two channel sums", per_step=count))
+            library="F.conv2d + two channel sums", per_step=count,
+            instance=(ci, co, k), same_bits=True))
 
     for (ci, co, k), hw, count in TRAIN_ZONE + [CLASSIFIER]:
         dy = grad(B, hw, hw, co)
@@ -605,7 +618,8 @@ def deconv_ad_rows(dev):
             lambda dy=dy, wo=w_oihw: F.conv2d(cl(dy), wo, stride=2,
                                               padding=1),
             n2(dy) + n2(x) + n2(w), 2 * macs, BF16_TENSOR_FLOPS,
-            library="F.conv2d stride 2", per_step_ad=1))
+            library="F.conv2d stride 2", per_step_ad=1, instance=(ci, co),
+            same_bits=True))
         rows.append(_row(
             f"K9 dW {name} {ci}->{co} @{hw}", "deconv_dw",
             lambda x=x, dy=dy: deconv.deconv_dw(x, dy),
@@ -775,6 +789,14 @@ def check_kernels(rows):
         want = r["pfn"]()
         torch.cuda.synchronize()
         err, ref, tol, extra = r["check"](got, want)
+        if r["same_bits"]:
+            again = r["kfn"]()
+            torch.cuda.synchronize()
+            pairs = zip(got, again) if isinstance(got, tuple) else [(got,
+                                                                      again)]
+            require(all(torch.equal(a, b) for a, b in pairs),
+                    f"{r['layer']}: a second launch gave other bits")
+            extra = {**extra, "same_bits": True}
         t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
         t_ops = r["ops"] / r["peak"] * 1e3
         if "bf16" in r:  # int8 rows: the same layer's bf16 times

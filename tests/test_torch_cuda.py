@@ -308,6 +308,59 @@ def test_conv_stats_kernel(dev, hw, shape):
         _close_f32(s2, p2, 1e-3)
 
 
+def _stats_args(dev, bsz, hw, shape):
+    ci, co, k = shape
+    return (_rand(dev, bsz, *hw, ci, relu=True),
+            _rand(dev, k, k, ci, co, scale=0.05),
+            torch.randn(co, generator=torch.Generator().manual_seed(co)).to(
+                dev) * 0.1)
+
+
+def _stats_same(got, again):
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("bhw", PERSISTENT, ids=["B4-256x200", "B1-20x37"])
+@pytest.mark.parametrize("shape", sorted(train_conv.SHAPES))
+def test_conv_stats_kernel_persistent(dev, bhw, shape):
+    """K5 at every compiled (ci, co, k) with more (and fewer) tiles than
+    its persistent grid: y within one bf16 step, s1 and s2 within
+    1e-3·max|plain|, and y, s1 and s2 the same bits on a second
+    launch."""
+    bsz, *hw = bhw
+    x, w, b = _stats_args(dev, bsz, hw, shape)
+    got = train_conv.conv_stats(x, w, b)
+    want = train_conv.conv_stats_plain(x, w, b)
+    _close(got[0], want[0])
+    _close_f32(got[1], want[1], 1e-3)
+    _close_f32(got[2], want[2], 1e-3)
+    _stats_same(got, train_conv.conv_stats(x, w, b))
+
+
+# tiles per SM: below every K5 grid, at the grid of an instance that
+# holds 1, 2 or 3 blocks per SM, and above every grid (one 16x16 image a
+# tile)
+GRID_TILES = [0.5, 1, 2, 3, 3.05]
+
+
+@pytest.mark.parametrize("per_sm", GRID_TILES,
+                         ids=["below", "1x", "2x", "3x", "above"])
+@pytest.mark.parametrize("shape", sorted(train_conv.SHAPES))
+def test_conv_stats_kernel_grid_sizes(dev, shape, per_sm):
+    """K5's sums when the tile count is below, at and above its grid
+    size: every block's row is written and added once, blocks with no
+    tile add zeros; the same bits on a second launch."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    x, w, b = _stats_args(dev, int(per_sm * sms), (16, 16), shape)
+    got = train_conv.conv_stats(x, w, b)
+    want = train_conv.conv_stats_plain(x, w, b)
+    _close(got[0], want[0])
+    _close_f32(got[1], want[1], 1e-3)
+    _close_f32(got[2], want[2], 1e-3)
+    _stats_same(got, train_conv.conv_stats(x, w, b))
+
+
 @pytest.mark.parametrize("hw", HW)
 @pytest.mark.parametrize("shape", sorted(conv.DW_SHAPES))
 def test_conv_dw_kernel(dev, hw, shape):
@@ -385,6 +438,21 @@ def test_conv_s2k4_kernel(dev, hw, shape):
     dy = _rand(dev, 2, 2 * hw[0], 2 * hw[1], co, scale=0.1)
     w = _rand(dev, 4, 4, ci, co, scale=0.1)
     _close(deconv.conv_s2k4(dy, w), deconv.conv_s2k4_plain(dy, w))
+
+
+@pytest.mark.parametrize("bhw", PERSISTENT, ids=["B4-256x200", "B1-20x37"])
+@pytest.mark.parametrize("shape", sorted(deconv.S2K4_SHAPES))
+def test_conv_s2k4_kernel_persistent(dev, bhw, shape):
+    """K8 at every compiled (ci, co) with more (and fewer) dx tiles than
+    its persistent grid (dx B4 256x200: dy 512x400): right against the
+    plain version, and the same bits on a second launch."""
+    bsz, *hw = bhw
+    ci, co = shape
+    dy = _rand(dev, bsz, 2 * hw[0], 2 * hw[1], co, scale=0.1)
+    w = _rand(dev, 4, 4, ci, co, scale=0.1)
+    got = deconv.conv_s2k4(dy, w)
+    _close(got, deconv.conv_s2k4_plain(dy, w))
+    assert torch.equal(got, deconv.conv_s2k4(dy, w))
 
 
 @pytest.mark.parametrize("hw", HW)

@@ -1,11 +1,14 @@
 """The decomposition the tensor-core K2 (ops/csrc/basic_block.cu), K3
-(ops/csrc/deconv2x.cu), K1 (ops/csrc/conv_bn_act.cu, conv_gemm.cuh) and
-K6 (ops/csrc/conv_dw.cu) compute, written out in plain torch on the CPU,
+(ops/csrc/deconv2x.cu), K1 (ops/csrc/conv_bn_act.cu, conv_gemm.cuh), K6
+(ops/csrc/conv_dw.cu), K5 (ops/csrc/conv_stats.cu) and K8
+(ops/csrc/conv_s2k4.cu) compute, written out in plain torch on the CPU,
 against the plain versions (ops/block.py:basic_block_plain,
-ops/deconv.py:deconv2x_plain, ops/conv.py:conv_bn_act_plain and
-conv_dw_plain) and the JAX Pallas kernels in interpret mode
-(fused_basic_block, fused_dual_block, fused_packed_deconv2x,
-fused_packed_conv, pallas_conv_ad's VJP, pallas_conv_dw):
+ops/deconv.py:deconv2x_plain and conv_s2k4_plain, ops/conv.py:
+conv_bn_act_plain and conv_dw_plain, ops/train_conv.py:conv_stats_plain)
+and the JAX Pallas kernels in interpret mode (fused_basic_block,
+fused_dual_block, fused_packed_deconv2x, fused_packed_conv,
+pallas_conv_ad's VJP, pallas_conv_dw, train_conv_stats,
+fused_conv_s2k4):
 
 - halo tiles: a 16x16 output tile (the kernels' size) reads a 20x20 x
   tile and a 18x18 m tile, zero-filled outside the image, and the last
@@ -25,13 +28,25 @@ fused_packed_conv, pallas_conv_ad's VJP, pallas_conv_dw):
   tile's pixels, one tile row a k-step, dy zeroed outside the image and
   co = 3 padded to 8), summed over the rows of each row group, over the
   tiles t = b, b + blocks, .. of each block, then the groups in order and
-  the blocks' rows in order.
+  the blocks' rows in order;
+- K5: K1's tile GEMM + bias, y rounded to x's dtype, and the sums of
+  the rounded y of in-image pixels only, per lane (warp w, lane l: rows
+  2w, 2w + 1 of each tile, columns l/4 and l/4 + 8), over the block's
+  tiles, then the 8 lanes of a channel in the kernel's xor tree, the
+  warps in order, the blocks' rows in sum_rows' stripe order;
+- K8: each haloed dy tile (rows 2 i0 - 1 .., zero outside dy) split into
+  its four (row, column) parity planes; K tap-major (tap, co); tap (kr,
+  kc) reads plane (kr & 1, kc & 1) at offset (kr >> 1, kc >> 1) — the
+  naive stride-2 pixel (2 ty + kr, 2 tx + kc) of the tile.
 
 float32 throughout; tolerances as tests/test_torch_kernels.py (2e-4 for
 the two-conv blocks, 2e-5 for the deconv and K1) and
 tests/test_torch_train_kernels.py (K6 vs Pallas rtol 1e-4, atol 1e-3;
-the dx leg 1e-4 / 1e-4): sums in another order. K6 against its f32
-plain version: 1e-5 of the largest |dW|."""
+the dx leg 1e-4 / 1e-4; K5's y 1e-5 / 1e-5 and sums 1e-4 / 1e-3) and
+tests/test_torch_deconv_ad.py (K8 atol 2e-5): sums in another order. K6
+against its f32 plain version: 1e-5 of the largest |dW|. K5 and K8 in
+bf16 against their plain versions: y and dx within one bf16 step
+(1e-2·max|plain|), the f32 sums of the bf16 y within 1e-3·max|plain|."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -41,13 +56,15 @@ import torch
 from ubresnet_tpu.ops.packed import pack, tile_channel_vector, unpack
 from ubresnet_tpu.ops.pallas_conv import (
     fused_basic_block,
+    fused_conv_s2k4,
     fused_dual_block,
     fused_packed_conv,
     fused_packed_deconv2x,
     pallas_conv_ad,
     pallas_conv_dw,
 )
-from ubresnet_tpu_torch.ops import block, conv, deconv
+from ubresnet_tpu.ops.pallas_train import train_conv_stats as jax_tcs
+from ubresnet_tpu_torch.ops import block, conv, deconv, train_conv
 
 torch.set_num_threads(1)
 
@@ -501,3 +518,237 @@ def test_conv_dw_decomposition_matches_pallas(rng, k, ci, co, p):
     got = conv_dw_tiled(_t(x), _t(dy), k, blocks=3, groups=2)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
                                atol=1e-3)
+
+
+# ---- K5: K1's tile GEMM with the bias, the bf16 y and its sums
+
+
+def _stripe_sum(rows):
+    """sum_rows' order over a block's rows: stripe q (32 of them) adds
+    rows q, q + 32, .. in order, then the stripes add in order."""
+    stripes = []
+    for q in range(min(32, len(rows))):
+        acc = rows[q]
+        for r in rows[q + 32::32]:
+            acc = acc + r
+        stripes.append(acc)
+    total = stripes[0]
+    for v in stripes[1:]:
+        total = total + v
+    return total
+
+
+def conv_stats_tiled(x, w, bias=None, blocks=3, in_image_only=True):
+    """K5's decomposition and summation order. Per 16x16 output tile,
+    K1's GEMM (conv_tiled) + bias, y rounded to x's dtype. Lane (w, l) of
+    a block adds y and y² (f32, of the rounded y) of the in-image pixels
+    at rows 2w + j (j = 0, 1) and columns l/4 + 8h (h = 0, 1), in that
+    order, over the block's tiles t = b, b + blocks, ..; the 8 lanes of a
+    channel then meet in the xor tree (offsets 4, 8, 16 of the lane:
+    lane l/4 pairs with l/4 ^ 1, ^ 2, ^ 4), the 8 warps in order, and
+    the blocks' rows in sum_rows' stripe order. ``in_image_only=False``
+    also adds the pixels of the ragged tiles past the image (the GEMM
+    of the zero-filled halo there)."""
+    k, _, ci, co = w.shape
+    bsz, h, wd, _ = x.shape
+    tiles_y, tiles_x = -(-h // 16), -(-wd // 16)
+    xp = torch.nn.functional.pad(x.float(), (0, 0, 0, 16 * tiles_x - wd, 0,
+                                             16 * tiles_y - h))
+    ones, zeros = torch.ones(co), torch.zeros(co)
+    yext = conv_tiled(xp, w.float(), ones,
+                      zeros if bias is None else bias.float(), act=False)
+    yext = yext.to(x.dtype).float()  # the emitted values, whole tiles
+    ntiles = bsz * tiles_y * tiles_x
+    rows = []
+    for blk in range(min(blocks, ntiles)):
+        s1 = torch.zeros(8, 8, co)  # [warp, lane / 4, channel]
+        s2 = torch.zeros(8, 8, co)
+        for t in range(blk, ntiles, blocks):
+            n, rem = divmod(t, tiles_y * tiles_x)
+            oh0, ow0 = (rem // tiles_x) * 16, (rem % tiles_x) * 16
+            tile = yext[n, oh0:oh0 + 16, ow0:ow0 + 16]
+            if in_image_only:
+                iy = torch.arange(oh0, oh0 + 16)
+                ix = torch.arange(ow0, ow0 + 16)
+                inside = (iy < h)[:, None] & (ix < wd)[None, :]
+                tile = tile * inside[..., None]
+            v = tile.reshape(8, 2, 2, 8, co)  # [warp, j, h, lane / 4, c]
+            for j in range(2):
+                for hh in range(2):
+                    f = v[:, j, hh]
+                    s1 = s1 + f
+                    s2 = s2 + f * f
+        for off in (1, 2, 4):  # the xor tree over lane / 4
+            perm = torch.arange(8) ^ off
+            s1, s2 = s1 + s1[:, perm], s2 + s2[:, perm]
+        r1, r2 = s1[0, 0], s2[0, 0]
+        for wp in range(1, 8):
+            r1, r2 = r1 + s1[wp, 0], r2 + s2[wp, 0]
+        rows.append(torch.cat([r1, r2]))
+    sums = _stripe_sum(rows)
+    return yext[:, :h, :wd].to(x.dtype), sums[:co], sums[co:]
+
+
+def _stats_close(got, want, y_tol):
+    (y, s1, s2), (py, p1, p2) = got, want
+    assert y.shape == py.shape and y.dtype == py.dtype
+    yerr = float((y.float() - py.float()).abs().max())
+    assert yerr <= y_tol * float(py.float().abs().max()), yerr
+    for g, p in ((s1, p1), (s2, p2)):
+        err = float((g - p).abs().max())
+        assert err <= 1e-3 * float(p.abs().max()), err
+
+
+@pytest.mark.parametrize("blocks", [1, 7, 64])
+@pytest.mark.parametrize("shape", sorted(train_conv.SHAPES))
+def test_conv_stats_decomposition_matches_plain(rng, shape, blocks):
+    """Every compiled (ci, co, k) at 2 x 40 x 72 in bf16 (16x16 tiles cut
+    at both borders): y within one bf16 step, the f32 sums of the bf16 y
+    within 1e-3·max|plain|, with fewer blocks than tiles (1, 7) and more
+    (64: some blocks take one tile, some none)."""
+    ci, co, k = shape
+    x = _t(np.abs(rng.randn(2, 40, 72, ci))).to(torch.bfloat16)
+    w = _t(rng.randn(k, k, ci, co) * 0.1).to(torch.bfloat16)
+    b = _t(rng.randn(co) * 0.1)
+    got = conv_stats_tiled(x, w, b, blocks=blocks)
+    want = train_conv.conv_stats_plain(x, w, b)
+    assert got[0].shape == (2, 40, 72, co)
+    _stats_close(got, want, 1e-2)
+
+
+def test_conv_stats_sums_in_image_pixels_only(rng):
+    """Ragged tiles: the rows and columns past the image hold the GEMM
+    of the zero-filled halo (the bias, plus the border's taps), and
+    adding them would move the sums far beyond the tolerance."""
+    x = _t(np.abs(rng.randn(1, 20, 37, 16))).to(torch.bfloat16)
+    w = _t(rng.randn(3, 3, 16, 16) * 0.1).to(torch.bfloat16)
+    b = _t(rng.rand(16) + 0.5)
+    want = train_conv.conv_stats_plain(x, w, b)
+    _stats_close(conv_stats_tiled(x, w, b), want, 1e-2)
+    _, s1, _ = conv_stats_tiled(x, w, b, in_image_only=False)
+    assert float((s1 - want[1]).abs().max()) > 0.1 * float(
+        want[1].abs().max())
+
+
+@pytest.mark.parametrize("k,ci,co,p,bias", [(3, 16, 16, 8, False),
+                                            (3, 32, 16, 4, True),
+                                            (7, 16, 16, 8, True),
+                                            (1, 64, 32, 4, False)])
+def test_conv_stats_decomposition_matches_pallas(rng, k, ci, co, p, bias):
+    """float32 against train_conv_stats in interpret mode, as
+    tests/test_torch_train_kernels.py runs it: y, s1 and s2."""
+    x = rng.randn(2, 16, 16 * p, ci).astype(np.float32)
+    w = (rng.randn(k, k, ci, co) * 0.1).astype(np.float32)
+    b = rng.randn(co).astype(np.float32) if bias else None
+    y_j, s1_j, s2_j = jax_tcs(pack(jnp.asarray(x), p), jnp.asarray(w),
+                              jnp.asarray(b) if bias else None, p, True)
+    y, s1, s2 = conv_stats_tiled(_t(x), _t(w), _t(b) if bias else None,
+                                 blocks=3)
+    np.testing.assert_allclose(y.numpy(), np.asarray(unpack(y_j, p)),
+                               rtol=1e-5, atol=1e-5)
+    for got, want in ((s1, s1_j), (s2, s2_j)):
+        np.testing.assert_allclose(
+            got.numpy(), np.asarray(want).reshape(p, co).sum(0), rtol=1e-4,
+            atol=1e-3)
+
+
+# ---- K8: the parity-plane implicit GEMM of the deconv's input gradient
+
+
+def _s2k4_qh(co):
+    """dx rows of K8's tile: 8 at co = 32 (dec2), 16 at co = 16 (dec1)."""
+    return 8 if co >= 32 else 16
+
+
+def parity_planes(dy, n, i0, j0, qh, qw=16):
+    """The four (row parity, column parity) planes of dx tile (i0, j0)'s
+    haloed dy window (rows 2 i0 - 1 .. 2 i0 + 2 qh, columns 2 j0 - 1 ..
+    2 j0 + 2 qw, zero outside dy): planes[pr][pc] is (qh + 1, qw + 1, co)."""
+    win = _window(dy[n:n + 1], 2 * i0 - 1, 2 * j0 - 1, 2 * qh + 2,
+                  2 * qw + 2)[0]
+    return [[win[pr::2, pc::2] for pc in range(2)] for pr in range(2)]
+
+
+def conv_s2k4_tiled(dy, w, qh=None, qw=16):
+    """K8's decomposition: per dx tile, A = the tile's pixels x (16 taps
+    x co, tap-major), tap (kr, kc) reading plane (kr & 1, kc & 1) at
+    offset (kr >> 1, kc >> 1); B[tap co + c, n] = w[kr, kc, n, c]; dx =
+    A @ B rounded to dy's dtype."""
+    bsz, h2, w2, co = dy.shape
+    ci = w.shape[2]
+    h, wd = h2 // 2, w2 // 2
+    qh = _s2k4_qh(co) if qh is None else qh
+    kmat = w.float().permute(0, 1, 3, 2).reshape(16 * co, ci)
+    dyf = dy.float()
+    out = torch.empty(bsz, h, wd, ci)
+    for n in range(bsz):
+        for i0 in range(0, h, qh):
+            for j0 in range(0, wd, qw):
+                planes = parity_planes(dyf, n, i0, j0, qh, qw)
+                cols = torch.cat(
+                    [planes[kr & 1][kc & 1][kr >> 1:(kr >> 1) + qh,
+                                            kc >> 1:(kc >> 1) + qw]
+                     for kr in range(4) for kc in range(4)], -1)
+                tile = (cols.reshape(qh * qw, 16 * co) @ kmat).reshape(
+                    qh, qw, ci)
+                out[n, i0:i0 + qh, j0:j0 + qw] = tile[:h - i0, :wd - j0]
+    return out.to(dy.dtype)
+
+
+def test_s2k4_planes_are_the_stride2_pixels(rng):
+    """The parity-plane index map: plane (kr & 1, kc & 1) at (ty +
+    (kr >> 1), tx + (kc >> 1)) is the naive stride-2 dy pixel
+    (2 (i0 + ty) + kr - 1, 2 (j0 + tx) + kc - 1), zero outside dy, for
+    every dx pixel of a tile and every tap, at interior and border
+    tiles."""
+    dy = torch.arange(1, 1 + 2 * 20 * 36 * 2, dtype=torch.float32).reshape(
+        2, 20, 36, 2)
+    h, wd = 10, 18
+    for n, i0, j0 in ((0, 0, 0), (1, 8, 16), (0, 8, 0)):
+        planes = parity_planes(dy, n, i0, j0, 8)
+        for ty in range(8):
+            for tx in range(16):
+                for kr in range(4):
+                    for kc in range(4):
+                        got = planes[kr & 1][kc & 1][ty + (kr >> 1),
+                                                     tx + (kc >> 1)]
+                        r = 2 * (i0 + ty) + kr - 1
+                        c = 2 * (j0 + tx) + kc - 1
+                        inside = (0 <= r < 2 * h and 0 <= c < 2 * wd)
+                        want = dy[n, r, c] if inside else torch.zeros(2)
+                        assert torch.equal(got, want), (n, i0, j0, ty, tx,
+                                                        kr, kc)
+
+
+@pytest.mark.parametrize("qh", [None, 8, 16], ids=["kernel", "qh8", "qh16"])
+@pytest.mark.parametrize("shape", sorted(deconv.S2K4_SHAPES))
+def test_conv_s2k4_decomposition_matches_plain(rng, shape, qh):
+    """Every compiled (ci, co) at dx 2 x 40 x 72 (tiles cut at both
+    borders) in bf16: dx within one bf16 step of the plain version; the
+    kernel's tile height and both others."""
+    ci, co = shape
+    dy = _t(rng.randn(2, 80, 144, co)).to(torch.bfloat16)
+    w = _t(rng.randn(4, 4, ci, co) * 0.1).to(torch.bfloat16)
+    got = conv_s2k4_tiled(dy, w, qh)
+    want = deconv.conv_s2k4_plain(dy, w)
+    assert got.shape == want.shape == (2, 40, 72, ci)
+    assert got.dtype == want.dtype == torch.bfloat16
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= 1e-2 * float(want.float().abs().max()), err
+
+
+@pytest.mark.parametrize("ci,co,p,h,w", [(64, 32, 4, 8, 64),
+                                         (32, 16, 8, 16, 128)],
+                         ids=["dec2", "dec1"])
+def test_conv_s2k4_decomposition_matches_pallas(rng, ci, co, p, h, w):
+    """float32 against fused_conv_s2k4 in interpret mode, fed the
+    in/out-transposed kernel as tests/test_torch_deconv_ad.py feeds it."""
+    wk = (rng.randn(4, 4, ci, co) * 0.1).astype(np.float32)
+    dy = rng.randn(2, 2 * h, 2 * w, co).astype(np.float32)
+    want = fused_conv_s2k4(pack(jnp.asarray(dy), 2 * p),
+                           jnp.asarray(wk.transpose(0, 1, 3, 2)), p=p, th=4,
+                           interpret=True)
+    got = conv_s2k4_tiled(_t(dy), _t(wk))
+    assert got.shape == (2, h, w, ci)
+    np.testing.assert_allclose(got.numpy(), np.asarray(unpack(want, p)),
+                               rtol=0, atol=2e-5)

@@ -27,11 +27,15 @@ class Policy:
                    stride-1 convs (enc1, dec2, dec1, head) run K5
                    forward with K1 dx and K6 dW, the classifier K1/K6,
                    the stem pool K4, the loss K7. On by default, as
-                   fused_eval: the JAX package keeps its Pallas train
-                   zone off on the TPU only for layout copies at the
-                   XLA/Pallas seams (docs/roofline.md), which the card
-                   does not have. Per b16 step at the flagship width:
-                   K5 x16, K1 x18, K6 x17, K4 x1, K7 1 + 1.
+                   fused_eval, where the JAX package ships it off: that
+                   package keeps its Pallas train zone off on the TPU
+                   only for layout copies at the XLA/Pallas seams
+                   (docs/roofline.md), which the card does not have, and
+                   on the H100 the zone's step is the faster one at
+                   batch 16 and 32 (the A/B matrix of
+                   tools/profile_train.py, PERF.md). Both paths compute
+                   the same function. Per b16 step at the flagship
+                   width: K5 x16, K1 x18, K6 x17, K4 x1, K7 1 + 1.
     fused_train_deconv: the train-mode decoder upsamples (dec2, dec1)
                    at exact 2x run ops/deconv.py:deconv2x_ad — K3
                    forward, K8 input and K9 weight gradient (per step

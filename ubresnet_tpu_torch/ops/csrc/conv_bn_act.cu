@@ -153,15 +153,7 @@ conv_bn_act_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
     // this warp's output rows: whole 16-byte chunks, or (co = 3) the
     // packed pixels element by element
     if constexpr (CO % 8 == 0) {
-      for (int e = lane; e < J * cg::TW * NCO; e += 32) {
-        const int sp = e / NCO, c = e % NCO;
-        const int oh = oh0 + warp * J + sp / cg::TW, ow = ow0 + sp % cg::TW;
-        if (oh < H && ow < W)
-          *reinterpret_cast<uint4*>(out + (((long)n * H + oh) * W + ow) * CO +
-                                    c * 8) =
-              *reinterpret_cast<const uint4*>(
-                  wst + tc::chunk_at<NCO>(sp, c) * 8);
-      }
+      tc::store_rows<NCO, J>(out, wst, n, oh0 + warp * J, ow0, H, W, lane);
     } else {
       for (int e = lane; e < J * cg::TW * CO; e += 32) {
         const int sp = e / CO, c = e % CO;

@@ -1,6 +1,6 @@
 // The stride-1, odd k x k 'same' convolution as a tensor-core implicit
-// GEMM over one 16x16 output tile, the mainloop of K1 conv_bn_act (and
-// for K5 conv_stats to take with its own epilogue):
+// GEMM over one 16x16 output tile, the mainloop of K1 conv_bn_act and of
+// K5 conv_stats, each with its own epilogue:
 //   M = the tile's 256 output pixels, 16 per M-tile (one tile row),
 //   N = co, padded to a multiple of 8 (co = 3: columns 3-7 are zero),
 //   K = taps x channels, tap-major, in k-steps of 16.
@@ -108,8 +108,11 @@ __device__ __forceinline__ void zero_acc(float (&acc)[J][S::NT8][4]) {
 // acc[j] += the conv over output row row[j] of the tile in x tile xt
 // (shared address) with B fragments wf. acc[j][t] is the mma C fragment
 // of n-tile t: c0, c1 pixel lane/4 of the row, channels 8t + 2(lane%4)
-// and +1; c2, c3 pixel lane/4 + 8.
-template <class S, int J>
+// and +1; c2, c3 pixel lane/4 + 8. PROMOTE: each k-step's product comes
+// from a zero accumulator and is added into acc with f32 FADDs (round to
+// nearest), so the tensor cores' truncating accumulation does not bias
+// the sum over a long K (K5, whose bf16 y feeds BatchNorm's statistics).
+template <class S, int J, bool PROMOTE = false>
 __device__ __forceinline__ void conv_rows(float (&acc)[J][S::NT8][4],
                                           uint32_t xt, const uint2* wf,
                                           const int (&row)[J], int lane) {
@@ -128,7 +131,16 @@ __device__ __forceinline__ void conv_rows(float (&acc)[J][S::NT8][4],
       uint32_t a[4];
       tc::ldsm_x4(xt + off[j], a);
 #pragma unroll
-      for (int t = 0; t < S::NT8; ++t) tc::mma(acc[j][t], a, b[t].x, b[t].y);
+      for (int t = 0; t < S::NT8; ++t) {
+        if constexpr (PROMOTE) {
+          float d[4];
+          tc::mma_zc(d, a, b[t].x, b[t].y);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[j][t][i] += d[i];
+        } else {
+          tc::mma(acc[j][t], a, b[t].x, b[t].y);
+        }
+      }
     }
   };
 

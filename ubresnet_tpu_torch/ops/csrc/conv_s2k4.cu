@@ -7,107 +7,180 @@
 // bf16 dx (B, H, W, ci).
 //
 // Replaces ubresnet_tpu/ops/pallas_conv.py:fused_conv_s2k4 (_s2k4_kernel,
-// s2k4_weights, _S2_TAPS), the dx leg of pallas_deconv2x_ad. The TPU form
-// splits dy into row-parity planes packed 2p pixels to a 128-lane row
-// and adds halo combos; both exist to fill the MXU's lanes and are not
-// carried over: here dy is read in its natural layout.
+// s2k4_weights, _S2_TAPS), the dx leg of pallas_deconv2x_ad. The TPU
+// form's W-packing, halo combos and lane packing exist to fill the MXU's
+// lanes and are not carried over.
 //
-// Bound on the H100: bytes at the bf16 tensor-core peak (16 taps x ci x co
-// MACs per dx pixel against 4 dy pixels read: 128 operations per byte at
-// dec2, 64 at dec1, below the ~295 op/B ridge); this first form runs f32
-// FMAs, so in practice operations bind it. Design: a block owns a 16x16
-// tile of dx pixels, one per thread, all ci accumulators in registers.
-// All 16 taps of the weights sit in shared memory as f32, laid out
-// [tap][co][ci] so the inner loop reads them as warp-wide float4
-// broadcasts (4 MACs per 16-byte load); the 34x34 dy tile with its halo
-// sits beside them as bf16 (odd-word pixel stride). Tensor cores are
-// later work.
-#include "common.cuh"
+// Bound on the H100: bytes (16 taps x ci x co MACs per dx pixel against
+// its 4 dy pixels read and 1 dx pixel written: 128 operations per byte
+// at dec2, 64 at dec1, below the ~295 op/B bf16 tensor-core ridge).
+//
+// Design (tensor cores): an implicit GEMM on bf16 mma.sync m16n8k16
+// with f32 accumulators,
+//   M = the tile's dx pixels, 16 per M-tile (one dx row),
+//   N = ci (8 n-tiles at dec2, 4 at dec1),
+//   K = 16 taps x co, tap-major (2 k-steps a tap at co = 32, 1 at 16),
+// B[tap co + c, n] = w[tap, n, c] laid out once per block as per-lane
+// fragments (tc::stage_b8).
+// - Parity planes. Read naively, tap (kr, kc)'s A rows are dy pixels at
+//   stride 2 (2j + kc), and the chunk swizzle (tensor_core.cuh:chunk_at)
+//   spreads 8 CONSECUTIVE pixels over the bank groups, not 8 at stride
+//   2. So the haloed dy tile (rows 2i0 - 1 .. 2i0 + 2QH, columns
+//   2j0 - 1 .. 2j0 + 2QW) lands as its four (row parity, column parity)
+//   planes, each a (QH + 1) x (QW + 1) pixel array swizzled on its own:
+//   tap (kr, kc) reads plane (kr & 1, kc & 1) at offset (kr >> 1,
+//   kc >> 1), 16 consecutive pixels per M-tile row, the access pattern of
+//   K1's conv_rows, conflict-free for ldmatrix.
+// - A persistent grid (SMs x blocks per SM, asked once per kernel
+//   instance) walks dx tiles t = blockIdx.x + i * gridDim.x; the next
+//   tile's planes arrive by double-buffered 16-byte cp.async, zero-filled
+//   outside dy (src-size 0), while this one is computed.
+// - 8 warps, J dx rows (M-tiles) each; the epilogue rounds to bf16 and
+//   stages the warp's rows for 16-byte coalesced stores.
+// Shared memory bounds the tile at dec2: B is 32 k-steps x 8 n-tiles x 32
+// lanes x 8 B = 64 KB and a 16x16 dx tile's planes 74 KB, so two buffers
+// would not fit beside B and the staging. dec2 takes 8x16 dx tiles (J = 1:
+// 38 KB of planes a buffer, 157 KB in all, one block per SM), dec1 16x16
+// (J = 2: B 16 KB, planes 36 KB a buffer, 104 KB, two blocks per SM).
+#include "conv_gemm.cuh"  // zero_acc
 #include "ubr_shapes.h"  // UBR_CONV_S2K4_SHAPES (ops/_build.py:SHAPES)
 
 namespace {
 
-constexpr int QH = 16, QW = 16, NT = QH * QW;
-constexpr int YH = 2 * QH + 2, YW = 2 * QW + 2;  // dy rows/cols of a tile
+constexpr int NWARP = 8, NT = 32 * NWARP;
+constexpr int QW = 16;  // dx columns of a tile: one M-tile a row
 
 template <int CI, int CO>
 struct S2k4Shape {
-  static constexpr int CP = CO + 2;            // bf16 per dy pixel (odd words)
-  static constexpr int WS = 16 * CO * CI;      // floats
-  static constexpr int YS = YH * YW * CP;      // bf16
-  static constexpr int SMEM = WS * 4 + YS * 2;
-  static_assert(CI % 8 == 0 && CO % 8 == 0, "channel blocking");
+  static constexpr int J = CO >= 32 ? 1 : 2;       // dx rows a warp
+  static constexpr int QH = NWARP * J;             // dx rows of a tile
+  static constexpr int PH = QH + 1, PW = QW + 1;   // a plane's pixels
+  static constexpr int YH = 2 * PH, YW = 2 * PW;   // the haloed dy tile
+  static constexpr int NC = CO / 8;                // dy chunks a pixel
+  static constexpr int KC = CO / 16;               // k-steps a tap
+  static constexpr int KSTEPS = 16 * KC;
+  static constexpr int NT8 = CI / 8, NCI = CI / 8;  // n-tiles; dx chunks
+  static constexpr int B_UNITS = KSTEPS * NT8 * 32;  // uint2 of B fragments
+  static constexpr int PLANE = PH * PW * CO;         // bf16 of a plane
+  static constexpr int Y_ELEMS = 4 * PLANE;          // bf16 of a buffer
+  static constexpr int ST = J * QW * CI;             // staging bf16 a warp
+  static constexpr int SMEM = B_UNITS * 8 + (2 * Y_ELEMS + NWARP * ST) * 2;
+  static_assert(CI % 16 == 0 && CO % 16 == 0, "16-channel k-steps");
+  // the k-step XOR (bit 5 of a byte offset) must not reach the plane base
+  static_assert(KC == 1 || PLANE * 2 % 64 == 0, "plane base alignment");
 };
 
 template <int CI, int CO>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(
+    NT, (tc::blocks_per_sm<S2k4Shape<CI, CO>::SMEM, 2>()))
 conv_s2k4_kernel(const bf16* __restrict__ dy, const bf16* __restrict__ w,
-                 bf16* __restrict__ dx, int H, int W) {
+                 bf16* __restrict__ dx, int B, int H, int W) {
   using S = S2k4Shape<CI, CO>;
-  extern __shared__ float4 smem4[];
-  float* ws = reinterpret_cast<float*>(smem4);
-  bf16* ys = reinterpret_cast<bf16*>(ws + S::WS);
+  constexpr int J = S::J, NT8 = S::NT8, NC = S::NC, NCI = S::NCI;
+  extern __shared__ uint4 smem[];
+  uint2* wf = reinterpret_cast<uint2*>(smem);
+  bf16* ys = reinterpret_cast<bf16*>(wf + S::B_UNITS);  // two buffers
+  bf16* st = ys + 2 * S::Y_ELEMS;
 
-  const int tid = threadIdx.x;
-  const int n = blockIdx.z;
-  const int i0 = blockIdx.y * QH, j0 = blockIdx.x * QW;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, q4 = lane & 3;
   const int H2 = 2 * H, W2 = 2 * W;
+  const int tiles_x = (W + QW - 1) / QW, tiles_y = (H + S::QH - 1) / S::QH;
+  const int per_img = tiles_x * tiles_y, ntiles = B * per_img;
 
-  // weights (tap, ci, co) in global → [tap][co][ci] in shared memory:
-  // each thread reads 8 consecutive co of one (tap, ci) as 16 bytes, and
-  // neighbouring threads write neighbouring ci
-  for (int e = tid; e < 16 * CI * (CO / 8); e += NT) {
-    const int ci = e % CI, rest = e / CI;
-    const int cq = rest % (CO / 8), tap = rest / (CO / 8);
-    const uint4 u = *reinterpret_cast<const uint4*>(
-        w + (tap * CI + ci) * CO + cq * 8);
-    const bf162* h = reinterpret_cast<const bf162*>(&u);
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const float2 f = __bfloat1622float2(h[q]);
-      ws[(tap * CO + cq * 8 + 2 * q) * CI + ci] = f.x;
-      ws[(tap * CO + cq * 8 + 2 * q + 1) * CI + ci] = f.y;
+  // B row kp = tap co + c (tap-major), column n: w[tap, n, c]
+  tc::stage_b8<S::KSTEPS, CI>(
+      wf,
+      [=](int kp, int n) { return w[((kp / CO) * CI + n) * CO + kp % CO]; },
+      tid, NT);
+
+  // haloed dy pixel (ry, rx) of tile t → plane (ry & 1, rx & 1), pixel
+  // (ry >> 1, rx >> 1) of it; zeros outside dy
+  auto load = [&](int t, bf16* dst) {
+    const int n = t / per_img, r = t % per_img;
+    const int y0 = 2 * (r / tiles_x) * S::QH - 1;
+    const int x0 = 2 * (r % tiles_x) * QW - 1;
+    for (int e = tid; e < S::YH * S::YW * NC; e += NT) {
+      const int p = e / NC, c = e % NC;
+      const int ry = p / S::YW, rx = p % S::YW;
+      const int iy = y0 + ry, ix = x0 + rx;
+      const bool in = iy >= 0 && iy < H2 && ix >= 0 && ix < W2;
+      const long pix = in ? ((long)n * H2 + iy) * W2 + ix : 0;
+      const int pp = (ry >> 1) * S::PW + (rx >> 1);
+      tc::cp_async16(
+          tc::smem_u32(dst + ((ry & 1) * 2 + (rx & 1)) * S::PLANE +
+                       tc::chunk_at<NC>(pp, c) * 8),
+          dy + pix * CO + c * 8, in);
     }
-  }
-  // dy rows 2*i0-1 .. 2*i0+2*QH, columns 2*j0-1 .. 2*j0+2*QW, zero outside
-  for (int e = tid; e < YH * YW * (CO / 2); e += NT) {
-    const int c = 2 * (e % (CO / 2)), pix = e / (CO / 2);
-    const int r = 2 * i0 - 1 + pix / YW, col = 2 * j0 - 1 + pix % YW;
-    bf162 v = __floats2bfloat162_rn(0.f, 0.f);
-    if (r >= 0 && r < H2 && col >= 0 && col < W2)
-      v = *reinterpret_cast<const bf162*>(
-          dy + (((long)n * H2 + r) * W2 + col) * CO + c);
-    *reinterpret_cast<bf162*>(ys + pix * S::CP + c) = v;
-  }
-  __syncthreads();
+    tc::cp_async_commit();
+  };
 
-  const int ty = tid / QW, tx = tid % QW;
-  const int i = i0 + ty, j = j0 + tx;
-  if (i >= H || j >= W) return;
-  float acc[CI];
+  const int ar = tc::a_row(lane), half = tc::a_half(lane);
+  int base[J];  // the lane's plane pixel at offset (0, 0), per row
 #pragma unroll
-  for (int c = 0; c < CI; ++c) acc[c] = 0.f;
+  for (int j = 0; j < J; ++j) base[j] = (warp * J + j) * S::PW + ar;
+  bf16* wst = st + warp * S::ST;  // this warp's staging
+
+  int buf = 0;
+  if ((int)blockIdx.x < ntiles) load(blockIdx.x, ys);
 #pragma unroll 1
-  for (int tap = 0; tap < 16; ++tap) {
-    // dx pixel (ty, tx) reads dy at tile-local (2ty + kr, 2tx + kc)
-    const bf16* yp = ys + ((2 * ty + tap / 4) * YW + 2 * tx + tap % 4) * S::CP;
-    const float* wp = ws + tap * CO * CI;
-#pragma unroll 2
-    for (int co = 0; co < CO; co += 2) {
-      const float2 yv = ld_bf16x2(yp + co);
-      const float4* r0 = reinterpret_cast<const float4*>(wp + co * CI);
-      const float4* r1 = reinterpret_cast<const float4*>(wp + (co + 1) * CI);
+  for (int t = blockIdx.x; t < ntiles; t += gridDim.x, buf ^= 1) {
+    tc::cp_async_wait_all();
+    __syncthreads();  // planes of tile t landed; the last tile's reads done
+    if (t + (int)gridDim.x < ntiles)
+      load(t + gridDim.x, ys + (buf ^ 1) * S::Y_ELEMS);
+    const uint32_t yt = tc::smem_u32(ys + buf * S::Y_ELEMS);
+    const int n = t / per_img, r = t % per_img;
+    const int i0 = (r / tiles_x) * S::QH, j0 = (r % tiles_x) * QW;
+
+    float acc[J][NT8][4];
+    cg::zero_acc<S, J>(acc);
+
+#pragma unroll 1
+    for (int kr = 0; kr < 4; ++kr) {
 #pragma unroll
-      for (int q = 0; q < CI / 4; ++q) {
-        const float4 u = r0[q], v = r1[q];
-        acc[4 * q + 0] = fmaf(yv.y, v.x, fmaf(yv.x, u.x, acc[4 * q + 0]));
-        acc[4 * q + 1] = fmaf(yv.y, v.y, fmaf(yv.x, u.y, acc[4 * q + 1]));
-        acc[4 * q + 2] = fmaf(yv.y, v.z, fmaf(yv.x, u.z, acc[4 * q + 2]));
-        acc[4 * q + 3] = fmaf(yv.y, v.w, fmaf(yv.x, u.w, acc[4 * q + 3]));
+      for (int kc = 0; kc < 4; ++kc) {
+        // plane (kr & 1, kc & 1) at offset (kr >> 1, kc >> 1); its base
+        // (bytes) has no bit in the k-step XOR's place
+        const uint32_t pbase = ((kr & 1) * 2 + (kc & 1)) * S::PLANE * 2;
+        uint32_t off0[J];
+#pragma unroll
+        for (int j = 0; j < J; ++j)
+          off0[j] = pbase + tc::a_off<NC>(
+                                base[j] + (kr >> 1) * S::PW + (kc >> 1), half);
+#pragma unroll
+        for (int k2 = 0; k2 < S::KC; ++k2) {
+          const int s = (kr * 4 + kc) * S::KC + k2;
+          uint2 b[NT8];
+#pragma unroll
+          for (int tt = 0; tt < NT8; ++tt) b[tt] = wf[(s * NT8 + tt) * 32 + lane];
+#pragma unroll
+          for (int j = 0; j < J; ++j) {
+            uint32_t a[4];
+            tc::ldsm_x4(yt + (off0[j] ^ (k2 << 5)), a);
+#pragma unroll
+            for (int tt = 0; tt < NT8; ++tt)
+              tc::mma(acc[j][tt], a, b[tt].x, b[tt].y);
+          }
+        }
       }
     }
+
+    // epilogue -> this warp's staging (pixel sp = j * QW + px)
+#pragma unroll
+    for (int j = 0; j < J; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int sp = j * QW + gq + 8 * h;
+#pragma unroll
+        for (int tt = 0; tt < NT8; ++tt)
+          *reinterpret_cast<bf162*>(wst + tc::elem_at<NCI>(sp, tt * 8 + 2 * q4)) =
+              __floats2bfloat162_rn(acc[j][tt][2 * h], acc[j][tt][2 * h + 1]);
+      }
+    __syncwarp();
+    tc::store_rows<NCI, J>(dx, wst, n, i0 + warp * J, j0, H, W, lane);
+    __syncwarp();  // staging read before the next tile's epilogue
   }
-  store_px<CI>(dx + (((long)n * H + i) * W + j) * CI, acc);
 }
 
 template <int CI, int CO>
@@ -115,19 +188,26 @@ int launch(const void* dy, const void* w, void* dx, int B, int H, int W,
            cudaStream_t stream) {
   using S = S2k4Shape<CI, CO>;
   static bool smem_set = false;
+  static int most = 0;
   cudaError_t e = allow_smem(conv_s2k4_kernel<CI, CO>, S::SMEM, &smem_set);
+  if (e == cudaSuccess)
+    e = tc::resident_blocks(conv_s2k4_kernel<CI, CO>, NT, S::SMEM, &most);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((W + QW - 1) / QW, (H + QH - 1) / QH, B);
+  const long tiles =
+      (long)B * ((H + S::QH - 1) / S::QH) * ((W + QW - 1) / QW);
+  if (tiles == 0) return 0;
+  const int grid = (int)(tiles < most ? tiles : most);
   conv_s2k4_kernel<CI, CO><<<grid, NT, S::SMEM, stream>>>(
       static_cast<const bf16*>(dy), static_cast<const bf16*>(w),
-      static_cast<bf16*>(dx), H, W);
+      static_cast<bf16*>(dx), B, H, W);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // (ci, co) of the deconv instantiated: UBR_CONV_S2K4_SHAPES, from the one
-// table in ops/_build.py:SHAPES. H, W are dx's (the deconv's input side).
+// table in ops/_build.py:SHAPES. H, W are dx's (the deconv's input side);
+// dy must be 16-byte aligned.
 UBR_EXPORT int ubr_conv_s2k4(const void* dy, const void* w, void* dx, int B,
                              int H, int W, int ci, int co, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -8,140 +8,176 @@
 //
 // Replaces ubresnet_tpu/ops/pallas_train.py:train_conv_stats
 // (_conv_stats_kernel), which accumulates the sums in VMEM across its
-// sequential grid. Here each block walks a fixed, strided set of 16x16
-// output tiles, keeps its pixels' sums in registers, reduces them over
-// the block (warp shuffles, then the 8 warps in order) into its own row
-// of a scratch tensor, and sum_rows (partials.cuh) adds the rows in
-// order: the sums are the same bits on every run. The TPU kernel's
-// W-packing and halo-combo blocks are not carried over.
+// sequential grid. The TPU kernel's W-packing and halo-combo blocks are
+// not carried over.
 //
-// Bound on the H100: operations for the 3x3 and 7x7 layers (e.g.
-// 9*32*32 MACs per 128 bytes of a (32,32,3) pixel's input and output,
-// 144 op/B in f32 FMA terms, far above the ~21 op/B f32 ridge), bytes
-// for the 1x1 projections. Design (first, simple form), as K1: the
-// input tile with its halo and all weights sit in shared memory as f32
-// (weights loaded once per block, not per tile), each thread
-// accumulates one output pixel's CO channels with f32 FMAs. Tensor
-// cores (mma/wgmma) are later work.
-#include "common.cuh"
+// Bound on the H100 at the bf16 tensor-core rate: operations for the
+// head's 7x7 (49*16*16 MACs per 64 bytes of a pixel's input and output:
+// 392 op/B, above the ~295 op/B ridge), bytes for the 3x3 layers (144-192
+// op/B) and the 1x1 projections.
+//
+// Design (tensor cores): K1's mainloop (conv_gemm.cuh: M = a 16x16
+// output tile's pixels, N = co, K = taps x ci tap-major, bf16 mma.sync
+// m16n8k16 with f32 accumulators) with its own epilogue:
+// - each k-step's MMA starts from a zero accumulator and is added into
+//   the f32 sum by FADDs (conv_rows' PROMOTE): the tensor cores' own
+//   accumulation truncates, and over K = 9 ci or 49 ci its bias toward
+//   zero moves y's channel means enough for BatchNorm's statistics to
+//   carry it into the train loss;
+// - a persistent grid (SMs x blocks per SM, asked once per kernel
+//   instance, at most the wrapper's scratch rows) walks tiles
+//   t = blockIdx.x + i * gridDim.x; each block lays the weights out once
+//   as B fragments; the next tile's haloed x arrives by double-buffered
+//   cp.async (zero-filled outside the image); 8 warps, two output rows
+//   each;
+// - the epilogue adds the bias, rounds to bf16 and stages the tile's
+//   rows per warp for 16-byte coalesced stores; from the ROUNDED value
+//   each lane adds y and y*y of its in-image pixels into registers for
+//   its channels 8t + 2(lane%4) and +1 (rows past the image hold
+//   bias-only values and are left out);
+// - deterministic sums without atomics: at the end of the block the
+//   lane sums meet over the 8 lanes that share a channel (shuffles in a
+//   fixed order), then over the 8 warps in order, into the block's own
+//   row of the scratch; sum_rows (partials.cuh) adds the rows in order.
+//   Same inputs and grid, same bits in y, s1 and s2 on every launch.
+#include "conv_gemm.cuh"
 #include "partials.cuh"
 #include "ubr_shapes.h"  // UBR_CONV_STATS_SHAPES (ops/_build.py:SHAPES)
 
 namespace {
 
-constexpr int TH = 16, TW = 16, NT = TH * TW, NWARP = NT / 32;
+constexpr int NWARP = 8, NT = 32 * NWARP;
+constexpr int J = cg::TH / NWARP;  // output rows a warp
 
 template <int CI, int CO, int K>
-struct StatsShape {
-  static constexpr int R = K / 2;
-  static constexpr int XH = TH + K - 1, XW = TW + K - 1;
-  static constexpr int CIP = CI + 4;             // padded pixel stride
-  static constexpr int COP = (CO + 3) / 4 * 4;   // float4-able outputs
-  static constexpr int XS = XH * XW * CIP;       // floats
-  static constexpr int WS = K * K * CI * COP;    // floats
-  static constexpr int RS = NWARP * 2 * CO;      // per-warp sums
-  static constexpr int SMEM = (WS + XS + RS) * 4;
+struct StatsShape : cg::Shape<CI, CO, K> {
+  using G = cg::Shape<CI, CO, K>;
+  static constexpr int NCO = CO / 8;          // staging chunks a pixel
+  static constexpr int ST = J * cg::TW * CO;  // staging bf16 a warp
+  static constexpr int SMEM = G::B_UNITS * 8 + CO * 4 +
+                              (2 * G::X_ELEMS + NWARP * ST) * 2;
+  // registers: J x co / 2 accumulators and co / 2 sums a thread
+  static constexpr int CAP = CO <= 16 ? 3 : 2;
+  static_assert(CO % 8 == 0, "co: a multiple of 8 (N is not padded)");
+  static_assert(NWARP * 2 * CO * 4 <= 2 * G::X_ELEMS * 2,
+                "block sums fit the x tiles");
 };
 
 template <int CI, int CO, int K>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(
+    NT, (tc::blocks_per_sm<StatsShape<CI, CO, K>::SMEM,
+                           StatsShape<CI, CO, K>::CAP>()))
 conv_stats_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
                   const float* __restrict__ bias, bf16* __restrict__ y,
                   float* __restrict__ part, int B, int H, int W) {
   using S = StatsShape<CI, CO, K>;
-  extern __shared__ float4 smem4[];
-  float* ws = reinterpret_cast<float*>(smem4);
-  float* xs = ws + S::WS;
-  float* red = xs + S::XS;
+  constexpr int NT8 = S::NT8, NCO = S::NCO;
+  extern __shared__ uint4 smem[];
+  uint2* wf = reinterpret_cast<uint2*>(smem);
+  float* bs = reinterpret_cast<float*>(wf + S::B_UNITS);  // bias
+  bf16* xs = reinterpret_cast<bf16*>(bs + CO);
+  bf16* st = xs + 2 * S::X_ELEMS;
 
-  const int tid = threadIdx.x;
-  const int ty = tid / TW, tx = tid % TW;
-  const int tiles_w = (W + TW - 1) / TW, tiles_h = (H + TH - 1) / TH;
-  const int ntiles = B * tiles_h * tiles_w;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, q4 = lane & 3;
+  const int tiles_x = (W + cg::TW - 1) / cg::TW;
+  const int tiles_y = (H + cg::TH - 1) / cg::TH;
+  const int per_img = tiles_x * tiles_y, ntiles = B * per_img;
 
-  for (int e = tid; e < S::WS; e += NT) {
-    const int co = e % S::COP, row = e / S::COP;
-    ws[e] = co < CO ? __bfloat162float(w[row * CO + co]) : 0.f;
-  }
-  float s1[CO], s2[CO];
+  cg::stage_w<S>(wf, w, CI, CO, tid, NT);
+  for (int e = tid; e < CO; e += NT)
+    bs[e] = bias != nullptr ? bias[e] : 0.f;
+
+  auto load = [&](int t, bf16* dst) {
+    const int n = t / per_img, r = t % per_img;
+    cg::load_x<S>(dst, x, n, (r / tiles_x) * cg::TH, (r % tiles_x) * cg::TW,
+                  H, W, tid, NT);
+  };
+
+  int row[J];
 #pragma unroll
-  for (int c = 0; c < CO; ++c) s1[c] = s2[c] = 0.f;
+  for (int j = 0; j < J; ++j) row[j] = warp * J + j;
+  bf16* wst = st + warp * S::ST;  // this warp's staging
 
-  for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
-    const int b = t / (tiles_h * tiles_w);
-    const int rem = t % (tiles_h * tiles_w);
-    const int oh0 = (rem / tiles_w) * TH, ow0 = (rem % tiles_w) * TW;
-    __syncthreads();  // the previous tile's reads of xs are done
-    for (int e = tid; e < S::XH * S::XW * CI; e += NT) {
-      const int c = e % CI, pix = e / CI;
-      const int ih = oh0 - S::R + pix / S::XW;
-      const int iw = ow0 - S::R + pix % S::XW;
-      float v = 0.f;
-      if (ih >= 0 && ih < H && iw >= 0 && iw < W)
-        v = __bfloat162float(x[(((long)b * H + ih) * W + iw) * CI + c]);
-      xs[pix * S::CIP + c] = v;
-    }
-    __syncthreads();
-
-    float acc[S::COP];
+  // sums of this lane's channels 8 t + 2 q4 + e over its pixels
+  float s1[NT8][2], s2[NT8][2];
 #pragma unroll
-    for (int c = 0; c < S::COP; ++c) acc[c] = 0.f;
-    for (int kh = 0; kh < K; ++kh) {
+  for (int t = 0; t < NT8; ++t)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) s1[t][e] = s2[t][e] = 0.f;
+
+  int buf = 0;
+  if ((int)blockIdx.x < ntiles) load(blockIdx.x, xs);
 #pragma unroll 1
-      for (int kw = 0; kw < K; ++kw) {
-        const float* xp = xs + ((ty + kh) * S::XW + tx + kw) * S::CIP;
-        const float* wp = ws + (kh * K + kw) * CI * S::COP;
+  for (int t = blockIdx.x; t < ntiles; t += gridDim.x, buf ^= 1) {
+    tc::cp_async_wait_all();
+    __syncthreads();  // x of tile t landed; the last tile's reads are done
+    if (t + (int)gridDim.x < ntiles)
+      load(t + gridDim.x, xs + (buf ^ 1) * S::X_ELEMS);
+    const int n = t / per_img, r = t % per_img;
+    const int oh0 = (r / tiles_x) * cg::TH, ow0 = (r % tiles_x) * cg::TW;
+
+    float acc[J][NT8][4];
+    cg::zero_acc<S, J>(acc);
+    cg::conv_rows<S, J, true>(acc, tc::smem_u32(xs + buf * S::X_ELEMS), wf,
+                              row, lane);
+
+    // epilogue -> this warp's staging (pixel sp = j * TW + px) and sums
 #pragma unroll
-        for (int ci = 0; ci < CI; ci += 4) {
-          const float4 xv = *reinterpret_cast<const float4*>(xp + ci);
-          const float xa[4] = {xv.x, xv.y, xv.z, xv.w};
+    for (int j = 0; j < J; ++j) {
+      const int oh = oh0 + row[j];
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const float4* wr =
-                reinterpret_cast<const float4*>(wp + (ci + j) * S::COP);
+      for (int h = 0; h < 2; ++h) {
+        const int px = gq + 8 * h;
+        const bool in = oh < H && ow0 + px < W;
 #pragma unroll
-            for (int c4 = 0; c4 < S::COP / 4; ++c4) {
-              const float4 wv = wr[c4];
-              acc[4 * c4 + 0] = fmaf(xa[j], wv.x, acc[4 * c4 + 0]);
-              acc[4 * c4 + 1] = fmaf(xa[j], wv.y, acc[4 * c4 + 1]);
-              acc[4 * c4 + 2] = fmaf(xa[j], wv.z, acc[4 * c4 + 2]);
-              acc[4 * c4 + 3] = fmaf(xa[j], wv.w, acc[4 * c4 + 3]);
-            }
+        for (int tt = 0; tt < NT8; ++tt) {
+          const int ch = tt * 8 + 2 * q4;
+          const bf162 q = __floats2bfloat162_rn(
+              acc[j][tt][2 * h] + bs[ch], acc[j][tt][2 * h + 1] + bs[ch + 1]);
+          *reinterpret_cast<bf162*>(
+              wst + tc::elem_at<NCO>(j * cg::TW + px, ch)) = q;
+          if (in) {  // sums of the emitted values
+            const float2 f = __bfloat1622float2(q);
+            s1[tt][0] += f.x;
+            s1[tt][1] += f.y;
+            s2[tt][0] = fmaf(f.x, f.x, s2[tt][0]);
+            s2[tt][1] = fmaf(f.y, f.y, s2[tt][1]);
           }
         }
       }
     }
+    __syncwarp();
+    tc::store_rows<NCO, J>(y, wst, n, oh0 + warp * J, ow0, H, W, lane);
+    __syncwarp();  // staging read before the next tile's epilogue
+  }
 
-    const int oh = oh0 + ty, ow = ow0 + tx;
-    if (oh < H && ow < W) {
-      const long base = (((long)b * H + oh) * W + ow) * CO;
+  // block sums: the 8 lanes of a channel (lane / 4 = 0..7) in a fixed
+  // tree, then the warps in order. No copy is in flight after the last
+  // tile, so the x tiles take the per-warp sums once every warp is done.
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(xs);  // [warp][s1 | s2][co]
 #pragma unroll
-      for (int c = 0; c < CO; ++c) {
-        const float v = bias != nullptr ? acc[c] + __ldg(bias + c) : acc[c];
-        const bf16 q = __float2bfloat16(v);
-        y[base + c] = q;
-        const float f = __bfloat162float(q);  // sums of the emitted y
-        s1[c] += f;
-        s2[c] = fmaf(f, f, s2[c]);
+  for (int tt = 0; tt < NT8; ++tt)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float a = s1[tt][e], q = s2[tt][e];
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1) {
+        a += __shfl_xor_sync(0xffffffffu, a, off);
+        q += __shfl_xor_sync(0xffffffffu, q, off);
+      }
+      if (gq == 0) {
+        const int ch = tt * 8 + 2 * q4 + e;
+        red[warp * 2 * CO + ch] = a;
+        red[warp * 2 * CO + CO + ch] = q;
       }
     }
-  }
-
-  // block sums: each warp's tree, then the warps in order
-  const int warp = tid / 32, lane = tid % 32;
-#pragma unroll
-  for (int c = 0; c < CO; ++c) {
-    const float a = warp_sum(s1[c]), q = warp_sum(s2[c]);
-    if (lane == 0) {
-      red[warp * 2 * CO + c] = a;
-      red[warp * 2 * CO + CO + c] = q;
-    }
-  }
   __syncthreads();
   if (tid < 2 * CO) {
-    float t = 0.f;
-    for (int wp = 0; wp < NWARP; ++wp) t += red[wp * 2 * CO + tid];
-    part[(long)blockIdx.x * 2 * CO + tid] = t;
+    float s = 0.f;
+    for (int wp = 0; wp < NWARP; ++wp) s += red[wp * 2 * CO + tid];
+    part[(long)blockIdx.x * 2 * CO + tid] = s;
   }
 }
 
@@ -151,16 +187,19 @@ int launch(const void* x, const void* w, const void* bias, void* y,
            cudaStream_t stream) {
   using S = StatsShape<CI, CO, K>;
   static bool smem_set = false;
-  cudaError_t e =
-      allow_smem(conv_stats_kernel<CI, CO, K>, S::SMEM, &smem_set);
+  static int most = 0;
+  cudaError_t e = allow_smem(conv_stats_kernel<CI, CO, K>, S::SMEM, &smem_set);
+  if (e == cudaSuccess)
+    e = tc::resident_blocks(conv_stats_kernel<CI, CO, K>, NT, S::SMEM, &most);
   if (e != cudaSuccess) return (int)e;
-  conv_stats_kernel<CI, CO, K><<<blocks, NT, S::SMEM, stream>>>(
+  const int grid = blocks < most ? blocks : most;
+  conv_stats_kernel<CI, CO, K><<<grid, NT, S::SMEM, stream>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(w),
       static_cast<const float*>(bias), static_cast<bf16*>(y),
       static_cast<float*>(part), B, H, W);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  return (int)sum_rows(static_cast<const float*>(part), blocks, 2 * CO, 1.f,
+  return (int)sum_rows(static_cast<const float*>(part), grid, 2 * CO, 1.f,
                        static_cast<float*>(sums), stream);
 }
 
@@ -168,7 +207,9 @@ int launch(const void* x, const void* w, const void* bias, void* y,
 
 // (ci, co, k) instantiated: UBR_CONV_STATS_SHAPES, from the one table in
 // ops/_build.py:SHAPES. sums is (2*co,) f32: s1 then s2; part is the
-// wrapper's (blocks, 2*co) f32 scratch.
+// wrapper's (blocks, 2*co) f32 scratch, blocks at most the 16x16 tiles;
+// the kernel runs min(blocks, resident blocks) blocks and adds that many
+// rows.
 UBR_EXPORT int ubr_conv_stats(const void* x, const void* w, const void* bias,
                               void* y, void* part, void* sums, int B, int H,
                               int W, int ci, int co, int k, int blocks,

@@ -1,11 +1,12 @@
 // Tensor-core helpers of the port's Hopper kernels (K1 conv_bn_act, K2
-// basic_block, K3 deconv2x, K6 conv_dw): bf16 mma.sync m16n8k16 with
-// f32 accumulators, A fragments by ldmatrix from pixel-major NHWC tiles
-// in shared memory (one lane per pixel: the im2col gather over the taps
-// is the lane's address; .trans where the pixels are the GEMM's K, as
-// in a weight gradient), B fragments laid out per lane once per block,
-// 16- and 8-byte cp.async copies with zero-fill, the chunk swizzle of
-// the tiles, and the persistent grid's size.
+// basic_block, K3 deconv2x, K5 conv_stats, K6 conv_dw, K8 conv_s2k4):
+// bf16 mma.sync m16n8k16 with f32 accumulators, A fragments by ldmatrix
+// from pixel-major NHWC tiles in shared memory (one lane per pixel: the
+// im2col gather over the taps is the lane's address; .trans where the
+// pixels are the GEMM's K, as in a weight gradient), B fragments laid
+// out per lane once per block, 16- and 8-byte cp.async copies with
+// zero-fill, the chunk swizzle of the tiles, 16-byte stores of staged
+// output rows, and the persistent grid's size.
 //
 // A tile of C channels holds NC = C / 8 16-byte chunks per pixel. An
 // ldmatrix phase reads one chunk of 8 consecutive pixels; unswizzled,
@@ -96,6 +97,20 @@ __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// d = a · b over one m16n8k16 step from a zero accumulator (C = RZ).
+// Tensor cores add into C with truncation, which biases a long sum
+// toward zero; a caller that adds d into its own f32 sum with FADDs
+// (round to nearest) keeps that error to one k-step's partial.
+__device__ __forceinline__ void mma_zc(float (&d)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %11, %12, %13};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+        "f"(0.f), "f"(0.f), "f"(0.f), "f"(0.f));
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
   return (uint32_t)__bfloat16_as_ushort(lo) |
          ((uint32_t)__bfloat16_as_ushort(hi) << 16);
@@ -142,6 +157,24 @@ __device__ __forceinline__ void stage_b8(uint2* dst, Val val, int tid,
     const int k = s * 16 + 2 * (l & 3), n = t * 8 + (l >> 2);
     dst[e] = make_uint2(pack_bf16(val(k, n), val(k + 1, n)),
                         pack_bf16(val(k + 8, n), val(k + 9, n)));
+  }
+}
+
+// A warp's R staged output rows of 16 pixels (staged pixel sp = r * 16 +
+// px in a swizzled tile of NC chunks a pixel) to image n of the NHWC
+// bf16 tensor out (H, W, NC * 8 channels) at rows r0 .., columns c0 ..,
+// as whole 16-byte chunks, skipping pixels outside the image.
+template <int NC, int R>
+__device__ __forceinline__ void store_rows(bf16* out, const bf16* st, int n,
+                                           int r0, int c0, int H, int W,
+                                           int lane) {
+  for (int e = lane; e < R * 16 * NC; e += 32) {
+    const int sp = e / NC, c = e % NC;
+    const int oh = r0 + sp / 16, ow = c0 + sp % 16;
+    if (oh < H && ow < W)
+      *reinterpret_cast<uint4*>(out + (((long)n * H + oh) * W + ow) * NC * 8 +
+                                c * 8) =
+          *reinterpret_cast<const uint4*>(st + chunk_at<NC>(sp, c) * 8);
   }
 }
 

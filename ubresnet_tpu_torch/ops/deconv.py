@@ -18,8 +18,12 @@ Kernel: ops/csrc/deconv2x_s8.cu — K3's parity blocks with __dp4a.
 K8 (``conv_s2k4``) replaces fused_conv_s2k4 (_s2k4_kernel): the
 stride-2 k4 pad-1 cross-correlation ``dx[i] = Σ_k w[k]·dy[2i + k - 1]``
 (per spatial axis, contracting co) of the deconv's output cotangent
-with its own kernel. Kernel: ops/csrc/conv_s2k4.cu — a 16x16 dx tile
-per block, all 16 taps of the weights in shared memory.
+with its own kernel. Kernel: ops/csrc/conv_s2k4.cu — a bf16 tensor-core
+implicit GEMM (mma.sync; M = a dx tile's pixels, N = ci, K = 16 taps x
+co tap-major) in a persistent grid; each haloed dy tile arrives by
+double-buffered cp.async as its four (row, column) parity planes, so
+every tap reads one plane at stride 1; the weights are laid out once per
+block.
 
 K9 (``deconv_dw``) replaces pallas_deconv_dw (_deconv_dw_kernel):
 ``dW[k] = Σ x[i]·dy[2i + k - 1]``. Kernel: ops/csrc/deconv_dw.cu —
@@ -159,7 +163,7 @@ def conv_s2k4(dy: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     h, wd = h2 // 2, w2 // 2
     _build.check(dy, "dy", torch.bfloat16, (bsz, h2, w2, co), dev)
     _build.check(w, "w", torch.bfloat16, (4, 4, ci, co), dev)
-    _build.check_aligned(w, "w")
+    _build.check_aligned(dy, "dy")
     out = torch.empty((bsz, h, wd, ci), dtype=dy.dtype, device=dev)
     _build.launch("ubr_conv_s2k4", [dy, w, out], [bsz, h, wd, ci, co], dev)
     conv_s2k4.launches += 1

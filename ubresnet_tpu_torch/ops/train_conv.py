@@ -6,12 +6,14 @@ blocks call.
                                           # s1 = Σ y, s2 = Σ y² per channel
 
 Replaces ubresnet_tpu/ops/pallas_train.py:train_conv_stats
-(_conv_stats_kernel, _tcs_bwd). Kernel: ops/csrc/conv_stats.cu —
-operations-bound on the H100 for the 3x3 and 7x7 layers; K1's tiling
-(16x16 output tile, haloed input and weights in shared memory, f32 FMA)
-with the sums of the emitted bf16 y kept per block and added across
-blocks in a fixed order (two passes, no atomics), so they are the same
-bits on every run.
+(_conv_stats_kernel, _tcs_bwd). Kernel: ops/csrc/conv_stats.cu — K1's
+bf16 tensor-core implicit GEMM (conv_gemm.cuh: mma.sync, a persistent
+grid over 16x16 output tiles, weights laid out once per block, haloed
+input tiles double-buffered by cp.async) with its own epilogue: bias,
+bf16 y, and the sums of the emitted bf16 y kept per lane, reduced over
+the block in a fixed order into the block's row of a scratch tensor and
+added across the rows in order (two passes, no atomics), so they are
+the same bits on every run.
 
 The backward is _tcs_bwd's: the statistic cotangents fold into the
 conv cotangent, dc = dy + ds1 + 2·y·ds2 (f32, an elementwise torch
@@ -33,9 +35,11 @@ from ubresnet_tpu_torch.ops import conv as conv_ops
 
 # (ci, co, k) compiled into the kernel library
 SHAPES = _build.SHAPES["conv_stats"]
-# blocks of the forward kernel: each walks a strided share of the 16x16
-# output tiles and leaves one row of partial sums
-MAX_BLOCKS = 1024
+# rows of K5's partial-sum scratch per SM: the most blocks of any K5
+# shape that one SM holds at once (conv_stats.cu: 3). The kernel runs
+# min(rows, resident blocks) blocks, each over a strided share of the
+# 16x16 output tiles, and adds that many rows.
+BLOCKS_PER_SM = 3
 
 
 def supports(ci: int, co: int, k: int) -> bool:
@@ -76,7 +80,8 @@ def conv_stats(x: torch.Tensor, w: torch.Tensor,
     if bias is not None:
         _build.check(bias, "bias", torch.float32, (co,), dev)
     tiles = bsz * -(-h // 16) * -(-wd // 16)
-    blocks = min(tiles, MAX_BLOCKS)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    blocks = min(tiles, sms * BLOCKS_PER_SM)
     y = torch.empty((bsz, h, wd, co), dtype=x.dtype, device=dev)
     part = torch.empty((blocks, 2 * co), dtype=torch.float32, device=dev)
     sums = torch.empty((2 * co,), dtype=torch.float32, device=dev)

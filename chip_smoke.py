@@ -29,26 +29,29 @@ Phases, each printing JSON lines; any failure exits non-zero:
              K6 (f32 dW ≤ 1e-3·max|plain|: sums over 1-4 M pixels in
              another order), K7 forward and backward (f32, ≤ 1e-5·max);
              deconv-AD rows at dec2's and dec1's b16 shapes: K8 (dx, as
-             K1), K9 (f32 dW ≤ 1e-3·max|plain|, as K6) and deconv2x_ad
+             K1), K9 (f32 dW ≤ 1e-3·max|plain|, as K6; its and the plain
+             version's distance from a float64 dW reported) and deconv2x_ad
              forward + backward against F.conv_transpose2d's f32
              autograd (y, dx and the bf16 dW each ≤ 1e-2·max|plain|).
              Each row also gives pct_of_bound (bound_ms / ms) and
-             vs_library (ms / library_ms); K1, K5, K6 and K8 rows also
-             the ptxas registers, spills and stack of the kernel
-             instance they launch, and K5 and K8 rows launch twice and
-             require the same bits (same_bits). K1, K2, K3, K5, K6 and
-             K8 are bf16 tensor-core kernels (mma.sync m16n8k16, f32
-             accumulators) in a persistent grid: each block walks its
-             tiles, the next tile's input arriving by double-buffered
-             cp.async; K1-K3, K5 and K8 stage their layer's weights in
-             shared memory once per block, K2 keeps m (with its halo) on
-             chip, K3 computes all four output parity classes of a tile
-             from one read of its input, K5 is K1's mainloop with the
-             sums of its bf16 y kept per lane and reduced per block in a
-             fixed order, K8 reads each haloed dy tile as its four
-             parity planes (each tap one plane at stride 1), K6 keeps
-             its block's share of dW in registers (dW = x_shiftᵀ·dy per
-             tile, both operands by ldmatrix.trans).
+             vs_library (ms / library_ms); K1, K5, K6, K8, K9 and K2-s8
+             rows also the ptxas registers, spills and stack of the
+             kernel instance they launch, and K5, K8 and K9 rows launch
+             twice and require the same bits (same_bits). K1, K2, K3,
+             K5, K6, K8 and K9 are bf16 tensor-core kernels (mma.sync
+             m16n8k16, f32 accumulators), K2-s8 an int8 one (m16n8k32,
+             s32 accumulators), each in a persistent grid: each block
+             walks its tiles, the next tile's input arriving by
+             double-buffered cp.async; K1-K3, K5, K8 and K2-s8 stage
+             their layer's weights in shared memory once per block, K2
+             and K2-s8 keep m (with its halo) on chip, K3 computes all
+             four output parity classes of a tile from one read of its
+             input, K5 is K1's mainloop with the sums of its bf16 y kept
+             per lane and reduced per block in a fixed order, K8 and K9
+             read each haloed dy tile as its four parity planes (each
+             tap one plane at stride 1), K6 and K9 keep their block's
+             share of dW in registers (dW = x_shiftᵀ·dy per tile, or
+             x_tileᵀ·dy_tap per tap, both operands by ldmatrix.trans).
 4. main    — 64 synthetic 512x512 crops scored file → file through the
              port's CLI (-b 16, cuda) with seeded random weights in a
              reference-format .tar; every event must carry 3 score
@@ -76,8 +79,9 @@ Phases, each printing JSON lines; any failure exits non-zero:
              against the same plain paths, then 5 Adam steps whose
              launches are exactly 5 × (K5 16, K1 18, K6 17, K4 1, K7
              1 + 1, K3 2, K8 2, K9 2); the loss must fall. Step ms beside
-             the default zone's, and the profiler's K3/K8/K9 device
-             time per step (reported).
+             the default zone's, the profiler's K3/K8/K9 device time per
+             step, and deconv2x_ad forward + backward against cuDNN's
+             from the kernel rows (reported).
 6. train   — the port's training CLI (--device cuda) on 64 synthetic
              512² events: batch 16, 8 iterations, validation every 4
              (1 batch), checkpoints every 4, the default sparse
@@ -98,7 +102,8 @@ Phases, each printing JSON lines; any failure exits non-zero:
              exactly K1-s8 1, K2-s8 6, K3-s8 2, K4 1, K1 1 per batch,
              score sums 1 ± 1e-2; on one b16 batch the int8 kernel path
              against the int8 plain path with the same scales (argmax
-             ≥ 0.99), int8 vs bf16 forward ms, the int8 stage breakdown,
+             ≥ 0.99), int8 vs bf16 forward ms and their ratio, the int8
+             stage breakdown,
              and (not gated: random weights) mean|Δp| and argmax
              agreement against the f32 path for abs-max and
              percentile-99.9 scales.
@@ -310,15 +315,24 @@ def _row(layer, kernel, kfn, pfn, lfn, nbytes, ops, peak, check=bf16_check,
 PTXAS = {}
 
 
+def _template_args(name):
+    """A demangled kernel name with its template arguments as plain
+    values: casts dropped (<(int)16, (bool)1> → <16, 1>), true/false as
+    1/0."""
+    name = re.sub(r"\((?:int|bool)\)", "", name)
+    return re.sub(r"\bfalse\b", "0", re.sub(r"\btrue\b", "1", name))
+
+
 def ptxas_of(kernel, instance):
     """Registers, spills and stack of ``<kernel>_kernel<instance>`` from
-    the build's ptxas logs (None where the row names no instance)."""
+    the build's ptxas logs (None where the row names no instance);
+    instance holds ints, bools and type names (``__nv_bfloat16``)."""
     if instance is None:
         return None
-    name = f"{kernel}_kernel<{', '.join(map(str, instance))}>"
-    # demangled template arguments carry casts: <(int)16, (int)3, (int)7>
-    hit = [v for k, v in PTXAS.items()
-           if re.sub(r"\((?:int|bool)\)", "", k).endswith(name)]
+    args = ", ".join(str(int(v)) if isinstance(v, bool) else str(v)
+                     for v in instance)
+    name = f"{kernel}_kernel<{args}>"
+    hit = [v for k, v in PTXAS.items() if _template_args(k).endswith(name)]
     return hit[0] if hit else {"missing": name}
 
 
@@ -580,6 +594,40 @@ def ad_check(got, want):
     return err, ref, tol, extra
 
 
+def deconv_dw_f64(x, dy):
+    """The deconv's dW in float64, tap by tap: dW[kr, kc] = xᵀ · dy at
+    rows 2i + kr - 1, columns 2j + kc - 1 (zero outside dy), one matmul
+    per tap over every pixel."""
+    import torch
+    import torch.nn.functional as F
+
+    h, w, ci, co = x.shape[1], x.shape[2], x.shape[3], dy.shape[3]
+    xm = x.double().reshape(-1, ci)
+    dp = F.pad(dy.double(), (0, 0, 1, 1, 1, 1))
+    return torch.stack([
+        xm.T @ dp[:, kr:kr + 2 * h:2, kc:kc + 2 * w:2].reshape(-1, co)
+        for kr in range(4) for kc in range(4)]).reshape(4, 4, ci, co)
+
+
+def dw_check(x, dy):
+    """K9: f32 dW within 1e-3·max|plain| (sums over 1-4 M pixels in
+    another order). Also reported, not gated: the kernel's and the plain
+    f32 version's largest distance from the float64 dW, against that
+    dW's largest magnitude — the drift a long chain of tensor-core adds
+    would show."""
+    f32 = f32_check(1e-3)
+
+    def check(got, want):
+        err, ref, tol, extra = f32(got, want)
+        exact = deconv_dw_f64(x, dy)
+        return err, ref, tol, {
+            **extra, "f64_max_abs": float(exact.abs().max()),
+            "f64_max_abs_err": float((got.double() - exact).abs().max()),
+            "plain_f64_max_abs_err": float(
+                (want.double() - exact).abs().max())}
+    return check
+
+
 def deconv_ad_rows(dev):
     """The decoder upsamples' backward at batch 16 and their own
     resolution (dec2: x 128² x 64 → 256² x 32, dec1: 256² x 32 → 512² x
@@ -627,8 +675,8 @@ def deconv_ad_rows(dev):
             lambda x=x, dy=dy, ci=ci, co=co: torch.nn.grad.conv2d_weight(
                 cl(dy), (ci, co, 4, 4), cl(x), stride=2, padding=1),
             n2(x) + n2(dy) + 16 * ci * co * 4, 2 * macs, BF16_TENSOR_FLOPS,
-            check=f32_check(1e-3), library="torch.nn.grad.conv2d_weight",
-            per_step_ad=1))
+            check=dw_check(x, dy), library="torch.nn.grad.conv2d_weight",
+            per_step_ad=1, instance=(ci, co), same_bits=True))
 
         def ad(x=x, w=w, dy=dy):
             xr, wr = x.detach().requires_grad_(), w.detach().requires_grad_()
@@ -703,9 +751,9 @@ def int8_kernel_rows(dev, eval_rows):
         g = torch.rand(c, generator=gen, device=dev) * scale
         return g, torch.randn(c, generator=gen, device=dev)
 
-    def add(layer, kernel, kfn, pfn, exact, nbytes, macs):
+    def add(layer, kernel, kfn, pfn, exact, nbytes, macs, instance=None):
         r = _row(layer, kernel, kfn, pfn, None, nbytes, 2 * macs,
-                 INT8_TENSOR_OPS, check=s8_check(exact))
+                 INT8_TENSOR_OPS, check=s8_check(exact), instance=instance)
         r["bf16"] = bf16_rows[layer]
         rows.append(r)
 
@@ -747,7 +795,7 @@ def int8_kernel_rows(dev, eval_rows):
             lambda: block.basic_block_s8_plain(*args),
             lambda: (block.basic_block_s8(*args, out_dtype=f32),
                      block.basic_block_s8_plain(*args, out_dtype=f32)),
-            nbytes, macs)
+            nbytes, macs, instance=(ca, cb, co, proj, "__nv_bfloat16"))
 
     def deconv_row(name, hw, ci, co):
         xq, wq = act(B, hw, hw, ci), weight(4, 4, ci, co)
@@ -1134,6 +1182,7 @@ def int8_path(dev, card, work):
         "calibrate_s_api": calib_s, "launches": launches,
         "score_sum_max_dev": worst,
         "forward_ms_b16_int8": int8_ms, "forward_ms_b16_bf16": bf16_ms,
+        "int8_over_bf16_forward": int8_ms / bf16_ms,
         "crops_per_s_forward_b16_int8": BATCH_MAIN / int8_ms * 1e3,
         "stage_ms_b16_int8": stages, "profile_b16_int8": profile_int8,
         "argmax_agreement_kernel_vs_plain_int8": agree_plain,
@@ -1381,12 +1430,14 @@ def train_parity(dev, card):
 DECONV_KERNELS = ("deconv2x_kernel", "conv_s2k4_kernel", "deconv_dw_kernel")
 
 
-def train_deconv(dev, card, ref):
+def train_deconv(dev, card, ref, rows):
     """train_parity's batch and weights through the train step with
     Policy.fused_train_deconv: loss and gradients against the plain
     paths ``ref`` holds, under train_parity's gates; then 5 Adam steps
     with exact launch counts (the main path of this configuration,
-    counted from 0 just before them). Returns those launches."""
+    counted from 0 just before them). Also reported: deconv2x_ad's
+    forward + backward against cuDNN's (F.conv_transpose2d + autograd,
+    bf16) from this run's kernel ``rows``. Returns the launches."""
     import dataclasses
 
     import numpy as np
@@ -1420,6 +1471,9 @@ def train_deconv(dev, card, ref):
     want = {k: 5 * LAUNCHES_PER_DECONV_STEP.get(k, 0) for k in launches}
     step_ms = sum(times[1:]) / len(times[1:])
     gates = ref["gates"]
+    ad = [r for r in rows if r["kernel"] == "deconv2x_ad"]
+    ad_ms = sum(r["ms"] for r in ad)
+    cudnn_ms = sum(r["library_ms"] for r in ad)
     result = {"phase": "train_deconv", "card": card, "batch": BATCH_MAIN,
               "hw": list(HW), "kernel_bf16_deconv_ad": kern,
               "plain_bf16": ref["plain_bf16"], "gates": gates,
@@ -1427,6 +1481,9 @@ def train_deconv(dev, card, ref):
               "adam_losses": losses, "adam_step_ms": times,
               "train_step_ms_b16": step_ms,
               "train_step_ms_b16_default_zone": ref["step_ms"],
+              "deconv2x_ad_fwd_bwd_ms": ad_ms,
+              "cudnn_fwd_bwd_ms": cudnn_ms,
+              "deconv2x_ad_over_cudnn": ad_ms / cudnn_ms,
               "train_crops_per_s_b16": BATCH_MAIN / step_ms * 1e3,
               "train_peak_mem_gib":
                   torch.cuda.max_memory_allocated() / 2 ** 30,
@@ -1647,7 +1704,7 @@ def main():
     launches = {"precropped": main_path(dev, card, work)}
     ref = train_parity(dev, card)
     torch.cuda.empty_cache()
-    launches["train_deconv"] = train_deconv(dev, card, ref)
+    launches["train_deconv"] = train_deconv(dev, card, ref, rows)
     del ref
     torch.cuda.empty_cache()
     launches["train"] = train_path(dev, card, work)

@@ -184,6 +184,23 @@ def _s8_close(got, want, out_dtype):
 S8_OUT = [torch.float32, torch.bfloat16]
 
 
+def _block_s8_args(dev, bsz, hw, shape):
+    ca, cb, co, proj = shape
+    cin = ca + cb
+    a = _s8(dev, bsz, *hw, ca)
+    b = _s8(dev, bsz, *hw, cb) if cb else None
+    g1, b1 = _gain(dev, co, 1e-3, 1)
+    g2, b2 = _gain(dev, co, 1e-3, 2)
+    if proj:
+        gb, bb = _gain(dev, co, 1e-3, 3)
+    else:
+        gb = torch.full((co,), 0.05, device=dev)
+        bb = torch.zeros(co, device=dev)
+    return (a, b, _s8(dev, 3, 3, cin, co, lo=-64, hi=65), g1, b1,
+            _s8(dev, 3, 3, co, co, lo=-64, hi=65), g2, b2,
+            _s8(dev, cin, co, lo=-64, hi=65) if proj else None, gb, bb)
+
+
 @pytest.mark.parametrize("out_dtype", S8_OUT, ids=["f32", "bf16"])
 @pytest.mark.parametrize("hw", HW)
 @pytest.mark.parametrize("shape", sorted(conv.S8_SHAPES))
@@ -217,25 +234,30 @@ def test_block_s8_kernel(dev, hw, shape, out_dtype):
     """K2-s8 at batch 16 (single and dual stream, projection and
     identity), g1 scaled so the requantized m spans the int8 grid and
     saturates at 127."""
-    ca, cb, co, proj = shape
-    cin = ca + cb
-    a = _s8(dev, 16, *hw, ca)
-    b = _s8(dev, 16, *hw, cb) if cb else None
-    g1, b1 = _gain(dev, co, 1e-3, 1)
-    g2, b2 = _gain(dev, co, 1e-3, 2)
-    if proj:
-        gb, bb = _gain(dev, co, 1e-3, 3)
-    else:
-        gb = torch.full((co,), 0.05, device=dev)
-        bb = torch.zeros(co, device=dev)
-    args = (a, b, _s8(dev, 3, 3, cin, co, lo=-64, hi=65), g1, b1,
-            _s8(dev, 3, 3, co, co, lo=-64, hi=65), g2, b2,
-            _s8(dev, cin, co, lo=-64, hi=65) if proj else None, gb, bb)
+    args = _block_s8_args(dev, 16, hw, shape)
     want, m = block.basic_block_s8_plain(*args, out_dtype=out_dtype,
                                          with_mid=True)
     assert int(m.max()) == 127 and int(m.min()) == 0
     _s8_close(block.basic_block_s8(*args, out_dtype=out_dtype), want,
               out_dtype)
+
+
+@pytest.mark.parametrize("out_dtype", S8_OUT, ids=["f32", "bf16"])
+@pytest.mark.parametrize("bhw", PERSISTENT, ids=["B4-256x200", "B1-20x37"])
+@pytest.mark.parametrize("shape", sorted(block.S8_SHAPES))
+def test_block_s8_kernel_persistent(dev, bhw, shape, out_dtype):
+    """K2-s8 at every compiled shape and output dtype with more (and
+    fewer) tiles than its persistent grid: the float32 output
+    bit-identical to the plain version's (bf16 within one step), m
+    spanning the int8 grid, and the same bits on a second launch."""
+    bsz, *hw = bhw
+    args = _block_s8_args(dev, bsz, hw, shape)
+    want, m = block.basic_block_s8_plain(*args, out_dtype=out_dtype,
+                                         with_mid=True)
+    assert int(m.max()) == 127 and int(m.min()) == 0
+    got = block.basic_block_s8(*args, out_dtype=out_dtype)
+    _s8_close(got, want, out_dtype)
+    assert torch.equal(got, block.basic_block_s8(*args, out_dtype=out_dtype))
 
 
 @pytest.mark.parametrize("out_dtype", S8_OUT, ids=["f32", "bf16"])
@@ -462,6 +484,22 @@ def test_deconv_dw_kernel(dev, hw, shape):
     ci, co = shape
     x = _rand(dev, 2, *hw, ci, relu=True)
     dy = _rand(dev, 2, 2 * hw[0], 2 * hw[1], co, scale=0.1)
+    got = deconv.deconv_dw(x, dy)
+    _close_f32(got, deconv.deconv_dw_plain(x, dy), 1e-4)
+    assert torch.equal(got, deconv.deconv_dw(x, dy))
+
+
+@pytest.mark.parametrize("bhw", PERSISTENT, ids=["B4-256x200", "B1-20x37"])
+@pytest.mark.parametrize("shape", sorted(deconv.DW_SHAPES))
+def test_deconv_dw_kernel_persistent(dev, bhw, shape):
+    """K9 at every compiled (ci, co) with more (and fewer) x tiles than
+    its persistent grid (x B4 256x200: dy 512x400): f32 dW within
+    1e-4·max|plain| (sums in another order), and the same bits on a
+    second launch."""
+    bsz, *hw = bhw
+    ci, co = shape
+    x = _rand(dev, bsz, *hw, ci, relu=True)
+    dy = _rand(dev, bsz, 2 * hw[0], 2 * hw[1], co, scale=0.1)
     got = deconv.deconv_dw(x, dy)
     _close_f32(got, deconv.deconv_dw_plain(x, dy), 1e-4)
     assert torch.equal(got, deconv.deconv_dw(x, dy))

@@ -52,7 +52,8 @@ def test_int8_modules_pull_in_no_jax(module):
 
 
 @pytest.mark.parametrize("module", ["ubresnet_tpu_torch.tools.int8_ladder",
-                                    "ubresnet_tpu_torch.tools.profile_train"])
+                                    "ubresnet_tpu_torch.tools.profile_train",
+                                    "ubresnet_tpu_torch.tools.kernel_ab"])
 def test_tools_pull_in_no_jax_and_no_bench(module):
     """The port's tools keep their own copies of what the JAX tools take
     from the repo-root bench.py: importing one (a fresh process) brings

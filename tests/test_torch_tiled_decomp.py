@@ -62,9 +62,10 @@ from ubresnet_tpu.ops.pallas_conv import (
     fused_packed_deconv2x,
     pallas_conv_ad,
     pallas_conv_dw,
+    pallas_deconv_dw,
 )
 from ubresnet_tpu.ops.pallas_train import train_conv_stats as jax_tcs
-from ubresnet_tpu_torch.ops import block, conv, deconv, train_conv
+from ubresnet_tpu_torch.ops import block, conv, deconv, quant, train_conv
 
 torch.set_num_threads(1)
 
@@ -752,3 +753,268 @@ def test_conv_s2k4_decomposition_matches_pallas(rng, ci, co, p, h, w):
     assert got.shape == (2, h, w, ci)
     np.testing.assert_allclose(got.numpy(), np.asarray(unpack(want, p)),
                                rtol=0, atol=2e-5)
+
+
+# ---- K9: the deconv's weight gradient, per x tile and tap a parity-plane
+# GEMM
+
+
+def _dw_th(ci):
+    """x rows of K9's tile: 8 at ci = 64 (dec2), 16 below."""
+    return 8 if ci >= 64 else 16
+
+
+def deconv_dw_tiled(x, dy, blocks=3, th=None, tw=16):
+    """K9's decomposition and summation order: block b walks x tiles t =
+    b, b + blocks, .. (row-major over images, tile rows, tile columns);
+    per tile row y (a k-step) and tap (kr, kc), x[y]ᵀ @ the 16 pixels of
+    plane (kr & 1, kc & 1) at (y + (kr >> 1), (kc >> 1) ..) added into
+    the tap's dW (each tap is one warp's: within a block the order is
+    tiles, then rows); then the blocks' rows in sum_rows' stripe order."""
+    bsz, h, wd, ci = x.shape
+    co = dy.shape[-1]
+    th = _dw_th(ci) if th is None else th
+    x, dyf = x.float(), dy.float()
+    tiles_y, tiles_x = -(-h // th), -(-wd // tw)
+    ntiles = bsz * tiles_y * tiles_x
+    rows = []
+    for blk in range(min(blocks, ntiles)):
+        acc = torch.zeros(16, ci, co)
+        for t in range(blk, ntiles, blocks):
+            n, rem = divmod(t, tiles_y * tiles_x)
+            i0, j0 = (rem // tiles_x) * th, (rem % tiles_x) * tw
+            xt = _window(x[n:n + 1], i0, j0, th, tw)[0]
+            planes = parity_planes(dyf, n, i0, j0, th, tw)
+            for y in range(th):
+                for tap in range(16):
+                    kr, kc = tap >> 2, tap & 3
+                    b = planes[kr & 1][kc & 1][y + (kr >> 1),
+                                               kc >> 1:(kc >> 1) + tw]
+                    acc[tap] += xt[y].T @ b
+        rows.append(acc)
+    return _stripe_sum(rows).reshape(4, 4, ci, co)
+
+
+@pytest.mark.parametrize("th", [8, 16])
+def test_deconv_dw_planes_are_the_stride2_pixels(th):
+    """K9's B rows: at k-step y (x tile row y) tap (kr, kc) reads plane
+    (kr & 1, kc & 1) at (y + (kr >> 1), (kc >> 1) + px), px < 16 — the
+    naive stride-2 dy pixel (2 (i0 + y) + kr - 1, 2 (j0 + px) + kc - 1)
+    that x pixel (i0 + y, j0 + px) meets, zero outside dy, at the
+    kernel's tile heights and at interior and border tiles."""
+    h, wd = 2 * th + 3, 40
+    dy = torch.arange(1, 1 + 2 * h * wd * 2 * 2, dtype=torch.float32).reshape(
+        1, 2 * h, 2 * wd, 2)
+    for i0, j0 in ((0, 0), (th, 16), (2 * th, 32)):
+        planes = parity_planes(dy, 0, i0, j0, th)
+        for y in range(th):
+            for kr in range(4):
+                for kc in range(4):
+                    got = planes[kr & 1][kc & 1][y + (kr >> 1),
+                                                 kc >> 1:(kc >> 1) + 16]
+                    r = 2 * (i0 + y) + kr - 1
+                    cols = [2 * (j0 + px) + kc - 1 for px in range(16)]
+                    want = torch.stack([
+                        dy[0, r, c] if 0 <= r < 2 * h and 0 <= c < 2 * wd
+                        else torch.zeros(2) for c in cols])
+                    assert torch.equal(got, want), (i0, j0, y, kr, kc)
+
+
+@pytest.mark.parametrize("blocks", [1, 7, 64])
+@pytest.mark.parametrize("shape", sorted(deconv.DW_SHAPES))
+def test_deconv_dw_decomposition_matches_plain(rng, shape, blocks):
+    """Every compiled (ci, co) at x 2 x 20 x 36 (tiles cut at the border
+    in both directions; the planes read zeros outside dy) with 1, 7 and
+    64 blocks (more blocks than tiles at dec1): within 1e-5 of the
+    largest |dW| (f32 sums in another order)."""
+    ci, co = shape
+    x = _t(rng.randn(2, 20, 36, ci))
+    dy = _t(rng.randn(2, 40, 72, co))
+    got = deconv_dw_tiled(x, dy, blocks=blocks)
+    want = deconv.deconv_dw_plain(x, dy)
+    assert got.shape == want.shape == (4, 4, ci, co)
+    err = float((got - want).abs().max())
+    assert err <= 1e-5 * float(want.abs().max()), err
+
+
+@pytest.mark.parametrize("ci,co,p,h,w", [(64, 32, 4, 8, 64),
+                                         (32, 16, 8, 16, 128)],
+                         ids=["dec2", "dec1"])
+def test_deconv_dw_decomposition_matches_pallas(rng, ci, co, p, h, w):
+    """float32 against pallas_deconv_dw in interpret mode, fed as
+    tests/test_torch_deconv_ad.py feeds it (rtol 1e-4, atol 1e-3)."""
+    x = rng.randn(2, h, w, ci).astype(np.float32)
+    dy = rng.randn(2, 2 * h, 2 * w, co).astype(np.float32)
+    want = pallas_deconv_dw(pack(jnp.asarray(x), p),
+                            pack(jnp.asarray(dy), 2 * p), p=p, th=4,
+                            interpret=True)
+    got = deconv_dw_tiled(_t(x), _t(dy), blocks=5)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-3)
+
+
+# ---- K2-s8: the int8 block as k32 implicit GEMMs with exact s32 sums
+
+
+def _s8_cols(tile, oh, ow, taps, c):
+    """K2-s8's A: the im2col rows of an int8 tile (K tap-major, then
+    channel); at c = 16 a 32-deep k-step covers two taps, and an odd tap
+    count is padded by a phantom that reads the last tap again (its
+    weight rows are zero, _s8_kmat)."""
+    cols = _im2col(tile, oh, ow, taps)
+    if c == 16 and len(taps) % 2:
+        cols = torch.cat([cols, cols[..., -16:]], -1)
+    return cols.reshape(-1, cols.shape[-1])
+
+
+def _s8_kmat(w, taps, c):
+    """K2-s8's B: the (taps, c, co) int8 kernel read as a K x co matrix,
+    with the phantom tap's 16 zero rows at c = 16 and an odd tap count."""
+    k = w.reshape(taps * c, -1).long()
+    if c == 16 and taps % 2:
+        k = torch.cat([k, k.new_zeros(16, k.shape[1])])
+    return k
+
+
+def _s8_gemm(cols, kmat):
+    """Σ over 32-deep k-steps of cols[:, 32 s ..] @ kmat[32 s ..] in
+    int64, as the kernel's m16n8k32 steps add into s32: exact, and every
+    sum must fit s32. Returned as float32, as __int2float_rn gives it."""
+    assert cols.shape[1] == kmat.shape[0] and cols.shape[1] % 32 == 0
+    acc = torch.zeros(cols.shape[0], kmat.shape[1], dtype=torch.int64)
+    for s in range(0, cols.shape[1], 32):
+        acc += cols[:, s:s + 32] @ kmat[s:s + 32]
+    assert int(acc.abs().max()) < 2 ** 31
+    return acc.float()
+
+
+def block_s8_tiled(aq, bq, w1q, g1, b1, w2q, g2, b2, wbq, gb, bb,
+                   out_dtype=torch.float32, tile=(16, 16)):
+    """K2-s8's decomposition: per 16x16 output tile, conv1 as the k32
+    GEMM over the tile's 18x18 m pixels (x window zero outside the
+    image), its epilogue requantized to int8 and zero outside the image,
+    conv2 and the 1x1 bypass as k32 GEMMs over the tile, the f32
+    epilogue in the plain version's steps (quant.fma, relu, add, relu).
+    Returns the output and the tiles' m at the image's pixels."""
+    th, tw = tile
+    x = (aq if bq is None else torch.cat([aq, bq], -1)).long()
+    bsz, h, w, cin = x.shape
+    co = w1q.shape[-1]
+    k1, k2 = _s8_kmat(w1q, 9, cin), _s8_kmat(w2q, 9, co)
+    kb = None if wbq is None else _s8_kmat(wbq, 1, cin)
+    fma = quant.fma
+    out = torch.empty(bsz, h, w, co, dtype=out_dtype)
+    mid = torch.empty(bsz, h, w, co, dtype=torch.int8)
+    for oh0 in range(0, h, th):
+        for ow0 in range(0, w, tw):
+            xt = _window(x, oh0 - 2, ow0 - 2, th + 4, tw + 4)
+            y1 = torch.relu(fma(_s8_gemm(_s8_cols(xt, th + 2, tw + 2, TAPS3,
+                                                  cin), k1), g1, b1))
+            m = torch.round(torch.clamp(y1, max=quant.INT8_MAX))
+            iy = torch.arange(oh0 - 1, oh0 + th + 1)
+            ix = torch.arange(ow0 - 1, ow0 + tw + 1)
+            inside = (((iy >= 0) & (iy < h))[:, None]
+                      & ((ix >= 0) & (ix < w))[None, :]).reshape(-1, 1)
+            m = (m.reshape(bsz, -1, co) * inside).to(torch.int8).reshape(
+                bsz, th + 2, tw + 2, co)
+            ny, nx = min(th, h - oh0), min(tw, w - ow0)
+            mid[:, oh0:oh0 + ny, ow0:ow0 + nx] = m[:, 1:1 + ny, 1:1 + nx]
+            y = torch.relu(fma(_s8_gemm(_s8_cols(m.long(), th, tw, TAPS3, co),
+                                        k2), g2, b2))
+            centre = xt[:, 2:2 + th, 2:2 + tw]
+            if kb is None:
+                r = fma(centre.reshape(-1, cin).float(), gb, bb)
+            else:
+                r = fma(_s8_gemm(_s8_cols(centre, th, tw, [(0, 0)], cin), kb),
+                        gb, bb)
+            o = torch.relu(y + r).to(out_dtype).reshape(bsz, th, tw, co)
+            out[:, oh0:oh0 + ny, ow0:ow0 + nx] = o[:, :ny, :nx]
+    return out, mid
+
+
+def _s8(rng, shape, lim=127):
+    return torch.from_numpy(rng.randint(-lim, lim + 1, shape).astype(np.int8))
+
+
+def _s8_block_inputs(rng, bsz, h, w, ca, cb, co, proj):
+    """int8 inputs (post-ReLU 0..127) and weights, g1 scaled so the
+    requantized m spans the int8 grid and saturates at 127."""
+    cin = ca + cb
+    a = _s8(rng, (bsz, h, w, ca)).abs()
+    b = _s8(rng, (bsz, h, w, cb)).abs() if cb else None
+    g = [_t(np.abs(rng.randn(co)) * s) for s in (0.028 / np.sqrt(9 * cin),
+                                                 1e-3, 1e-3)]
+    be = [_t(rng.randn(co) * 3) for _ in range(3)]
+    if not proj:
+        g[2], be[2] = torch.full((co,), 0.05), torch.zeros(co)
+    return (a, b, _s8(rng, (3, 3, cin, co), 64), g[0], be[0],
+            _s8(rng, (3, 3, co, co), 64), g[1], be[1],
+            _s8(rng, (cin, co), 64) if proj else None, g[2], be[2])
+
+
+def test_s8_two_taps_a_step_k_order(rng):
+    """cin = 16: K row 32 s + kk is tap 2 s + kk // 16, channel kk % 16,
+    and the phantom tenth tap (rows 144-159) reads tap 8's pixels with
+    zero weight rows — a nonzero row there would change the sums."""
+    x = _s8(rng, (1, 20, 20, 16)).long()
+    cols = _s8_cols(x, 18, 18, TAPS3, 16)
+    assert cols.shape == (324, 160)
+    for kp in (0, 17, 31, 32 * 3 + 20, 32 * 4 + 5, 32 * 4 + 21):
+        tap, c = kp // 16, kp % 16
+        dy, dx = TAPS3[min(tap, 8)]
+        ref = x[0, dy:dy + 18, dx:dx + 18, c].reshape(-1)
+        assert torch.equal(cols[:, kp], ref)
+    w = _s8(rng, (3, 3, 16, 32))
+    kmat = _s8_kmat(w, 9, 16)
+    assert torch.equal(kmat[:144], w.reshape(144, 32).long())
+    assert int(kmat[144:].abs().max()) == 0
+    bad = kmat.clone()
+    bad[150] = 1
+    assert not torch.equal(_s8_gemm(cols, bad), _s8_gemm(cols, kmat))
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", sorted(block.S8_SHAPES))
+def test_block_s8_decomposition_matches_plain(rng, shape, out_dtype):
+    """Every compiled (ca, cb, co, proj) at 2 x 20 x 37 (16x16 tiles cut
+    at the border): the output bit for bit the plain version's, and m
+    too — exact s32 sums in any order, the same f32 epilogue steps."""
+    ca, cb, co, proj = shape
+    args = _s8_block_inputs(rng, 2, 20, 37, ca, cb, co, proj)
+    got, m = block_s8_tiled(*args, out_dtype=out_dtype)
+    want, want_m = block.basic_block_s8_plain(*args, out_dtype=out_dtype,
+                                              with_mid=True)
+    assert got.dtype == want.dtype == out_dtype
+    assert torch.equal(m, want_m)
+    assert int(want_m.max()) == 127 and int(want_m.min()) == 0
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("shape", sorted(block.S8_SHAPES))
+def test_block_s8_decomposition_matches_pallas(shape):
+    """float32 against fused_basic_block / fused_dual_block with
+    quantized=True in interpret mode, fed as
+    tests/test_torch_int8_kernels.py feeds them (rtol 1e-6, atol 1e-4)."""
+    ca, cb, co, proj = shape
+    p = 128 // ca
+    rng = np.random.RandomState(7 + ca + cb + co)
+    args = _s8_block_inputs(rng, 2, 16, 4 * p, ca, cb, co, proj)
+    a, b, w1, g1, b1, w2, g2, b2, wb, gb, bb = args
+    j, tcv = jnp.asarray, tile_channel_vector
+    aff = [tcv(j(v.numpy()), p) for v in (g1, b1, g2, b2, gb, bb)]
+    if cb:
+        want = fused_dual_block(
+            pack(j(a.numpy()), p), pack(j(b.numpy()), p), j(w1.numpy()),
+            aff[0], aff[1], j(w2.numpy()), aff[2], aff[3],
+            j(wb.numpy()[None, None]), aff[4], aff[5], p=p,
+            out_dtype=jnp.float32, interpret=True)
+    else:
+        want = fused_basic_block(
+            pack(j(a.numpy()), p), j(w1.numpy()), aff[0], aff[1],
+            j(w2.numpy()), aff[2], aff[3],
+            j(wb.numpy()[None, None]) if proj else None, aff[4], aff[5],
+            p=p, out_dtype=jnp.float32, interpret=True)
+    got, _ = block_s8_tiled(*args)
+    np.testing.assert_allclose(got.numpy(), np.asarray(unpack(want, p)),
+                               rtol=1e-6, atol=1e-4)

@@ -25,7 +25,10 @@ fused_basic_block and fused_dual_block: int8 streams sharing one scale,
 s8 x s8 → s32, m requantized on chip to int8 as
 rint(min(relu(acc1·g1 + b1), 127)) with conv2's scale folded into
 g1/b1, the identity bypass dequantized as gb·x + bb. Kernel:
-ops/csrc/basic_block_s8.cu — K2's tiling with __dp4a.
+ops/csrc/basic_block_s8.cu — K2's design on the int8 tensor cores
+(mma.sync m16n8k32, exact s32 accumulators; at 16 channels a 32-deep
+k-step covers two taps), the f32 epilogue step for step the plain
+version's, so the float32 output is bit-identical to it.
 """
 from __future__ import annotations
 
@@ -167,8 +170,10 @@ def basic_block_s8(aq: torch.Tensor, bq: Optional[torch.Tensor],
     s8, f32 = torch.int8, torch.float32
     flag = _build.out_f32(out_dtype)
     _build.check(aq, "aq", s8, (bsz, h, wd, ca), dev)
+    _build.check_aligned(aq, "aq")
     if bq is not None:
         _build.check(bq, "bq", s8, (bsz, h, wd, cb), dev)
+        _build.check_aligned(bq, "bq")
     _build.check(w1q, "w1q", s8, (3, 3, ca + cb, co), dev)
     _build.check(w2q, "w2q", s8, (3, 3, co, co), dev)
     for name, t in (("g1", g1), ("b1", b1), ("g2", g2), ("b2", b2),

@@ -21,97 +21,207 @@
 //
 // Bound on the H100: bytes at the int8 tensor-core peak (two 3x3 convs
 // of 32 channels per pixel against 32 + 64 bytes moved is ~380 op/B,
-// under the ~590 op/B int8 ridge); this first form runs __dp4a on the
-// CUDA cores, so operations bind it in practice. Design (as K2): an 8x16
-// output tile per block of 256 threads; the int8 input tile with a
-// two-pixel halo and the int8 m at odd 16-byte pixel strides, the
-// weights packed as __dp4a operands, all in shared memory; each thread
-// accumulates 16 output channels of one pixel in s32 registers.
-#include "common.cuh"
+// under the ~590 op/B int8 ridge).
+//
+// Design: basic_block.cu's (K2) carried to int8.
+// - conv1, conv2 and the 1x1 bypass are implicit GEMMs (M = pixels of the
+//   tile, N = co, K = taps x channels, tap-major) on
+//   mma.sync.m16n8k32.s32.s8.s8.s32 (tensor_core.cuh:mma_s8), exact s32
+//   accumulators. A 16-byte chunk holds 16 int8 channels (1, 2 or 4 a
+//   pixel at 16, 32 or 64) and a k-step 32, two chunks: the same bytes
+//   as bf16 K2's 16-channel k-step, so the A fragments come by ldmatrix at
+//   the same swizzled lane addresses. At 16 channels (enc1.res1's conv1
+//   and bypass, the co = 16 conv2s and dec1.res2's conv1) a k-step covers
+//   two taps — lanes 0-15 address the first tap's pixel, lanes 16-31 the
+//   second's — and the 9 taps are padded by a phantom tenth whose weight
+//   rows are zero, as K1 does at ci = 4.
+// - 16x16 output tiles with m recomputed over 18x18 (x 20x20), in a
+//   persistent grid (SMs x blocks per SM, asked once per kernel instance)
+//   walking tiles t = blockIdx.x + k * gridDim.x. Each block lays w1, w2
+//   and wb out once as s8 B fragments in shared memory (stage_b_s8), so
+//   the weights are read once per block, not once per tile.
+// - Double-buffered cp.async: the next tile's 20x20 int8 x tile (both
+//   streams in dual mode, zero-filled outside the image) arrives while
+//   this one runs conv1, conv2 and the epilogue.
+// - conv1's 21 M-tiles of 16 m pixels over 8 warps (up to 3 a warp,
+//   sharing each B fragment); conv2 and the bypass two output rows a warp.
+// - The epilogue is basic_block_s8_plain's f32 arithmetic step for step:
+//   affine_fma, fmaxf, rintf(fminf(y, 127)) into the int8 m tile (zero
+//   outside the image), the bypass affine_fma of the s32 1x1 sum or of
+//   the identity's int8 x, __fadd_rn, the final fmaxf. s32 sums are exact
+//   in any order, so the f32 output is bit-identical to
+//   basic_block_s8_plain's.
+// - Each warp stages its two output rows (bf16 or float) in its own
+//   swizzled shared-memory rows and writes them as 16-byte chunks.
+// Shared memory (weights + 2 x tiles + m + staging, bf16 / f32 out, in
+// units of 1000 bytes): enc1.res1 15.4 + 12.8 + 10.4 + 16.4 / 32.8 =
+// 56 / 72; enc1.res2 and dec2.res2 18.4 + 25.6 + 10.4 + 16.4 / 32.8 =
+// 72 / 88; dec2.res1 29.7 + 51.2 + 10.4 + 16.4 / 32.8 = 108 / 125;
+// dec1.res1 7.7 + 25.6 + 5.2 + 8.2 / 16.4 = 47 / 55; dec1.res2 5.1 +
+// 12.8 + 5.2 + 8.2 / 16.4 = 32 / 40: two blocks an SM (one for
+// dec2.res1's f32 form).
+#include "tensor_core.cuh"
 #include "ubr_shapes.h"  // UBR_BASIC_BLOCK_S8_SHAPES (ops/_build.py:SHAPES)
 
 namespace {
 
-constexpr int TH = 8, TW = 16, NT = 256, G = 16;  // G: channels a thread
-constexpr int XH = TH + 4, XW = TW + 4;           // input tile, 2-px halo
-constexpr int MH = TH + 2, MW = TW + 2;           // intermediate, 1-px halo
+constexpr int TH = 16, TW = 16;
+constexpr int MH = TH + 2, MW = TW + 2;  // m: one-pixel halo
+constexpr int XH = TH + 4, XW = TW + 4;  // x: two-pixel halo
+constexpr int NWARP = 8, NT = 32 * NWARP;
+constexpr int MT1 = (MH * MW + 15) / 16;       // conv1 M-tiles (21)
+constexpr int J1 = (MT1 + NWARP - 1) / NWARP;  // conv1 M-tiles a warp
+constexpr int J2 = TH / NWARP;                 // output rows a warp
 
-template <int CA, int CB, int CO, bool PROJ>
-struct BlockS8Shape {
-  static constexpr int CIN = CA + CB;
-  static_assert(CIN % 16 == 0 && CO % G == 0 && CA % 4 == 0,
-                "int8 block channel grain");
-  static constexpr int CGI = CIN / 4, CGO = CO / 4;  // words per pixel
-  static constexpr int XWD = s8_words(CIN), MWD = s8_words(CO);
-  static constexpr int W1 = 9 * CGI * CO, W2 = 9 * CGO * CO;  // words
-  static constexpr int WB = PROJ ? CGI * CO : 0;
-  static constexpr int PRM = 6 * CO;  // g1 b1 g2 b2 gb bb (floats)
-  static constexpr int XS = XH * XW * XWD, MS = MH * MW * MWD;
-  static constexpr int SMEM = (W1 + W2 + WB + PRM + XS + MS) * 4;
-};
-
-// words [tap][ci / 4][co] from an int8 (taps, ci, co) kernel
-__device__ __forceinline__ void load_s8_weights(int* dst, const int8_t* w,
-                                                int taps, int ci, int co,
-                                                int tid) {
-  const int cg_n = ci / 4, n = taps * cg_n * co;
-  for (int e = tid; e < n; e += NT) {
-    const int c = e % co, row = e / co;
-    const int cg = row % cg_n, tap = row / cg_n;
-    dst[e] = pack_s8x4(w + ((long)tap * ci + 4 * cg) * co + c, co);
-  }
+// 32-channel k-steps of a conv over TAPS taps of C int8 channels: C / 32
+// a tap, or at C = 16 two taps a step (the last one's second a phantom).
+constexpr int ksteps(int taps, int c) {
+  return c >= 32 ? taps * (c / 32) : (taps + 1) / 2;
 }
 
-// acc[0..G) += the G output channels of words wp[cg * CO + ...] against
-// the NCG input words at xp (both in shared memory)
-template <int NCG, int CO>
-__device__ __forceinline__ void dot_s8(int* acc, const int* xp,
-                                       const int* wp) {
+template <int CA, int CB, int CO, bool PROJ, typename OT>
+struct BlockS8Shape {
+  static constexpr int CIN = CA + CB;
+  static constexpr int NCI = CIN / 16, NCO = CO / 16;  // int8 chunks/pixel
+  static constexpr int NQ = CO / 16;                   // n-tile pairs
+  static constexpr int NCS = CO * (int)sizeof(OT) / 16;  // staged chunks
+  static constexpr int KS1 = ksteps(9, CIN), KS2 = ksteps(9, CO);
+  static constexpr int KSB = ksteps(1, CIN);
+  static constexpr int W1_UNITS = KS1 * NQ * 32;  // uint4 of B fragments
+  static constexpr int W2_UNITS = KS2 * NQ * 32;
+  static constexpr int WB_UNITS = PROJ ? KSB * NQ * 32 : 0;
+  static constexpr int PRM = 6 * CO;  // g1 b1 g2 b2 gb bb (f32)
+  static constexpr int X_BYTES = XH * XW * CIN, M_BYTES = MH * MW * CO;
+  static constexpr int ST = J2 * TW * CO;  // staged outputs a warp
+  static constexpr int SMEM = (W1_UNITS + W2_UNITS + WB_UNITS) * 16 +
+                              PRM * 4 + 2 * X_BYTES + M_BYTES +
+                              NWARP * ST * (int)sizeof(OT);
+  static_assert(CA % 16 == 0 && CB % 16 == 0 && CO % 16 == 0,
+                "int8 channels in 16-byte chunks");
+  static_assert(PROJ || CIN == CO, "identity bypass needs ci == co");
+};
+
+template <int NQ, int J>
+__device__ __forceinline__ void zero(int (&acc)[J][2 * NQ][4]) {
 #pragma unroll
-  for (int c16 = 0; c16 < NCG; c16 += 4) {
-    const int4 xv = *reinterpret_cast<const int4*>(xp + c16);
-    const int xa[4] = {xv.x, xv.y, xv.z, xv.w};
+  for (int j = 0; j < J; ++j)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int4* wr = reinterpret_cast<const int4*>(wp + (c16 + j) * CO);
+    for (int nt = 0; nt < 2 * NQ; ++nt)
 #pragma unroll
-      for (int q = 0; q < G / 4; ++q) {
-        const int4 wv = wr[q];
-        acc[4 * q + 0] = __dp4a(xa[j], wv.x, acc[4 * q + 0]);
-        acc[4 * q + 1] = __dp4a(xa[j], wv.y, acc[4 * q + 1]);
-        acc[4 * q + 2] = __dp4a(xa[j], wv.z, acc[4 * q + 2]);
-        acc[4 * q + 3] = __dp4a(xa[j], wv.w, acc[4 * q + 3]);
+      for (int i = 0; i < 4; ++i) acc[j][nt][i] = 0;
+}
+
+// acc[j] += A_j · B over a conv of TAPS taps (3x3 or 1x1) and C int8
+// channels: the lane's A row of M-tile j is tile pixel pix[j] shifted by
+// the tap (tap / 3, tap % 3) in a tile of row pitch PW; B fragments wf
+// (stage_b_s8 layout, K tap-major). M-tiles with on[j] false are skipped.
+template <int C, int TAPS, int NQ, int J, int PW>
+__device__ __forceinline__ void gemm(int (&acc)[J][2 * NQ][4], uint32_t tile,
+                                     const uint4* wf, const int (&pix)[J],
+                                     const bool (&on)[J], int lane) {
+  constexpr int NC = C / 16;
+  const int ah = tc::a_half(lane);
+  auto step = [&](int s, const uint32_t (&off)[J]) {
+    uint4 bq[NQ];
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) bq[q] = wf[(s * NQ + q) * 32 + lane];
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      if (!on[j]) continue;
+      uint32_t a[4];
+      tc::ldsm_x4(tile + off[j], a);
+#pragma unroll
+      for (int q = 0; q < NQ; ++q) {
+        tc::mma_s8(acc[j][2 * q], a, bq[q].x, bq[q].y);
+        tc::mma_s8(acc[j][2 * q + 1], a, bq[q].z, bq[q].w);
       }
+    }
+  };
+  if constexpr (C >= 32) {
+    // C / 32 k-steps a tap; lane's chunk 2 kc + half, kc by XOR
+    constexpr int KC = C / 32;
+#pragma unroll
+    for (int tap = 0; tap < TAPS; ++tap) {
+      const int shift = (tap / 3) * PW + tap % 3;
+      uint32_t off0[J];
+#pragma unroll
+      for (int j = 0; j < J; ++j) off0[j] = tc::a_off<NC>(pix[j] + shift, ah);
+#pragma unroll
+      for (int kc = 0; kc < KC; ++kc) {
+        uint32_t off[J];
+#pragma unroll
+        for (int j = 0; j < J; ++j) off[j] = off0[j] ^ (kc << 5);
+        step(tap * KC + kc, off);
+      }
+    }
+  } else {
+    // C = 16, one chunk a pixel: two taps a k-step, lanes 16-31 on the
+    // second (the last step's second tap is the phantom: its B rows are
+    // zero, it reads tap TAPS - 1)
+#pragma unroll
+    for (int s = 0; s < (TAPS + 1) / 2; ++s) {
+      const int tap = min(2 * s + ah, TAPS - 1);
+      const int shift = (tap / 3) * PW + tap % 3;
+      uint32_t off[J];
+#pragma unroll
+      for (int j = 0; j < J; ++j) off[j] = 16u * (uint32_t)(pix[j] + shift);
+      step(s, off);
     }
   }
 }
 
+// relu(acc * g + b) requantized to the int8 grid: rint(min(y, 127)).
+__device__ __forceinline__ int requant(int acc, float g, float b) {
+  const float y = fmaxf(affine_fma(acc, g, b), 0.f);
+  return (int)rintf(fminf(y, 127.f));
+}
+
+__device__ __forceinline__ void put2(bf16* p, float a, float b) {
+  *reinterpret_cast<bf162*>(p) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void put2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
 template <int CA, int CB, int CO, bool PROJ, typename OT>
-__global__ void __launch_bounds__(NT)
-block_s8_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ bsrc,
+__global__ void __launch_bounds__(
+    NT, (tc::blocks_per_sm<BlockS8Shape<CA, CB, CO, PROJ, OT>::SMEM, 2>()))
+basic_block_s8_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ bsrc,
                 const int8_t* __restrict__ w1, const float* __restrict__ g1,
                 const float* __restrict__ b1, const int8_t* __restrict__ w2,
                 const float* __restrict__ g2, const float* __restrict__ b2,
                 const int8_t* __restrict__ wb, const float* __restrict__ gb,
-                const float* __restrict__ bb, OT* __restrict__ out, int H,
-                int W) {
-  using S = BlockS8Shape<CA, CB, CO, PROJ>;
-  constexpr int CIN = S::CIN, NG = CO / G;
-  extern __shared__ int4 smem_s8[];
-  int* w1s = reinterpret_cast<int*>(smem_s8);
-  int* w2s = w1s + S::W1;
-  int* wbs = w2s + S::W2;
-  float* prm = reinterpret_cast<float*>(wbs + S::WB);
-  int* xs = reinterpret_cast<int*>(prm + S::PRM);
-  int* ms = xs + S::XS;
+                const float* __restrict__ bb, OT* __restrict__ out, int B,
+                int H, int W) {
+  using S = BlockS8Shape<CA, CB, CO, PROJ, OT>;
+  constexpr int CIN = S::CIN, NCI = S::NCI, NCO = S::NCO, NQ = S::NQ;
+  constexpr int NCS = S::NCS, ES = 16 / (int)sizeof(OT);
+  extern __shared__ uint4 smem[];
+  uint4* w1f = smem;
+  uint4* w2f = w1f + S::W1_UNITS;
+  uint4* wbf = w2f + S::W2_UNITS;
+  float* prm = reinterpret_cast<float*>(wbf + S::WB_UNITS);
+  int8_t* xs = reinterpret_cast<int8_t*>(prm + S::PRM);
+  int8_t* ms = xs + 2 * S::X_BYTES;
 
-  const int tid = threadIdx.x;
-  const int n = blockIdx.z;
-  const int oh0 = blockIdx.y * TH, ow0 = blockIdx.x * TW;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, q4 = lane & 3, ar = tc::a_row(lane);
+  const int tiles_x = (W + TW - 1) / TW, tiles_y = (H + TH - 1) / TH;
+  const int per_img = tiles_x * tiles_y, ntiles = B * per_img;
+  OT* wst = reinterpret_cast<OT*>(ms + S::M_BYTES) + warp * S::ST;
 
-  load_s8_weights(w1s, w1, 9, CIN, CO, tid);
-  load_s8_weights(w2s, w2, 9, CO, CO, tid);
-  if (PROJ) load_s8_weights(wbs, wb, 1, CIN, CO, tid);
+  // B row k of a (taps, c, co) kernel is tap k / c, channel k % c — the
+  // layout itself read as a K x co matrix; zero past the last tap
+  tc::stage_b_s8<S::KS1, CO>(
+      w1f, [&](int k, int n) { return k < 9 * CIN ? w1[k * CO + n] : 0; },
+      tid, NT);
+  tc::stage_b_s8<S::KS2, CO>(
+      w2f, [&](int k, int n) { return k < 9 * CO ? w2[k * CO + n] : 0; },
+      tid, NT);
+  if constexpr (PROJ)
+    tc::stage_b_s8<S::KSB, CO>(
+        wbf, [&](int k, int n) { return k < CIN ? wb[k * CO + n] : 0; },
+        tid, NT);
   for (int e = tid; e < CO; e += NT) {
     prm[e] = g1[e];
     prm[CO + e] = b1[e];
@@ -120,95 +230,136 @@ block_s8_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ bsrc,
     prm[4 * CO + e] = gb[e];
     prm[5 * CO + e] = bb[e];
   }
-  // input tile [a | b] with a two-pixel halo, zero outside the image
-  for (int e = tid; e < XH * XW * S::CGI; e += NT) {
-    const int c = 4 * (e % S::CGI), pix = e / S::CGI;
-    const int ih = oh0 - 2 + pix / XW, iw = ow0 - 2 + pix % XW;
-    int v = 0;
-    if (ih >= 0 && ih < H && iw >= 0 && iw < W) {
-      const long p = ((long)n * H + ih) * W + iw;
-      v = c < CA ? *reinterpret_cast<const int*>(a + p * CA + c)
-                 : *reinterpret_cast<const int*>(bsrc + p * CB + c - CA);
-    }
-    xs[pix * S::XWD + c / 4] = v;
-  }
-  __syncthreads();
 
-  // conv1 + folded BN1 + ReLU, requantized, over the tile and its
-  // one-pixel halo -> ms (int8)
-  for (int it = tid; it < NG * MH * MW; it += NT) {
-    const int grp = it / (MH * MW), pos = it % (MH * MW);
-    const int my = pos / MW, mx = pos % MW;
-    const int ih = oh0 - 1 + my, iw = ow0 - 1 + mx;
-    int* mp = ms + pos * S::MWD + grp * (G / 4);
-    if (ih < 0 || ih >= H || iw < 0 || iw >= W) {
-#pragma unroll
-      for (int j = 0; j < G / 4; ++j) mp[j] = 0;
-      continue;
+  // int8 x tile [a | b] with a two-pixel halo, zero outside the image
+  auto load = [=](int t, int8_t* dst) {
+    const int n = t / per_img, r = t % per_img;
+    const int y0 = (r / tiles_x) * TH - 2, x0 = (r % tiles_x) * TW - 2;
+    for (int e = tid; e < XH * XW * NCI; e += NT) {
+      const int p = e / NCI, c = e % NCI;
+      const int ih = y0 + p / XW, iw = x0 + p % XW;
+      const bool in = ih >= 0 && ih < H && iw >= 0 && iw < W;
+      const long pix = ((long)n * H + ih) * W + iw;
+      const int8_t* src = a;
+      if (in)
+        src = c < CA / 16 ? a + pix * CA + c * 16
+                          : bsrc + pix * CB + (c - CA / 16) * 16;
+      tc::cp_async16(tc::smem_u32(dst + tc::chunk_at<NCI>(p, c) * 16), src,
+                     in);
     }
-    int acc[G];
+    tc::cp_async_commit();
+  };
+
+  // lane's A pixels: conv1 M-tile j covers m pixels 16 (warp + 8j) ..,
+  // conv2 / bypass M-tile j is output row warp * J2 + j
+  int pix1[J1], pix2[J2], pixb[J2];
+  bool on1[J1], on2[J2];
 #pragma unroll
-    for (int j = 0; j < G; ++j) acc[j] = 0;
+  for (int j = 0; j < J1; ++j) {
+    const int mt = warp + NWARP * j;
+    const int mi = min(mt * 16 + ar, MH * MW - 1);
+    pix1[j] = (mi / MW) * XW + mi % MW;
+    on1[j] = mt < MT1;
+  }
+#pragma unroll
+  for (int j = 0; j < J2; ++j) {
+    pix2[j] = (warp * J2 + j) * MW + ar;
+    pixb[j] = (warp * J2 + j + 2) * XW + ar + 2;
+    on2[j] = true;
+  }
+
+  const uint32_t ms_u = tc::smem_u32(ms);
+  int buf = 0;
+  if ((int)blockIdx.x < ntiles) load(blockIdx.x, xs);
 #pragma unroll 1
-    for (int t = 0; t < 9; ++t)
-      dot_s8<S::CGI, CO>(acc,
-                         xs + ((my + t / 3) * XW + mx + t % 3) * S::XWD,
-                         w1s + t * S::CGI * CO + grp * G);
-    const float* gg = prm + grp * G;
-    const float* bbias = prm + CO + grp * G;
+  for (int t = blockIdx.x; t < ntiles; t += gridDim.x, buf ^= 1) {
+    tc::cp_async_wait_all();
+    __syncthreads();  // x of tile t landed; the last tile's m reads are done
+    if (t + (int)gridDim.x < ntiles)
+      load(t + gridDim.x, xs + (buf ^ 1) * S::X_BYTES);
+    const int8_t* xt = xs + buf * S::X_BYTES;
+    const uint32_t xt_u = tc::smem_u32(xt);
+    const int n = t / per_img, r = t % per_img;
+    const int oh0 = (r / tiles_x) * TH, ow0 = (r % tiles_x) * TW;
+
+    {  // conv1 + folded BN1 + ReLU, requantized, over the tile and its
+       // halo -> m (int8, zero outside the image)
+      int acc[J1][2 * NQ][4];
+      zero<NQ>(acc);
+      gemm<CIN, 9, NQ, J1, XW>(acc, xt_u, w1f, pix1, on1, lane);
 #pragma unroll
-    for (int j = 0; j < G; j += 4) {
-      int word = 0;
+      for (int nt = 0; nt < 2 * NQ; ++nt) {
+        const int ch = nt * 8 + 2 * q4;
+        const float2 gg = *reinterpret_cast<const float2*>(prm + ch);
+        const float2 be = *reinterpret_cast<const float2*>(prm + CO + ch);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float y =
-            fmaxf(affine_fma(acc[j + i], gg[j + i], bbias[j + i]), 0.f);
-        word |= ((int)rintf(fminf(y, 127.f)) & 0xff) << (8 * i);
+        for (int j = 0; j < J1; ++j) {
+          if (!on1[j]) continue;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int mi = (warp + NWARP * j) * 16 + g + 8 * h;
+            if (mi >= MH * MW) continue;
+            const int ih = oh0 - 1 + mi / MW, iw = ow0 - 1 + mi % MW;
+            const bool in = ih >= 0 && ih < H && iw >= 0 && iw < W;
+            const int v0 = in ? requant(acc[j][nt][2 * h], gg.x, be.x) : 0;
+            const int v1 = in ? requant(acc[j][nt][2 * h + 1], gg.y, be.y) : 0;
+            *reinterpret_cast<uint16_t*>(ms + tc::elem_at<NCO, 16>(mi, ch)) =
+                (uint16_t)(v0 | (v1 << 8));
+          }
+        }
       }
-      mp[j / 4] = word;
     }
-  }
-  __syncthreads();
+    __syncthreads();  // m complete
 
-  // conv2 + folded BN2 + pre-add ReLU, bypass, add, ReLU -> out
-  for (int it = tid; it < NG * TH * TW; it += NT) {
-    const int grp = it / (TH * TW), pos = it % (TH * TW);
-    const int py = pos / TW, px = pos % TW;
-    const int oh = oh0 + py, ow = ow0 + px;
-    if (oh >= H || ow >= W) continue;
-    int acc[G];
-#pragma unroll
-    for (int j = 0; j < G; ++j) acc[j] = 0;
-#pragma unroll 1
-    for (int t = 0; t < 9; ++t)
-      dot_s8<S::CGO, CO>(acc,
-                         ms + ((py + t / 3) * MW + px + t % 3) * S::MWD,
-                         w2s + t * S::CGO * CO + grp * G);
-    float y[G];
-    const float* gg = prm + 2 * CO + grp * G;
-    const float* bbias = prm + 3 * CO + grp * G;
-#pragma unroll
-    for (int j = 0; j < G; ++j)
-      y[j] = fmaxf(affine_fma(acc[j], gg[j], bbias[j]), 0.f);
-    const int* xc = xs + ((py + 2) * XW + px + 2) * S::XWD;  // centre
-    const float* gbp = prm + 4 * CO + grp * G;
-    const float* bbp = prm + 5 * CO + grp * G;
-    if (PROJ) {
-#pragma unroll
-      for (int j = 0; j < G; ++j) acc[j] = 0;
-      dot_s8<S::CGI, CO>(acc, xc, wbs + grp * G);
-#pragma unroll
-      for (int j = 0; j < G; ++j)
-        y[j] = __fadd_rn(y[j], affine_fma(acc[j], gbp[j], bbp[j]));
-    } else {
-      const int8_t* xb = reinterpret_cast<const int8_t*>(xc) + grp * G;
-#pragma unroll
-      for (int j = 0; j < G; ++j)
-        y[j] = __fadd_rn(y[j], affine_fma((int)xb[j], gbp[j], bbp[j]));
+    int acc[J2][2 * NQ][4], accb[J2][2 * NQ][4];
+    zero<NQ>(acc);
+    gemm<CO, 9, NQ, J2, MW>(acc, ms_u, w2f, pix2, on2, lane);
+    if constexpr (PROJ) {
+      zero<NQ>(accb);
+      gemm<CIN, 1, NQ, J2, XW>(accb, xt_u, wbf, pixb, on2, lane);
     }
+
+    // folded BN2 + pre-add ReLU, bypass, add, ReLU -> this warp's staging
+    // (pixel j * TW + px)
 #pragma unroll
-    for (int j = 0; j < G; ++j) y[j] = fmaxf(y[j], 0.f);
-    store_px<G>(out + (((long)n * H + oh) * W + ow) * CO + grp * G, y);
+    for (int nt = 0; nt < 2 * NQ; ++nt) {
+      const int ch = nt * 8 + 2 * q4;
+      const float2 gg = *reinterpret_cast<const float2*>(prm + 2 * CO + ch);
+      const float2 be = *reinterpret_cast<const float2*>(prm + 3 * CO + ch);
+      const float2 gr = *reinterpret_cast<const float2*>(prm + 4 * CO + ch);
+      const float2 br = *reinterpret_cast<const float2*>(prm + 5 * CO + ch);
+#pragma unroll
+      for (int j = 0; j < J2; ++j) {
+        const int py = warp * J2 + j;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int px = g + 8 * h;
+          float r0, r1;
+          if constexpr (PROJ) {
+            r0 = affine_fma(accb[j][nt][2 * h], gr.x, br.x);
+            r1 = affine_fma(accb[j][nt][2 * h + 1], gr.y, br.y);
+          } else {
+            const int8_t* xv =
+                xt + tc::elem_at<NCI, 16>((py + 2) * XW + px + 2, ch);
+            r0 = affine_fma((int)xv[0], gr.x, br.x);
+            r1 = affine_fma((int)xv[1], gr.y, br.y);
+          }
+          const float y0 = fmaxf(
+              __fadd_rn(fmaxf(affine_fma(acc[j][nt][2 * h], gg.x, be.x), 0.f),
+                        r0),
+              0.f);
+          const float y1 = fmaxf(
+              __fadd_rn(
+                  fmaxf(affine_fma(acc[j][nt][2 * h + 1], gg.y, be.y), 0.f),
+                  r1),
+              0.f);
+          put2(wst + tc::elem_at<NCS, ES>(j * TW + px, ch), y0, y1);
+        }
+      }
+    }
+    __syncwarp();
+    tc::store_rows<NCS, J2>(out, wst, n, oh0 + warp * J2, ow0, H, W, lane);
+    __syncwarp();  // staging read before the next tile's epilogue
   }
 }
 
@@ -217,19 +368,25 @@ int launch(const void* a, const void* b, const void* w1, const void* g1,
            const void* b1, const void* w2, const void* g2, const void* b2,
            const void* wb, const void* gb, const void* bb, void* out, int B,
            int H, int W, cudaStream_t stream) {
-  using S = BlockS8Shape<CA, CB, CO, PROJ>;
+  using S = BlockS8Shape<CA, CB, CO, PROJ, OT>;
   static bool smem_set = false;
-  cudaError_t e = allow_smem(block_s8_kernel<CA, CB, CO, PROJ, OT>, S::SMEM,
+  static int most = 0;
+  cudaError_t e = allow_smem(basic_block_s8_kernel<CA, CB, CO, PROJ, OT>, S::SMEM,
                              &smem_set);
+  if (e == cudaSuccess)
+    e = tc::resident_blocks(basic_block_s8_kernel<CA, CB, CO, PROJ, OT>, NT,
+                            S::SMEM, &most);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B);
-  block_s8_kernel<CA, CB, CO, PROJ, OT><<<grid, NT, S::SMEM, stream>>>(
+  const long tiles = (long)B * ((H + TH - 1) / TH) * ((W + TW - 1) / TW);
+  if (tiles == 0) return 0;
+  const int grid = (int)(tiles < most ? tiles : most);
+  basic_block_s8_kernel<CA, CB, CO, PROJ, OT><<<grid, NT, S::SMEM, stream>>>(
       static_cast<const int8_t*>(a), static_cast<const int8_t*>(b),
       static_cast<const int8_t*>(w1), static_cast<const float*>(g1),
       static_cast<const float*>(b1), static_cast<const int8_t*>(w2),
       static_cast<const float*>(g2), static_cast<const float*>(b2),
       static_cast<const int8_t*>(wb), static_cast<const float*>(gb),
-      static_cast<const float*>(bb), static_cast<OT*>(out), H, W);
+      static_cast<const float*>(bb), static_cast<OT*>(out), B, H, W);
   return (int)cudaGetLastError();
 }
 
@@ -238,7 +395,8 @@ int launch(const void* a, const void* b, const void* w1, const void* g1,
 // (ca, cb, co, projection) instantiated: UBR_BASIC_BLOCK_S8_SHAPES, from
 // the one table in ops/_build.py:SHAPES. cb = 0 is the single-stream
 // block; wb == NULL selects the identity bypass (gb, bb still given);
-// out_f32 selects a float output instead of bf16.
+// out_f32 selects a float output instead of bf16. a and b must be
+// 16-byte aligned.
 UBR_EXPORT int ubr_basic_block_s8(const void* a, const void* b,
                                   const void* w1, const void* g1,
                                   const void* b1, const void* w2,

@@ -17,8 +17,9 @@ __device__ __forceinline__ float2 ld_bf16x2(const bf16* p) {
   return __bfloat1622float2(*reinterpret_cast<const bf162*>(p));
 }
 
-// ---- int8 kernels (K1-s8, K2-s8, K3-s8): s8 x s8 -> s32 with __dp4a
-// over 4-channel groups, float32 epilogues in the JAX package's order,
+// ---- int8 kernels (K1-s8, K2-s8, K3-s8): s8 x s8 -> s32 (K1-s8 and
+// K3-s8 with __dp4a over 4-channel groups, K2-s8 on the tensor cores:
+// tensor_core.cuh:mma_s8), float32 epilogues in the JAX package's order,
 // each affine acc * g + b one fused multiply-add (rounded once, as XLA
 // compiles that expression; the plain PyTorch versions round it once
 // through float64, ops/quant.py:fma), output bf16 or float.

@@ -1,6 +1,8 @@
 // Tensor-core helpers of the port's Hopper kernels (K1 conv_bn_act, K2
-// basic_block, K3 deconv2x, K5 conv_stats, K6 conv_dw, K8 conv_s2k4):
-// bf16 mma.sync m16n8k16 with f32 accumulators, A fragments by ldmatrix
+// basic_block, K3 deconv2x, K5 conv_stats, K6 conv_dw, K8 conv_s2k4, K9
+// deconv_dw, K2-s8 basic_block_s8):
+// bf16 mma.sync m16n8k16 with f32 accumulators (and s8 m16n8k32 with
+// s32 accumulators, below), A fragments by ldmatrix
 // from pixel-major NHWC tiles in shared memory (one lane per pixel: the
 // im2col gather over the taps is the lane's address; .trans where the
 // pixels are the GEMM's K, as in a weight gradient), B fragments laid
@@ -34,10 +36,11 @@ __host__ __device__ constexpr int chunk_at(int p, int c) {
   return p * NC + (c ^ ((p * NC >> 3) & (NC - 1)));
 }
 
-// bf16 offset of channel ch (even) of pixel p in such a tile.
-template <int NC>
+// Element offset of channel ch (even) of pixel p in such a tile of E
+// elements a chunk: 8 bf16 (the default), 16 int8 or 4 float.
+template <int NC, int E = 8>
 __device__ __forceinline__ int elem_at(int p, int ch) {
-  return chunk_at<NC>(p, ch >> 3) * 8 + (ch & 7);
+  return chunk_at<NC>(p, ch / E) * E + ch % E;
 }
 
 // Byte offset of chunk 2 kc + half of pixel p in such a tile, as
@@ -162,19 +165,70 @@ __device__ __forceinline__ void stage_b8(uint2* dst, Val val, int tid,
 
 // A warp's R staged output rows of 16 pixels (staged pixel sp = r * 16 +
 // px in a swizzled tile of NC chunks a pixel) to image n of the NHWC
-// bf16 tensor out (H, W, NC * 8 channels) at rows r0 .., columns c0 ..,
-// as whole 16-byte chunks, skipping pixels outside the image.
-template <int NC, int R>
-__device__ __forceinline__ void store_rows(bf16* out, const bf16* st, int n,
+// tensor out (H, W, NC chunks of 16 bytes: bf16 or float) at rows r0 ..,
+// columns c0 .., as whole 16-byte chunks, skipping pixels outside the
+// image.
+template <int NC, int R, typename T>
+__device__ __forceinline__ void store_rows(T* out, const T* st, int n,
                                            int r0, int c0, int H, int W,
                                            int lane) {
+  constexpr int E = 16 / (int)sizeof(T);  // elements a chunk
   for (int e = lane; e < R * 16 * NC; e += 32) {
     const int sp = e / NC, c = e % NC;
     const int oh = r0 + sp / 16, ow = c0 + sp % 16;
     if (oh < H && ow < W)
-      *reinterpret_cast<uint4*>(out + (((long)n * H + oh) * W + ow) * NC * 8 +
-                                c * 8) =
-          *reinterpret_cast<const uint4*>(st + chunk_at<NC>(sp, c) * 8);
+      *reinterpret_cast<uint4*>(out + (((long)n * H + oh) * W + ow) * NC * E +
+                                c * E) =
+          *reinterpret_cast<const uint4*>(st + chunk_at<NC>(sp, c) * E);
+  }
+}
+
+// ---- int8: s8 x s8 -> s32 on mma.sync m16n8k32, exact accumulators.
+// An int8 tile of C channels holds NC = C / 16 chunks a pixel and a
+// k-step is 32 channels, two chunks: the same bytes as a bf16 k-step of
+// 16 channels. So A comes by the same ldsm_x4 at the same lane addresses
+// (a_row, a_half, a_off, the k-step XOR): ldmatrix's b16 view of a
+// 16-byte row gives lane l bytes 4(l%4) .. 4(l%4) + 3, the int8 channels
+// of the s8 fragment's a0..a3 (rows lane/4 and + 8, k 4(l%4) .. and
+// + 16), lowest channel in the lowest byte.
+
+// c += a · b over one m16n8k32 step (s8 in, s32 accumulate); c as mma's.
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The K x N int8 matrix val(k, n) as m16n8k32 B fragments in shared
+// memory, for KS k-steps of 32 rows: for k-step s and n-tile pair q (16
+// columns) lane l owns one uint4 at dst[(s * N/16 + q) * 32 + l], {b0,
+// b1} of n-tile 2q then of n-tile 2q + 1, where b0 packs rows 32s +
+// 4(l%4) .. + 3 of column l/4 (row k in byte k % 4) and b1 the same rows
+// + 16. val gives zero where the kernel pads K (taps beyond the real
+// ones). Written once per block.
+template <int KS, int N, typename Val>
+__device__ __forceinline__ void stage_b_s8(uint4* dst, Val val, int tid,
+                                           int nthreads) {
+  static_assert(N % 16 == 0, "B is 32 x 16 steps");
+  constexpr int NQ = N / 16;
+  for (int e = tid; e < KS * NQ * 32; e += nthreads) {
+    const int l = e & 31, q = (e >> 5) % NQ, s = (e >> 5) / NQ;
+    const int k = s * 32 + 4 * (l & 3), n = q * 16 + (l >> 2);
+    uint32_t v[4];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        uint32_t w = 0;
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          w |= (uint32_t)(uint8_t)val(k + 16 * r + i, n + 8 * h) << (8 * i);
+        v[2 * h + r] = w;
+      }
+    dst[e] = make_uint4(v[0], v[1], v[2], v[3]);
   }
 }
 

@@ -26,9 +26,12 @@ every tap reads one plane at stride 1; the weights are laid out once per
 block.
 
 K9 (``deconv_dw``) replaces pallas_deconv_dw (_deconv_dw_kernel):
-``dW[k] = Σ x[i]·dy[2i + k - 1]``. Kernel: ops/csrc/deconv_dw.cu —
-per-block partial dW over a strided share of x tiles, added across
-blocks in a fixed order (two passes, no atomics), as K6.
+``dW[k] = Σ x[i]·dy[2i + k - 1]``. Kernel: ops/csrc/deconv_dw.cu — per
+x tile and tap a bf16 tensor-core GEMM x_tileᵀ·dy_tap (mma.sync; M = ci,
+N = co, K = the tile's pixels), both operands by ldmatrix.trans, dy
+arriving as K8's four parity planes; a persistent grid whose blocks keep
+their share of dW in registers, added across blocks in a fixed order
+(two passes, no atomics), as K6.
 
 ``deconv2x_ad`` replaces pallas_deconv2x_ad (_deconv_ad_fwd,
 _deconv_ad_bwd): forward K3, dx K8 cast to x's dtype, dW K9 rounded to
@@ -50,10 +53,11 @@ SHAPES = _build.SHAPES["deconv2x"]
 S8_SHAPES = _build.SHAPES["deconv2x_s8"]
 S2K4_SHAPES = _build.SHAPES["conv_s2k4"]
 DW_SHAPES = _build.SHAPES["deconv_dw"]
-# blocks of the weight-gradient kernel (one per SM of an H100: its
-# shared memory and registers hold one block per SM): each walks a
-# strided share of the 8x16 x tiles and leaves one row of partial dW
-DW_MAX_BLOCKS = 132
+# K9's scratch rows per SM: at most this many of its blocks fit on an
+# SM (shared memory: 111 KB a block at dec2, 107 KB at dec1). The kernel
+# runs min(rows, SMs x the blocks that fit) blocks, each walking a
+# strided share of the x tiles, and adds exactly the rows they wrote.
+DW_BLOCKS_PER_SM = 2
 
 
 def supports(ci: int, co: int) -> bool:
@@ -197,8 +201,12 @@ def deconv_dw(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     dev = x.device
     _build.check(x, "x", torch.bfloat16, (bsz, h, wd, ci), dev)
     _build.check(dy, "dy", torch.bfloat16, (bsz, 2 * h, 2 * wd, co), dev)
-    tiles = bsz * -(-h // 8) * -(-wd // 16)
-    blocks = min(tiles, DW_MAX_BLOCKS)
+    _build.check_aligned(x, "x")
+    _build.check_aligned(dy, "dy")
+    th = 8 if ci >= 64 else 16  # K9's x tiles: 8x16 at dec2, 16x16 below
+    tiles = bsz * -(-h // th) * -(-wd // 16)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    blocks = min(tiles, sms * DW_BLOCKS_PER_SM)
     part = torch.empty((blocks, 16 * ci * co), dtype=torch.float32,
                        device=dev)
     dw = torch.empty((4, 4, ci, co), dtype=torch.float32, device=dev)

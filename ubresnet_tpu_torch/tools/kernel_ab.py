@@ -1,0 +1,85 @@
+"""Kernel rows of one checkout on the card, for A/B against another.
+
+    python ubresnet_tpu_torch/tools/kernel_ab.py ROOT KERNEL[,KERNEL...]
+
+Builds the kernels of the checkout at ROOT (its own ``ubresnet_tpu_torch``,
+into ROOT/build/kernels) and runs ROOT's ``chip_smoke.py`` kernel rows —
+eval, int8, train and deconv-AD — whose kernel is one of the KERNEL names
+(the rows' ``kernel`` field: ``deconv_dw``, ``basic_block_s8``,
+``deconv2x_ad``, ...), each checked against its plain version and timed
+as ``chip_smoke.py`` does it. int8 rows also need the bf16 eval rows
+(their ``bf16_kernel_ms``), which then run too. Every line is tagged with
+ROOT and the card; a last ``kernel_ab`` line sums ms, bound and library
+ms per kernel.
+
+Run it by path, not with ``-m``, so that ROOT's package, not this one,
+is imported; run it once per checkout in turns (parent, change, change,
+parent) in one call to compare two commits on one card. Needs a card.
+"""
+from __future__ import annotations
+
+import importlib.util
+import os
+import sys
+
+EVAL_KERNELS = {"conv_bn_act", "basic_block", "deconv2x", "maxpool3x3s2"}
+INT8_KERNELS = {"conv_bn_act_s8", "basic_block_s8", "deconv2x_s8"}
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if len(argv) != 2:
+        print(__doc__, file=sys.stderr)
+        return 2
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_ab: torch sees no CUDA device", file=sys.stderr)
+        return 1
+    root, want = os.path.abspath(argv[0]), set(argv[1].split(","))
+    sys.path.insert(0, root)
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(root, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    from ubresnet_tpu_torch.ops import _build
+    from ubresnet_tpu_torch.utils.platform import strict_f32
+
+    card = cs.card_line()
+    _build.build()
+    cs.PTXAS.update({r["kernel"]: {k: r.get(k) for k in (
+        "registers", "spill_stores", "spill_loads", "stack_bytes")}
+        for r in _build.ptxas_report()})
+    emit = cs.emit
+    cs.emit = lambda obj: emit({**obj, "root": root, "card": card})
+    strict_f32()
+    dev = torch.device("cuda", 0)
+
+    int8 = want & INT8_KERNELS
+    eval_rows = (cs.check_kernels(cs.kernel_rows(dev))
+                 if int8 or want & EVAL_KERNELS else [])
+    rows = [r for r in eval_rows if r["kernel"] in want]
+    if int8:
+        rows += cs.check_kernels([r for r in cs.int8_kernel_rows(
+            dev, eval_rows) if r["kernel"] in want])
+    for make in (cs.train_kernel_rows, cs.deconv_ad_rows):
+        mine = [r for r in make(dev) if r["kernel"] in want]
+        if mine:
+            rows += cs.check_kernels(mine)
+    totals = {}
+    for r in rows:
+        k = totals.setdefault(r["kernel"], {"rows": 0, "ms": 0.0,
+                                            "bound_ms": 0.0,
+                                            "library_ms": 0.0})
+        k["rows"] += 1
+        k["ms"] += r["ms"]
+        k["bound_ms"] += r["bound_ms"]
+        k["library_ms"] = (None if k["library_ms"] is None
+                           or r["library_ms"] is None
+                           else k["library_ms"] + r["library_ms"])
+    cs.emit({"phase": "kernel_ab", "kernels": totals})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

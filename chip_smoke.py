@@ -34,20 +34,23 @@ Phases, each printing JSON lines; any failure exits non-zero:
              forward + backward against F.conv_transpose2d's f32
              autograd (y, dx and the bf16 dW each ≤ 1e-2·max|plain|).
              Each row also gives pct_of_bound (bound_ms / ms) and
-             vs_library (ms / library_ms); K1, K5, K6, K8, K9 and K2-s8
-             rows also the ptxas registers, spills and stack of the
+             vs_library (ms / library_ms); K1, K5, K6, K8, K9 and the
+             int8 rows also the ptxas registers, spills and stack of the
              kernel instance they launch, and K5, K8 and K9 rows launch
              twice and require the same bits (same_bits). K1, K2, K3,
              K5, K6, K8 and K9 are bf16 tensor-core kernels (mma.sync
-             m16n8k16, f32 accumulators), K2-s8 an int8 one (m16n8k32,
-             s32 accumulators), each in a persistent grid: each block
-             walks its tiles, the next tile's input arriving by
-             double-buffered cp.async; K1-K3, K5, K8 and K2-s8 stage
-             their layer's weights in shared memory once per block, K2
-             and K2-s8 keep m (with its halo) on chip, K3 computes all
-             four output parity classes of a tile from one read of its
-             input, K5 is K1's mainloop with the sums of its bf16 y kept
-             per lane and reduced per block in a fixed order, K8 and K9
+             m16n8k16, f32 accumulators), K1-s8, K2-s8 and K3-s8 int8
+             ones (m16n8k32, exact s32 accumulators: K1-s8 runs K1's
+             mainloop with two 7x7 taps a 32-deep k-step, K2-s8 and
+             K3-s8 carry K2's and K3's designs), each in a persistent
+             grid: each block walks its tiles, the next tile's input
+             arriving by double-buffered cp.async; all but K4, K6, K7
+             and K9 stage their layer's weights in shared memory once
+             per block, K2 and K2-s8 keep m (with its halo) on chip, K3
+             and K3-s8 compute all four output parity classes of a tile
+             from one read of its input, K5 is K1's mainloop with the
+             sums of its bf16 y kept per lane and reduced per block in a
+             fixed order, K8 and K9
              read each haloed dy tile as its four parity planes (each
              tap one plane at stride 1), K6 and K9 keep their block's
              share of dW in registers (dW = x_shiftᵀ·dy per tile, or
@@ -769,7 +772,8 @@ def int8_kernel_rows(dev, eval_rows):
                                      out_dtype=f32),
                  conv.conv_bn_act_s8_plain(x, w, one, zero, act=False,
                                            out_dtype=f32)),
-        n2(x) + pix * 16 * 2 + n2(w), pix * 49 * 16 * 16)
+        n2(x) + pix * 16 * 2 + n2(w), pix * 49 * 16 * 16,
+        instance=(16, 16, 7, "__nv_bfloat16"))
 
     def block_row(name, hw, ca, cb, co, proj):
         a = act(B, hw, hw, ca)
@@ -807,7 +811,8 @@ def int8_kernel_rows(dev, eval_rows):
             lambda: deconv.deconv2x_s8_plain(xq, wq, gq),
             lambda: (deconv.deconv2x_s8(xq, wq, ones, out_dtype=f32),
                      deconv.deconv2x_s8_plain(xq, wq, ones, f32)),
-            n2(xq) + p * co * 2 + n2(wq), p * 4 * ci * co)
+            n2(xq) + p * co * 2 + n2(wq), p * 4 * ci * co,
+            instance=(ci, co, "__nv_bfloat16"))
 
     block_row("enc1.res1", 256, 16, 0, 32, True)
     block_row("enc1.res2", 256, 32, 0, 32, False)

@@ -260,6 +260,67 @@ def test_block_s8_kernel_persistent(dev, bhw, shape, out_dtype):
     assert torch.equal(got, block.basic_block_s8(*args, out_dtype=out_dtype))
 
 
+def _s8_same(got, want):
+    """The int8 kernels' outputs, float32 or bf16, bit for bit the plain
+    version's: exact s32 sums and the same f32 epilogue steps, so the
+    bf16 output is the same rounding of the same float32 value."""
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == want.dtype
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("out_dtype", S8_OUT, ids=["f32", "bf16"])
+@pytest.mark.parametrize("bhw", PERSISTENT, ids=["B4-256x200", "B1-20x37"])
+@pytest.mark.parametrize("shape", sorted(conv.S8_SHAPES))
+def test_conv_s8_kernel_persistent(dev, bhw, shape, out_dtype):
+    """K1-s8 at every compiled shape and output dtype with more (and
+    fewer) tiles than its persistent grid: the s32 sums (g = 1, b = 0)
+    and the outputs of each epilogue (ReLU; pre-ReLU, residual, ReLU;
+    none) bit-identical to the plain version's, and the same bits on a
+    second launch."""
+    bsz, *hw = bhw
+    ci, co, k = shape
+    x = _s8(dev, bsz, *hw, ci)
+    w = _s8(dev, k, k, ci, co)
+    ones, zeros = torch.ones(co, device=dev), torch.zeros(co, device=dev)
+    _s8_same(conv.conv_bn_act_s8(x, w, ones, zeros, act=False,
+                                 out_dtype=torch.float32),
+             conv.conv_bn_act_s8_plain(x, w, ones, zeros, act=False,
+                                       out_dtype=torch.float32))
+    g, b = _gain(dev, co, 1e-4, ci + co)
+    r = (torch.randn(bsz, *hw, co, generator=torch.Generator().manual_seed(5))
+         * 4).to(dev, out_dtype)
+    for res, pre, act in ((None, False, True), (r, True, True),
+                          (None, False, False)):
+        got = conv.conv_bn_act_s8(x, w, g, b, res, pre_act=pre, act=act,
+                                  out_dtype=out_dtype)
+        _s8_same(got, conv.conv_bn_act_s8_plain(
+            x, w, g, b, res, pre_act=pre, act=act, out_dtype=out_dtype))
+        assert torch.equal(got, conv.conv_bn_act_s8(
+            x, w, g, b, res, pre_act=pre, act=act, out_dtype=out_dtype))
+
+
+@pytest.mark.parametrize("out_dtype", S8_OUT, ids=["f32", "bf16"])
+@pytest.mark.parametrize("bhw", PERSISTENT, ids=["B4-256x200", "B1-20x37"])
+@pytest.mark.parametrize("shape", sorted(deconv.S8_SHAPES))
+def test_deconv_s8_kernel_persistent(dev, bhw, shape, out_dtype):
+    """K3-s8 at every compiled shape and output dtype with more (and
+    fewer) tiles than its persistent grid: the s32 sums (g = 1) and the
+    dequantized output bit-identical to the plain version's, and the
+    same bits on a second launch."""
+    bsz, *hw = bhw
+    ci, co = shape
+    x = _s8(dev, bsz, *hw, ci)
+    w = _s8(dev, 4, 4, ci, co)
+    ones = torch.ones(co, device=dev)
+    _s8_same(deconv.deconv2x_s8(x, w, ones, out_dtype=torch.float32),
+             deconv.deconv2x_s8_plain(x, w, ones, torch.float32))
+    g, _ = _gain(dev, co, 1e-3, ci)
+    got = deconv.deconv2x_s8(x, w, g, out_dtype=out_dtype)
+    _s8_same(got, deconv.deconv2x_s8_plain(x, w, g, out_dtype))
+    assert torch.equal(got, deconv.deconv2x_s8(x, w, g, out_dtype=out_dtype))
+
+
 @pytest.mark.parametrize("out_dtype", S8_OUT, ids=["f32", "bf16"])
 @pytest.mark.parametrize("hw", HW)
 @pytest.mark.parametrize("shape", sorted(deconv.S8_SHAPES))

@@ -37,7 +37,12 @@ fused_conv_s2k4):
 - K8: each haloed dy tile (rows 2 i0 - 1 .., zero outside dy) split into
   its four (row, column) parity planes; K tap-major (tap, co); tap (kr,
   kc) reads plane (kr & 1, kc & 1) at offset (kr >> 1, kc >> 1) — the
-  naive stride-2 pixel (2 ty + kr, 2 tx + kc) of the tile.
+  naive stride-2 pixel (2 ty + kr, 2 tx + kc) of the tile;
+- the int8 kernels (K2-s8 ops/csrc/basic_block_s8.cu, K1-s8
+  conv_bn_act_s8.cu, K3-s8 deconv2x_s8.cu): the same GEMMs in 32-deep
+  k-steps with exact integer sums, two taps a k-step at 16 channels (a
+  zero phantom tap padding an odd tap count), bit for bit against the
+  plain versions and against the Pallas kernels' quantized modes.
 
 float32 throughout; tolerances as tests/test_torch_kernels.py (2e-4 for
 the two-conv blocks, 2e-5 for the deconv and K1) and
@@ -1018,3 +1023,228 @@ def test_block_s8_decomposition_matches_pallas(shape):
     got, _ = block_s8_tiled(*args)
     np.testing.assert_allclose(got.numpy(), np.asarray(unpack(want, p)),
                                rtol=1e-6, atol=1e-4)
+
+
+# ---- K1-s8: K1's implicit GEMM on m16n8k32 (conv_gemm.cuh, T = int8_t)
+
+
+def conv_s8_tiled(xq, wq, g, b, residual=None, pre_act=False, act=True,
+                  out_dtype=torch.float32, tile=(16, 16)):
+    """K1-s8's decomposition: per 16x16 output tile, the haloed int8 x
+    tile (zero outside the image) as im2col rows over the 49 taps, K
+    tap-major and two taps a 32-deep k-step at 16 channels, the phantom
+    50th tap reading tap 48's pixels with zero weight rows (_s8_cols,
+    _s8_kmat), the k32 GEMM with exact sums, then the f32 epilogue in the
+    plain version's steps (quant.fma, relu, add, relu)."""
+    th, tw = tile
+    k, _, ci, co = wq.shape
+    r = k // 2
+    taps = [(dy, dx) for dy in range(k) for dx in range(k)]
+    kmat = _s8_kmat(wq, k * k, ci)
+    x = xq.long()
+    bsz, h, w, _ = x.shape
+    out = torch.empty(bsz, h, w, co, dtype=out_dtype)
+    for oh0 in range(0, h, th):
+        for ow0 in range(0, w, tw):
+            xt = _window(x, oh0 - r, ow0 - r, th + k - 1, tw + k - 1)
+            y = quant.fma(_s8_gemm(_s8_cols(xt, th, tw, taps, ci), kmat),
+                          g, b)
+            if pre_act:
+                y = torch.relu(y)
+            if residual is not None:
+                y = y + _window(residual.float(), oh0, ow0, th,
+                                tw).reshape(-1, co)
+            if act:
+                y = torch.relu(y)
+            o = y.to(out_dtype).reshape(bsz, th, tw, co)
+            ny, nx = min(th, h - oh0), min(tw, w - ow0)
+            out[:, oh0:oh0 + ny, ow0:ow0 + nx] = o[:, :ny, :nx]
+    return out
+
+
+def _s8_conv_inputs(rng, bsz, h, w, ci, co, k):
+    """int8 x and weights over the whole grid, g spreading y over a few
+    units around b, a float residual."""
+    return (_s8(rng, (bsz, h, w, ci)), _s8(rng, (k, k, ci, co)),
+            _t(np.abs(rng.randn(co)) * 1e-4), _t(rng.randn(co) * 3),
+            _t(rng.randn(bsz, h, w, co) * 4))
+
+
+S8_OUT = [torch.float32, torch.bfloat16]
+TAPS7 = [(dy, dx) for dy in range(7) for dx in range(7)]
+
+
+@pytest.mark.parametrize("out_dtype", S8_OUT, ids=["f32", "bf16"])
+@pytest.mark.parametrize("mode", CONV_MODES, ids=CONV_IDS)
+def test_conv_s8_decomposition_matches_plain(rng, mode, out_dtype):
+    """The compiled (16, 16, 7) at 2 x 20 x 37 (16x16 tiles cut at the
+    border), each epilogue and output dtype: bit for bit the plain
+    version's — exact s32 sums, the same f32 epilogue steps."""
+    (ci, co, k), = sorted(conv.S8_SHAPES)
+    res, pre, act = mode
+    x, w, g, b, r = _s8_conv_inputs(rng, 2, 20, 37, ci, co, k)
+    r = r.to(out_dtype) if res else None
+    got = conv_s8_tiled(x, w, g, b, r, pre, act, out_dtype)
+    want = conv.conv_bn_act_s8_plain(x, w, g, b, r, pre_act=pre, act=act,
+                                     out_dtype=out_dtype)
+    assert got.dtype == want.dtype == out_dtype
+    assert got.shape == want.shape == (2, 20, 37, co)
+    assert torch.equal(got, want)
+    if act:
+        assert 0 < int((want > 0).sum()) < want.numel()
+
+
+def test_conv_s8_two_taps_a_step_k_order(rng):
+    """ci = 16 at 7x7: K row 32 s + kk is tap 2 s + kk // 16, channel
+    kk % 16, the 49 taps padded by a phantom 50th (rows 784-799) that
+    reads tap 48's pixels with zero weight rows. A nonzero phantom row,
+    or the weight read channel-major instead of tap-major, changes the
+    sums."""
+    x = _s8(rng, (1, 22, 22, 16)).long()
+    cols = _s8_cols(x, 16, 16, TAPS7, 16)
+    assert cols.shape == (256, 800)
+    for kp in (0, 15, 16, 31, 32 * 12 + 7, 32 * 24 + 15, 32 * 24 + 16,
+               32 * 24 + 31):
+        tap, c = kp // 16, kp % 16
+        dy, dx = TAPS7[min(tap, 48)]
+        assert torch.equal(cols[:, kp], x[0, dy:dy + 16, dx:dx + 16,
+                                          c].reshape(-1))
+    w = _s8(rng, (7, 7, 16, 16))
+    kmat = _s8_kmat(w, 49, 16)
+    assert kmat.shape == (800, 16)
+    assert torch.equal(kmat[:784], w.reshape(784, 16).long())
+    assert int(kmat[784:].abs().max()) == 0
+    want = _s8_gemm(cols, kmat)
+    valid = quant.int_conv2d(x.to(torch.int8), w, 0)  # the tile's 16x16
+    assert torch.equal(want, valid.reshape(256, 16))
+    bad = kmat.clone()
+    bad[790] = 1
+    assert not torch.equal(_s8_gemm(cols, bad), want)
+    channel_major = w.permute(2, 0, 1, 3).reshape(784, 16).long()
+    wrong = torch.cat([channel_major, kmat[784:]])
+    assert not torch.equal(_s8_gemm(cols, wrong), want)
+
+
+@pytest.mark.parametrize("mode", ["act", "pre_act_residual", "no_act"])
+def test_conv_s8_decomposition_matches_pallas(mode):
+    """float32 against fused_packed_conv with quantized int8 inputs in
+    interpret mode, fed as tests/test_torch_int8_kernels.py feeds it
+    (rtol 1e-6, atol 1e-5)."""
+    (ci, co, k), = sorted(conv.S8_SHAPES)
+    p = 128 // ci
+    rng = np.random.RandomState(3)
+    x, w = _s8(rng, (2, 16, 4 * p, ci)), _s8(rng, (k, k, ci, co))
+    g = (rng.randn(co) * 0.01).astype(np.float32)
+    b = rng.randn(co).astype(np.float32)
+    res = rng.randn(2, 16, 4 * p, co).astype(np.float32)
+    pre_act, act = mode == "pre_act_residual", mode != "no_act"
+    j = jnp.asarray
+    want = unpack(fused_packed_conv(
+        pack(j(x.numpy()), p), j(w.numpy()), jnp.tile(j(g), p),
+        jnp.tile(j(b), p), p=p,
+        residual=pack(j(res), p) if pre_act else None, pre_act=pre_act,
+        act=act, out_dtype=jnp.float32, interpret=True), p)
+    got = conv_s8_tiled(x, w, _t(g), _t(b), _t(res) if pre_act else None,
+                        pre_act, act)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                               atol=1e-5)
+
+
+# ---- K3-s8: K3's four parity GEMMs on m16n8k32
+
+
+def deconv_s8_tiled(xq, wq, g, out_dtype=torch.float32, tile=(16, 16),
+                    taps_of=None):
+    """K3-s8's decomposition: per 16x16 input tile, one 18x18 haloed
+    int8 tile (zero outside the image) serves all four parity classes,
+    each the k32 GEMM [pixels x 4 ci] @ [4 ci x co] with K tap-major over
+    the class's taps s = 2 sr + sc (deconv2x_s8.cu:tap_k / tap_di, here
+    _tap) and exact sums, then times g in float32 (one rounding),
+    interleaved into the 2x output. ``taps_of(pa, pb, s)`` overrides the
+    (kh, di, kw, dj) of tap s of class (pa, pb)."""
+    qh, qw = tile
+    x = xq.long()
+    bsz, h, wd, ci = x.shape
+    co = wq.shape[-1]
+    taps_of = taps_of or (lambda pa, pb, s: (*_tap(pa, s // 2),
+                                             *_tap(pb, s % 2)))
+    out = torch.empty(bsz, 2 * h, 2 * wd, co, dtype=out_dtype)
+    for qy0 in range(0, h, qh):
+        for qx0 in range(0, wd, qw):
+            xt = _window(x, qy0 - 1, qx0 - 1, qh + 2, qw + 2)
+            ny, nx = min(qh, h - qy0), min(qw, wd - qx0)
+            for pa in range(2):
+                for pb in range(2):
+                    taps, kmat = [], []
+                    for s in range(4):
+                        kh, di, kw, dj = taps_of(pa, pb, s)
+                        taps.append((1 + di, 1 + dj))
+                        kmat.append(wq[kh, kw].long())
+                    acc = _s8_gemm(_s8_cols(xt, qh, qw, taps, ci),
+                                   torch.cat(kmat, 0))
+                    y = (acc * g).to(out_dtype).reshape(bsz, qh, qw, co)
+                    out[:, 2 * qy0 + pa:2 * (qy0 + ny):2,
+                        2 * qx0 + pb:2 * (qx0 + nx):2] = y[:, :ny, :nx]
+    return out
+
+
+@pytest.mark.parametrize("out_dtype", S8_OUT, ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", sorted(deconv.S8_SHAPES))
+def test_deconv_s8_decomposition_matches_plain(rng, shape, out_dtype):
+    """Every compiled (ci, co) at 2 x 19 x 35 (16x16 input tiles cut at
+    the border): bit for bit the plain version's."""
+    ci, co = shape
+    x, w = _s8(rng, (2, 19, 35, ci)), _s8(rng, (4, 4, ci, co))
+    g = _t(np.abs(rng.randn(co)) * 1e-3)
+    got = deconv_s8_tiled(x, w, g, out_dtype)
+    want = deconv.deconv2x_s8_plain(x, w, g, out_dtype)
+    assert got.dtype == want.dtype == out_dtype
+    assert got.shape == want.shape == (2, 38, 70, co)
+    assert torch.equal(got, want)
+
+
+def test_deconv_s8_parity_taps(rng):
+    """Each class reads its 4 taps inside the one 18x18 haloed tile
+    (offsets 0..2), and the class-to-tap map matters: the row and column
+    parities swapped, or a class's taps in another K order than its B
+    rows, change the output."""
+    for pa in range(2):
+        for pb in range(2):
+            for s in range(4):
+                _, di = _tap(pa, s // 2)
+                _, dj = _tap(pb, s % 2)
+                assert 0 <= 1 + di <= 2 and 0 <= 1 + dj <= 2
+    x, w = _s8(rng, (1, 16, 16, 32)), _s8(rng, (4, 4, 32, 16))
+    g = torch.ones(16)
+    want = deconv.deconv2x_s8_plain(x, w, g, torch.float32)
+    assert torch.equal(deconv_s8_tiled(x, w, g), want)
+    swapped = deconv_s8_tiled(x, w, g, taps_of=lambda pa, pb, s: (
+        *_tap(pb, s // 2), *_tap(pa, s % 2)))
+    assert not torch.equal(swapped, want)
+
+    def b_rows_out_of_order(pa, pb, s):  # A's tap s, B's tap 3 - s
+        kh, di, kw, dj = (*_tap(pa, s // 2), *_tap(pb, s % 2))
+        kh2, _, kw2, _ = (*_tap(pa, (3 - s) // 2), *_tap(pb, (3 - s) % 2))
+        return kh2, di, kw2, dj
+    assert not torch.equal(
+        deconv_s8_tiled(x, w, g, taps_of=b_rows_out_of_order), want)
+
+
+@pytest.mark.parametrize("shape", sorted(deconv.S8_SHAPES))
+def test_deconv_s8_decomposition_matches_pallas(shape):
+    """float32 against fused_packed_deconv2x with quantized int8 inputs
+    in interpret mode, fed as tests/test_torch_int8_kernels.py feeds it
+    (rtol 1e-6, atol 1e-5)."""
+    ci, co = shape
+    p = 128 // ci
+    rng = np.random.RandomState(8 + ci)
+    x, w = _s8(rng, (2, 8, 4 * p, ci)), _s8(rng, (4, 4, ci, co), 64)
+    g = (np.abs(rng.randn(co)) * 1e-3).astype(np.float32)
+    want = unpack(fused_packed_deconv2x(
+        pack(jnp.asarray(x.numpy()), p), jnp.asarray(w.numpy()),
+        tile_channel_vector(jnp.asarray(g), 2 * p), p=p,
+        out_dtype=jnp.float32, interpret=True), p)
+    got = deconv_s8_tiled(x, w, _t(g))
+    assert got.shape == want.shape == (2, 16, 8 * p, co)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                               atol=1e-5)

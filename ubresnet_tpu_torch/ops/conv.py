@@ -27,8 +27,9 @@ forward K1, dx K1, dW K6 rounded to the kernel's dtype.
 K1-s8 (``conv_bn_act_s8``) replaces the quantized=True mode of
 fused_packed_conv (_conv_kernel): the head conv10 under int8 deploy,
 s8 x s8 → s32 with the dequant scale folded into g. Kernel:
-ops/csrc/conv_bn_act_s8.cu — K1's tiling with __dp4a over 4-channel
-groups.
+ops/csrc/conv_bn_act_s8.cu — K1's implicit GEMM (conv_gemm.cuh) on the
+int8 tensor cores (mma.sync m16n8k32, exact s32 sums; at 16 channels two
+taps a 32-deep k-step), in the same persistent grid.
 
 Weights are (k, k, ci, co) — the JAX kernel layout, i.e. the
 reference OIHW checkpoint permuted (2, 3, 1, 0).
@@ -161,6 +162,7 @@ def conv_bn_act_s8(xq: torch.Tensor, wq: torch.Tensor, g: torch.Tensor,
     dev = xq.device
     f32 = _build.out_f32(out_dtype)
     _build.check(xq, "xq", torch.int8, (bsz, h, wd, ci), dev)
+    _build.check_aligned(xq, "xq")
     _build.check(wq, "wq", torch.int8, (k, k, ci, co), dev)
     _build.check(g, "g", torch.float32, (co,), dev)
     _build.check(b, "b", torch.float32, (co,), dev)

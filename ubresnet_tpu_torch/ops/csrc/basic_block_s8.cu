@@ -176,13 +176,6 @@ __device__ __forceinline__ int requant(int acc, float g, float b) {
   return (int)rintf(fminf(y, 127.f));
 }
 
-__device__ __forceinline__ void put2(bf16* p, float a, float b) {
-  *reinterpret_cast<bf162*>(p) = __floats2bfloat162_rn(a, b);
-}
-__device__ __forceinline__ void put2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-
 template <int CA, int CB, int CO, bool PROJ, typename OT>
 __global__ void __launch_bounds__(
     NT, (tc::blocks_per_sm<BlockS8Shape<CA, CB, CO, PROJ, OT>::SMEM, 2>()))

@@ -11,126 +11,161 @@
 //
 // Bound on the H100: bytes at the int8 tensor-core peak (7x7x16x16 MACs
 // per output pixel against 16 + 32 bytes moved is 523 op/B, just under
-// the ~590 op/B int8 ridge), but this first form runs __dp4a on the
-// CUDA cores, so in practice operations bind it. Design (as K1): one block
-// computes a 16x16 output tile; the int8 input tile with its (k-1)-pixel
-// halo and all the weights sit in shared memory — the weights pre-packed
-// as __dp4a operands (4 input channels of one output channel per word)
-// and read as warp-wide 16-byte broadcasts, the input at an odd 16-byte
-// pixel stride (conflict-free 16-byte reads); each thread accumulates one
-// output pixel's CO channels in s32 registers with __dp4a. Tensor-core
-// int8 MMA is the next step, not this one.
-#include "common.cuh"
+// the ~590 op/B int8 ridge): at 512^2, b16, 67 MB in and 134 MB out at
+// 3.35 TB/s, 0.060 ms.
+//
+// Design (int8 tensor cores): K1's implicit GEMM (conv_gemm.cuh with
+// T = int8_t: M = 16x16 output pixels of a tile, N = co, K = taps x ci
+// tap-major) on mma.sync m16n8k32 with exact s32 accumulators:
+// - at ci = 16 a pixel is one 16-byte chunk and a 32-deep k-step covers
+//   two taps (lanes 0-15 the first tap's pixel, lanes 16-31 the
+//   second's): 25 k-steps over the 49 taps and a phantom 50th with zero
+//   weight rows, half of bf16 K1's 49 k-steps of 16;
+// - a persistent grid (SMs x blocks per SM, asked once per kernel
+//   instance) walks tiles t = blockIdx.x + i * gridDim.x; each block lays
+//   the weights out once as s8 B fragments in shared memory (12.8 KB);
+// - the next tile's 22x22 haloed int8 x tile (7.7 KB) arrives by
+//   double-buffered 16-byte cp.async (zero-filled outside the image)
+//   while this one is computed;
+// - 8 warps, two output rows (M-tiles) each, every k-step's B fragments
+//   shared by both;
+// - the epilogue is conv_bn_act_s8_plain's f32 arithmetic step for step
+//   (affine_fma, fmaxf, __fadd_rn, fmaxf); s32 sums are exact in any
+//   order, so the f32 output is bit-identical to the plain version's;
+// - each warp stages its two output rows (bf16 or float) in its own
+//   swizzled shared-memory rows and writes them as 16-byte chunks
+//   (tc::store_rows).
+// Shared memory: 12.8 KB weights + 2 x 7.7 KB x + 8 KB staging = 36 KB
+// with bf16 output (44 KB with float); __launch_bounds__ asks for four
+// blocks an SM (64 registers a thread).
+#include "conv_gemm.cuh"
 #include "ubr_shapes.h"  // UBR_CONV_BN_ACT_S8_SHAPES (ops/_build.py:SHAPES)
 
 namespace {
 
-constexpr int TH = 16, TW = 16, NT = TH * TW;
+constexpr int NWARP = 8, NT = 32 * NWARP;
+constexpr int J = cg::TH / NWARP;  // output rows a warp
 
-template <int CI, int CO, int K>
-struct ConvS8Shape {
-  static_assert(CI % 16 == 0 && CO % 8 == 0, "int8 conv channel grain");
-  static constexpr int R = K / 2;
-  static constexpr int XH = TH + K - 1, XW = TW + K - 1;
-  static constexpr int CG = CI / 4;             // input words per pixel
-  static constexpr int XWD = s8_words(CI);      // padded pixel stride
-  static constexpr int WS = K * K * CG * CO;    // weight words
-  static constexpr int XS = XH * XW * XWD;      // input words
-  static constexpr int SMEM = (WS + XS) * 4;
+template <int CI, int CO, int K, typename OT>
+struct ConvS8Shape : cg::Shape<CI, CO, K, int8_t> {
+  using G = cg::Shape<CI, CO, K, int8_t>;
+  static_assert(CO % 8 == 0, "int8 conv: co in n-tiles of 8");
+  static constexpr int ES = 16 / (int)sizeof(OT);  // outputs a chunk
+  static constexpr int NCS = CO / ES;              // staged chunks a pixel
+  static constexpr int ST = J * cg::TW * CO;       // staged outputs a warp
+  static constexpr int SMEM = G::B_UNITS * 8 + 2 * CO * 4 +
+                              2 * G::X_ELEMS + NWARP * ST * (int)sizeof(OT);
 };
 
 template <int CI, int CO, int K, typename OT>
-__global__ void __launch_bounds__(NT)
-conv_s8_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
-               const float* __restrict__ g, const float* __restrict__ bias,
-               const OT* __restrict__ res, OT* __restrict__ out, int H, int W,
-               int pre_act, int act) {
-  using S = ConvS8Shape<CI, CO, K>;
-  extern __shared__ int4 smem_s8[];
-  int* ws = reinterpret_cast<int*>(smem_s8);
-  int* xs = ws + S::WS;
+__global__ void __launch_bounds__(
+    NT, (tc::blocks_per_sm<ConvS8Shape<CI, CO, K, OT>::SMEM, 4>()))
+conv_bn_act_s8_kernel(const int8_t* __restrict__ x,
+                      const int8_t* __restrict__ w,
+                      const float* __restrict__ g,
+                      const float* __restrict__ bias,
+                      const OT* __restrict__ res, OT* __restrict__ out, int B,
+                      int H, int W, int pre_act, int act) {
+  using S = ConvS8Shape<CI, CO, K, OT>;
+  constexpr int NT8 = S::NT8, NCS = S::NCS, ES = S::ES;
+  extern __shared__ uint4 smem[];
+  uint2* wf = reinterpret_cast<uint2*>(smem);
+  float* prm = reinterpret_cast<float*>(wf + S::B_UNITS);  // g | b
+  int8_t* xs = reinterpret_cast<int8_t*>(prm + 2 * CO);
 
-  const int tid = threadIdx.x;
-  const int b = blockIdx.z;
-  const int oh0 = blockIdx.y * TH, ow0 = blockIdx.x * TW;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, q4 = lane & 3;
+  const int tiles_x = (W + cg::TW - 1) / cg::TW;
+  const int tiles_y = (H + cg::TH - 1) / cg::TH;
+  const int per_img = tiles_x * tiles_y, ntiles = B * per_img;
+  OT* wst = reinterpret_cast<OT*>(xs + 2 * S::X_ELEMS) + warp * S::ST;
 
-  // weights (k, k, ci, co) -> words [tap][ci / 4][co]
-  for (int e = tid; e < S::WS; e += NT) {
-    const int co = e % CO, row = e / CO;
-    const int cg = row % S::CG, tap = row / S::CG;
-    ws[e] = pack_s8x4(w + ((long)tap * CI + 4 * cg) * CO + co, CO);
+  cg::stage_w<S>(wf, w, CI, CO, tid, NT);
+  for (int e = tid; e < CO; e += NT) {
+    prm[e] = g[e];
+    prm[CO + e] = bias[e];
   }
-  // input tile with halo, zero outside the image ('same' padding)
-  for (int e = tid; e < S::XH * S::XW * S::CG; e += NT) {
-    const int cg = e % S::CG, pix = e / S::CG;
-    const int ih = oh0 - S::R + pix / S::XW;
-    const int iw = ow0 - S::R + pix % S::XW;
-    int v = 0;
-    if (ih >= 0 && ih < H && iw >= 0 && iw < W)
-      v = *reinterpret_cast<const int*>(
-          x + (((long)b * H + ih) * W + iw) * CI + 4 * cg);
-    xs[pix * S::XWD + cg] = v;
-  }
-  __syncthreads();
 
-  const int ty = tid / TW, tx = tid % TW;
-  int acc[CO];
+  auto load = [&](int t, int8_t* dst) {
+    const int n = t / per_img, r = t % per_img;
+    cg::load_x<S>(dst, x, n, (r / tiles_x) * cg::TH, (r % tiles_x) * cg::TW,
+                  H, W, tid, NT);
+  };
+
+  int row[J];
 #pragma unroll
-  for (int c = 0; c < CO; ++c) acc[c] = 0;
+  for (int j = 0; j < J; ++j) row[j] = warp * J + j;
 
-  for (int kh = 0; kh < K; ++kh) {
+  int buf = 0;
+  if ((int)blockIdx.x < ntiles) load(blockIdx.x, xs);
 #pragma unroll 1
-    for (int kw = 0; kw < K; ++kw) {
-      const int* xp = xs + ((ty + kh) * S::XW + tx + kw) * S::XWD;
-      const int* wp = ws + (kh * K + kw) * S::CG * CO;
+  for (int t = blockIdx.x; t < ntiles; t += gridDim.x, buf ^= 1) {
+    tc::cp_async_wait_all();
+    __syncthreads();  // x of tile t landed; the last tile's reads are done
+    if (t + (int)gridDim.x < ntiles)
+      load(t + gridDim.x, xs + (buf ^ 1) * S::X_ELEMS);
+    const int n = t / per_img, r = t % per_img;
+    const int oh0 = (r / tiles_x) * cg::TH, ow0 = (r % tiles_x) * cg::TW;
+
+    int acc[J][NT8][4];
+    cg::zero_acc<S, J>(acc);
+    cg::conv_rows<S, J>(acc, tc::smem_u32(xs + buf * S::X_ELEMS), wf, row,
+                        lane);
+
+    // epilogue -> this warp's staging (pixel sp = j * TW + px)
 #pragma unroll
-      for (int c16 = 0; c16 < S::CG; c16 += 4) {
-        const int4 xv = *reinterpret_cast<const int4*>(xp + c16);
-        const int xa[4] = {xv.x, xv.y, xv.z, xv.w};
+    for (int j = 0; j < J; ++j) {
+      const int oh = oh0 + row[j];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int4* wr = reinterpret_cast<const int4*>(wp + (c16 + j) * CO);
+      for (int h = 0; h < 2; ++h) {
+        const int px = gq + 8 * h, ow = ow0 + px;
+        const bool in = oh < H && ow < W;
+        const long pix = ((long)n * H + oh) * W + ow;
 #pragma unroll
-          for (int q = 0; q < CO / 4; ++q) {
-            const int4 wv = wr[q];
-            acc[4 * q + 0] = __dp4a(xa[j], wv.x, acc[4 * q + 0]);
-            acc[4 * q + 1] = __dp4a(xa[j], wv.y, acc[4 * q + 1]);
-            acc[4 * q + 2] = __dp4a(xa[j], wv.z, acc[4 * q + 2]);
-            acc[4 * q + 3] = __dp4a(xa[j], wv.w, acc[4 * q + 3]);
+        for (int tt = 0; tt < NT8; ++tt) {
+          const int ch = tt * 8 + 2 * q4;
+          float v[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float y = affine_fma(acc[j][tt][2 * h + e], prm[ch + e],
+                                 prm[CO + ch + e]);
+            if (pre_act) y = fmaxf(y, 0.f);
+            if (res != nullptr && in)
+              y = __fadd_rn(y, to_f32(res[pix * CO + ch + e]));
+            if (act) y = fmaxf(y, 0.f);
+            v[e] = y;
           }
+          put2(wst + tc::elem_at<NCS, ES>(j * cg::TW + px, ch), v[0], v[1]);
         }
       }
     }
+    __syncwarp();
+    tc::store_rows<NCS, J>(out, wst, n, oh0 + warp * J, ow0, H, W, lane);
+    __syncwarp();  // staging read before the next tile's epilogue
   }
-
-  const int oh = oh0 + ty, ow = ow0 + tx;
-  if (oh >= H || ow >= W) return;
-  const long base = (((long)b * H + oh) * W + ow) * CO;
-  float y[CO];
-#pragma unroll
-  for (int c = 0; c < CO; ++c) {
-    y[c] = affine_fma(acc[c], __ldg(g + c), __ldg(bias + c));
-    if (pre_act) y[c] = fmaxf(y[c], 0.f);
-    if (res != nullptr) y[c] = __fadd_rn(y[c], to_f32(res[base + c]));
-    if (act) y[c] = fmaxf(y[c], 0.f);
-  }
-  store_px<CO>(out + base, y);
 }
 
 template <int CI, int CO, int K, typename OT>
 int launch(const void* x, const void* w, const void* g, const void* b,
            const void* res, void* out, int B, int H, int W, int pre_act,
            int act, cudaStream_t stream) {
-  using S = ConvS8Shape<CI, CO, K>;
+  using S = ConvS8Shape<CI, CO, K, OT>;
   static bool smem_set = false;
+  static int most = 0;
   cudaError_t e =
-      allow_smem(conv_s8_kernel<CI, CO, K, OT>, S::SMEM, &smem_set);
+      allow_smem(conv_bn_act_s8_kernel<CI, CO, K, OT>, S::SMEM, &smem_set);
+  if (e == cudaSuccess)
+    e = tc::resident_blocks(conv_bn_act_s8_kernel<CI, CO, K, OT>, NT,
+                            S::SMEM, &most);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B);
-  conv_s8_kernel<CI, CO, K, OT><<<grid, NT, S::SMEM, stream>>>(
+  const long tiles = (long)B * ((H + cg::TH - 1) / cg::TH) *
+                     ((W + cg::TW - 1) / cg::TW);
+  if (tiles == 0) return 0;
+  const int grid = (int)(tiles < most ? tiles : most);
+  conv_bn_act_s8_kernel<CI, CO, K, OT><<<grid, NT, S::SMEM, stream>>>(
       static_cast<const int8_t*>(x), static_cast<const int8_t*>(w),
       static_cast<const float*>(g), static_cast<const float*>(b),
-      static_cast<const OT*>(res), static_cast<OT*>(out), H, W, pre_act,
+      static_cast<const OT*>(res), static_cast<OT*>(out), B, H, W, pre_act,
       act);
   return (int)cudaGetLastError();
 }
@@ -139,7 +174,7 @@ int launch(const void* x, const void* w, const void* g, const void* b,
 
 // (ci, co, k) instantiated: UBR_CONV_BN_ACT_S8_SHAPES, from the one
 // table in ops/_build.py:SHAPES; out_f32 selects a float output (and
-// residual) instead of bf16.
+// residual) instead of bf16. x must be 16-byte aligned.
 UBR_EXPORT int ubr_conv_bn_act_s8(const void* x, const void* w,
                                   const void* g, const void* b,
                                   const void* res, void* out, int B, int H,

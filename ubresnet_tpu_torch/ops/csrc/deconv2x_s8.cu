@@ -14,19 +14,46 @@
 //
 // Bound on the H100: bytes (4 taps x CI x CO MACs per output pixel
 // against CI/4 + 2·CO bytes moved is 205 op/B at dec2 and 102 at dec1,
-// under the ~590 op/B int8 ridge). Design (as K3): a block
-// owns one parity class of a 32x32 output window — 16x16 pixels, one per
-// thread — so it keeps only that class's 4 taps of the weights (packed
-// as __dp4a operands, read as warp-wide broadcasts) and an 18x18 int8
-// input tile (odd 16-byte pixel stride) in shared memory; each thread
-// accumulates CO channels in s32 registers.
-#include "common.cuh"
+// under the ~590 op/B int8 ridge): at b16, 84 MB (dec2) and 168 MB
+// (dec1) at 3.35 TB/s, 0.025 + 0.050 ms.
+//
+// Design (int8 tensor cores): K3's (deconv2x.cu) carried to m16n8k32.
+// Each parity class (pa, pb) is an implicit GEMM [tile pixels x 4 CI] x
+// [4 CI x CO] (K tap-major, then channel) on mma.sync m16n8k32 with exact
+// s32 accumulators: 8 k-steps of 32 at dec2, 4 at dec1.
+// - Weights once per block: a persistent grid (SMs x blocks per SM)
+//   walks 16x16-pixel input tiles t = blockIdx.x + k * gridDim.x; each
+//   block first lays all 16 taps out as s8 B fragments in shared memory
+//   (tc::stage_b_s8: 32 KB at dec2, 8 KB at dec1).
+// - x read once: one block takes an input tile with its one-pixel halo
+//   (18x18) and all four parity classes of its 32x32 output.
+// - Double-buffered cp.async: the next tile's 18x18 x CI int8 tile
+//   streams in (16-byte copies, zero-filled outside the image: the
+//   padding) while this one computes; one barrier per tile.
+// - ldmatrix A fragments straight from the pixel-major tile, the lane
+//   giving its pixel's 16-channel chunk at the tap's offset; the tile's
+//   chunks are swizzled (tc::chunk_at, 4 a pixel at dec2, 2 at dec1) so
+//   the 8 rows of a phase hit 8 bank groups.
+// - Output: each warp owns two input rows, i.e. four output rows of 32
+//   pixels; the two classes of one output-row parity are interleaved in
+//   a per-warp staging buffer and written as whole rows with 16-byte
+//   coalesced stores. The dequant is deconv2x_s8_plain's one f32
+//   multiply, so the f32 output is bit-identical to the plain version's.
+// Shared memory (weights + 2 x tiles + staging, bf16 / f32 out): dec2
+// 32 + 41.5 + 32 / 64 KB = 106 / 138 KB (two blocks an SM, one with
+// f32); dec1 8 + 20.7 + 16 / 32 KB = 45 / 61 KB (three an SM). The two
+// column parities of a row parity are unrolled: dec2 then spills 16 B
+// at its 128 registers, and still runs 2% faster on the H100 than
+// without that unroll, which spills nothing (PERF.md).
+#include "tensor_core.cuh"
 #include "ubr_shapes.h"  // UBR_DECONV2X_S8_SHAPES (ops/_build.py:SHAPES)
 
 namespace {
 
-constexpr int QH = 16, QW = 16, NT = QH * QW;
-constexpr int XH = QH + 2, XW = QW + 2;
+constexpr int QH = 16, QW = 16;          // input pixels of a tile
+constexpr int XH = QH + 2, XW = QW + 2;  // with the one-pixel halo
+constexpr int NWARP = 8, NT = 32 * NWARP;
+constexpr int RPW = QH / NWARP;          // tile rows a warp (M-tiles)
 
 __device__ __forceinline__ int tap_k(int parity, int s) {
   return parity == 0 ? (s == 0 ? 1 : 3) : (s == 0 ? 2 : 0);
@@ -35,100 +62,177 @@ __device__ __forceinline__ int tap_di(int parity, int s) {
   return s == 0 ? 0 : (parity == 0 ? -1 : 1);
 }
 
-template <int CI, int CO>
+template <int CI, int CO, typename OT>
 struct DeconvS8Shape {
-  static_assert(CI % 16 == 0 && CO % 8 == 0, "int8 deconv channel grain");
-  static constexpr int CG = CI / 4;           // input words per pixel
-  static constexpr int XWD = s8_words(CI);    // padded pixel stride
-  static constexpr int WS = 4 * CG * CO;      // weight words (4 taps)
-  static constexpr int XS = XH * XW * XWD;    // input words
-  static constexpr int SMEM = (WS + XS) * 4;
+  static_assert(CI % 32 == 0 && CO % 16 == 0,
+                "int8 deconv: 32-channel k-steps, 16-column n-tile pairs");
+  static constexpr int NCI = CI / 16;               // int8 chunks a pixel
+  static constexpr int KC = CI / 32;                // k-steps of one tap
+  static constexpr int KS = 4 * KC;                 // k-steps of a class
+  static constexpr int NQ = CO / 16;                // n-tile pairs
+  static constexpr int ES = 16 / (int)sizeof(OT);   // outputs a chunk
+  static constexpr int NCS = CO / ES;               // staged chunks a pixel
+  static constexpr int W_UNITS = 4 * KS * NQ * 32;  // uint4 of B, 4 classes
+  static constexpr int X_BYTES = XH * XW * CI;
+  static constexpr int ST = RPW * 2 * QW * CO;      // staged outputs a warp
+  static constexpr int SMEM = W_UNITS * 16 + CO * 4 + 2 * X_BYTES +
+                              NWARP * ST * (int)sizeof(OT);
 };
 
 template <int CI, int CO, typename OT>
-__global__ void __launch_bounds__(NT)
-deconv_s8_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
-                 const float* __restrict__ g, OT* __restrict__ out, int H,
-                 int W) {
-  using S = DeconvS8Shape<CI, CO>;
-  extern __shared__ int4 smem_s8[];
-  int* ws = reinterpret_cast<int*>(smem_s8);
-  int* xs = ws + S::WS;
+__global__ void __launch_bounds__(
+    NT, (tc::blocks_per_sm<DeconvS8Shape<CI, CO, OT>::SMEM, 3>()))
+deconv2x_s8_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
+                   const float* __restrict__ g, OT* __restrict__ out, int B,
+                   int H, int W) {
+  using S = DeconvS8Shape<CI, CO, OT>;
+  constexpr int NCI = S::NCI, KC = S::KC, NQ = S::NQ;
+  constexpr int NCS = S::NCS, ES = S::ES;
+  extern __shared__ uint4 smem[];
+  uint4* wf = smem;
+  float* gs = reinterpret_cast<float*>(smem + S::W_UNITS);
+  int8_t* xs = reinterpret_cast<int8_t*>(gs + CO);
 
-  const int tid = threadIdx.x;
-  const int n = blockIdx.z / 4, pa = (blockIdx.z / 2) % 2, pb = blockIdx.z % 2;
-  const int qy0 = blockIdx.y * QH, qx0 = blockIdx.x * QW;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tiles_x = (W + QW - 1) / QW, tiles_y = (H + QH - 1) / QH;
+  const int per_img = tiles_x * tiles_y;
+  const int ntiles = B * per_img;
   const int Ho = 2 * H, Wo = 2 * W;
+  OT* wst = reinterpret_cast<OT*>(xs + 2 * S::X_BYTES) + warp * S::ST;
 
-  // this parity class's 4 taps (t = 2 * s_row + s_col) -> words
-  // [t][ci / 4][co]
-  for (int e = tid; e < S::WS; e += NT) {
-    const int co = e % CO, row = e / CO;
-    const int cg = row % S::CG, t = row / S::CG;
-    const int kh = tap_k(pa, t / 2), kw = tap_k(pb, t % 2);
-    ws[e] = pack_s8x4(w + ((long)(kh * 4 + kw) * CI + 4 * cg) * CO + co, CO);
-  }
-  // input rows qy0-1 .. qy0+QH, columns qx0-1 .. qx0+QW, zero outside
-  for (int e = tid; e < XH * XW * S::CG; e += NT) {
-    const int cg = e % S::CG, pix = e / S::CG;
-    const int ih = qy0 - 1 + pix / XW, iw = qx0 - 1 + pix % XW;
-    int v = 0;
-    if (ih >= 0 && ih < H && iw >= 0 && iw < W)
-      v = *reinterpret_cast<const int*>(
-          x + (((long)n * H + ih) * W + iw) * CI + 4 * cg);
-    xs[pix * S::XWD + cg] = v;
-  }
-  __syncthreads();
-
-  const int ty = tid / QW, tx = tid % QW;
-  const int oh = 2 * (qy0 + ty) + pa, ow = 2 * (qx0 + tx) + pb;
-  if (oh >= Ho || ow >= Wo) return;
-  int acc[CO];
-#pragma unroll
-  for (int c = 0; c < CO; ++c) acc[c] = 0;
+  // class c = 2 pa + pb: B row k is tap s = k / CI (s = 2 sr + sc),
+  // channel k % CI
 #pragma unroll 1
-  for (int t = 0; t < 4; ++t) {
-    const int row = ty + 1 + tap_di(pa, t / 2);
-    const int col = tx + 1 + tap_di(pb, t % 2);
-    const int* xp = xs + (row * XW + col) * S::XWD;
-    const int* wp = ws + t * S::CG * CO;
-#pragma unroll 2
-    for (int c16 = 0; c16 < S::CG; c16 += 4) {
-      const int4 xv = *reinterpret_cast<const int4*>(xp + c16);
-      const int xa[4] = {xv.x, xv.y, xv.z, xv.w};
+  for (int c = 0; c < 4; ++c)
+    tc::stage_b_s8<S::KS, CO>(
+        wf + c * (S::W_UNITS / 4),
+        [&](int k, int n) {
+          const int s = k / CI, ci = k % CI;
+          const int kh = tap_k(c >> 1, s >> 1), kw = tap_k(c & 1, s & 1);
+          return w[((kh * 4 + kw) * CI + ci) * CO + n];
+        },
+        tid, NT);
+  for (int e = tid; e < CO; e += NT) gs[e] = g[e];
+
+  auto load = [=](int t, int8_t* dst) {
+    const int n = t / per_img, r = t % per_img;
+    const int iy0 = (r / tiles_x) * QH - 1, ix0 = (r % tiles_x) * QW - 1;
+    for (int e = tid; e < XH * XW * NCI; e += NT) {
+      const int p = e / NCI, c = e % NCI;
+      const int ih = iy0 + p / XW, iw = ix0 + p % XW;
+      const bool in = ih >= 0 && ih < H && iw >= 0 && iw < W;
+      const int8_t* src =
+          in ? x + (((long)n * H + ih) * W + iw) * CI + c * 16 : x;
+      tc::cp_async16(tc::smem_u32(dst + tc::chunk_at<NCI>(p, c) * 16), src,
+                     in);
+    }
+    tc::cp_async_commit();
+  };
+
+  const int g8 = lane >> 2, q4 = lane & 3;
+  const int ar = tc::a_row(lane), ah = tc::a_half(lane);
+  const int row0 = warp * RPW * XW + ar;  // lane's pixel in the tile, tap (0, 0)
+  int buf = 0;
+  if ((int)blockIdx.x < ntiles) load(blockIdx.x, xs);
+#pragma unroll 1
+  for (int t = blockIdx.x; t < ntiles; t += gridDim.x, buf ^= 1) {
+    tc::cp_async_wait_all();
+    __syncthreads();  // tile t landed; every warp is done with the other buffer
+    if (t + (int)gridDim.x < ntiles)
+      load(t + gridDim.x, xs + (buf ^ 1) * S::X_BYTES);
+    const uint32_t xt_u = tc::smem_u32(xs + buf * S::X_BYTES);
+    const int n = t / per_img, r = t % per_img;
+    const int qy0 = (r / tiles_x) * QH, qx0 = (r % tiles_x) * QW;
+
+#pragma unroll 1
+    for (int pa = 0; pa < 2; ++pa) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int4* wr = reinterpret_cast<const int4*>(wp + (c16 + j) * CO);
+      for (int pb = 0; pb < 2; ++pb) {
+        const uint4* wc = wf + (2 * pa + pb) * (S::W_UNITS / 4);
+        int acc[RPW][2 * NQ][4];
 #pragma unroll
-        for (int q = 0; q < CO / 4; ++q) {
-          const int4 wv = wr[q];
-          acc[4 * q + 0] = __dp4a(xa[j], wv.x, acc[4 * q + 0]);
-          acc[4 * q + 1] = __dp4a(xa[j], wv.y, acc[4 * q + 1]);
-          acc[4 * q + 2] = __dp4a(xa[j], wv.z, acc[4 * q + 2]);
-          acc[4 * q + 3] = __dp4a(xa[j], wv.w, acc[4 * q + 3]);
+        for (int j = 0; j < RPW; ++j)
+#pragma unroll
+          for (int nt = 0; nt < 2 * NQ; ++nt)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) acc[j][nt][i] = 0;
+#pragma unroll
+        for (int s = 0; s < 4; ++s) {
+          const int dy = 1 + tap_di(pa, s >> 1), dx = 1 + tap_di(pb, s & 1);
+          uint32_t off[RPW];
+#pragma unroll
+          for (int j = 0; j < RPW; ++j)
+            off[j] = tc::a_off<NCI>(row0 + (j + dy) * XW + dx, ah);
+#pragma unroll
+          for (int kc = 0; kc < KC; ++kc) {
+            uint4 bq[NQ];
+#pragma unroll
+            for (int q = 0; q < NQ; ++q)
+              bq[q] = wc[((s * KC + kc) * NQ + q) * 32 + lane];
+#pragma unroll
+            for (int j = 0; j < RPW; ++j) {
+              uint32_t a[4];
+              tc::ldsm_x4(xt_u + (off[j] ^ (kc << 5)), a);
+#pragma unroll
+              for (int q = 0; q < NQ; ++q) {
+                tc::mma_s8(acc[j][2 * q], a, bq[q].x, bq[q].y);
+                tc::mma_s8(acc[j][2 * q + 1], a, bq[q].z, bq[q].w);
+              }
+            }
+          }
+        }
+        // dequant -> staging pixel j * 2QW + (2 tx + pb) of this
+        // output-row parity
+#pragma unroll
+        for (int nt = 0; nt < 2 * NQ; ++nt) {
+          const int ch = nt * 8 + 2 * q4;
+          const float2 gg = *reinterpret_cast<const float2*>(gs + ch);
+#pragma unroll
+          for (int j = 0; j < RPW; ++j)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int sp = j * 2 * QW + 2 * (g8 + 8 * h) + pb;
+              put2(wst + tc::elem_at<NCS, ES>(sp, ch),
+                   __fmul_rn(__int2float_rn(acc[j][nt][2 * h]), gg.x),
+                   __fmul_rn(__int2float_rn(acc[j][nt][2 * h + 1]), gg.y));
+            }
         }
       }
+      __syncwarp();
+      // output rows 2 (qy0 + ty) + pa of this warp's tile rows ty
+      for (int e = lane; e < RPW * 2 * QW * NCS; e += 32) {
+        const int sp = e / NCS, c = e % NCS;
+        const int oh = 2 * (qy0 + warp * RPW + sp / (2 * QW)) + pa;
+        const int ow = 2 * qx0 + sp % (2 * QW);
+        if (oh < Ho && ow < Wo)
+          *reinterpret_cast<uint4*>(out + (((long)n * Ho + oh) * Wo + ow) * CO +
+                                    c * ES) =
+              *reinterpret_cast<const uint4*>(
+                  wst + tc::chunk_at<NCS>(sp, c) * ES);
+      }
+      __syncwarp();  // staging read before the next parity's dequant
     }
   }
-  float y[CO];
-#pragma unroll
-  for (int c = 0; c < CO; ++c)
-    y[c] = __fmul_rn(__int2float_rn(acc[c]), __ldg(g + c));
-  store_px<CO>(out + (((long)n * Ho + oh) * Wo + ow) * CO, y);
 }
 
 template <int CI, int CO, typename OT>
 int launch(const void* x, const void* w, const void* g, void* out, int B,
            int H, int W, cudaStream_t stream) {
-  using S = DeconvS8Shape<CI, CO>;
+  using S = DeconvS8Shape<CI, CO, OT>;
   static bool smem_set = false;
+  static int most = 0;
   cudaError_t e =
-      allow_smem(deconv_s8_kernel<CI, CO, OT>, S::SMEM, &smem_set);
+      allow_smem(deconv2x_s8_kernel<CI, CO, OT>, S::SMEM, &smem_set);
+  if (e == cudaSuccess)
+    e = tc::resident_blocks(deconv2x_s8_kernel<CI, CO, OT>, NT, S::SMEM,
+                            &most);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((W + QW - 1) / QW, (H + QH - 1) / QH, 4 * B);
-  deconv_s8_kernel<CI, CO, OT><<<grid, NT, S::SMEM, stream>>>(
+  const long tiles = (long)B * ((H + QH - 1) / QH) * ((W + QW - 1) / QW);
+  if (tiles == 0) return 0;
+  const int grid = (int)(tiles < most ? tiles : most);
+  deconv2x_s8_kernel<CI, CO, OT><<<grid, NT, S::SMEM, stream>>>(
       static_cast<const int8_t*>(x), static_cast<const int8_t*>(w),
-      static_cast<const float*>(g), static_cast<OT*>(out), H, W);
+      static_cast<const float*>(g), static_cast<OT*>(out), B, H, W);
   return (int)cudaGetLastError();
 }
 
@@ -136,6 +240,7 @@ int launch(const void* x, const void* w, const void* g, void* out, int B,
 
 // (ci, co) instantiated: UBR_DECONV2X_S8_SHAPES, from the one table in
 // ops/_build.py:SHAPES; out_f32 selects a float output instead of bf16.
+// x must be 16-byte aligned.
 UBR_EXPORT int ubr_deconv2x_s8(const void* x, const void* w, const void* g,
                                void* out, int B, int H, int W, int ci, int co,
                                int out_f32, void* stream) {

@@ -1,6 +1,7 @@
 // Tensor-core helpers of the port's Hopper kernels (K1 conv_bn_act, K2
 // basic_block, K3 deconv2x, K5 conv_stats, K6 conv_dw, K8 conv_s2k4, K9
-// deconv_dw, K2-s8 basic_block_s8):
+// deconv_dw, and the int8 K1-s8 conv_bn_act_s8, K2-s8 basic_block_s8,
+// K3-s8 deconv2x_s8):
 // bf16 mma.sync m16n8k16 with f32 accumulators (and s8 m16n8k32 with
 // s32 accumulators, below), A fragments by ldmatrix
 // from pixel-major NHWC tiles in shared memory (one lane per pixel: the
@@ -202,6 +203,16 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// Rows k .. k + 3 of column n of the int8 matrix val(k, n), row k in
+// the lowest byte: one s8 B-fragment register.
+template <typename Val>
+__device__ __forceinline__ uint32_t s8_rows4(Val val, int k, int n) {
+  uint32_t w = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) w |= (uint32_t)(uint8_t)val(k + i, n) << (8 * i);
+  return w;
+}
+
 // The K x N int8 matrix val(k, n) as m16n8k32 B fragments in shared
 // memory, for KS k-steps of 32 rows: for k-step s and n-tile pair q (16
 // columns) lane l owns one uint4 at dst[(s * N/16 + q) * 32 + l], {b0,
@@ -217,18 +228,22 @@ __device__ __forceinline__ void stage_b_s8(uint4* dst, Val val, int tid,
   for (int e = tid; e < KS * NQ * 32; e += nthreads) {
     const int l = e & 31, q = (e >> 5) % NQ, s = (e >> 5) / NQ;
     const int k = s * 32 + 4 * (l & 3), n = q * 16 + (l >> 2);
-    uint32_t v[4];
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        uint32_t w = 0;
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          w |= (uint32_t)(uint8_t)val(k + 16 * r + i, n + 8 * h) << (8 * i);
-        v[2 * h + r] = w;
-      }
-    dst[e] = make_uint4(v[0], v[1], v[2], v[3]);
+    dst[e] = make_uint4(s8_rows4(val, k, n), s8_rows4(val, k + 16, n),
+                        s8_rows4(val, k, n + 8), s8_rows4(val, k + 16, n + 8));
+  }
+}
+
+// The same fragments one n-tile (8 columns) at a time, as stage_b8 for
+// bf16: lane l owns one uint2 {b0, b1} at dst[(s * N/8 + t) * 32 + l].
+template <int KS, int N, typename Val>
+__device__ __forceinline__ void stage_b8_s8(uint2* dst, Val val, int tid,
+                                            int nthreads) {
+  static_assert(N % 8 == 0, "B is 32 x 8 steps");
+  constexpr int NT8 = N / 8;
+  for (int e = tid; e < KS * NT8 * 32; e += nthreads) {
+    const int l = e & 31, t = (e >> 5) % NT8, s = (e >> 5) / NT8;
+    const int k = s * 32 + 4 * (l & 3), n = t * 8 + (l >> 2);
+    dst[e] = make_uint2(s8_rows4(val, k, n), s8_rows4(val, k + 16, n));
   }
 }
 

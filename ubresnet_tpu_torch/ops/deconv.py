@@ -13,7 +13,9 @@ tile (double-buffered cp.async) with all four classes of its output.
 
 K3-s8 (``deconv2x_s8``) replaces the quantized=True mode of
 fused_packed_deconv2x: s8 x s8 → s32, out = f32(acc)·g with g = sx·sw.
-Kernel: ops/csrc/deconv2x_s8.cu — K3's parity blocks with __dp4a.
+Kernel: ops/csrc/deconv2x_s8.cu — K3's design on the int8 tensor cores
+(mma.sync m16n8k32, exact s32 sums): the four parity GEMMs of each
+16x16 input tile from one read of it, in a persistent grid.
 
 K8 (``conv_s2k4``) replaces fused_conv_s2k4 (_s2k4_kernel): the
 stride-2 k4 pad-1 cross-correlation ``dx[i] = Σ_k w[k]·dy[2i + k - 1]``
@@ -129,6 +131,7 @@ def deconv2x_s8(xq: torch.Tensor, wq: torch.Tensor, g: torch.Tensor, *,
     dev = xq.device
     flag = _build.out_f32(out_dtype)
     _build.check(xq, "xq", torch.int8, (bsz, h, wd, ci), dev)
+    _build.check_aligned(xq, "xq")
     _build.check(wq, "wq", torch.int8, (4, 4, ci, co), dev)
     _build.check(g, "g", torch.float32, (co,), dev)
     out = torch.empty((bsz, 2 * h, 2 * wd, co), dtype=out_dtype, device=dev)

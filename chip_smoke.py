@@ -55,6 +55,9 @@ Phases, each printing JSON lines; any failure exits non-zero:
              tap one plane at stride 1), K6 and K9 keep their block's
              share of dW in registers (dW = x_shiftᵀ·dy per tile, or
              x_tileᵀ·dy_tap per tap, both operands by ldmatrix.trans).
+             The eval and int8 rows again at the wholeview paths' cells:
+             b10 512x832 (one stitched chunk of crops) and b1 1024x3456
+             (the spatial path's padded plane), under the same checks.
 4. main    — 64 synthetic 512x512 crops scored file → file through the
              port's CLI (-b 16, cuda) with seeded random weights in a
              reference-format .tar; every event must carry 3 score
@@ -110,8 +113,30 @@ Phases, each printing JSON lines; any failure exits non-zero:
              and (not gated: random weights) mean|Δp| and argmax
              agreement against the f32 path for abs-max and
              percentile-99.9 scales.
-8. summary — the kernels line (K1-K9, K1-s8, K2-s8, K3-s8) with the
-             launches of every path, the card line, the result line.
+8. wholeview — 4 synthetic whole planes (1008x3456, seed 0) through
+             python -m ubresnet_tpu_torch.cli.infer_wholeview --device
+             cuda: spatial (the default: first, warm, --f16-scores),
+             --stitched and --int8 --int8-calib 2. Gates: 3
+             ubsnet_plane2 images of 1008x3456 per event summing to
+             1 ± 1e-2; launches exactly 11 per plane (spatial), 11 per
+             10-crop chunk (stitched, one chunk a plane), the int8
+             table per plane;
+             on one plane the kernel path against the f32 plain path
+             (TF32 off), spatial and stitched, and the int8 kernel path
+             against the int8 plain path on the same scales, argmax
+             ≥ 0.99. Reported: planes/s, the timing dicts, forward ms
+             per plane, the spatial forward's stages and profile, peak
+             memory.
+9. serve   — python -m ubresnet_tpu_torch.cli.serve --once --device
+             cuda over two precropped files of 16 crops and a corrupt
+             file (-b 16), then over one whole-plane file of 2 events
+             (--wholeview). Gates: the good files served (score sums
+             1 ± 1e-2), the corrupt one quarantined (.failed), the
+             shutdown line, launches exactly 11 per batch and per plane.
+10. summary — the kernels line (K1-K9, K1-s8, K2-s8, K3-s8) with the
+             launches of every path (wholeview and serve among them), the
+             times at the main cell and, under at_shapes, at the
+             wholeview cells; the card line, the result line.
 
 Scratch files go under build/chip_smoke in the checkout.
 """
@@ -133,6 +158,13 @@ BF16_TENSOR_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores
 INT8_TENSOR_OPS = 1979e12   # H100 SXM dense int8 tensor cores
 F32_FLOPS = 67e12           # H100 SXM float32 outside the tensor cores
 EVENTS, BATCH_MAIN, HW = 64, 16, (512, 512)
+MAIN_CELL = f"b{BATCH_MAIN} {HW[0]}x{HW[1]}"
+# wholeview: synthetic whole planes (1008x3456, plane 2), the zone's
+# batch and input at the stitched path's crop chunk (10 crops of
+# 512x832) and the spatial path's padded plane (1 x 1024x3456)
+WV_EVENTS, WV_HW, WV_CALIB = 4, (1008, 3456), 2
+WV_SHAPES = ((10, (512, 832)), (1, (1024, 3456)))
+SERVE_CROPS = 16            # events in each precropped file of the serve run
 INT8_CALIB = 32             # --int8-calib: crops the CLI calibrates on
 LAUNCHES_PER_BATCH = {"conv_bn_act": 2, "basic_block": 6, "deconv2x": 2,
                       "maxpool3x3s2": 1}
@@ -159,21 +191,23 @@ SOURCES = {
                     f"{PALLAS}:315 fused_packed_conv"
                     " + :1811 pallas_conv_ad (forward, dx)",
                     ("conv_bn_act",),
-                    ("precropped", "train", "train_deconv", "qat", "int8")),
+                    ("precropped", "train", "train_deconv", "qat", "int8",
+                     "wholeview", "serve")),
     "basic_block": ("ubresnet_tpu_torch/ops/csrc/basic_block.cu",
                     f"{PALLAS}:1483 fused_basic_block"
                     " + :699 fused_dual_block", ("basic_block",),
-                    ("precropped", "train")),
+                    ("precropped", "train", "wholeview", "serve")),
     "deconv2x": ("ubresnet_tpu_torch/ops/csrc/deconv2x.cu",
                  f"{PALLAS}:898 fused_packed_deconv2x"
                  " + :1341 pallas_deconv2x_ad (forward)",
                  ("deconv2x",), ("precropped", "train", "train_deconv",
-                                 "qat")),
+                                 "qat", "wholeview", "serve")),
     "maxpool3x3s2": ("ubresnet_tpu_torch/ops/csrc/maxpool3x3s2.cu",
                      f"{PALLAS}:525 fused_pool3x3s2"
                      " + ubresnet_tpu/ops/pool_ad.py:133 packed_pool_ad "
                      "(forward)", ("maxpool3x3s2",),
-                     ("precropped", "train", "train_deconv", "qat", "int8")),
+                     ("precropped", "train", "train_deconv", "qat", "int8",
+                      "wholeview", "serve")),
     "conv_stats": ("ubresnet_tpu_torch/ops/csrc/conv_stats.cu",
                    "ubresnet_tpu/ops/pallas_train.py:206 train_conv_stats",
                    ("conv_stats",), ("train", "train_deconv", "qat")),
@@ -194,14 +228,16 @@ SOURCES = {
     "conv_bn_act_s8": ("ubresnet_tpu_torch/ops/csrc/conv_bn_act_s8.cu",
                        f"{PALLAS}:315 fused_packed_conv (_conv_kernel :251,"
                        " quantized :282-300)", ("conv_bn_act_s8",),
-                       ("int8",)),
+                       ("int8", "wholeview")),
     "basic_block_s8": ("ubresnet_tpu_torch/ops/csrc/basic_block_s8.cu",
                        f"{PALLAS}:1483 fused_basic_block (_block_kernel "
                        ":1372) + :699 fused_dual_block (_dual_block_kernel"
-                       " :587), quantized", ("basic_block_s8",), ("int8",)),
+                       " :587), quantized", ("basic_block_s8",),
+                       ("int8", "wholeview")),
     "deconv2x_s8": ("ubresnet_tpu_torch/ops/csrc/deconv2x_s8.cu",
                     f"{PALLAS}:898 fused_packed_deconv2x (_deconv_kernel "
-                    ":847), quantized", ("deconv2x_s8",), ("int8",)),
+                    ":847), quantized", ("deconv2x_s8",),
+                    ("int8", "wholeview")),
 }
 # the train zone at batch 16: (ci, co, k) of each distinct conv, the
 # resolution it runs at and how many of the step's 16 BN-fed zone convs
@@ -339,9 +375,26 @@ def ptxas_of(kernel, instance):
     return hit[0] if hit else {"missing": name}
 
 
-def kernel_rows(dev):
-    """One row per kernel-zone layer of the eval forward at its
-    main-path shape and batch."""
+def _cell(B, hw):
+    """A row's cell: its batch and the forward's input size."""
+    return f"b{B} {hw[0]}x{hw[1]}"
+
+
+def _tagged(rows, B, hw):
+    """Mark rows with their cell; rows outside the main cell name it in
+    their layer and count in no train step."""
+    cell = _cell(B, hw)
+    for r in rows:
+        r["cell"] = cell
+        if cell != MAIN_CELL:
+            r["layer"] += f" @{cell}"
+            r["per_step"] = r["per_step_ad"] = 0
+    return rows
+
+
+def kernel_rows(dev, B=BATCH_MAIN, hw=HW):
+    """One row per kernel-zone layer of the eval forward at batch ``B``
+    and input ``hw`` (default: the main path's)."""
     import torch
     import torch.nn.functional as F
 
@@ -349,7 +402,8 @@ def kernel_rows(dev):
 
     gen = torch.Generator(device=dev).manual_seed(0)
     bf = torch.bfloat16
-    B = BATCH_MAIN
+    H, W = hw
+    H2, W2, H4, W4 = H // 2, W // 2, H // 4, W // 4
 
     def act(*shape):
         return torch.relu(torch.randn(*shape, generator=gen, device=dev)).to(bf)
@@ -372,9 +426,9 @@ def kernel_rows(dev):
     rows = []
     n2 = lambda t: t.numel() * t.element_size()  # noqa: E731
 
-    # K4 stem pool: 512^2 x 16 -> 256^2 x 16
-    x = act(B, 512, 512, 16)
-    out_elems = B * 256 * 256 * 16
+    # K4 stem pool: full resolution x 16 -> half
+    x = act(B, H, W, 16)
+    out_elems = B * H2 * W2 * 16
     rows.append(_row("stem pool", "maxpool3x3s2",
                      lambda x=x: pool.maxpool3x3s2(x),
                      lambda x=x: pool.maxpool3x3s2_plain(x),
@@ -384,8 +438,8 @@ def kernel_rows(dev):
 
     # K2 blocks
     def block_row(name, hw, ca, cb, co, proj):
-        a = act(B, hw, hw, ca)
-        b = act(B, hw, hw, cb) if cb else None
+        a = act(B, *hw, ca)
+        b = act(B, *hw, cb) if cb else None
         cin = ca + cb
         w1 = weight(3, 3, cin, co, fan=9 * co)
         w2 = weight(3, 3, co, co, fan=9 * co)
@@ -405,7 +459,7 @@ def kernel_rows(dev):
             r = F.conv2d(x, lwb, lbb) if proj else x
             return torch.relu(y + r)
 
-        pix = B * hw * hw
+        pix = B * hw[0] * hw[1]
         macs = pix * (9 * cin * co + 9 * co * co + (cin * co if proj else 0))
         nbytes = n2(a) + (n2(b) if cb else 0) + pix * co * 2 + n2(w1) + n2(w2)
         rows.append(_row(name, "basic_block",
@@ -414,14 +468,14 @@ def kernel_rows(dev):
                          library, nbytes, 2 * macs, BF16_TENSOR_FLOPS,
                          library="cuDNN block sequence"))
 
-    block_row("enc1.res1", 256, 16, 0, 32, True)
-    block_row("enc1.res2", 256, 32, 0, 32, False)
+    block_row("enc1.res1", (H2, W2), 16, 0, 32, True)
+    block_row("enc1.res2", (H2, W2), 32, 0, 32, False)
 
     def deconv_row(name, hw, ci, co):
-        x = act(B, hw, hw, ci)
+        x = act(B, *hw, ci)
         w = weight(4, 4, ci, co, fan=16 * co)
         w_iohw = w.permute(2, 3, 0, 1).contiguous()
-        out_pix = B * 4 * hw * hw
+        out_pix = B * 4 * hw[0] * hw[1]
         rows.append(_row(name, "deconv2x",
                          lambda: deconv.deconv2x(x, w),
                          lambda: deconv.deconv2x_plain(x, w),
@@ -431,16 +485,16 @@ def kernel_rows(dev):
                          2 * out_pix * 4 * ci * co, BF16_TENSOR_FLOPS,
                          library="F.conv_transpose2d", per_step_ad=1))
 
-    deconv_row("dec2.deconv", 128, 64, 32)
-    block_row("dec2.res.res1", 256, 32, 32, 32, True)
-    block_row("dec2.res.res2", 256, 32, 0, 32, False)
-    deconv_row("dec1.deconv", 256, 32, 16)
-    block_row("dec1.res.res1", 512, 16, 16, 16, True)
-    block_row("dec1.res.res2", 512, 16, 0, 16, False)
+    deconv_row("dec2.deconv", (H4, W4), 64, 32)
+    block_row("dec2.res.res1", (H2, W2), 32, 32, 32, True)
+    block_row("dec2.res.res2", (H2, W2), 32, 0, 32, False)
+    deconv_row("dec1.deconv", (H2, W2), 32, 16)
+    block_row("dec1.res.res1", (H, W), 16, 16, 16, True)
+    block_row("dec1.res.res2", (H, W), 16, 0, 16, False)
 
     # K1 head conv10 (BN + ReLU) and classifier conv11 (bias only)
     def conv_row(name, co, act_on):
-        x = act(B, 512, 512, 16)
+        x = act(B, H, W, 16)
         w = weight(7, 7, 16, co, fan=49 * co)
         g, b = affine(co)
         if not act_on:
@@ -451,7 +505,7 @@ def kernel_rows(dev):
             y = F.conv2d(cl(x), lw, lb, padding=3)
             return torch.relu_(y) if act_on else y
 
-        pix = B * 512 * 512
+        pix = B * H * W
         rows.append(_row(name, "conv_bn_act",
                          lambda: conv.conv_bn_act(x, w, g, b, act=act_on),
                          lambda: conv.conv_bn_act_plain(x, w, g, b,
@@ -464,7 +518,7 @@ def kernel_rows(dev):
 
     conv_row("head conv10", 16, True)
     conv_row("classifier conv11", 3, False)
-    return rows
+    return _tagged(rows, B, hw)
 
 
 def train_kernel_rows(dev):
@@ -722,9 +776,10 @@ def s8_check(exact):
     return check
 
 
-def int8_kernel_rows(dev, eval_rows):
-    """One row per int8-zone layer of the int8 forward at its main-path
-    shape and batch: K1-s8 (head conv10), K2-s8 (the six blocks, two
+def int8_kernel_rows(dev, eval_rows, B=BATCH_MAIN, hw=HW):
+    """One row per int8-zone layer of the int8 forward at batch ``B``
+    and input ``hw`` (default: the main path's): K1-s8 (head conv10),
+    K2-s8 (the six blocks, two
     dual), K3-s8 (dec2, dec1 upsamples). Inputs are int8 on the grid a
     calibrated model gives (post-ReLU activations, 0..127), weights
     int8, gains as the model folds them. No single PyTorch call computes
@@ -737,8 +792,11 @@ def int8_kernel_rows(dev, eval_rows):
 
     gen = torch.Generator(device=dev).manual_seed(3)
     bf, f32 = torch.bfloat16, torch.float32
-    B = BATCH_MAIN
-    bf16_rows = {r["layer"]: r for r in eval_rows}
+    H, W = hw
+    H2, W2, H4, W4 = H // 2, W // 2, H // 4, W // 4
+    cell = _cell(B, hw)
+    bf16_rows = {r["layer"]: r for r in eval_rows if r["cell"] == cell}
+    tag = "" if cell == MAIN_CELL else f" @{cell}"
     rows = []
     n2 = lambda t: t.numel() * t.element_size()  # noqa: E731
 
@@ -757,14 +815,14 @@ def int8_kernel_rows(dev, eval_rows):
     def add(layer, kernel, kfn, pfn, exact, nbytes, macs, instance=None):
         r = _row(layer, kernel, kfn, pfn, None, nbytes, 2 * macs,
                  INT8_TENSOR_OPS, check=s8_check(exact), instance=instance)
-        r["bf16"] = bf16_rows[layer]
+        r["bf16"] = bf16_rows[layer + tag]
         rows.append(r)
 
-    # K1-s8 head conv10: 512^2, 16 -> 16, 7x7
-    x, w = act(B, 512, 512, 16), weight(7, 7, 16, 16)
+    # K1-s8 head conv10: full resolution, 16 -> 16, 7x7
+    x, w = act(B, H, W, 16), weight(7, 7, 16, 16)
     g, b = gain(16, 2e-5)
     one, zero = torch.ones(16, device=dev), torch.zeros(16, device=dev)
-    pix = B * 512 * 512
+    pix = B * H * W
     add("head conv10", "conv_bn_act_s8",
         lambda: conv.conv_bn_act_s8(x, w, g, b),
         lambda: conv.conv_bn_act_s8_plain(x, w, g, b),
@@ -776,8 +834,8 @@ def int8_kernel_rows(dev, eval_rows):
         instance=(16, 16, 7, "__nv_bfloat16"))
 
     def block_row(name, hw, ca, cb, co, proj):
-        a = act(B, hw, hw, ca)
-        bq = act(B, hw, hw, cb) if cb else None
+        a = act(B, *hw, ca)
+        bq = act(B, *hw, cb) if cb else None
         cin = ca + cb
         # conv1's s32 sum has std ≈ 5370·sqrt(9·cin) on these inputs:
         # this g1 spreads m over the int8 grid (std ≈ 30, tail at 127)
@@ -790,7 +848,7 @@ def int8_kernel_rows(dev, eval_rows):
                 co, device=dev)
         args = (a, bq, weight(3, 3, cin, co), g1, b1, weight(3, 3, co, co),
                 g2, b2, weight(cin, co) if proj else None, gb, bb)
-        p = B * hw * hw
+        p = B * hw[0] * hw[1]
         macs = p * (9 * cin * co + 9 * co * co + (cin * co if proj else 0))
         nbytes = (p * cin + p * co * 2 + n2(args[2]) + n2(args[5])
                   + (n2(args[8]) if proj else 0))
@@ -802,10 +860,10 @@ def int8_kernel_rows(dev, eval_rows):
             nbytes, macs, instance=(ca, cb, co, proj, "__nv_bfloat16"))
 
     def deconv_row(name, hw, ci, co):
-        xq, wq = act(B, hw, hw, ci), weight(4, 4, ci, co)
+        xq, wq = act(B, *hw, ci), weight(4, 4, ci, co)
         gq, _ = gain(co, 1e-4)
         ones = torch.ones(co, device=dev)
-        p = B * 4 * hw * hw
+        p = B * 4 * hw[0] * hw[1]
         add(name, "deconv2x_s8",
             lambda: deconv.deconv2x_s8(xq, wq, gq),
             lambda: deconv.deconv2x_s8_plain(xq, wq, gq),
@@ -814,15 +872,15 @@ def int8_kernel_rows(dev, eval_rows):
             n2(xq) + p * co * 2 + n2(wq), p * 4 * ci * co,
             instance=(ci, co, "__nv_bfloat16"))
 
-    block_row("enc1.res1", 256, 16, 0, 32, True)
-    block_row("enc1.res2", 256, 32, 0, 32, False)
-    deconv_row("dec2.deconv", 128, 64, 32)
-    block_row("dec2.res.res1", 256, 32, 32, 32, True)
-    block_row("dec2.res.res2", 256, 32, 0, 32, False)
-    deconv_row("dec1.deconv", 256, 32, 16)
-    block_row("dec1.res.res1", 512, 16, 16, 16, True)
-    block_row("dec1.res.res2", 512, 16, 0, 16, False)
-    return rows
+    block_row("enc1.res1", (H2, W2), 16, 0, 32, True)
+    block_row("enc1.res2", (H2, W2), 32, 0, 32, False)
+    deconv_row("dec2.deconv", (H4, W4), 64, 32)
+    block_row("dec2.res.res1", (H2, W2), 32, 32, 32, True)
+    block_row("dec2.res.res2", (H2, W2), 32, 0, 32, False)
+    deconv_row("dec1.deconv", (H2, W2), 32, 16)
+    block_row("dec1.res.res1", (H, W), 16, 16, 16, True)
+    block_row("dec1.res.res2", (H, W), 16, 0, 16, False)
+    return _tagged(rows, B, hw)
 
 
 def _ratios(r):
@@ -858,6 +916,7 @@ def check_kernels(rows):
                      "cudnn_bf16": r["bf16"]["library"]}
         row = {
             "phase": "kernel", "layer": r["layer"], "kernel": r["kernel"],
+            "cell": r.get("cell", MAIN_CELL),
             "shape": list((got[0] if isinstance(got, tuple) else got).shape),
             "max_abs_err": err, "max_abs_ref": ref, "tolerance": tol,
             **extra, "ms": time_ms(r["kfn"]), "plain_ms": time_ms(r["pfn"]),
@@ -902,28 +961,43 @@ def train_zone_per_step(rows, key="per_step", want=LAUNCHES_PER_TRAIN_STEP,
             "bound_ms": sum(v["bound_ms"] for v in out.values())}
 
 
+def _row_sums(mine):
+    """A kernel's times summed over its rows ``mine``: ms, plain, bound
+    (and what bounds the sum), library (None if a row has none)."""
+    t_bytes = sum(r["bytes_ms"] for r in mine)
+    t_ops = sum(r["ops_ms"] for r in mine)
+    lib = [r["library_ms"] for r in mine]
+    out = {"ms": sum(r["ms"] for r in mine),
+           "plain_ms": sum(r["plain_ms"] for r in mine),
+           "bound_ms": sum(r["bound_ms"] for r in mine),
+           "bound_by": "operations" if t_ops > t_bytes else "bytes",
+           "library_ms": None if None in lib else sum(lib)}
+    out.update(_ratios(out))
+    return out
+
+
 def kernels_line(rows, launches_by_path):
+    """One entry per kernel: its launches on every path; its times
+    summed over its rows at the main cell (b16 512x512), and under
+    ``at_shapes`` the same sums at each other cell its rows ran at
+    (the wholeview shapes); the largest error over all its rows."""
     out = []
     for name, (src, replaces, kernels, _) in SOURCES.items():
         mine = [r for r in rows if r["kernel"] in kernels]
+        main = [r for r in mine if r["cell"] == MAIN_CELL]
         by_path = {path: sum(counts[k] for k in kernels)
                    for path, counts in launches_by_path.items()}
-        t_bytes = sum(r["bytes_ms"] for r in mine)
-        t_ops = sum(r["ops_ms"] for r in mine)
-        lib = [r["library_ms"] for r in mine]
-        out.append({
-            "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": sum(by_path.values()),
-            "launches_by_path": by_path,
-            "max_abs_err": max(r["max_abs_err"] for r in mine),
-            "ms": sum(r["ms"] for r in mine),
-            "plain_ms": sum(r["plain_ms"] for r in mine),
-            "bound_ms": sum(r["bound_ms"] for r in mine),
-            "bound_by": "operations" if t_ops > t_bytes else "bytes",
-            "library_ms": None if None in lib else sum(lib),
-            "layers": [r["layer"] for r in mine],
-        })
-        out[-1].update(_ratios(out[-1]))
+        entry = {"name": name, "route": "cuda", "source": src,
+                 "replaces": replaces, "launches": sum(by_path.values()),
+                 "launches_by_path": by_path,
+                 "max_abs_err": max(r["max_abs_err"] for r in mine),
+                 **_row_sums(main), "layers": [r["layer"] for r in main]}
+        cells = sorted({r["cell"] for r in mine} - {MAIN_CELL})
+        if cells:
+            entry["at_shapes"] = {c: _row_sums([r for r in mine
+                                                if r["cell"] == c])
+                                  for c in cells}
+        out.append(entry)
     return {"kernels": out}
 
 
@@ -1016,17 +1090,7 @@ def main_path(dev, card, work):
     want = {k: LAUNCHES_PER_BATCH.get(k, 0) * batches for k in launches}
     require(launches == want, f"launch counts {launches} != {want}")
 
-    reader = EventFileReader(out)
-    require(len(reader) == EVENTS, f"{len(reader)} events written")
-    worst = 0.0
-    for i in range(EVENTS):
-        imgs = reader.read_entry(i)["uburn_plane2"]
-        require(len(imgs) == 3, f"event {i}: {len(imgs)} score images")
-        s = np.stack([im.pixels for im in imgs], -1).astype(np.float32)
-        require(s.shape == HW + (3,) and np.isfinite(s).all(),
-                f"event {i}: bad scores {s.shape}")
-        worst = max(worst, float(np.abs(s.sum(-1) - 1.0).max()))
-    require(worst <= 1e-2, f"score sums off by {worst}")
+    worst = _check_scores(out, EVENTS, "uburn_plane2", HW)
 
     # the same job again in this process: model build, first cuDNN calls
     # and pinned buffers no longer first-time costs
@@ -1132,17 +1196,7 @@ def int8_path(dev, card, work):
     want = {k: LAUNCHES_PER_BATCH_INT8.get(k, 0) * batches for k in launches}
     require(launches == want, f"int8 launch counts {launches} != {want}")
 
-    reader = EventFileReader(out)
-    require(len(reader) == EVENTS, f"{len(reader)} events written")
-    worst = 0.0
-    for i in range(EVENTS):
-        imgs = reader.read_entry(i)["uburn_plane2"]
-        require(len(imgs) == 3, f"event {i}: {len(imgs)} score images")
-        s = np.stack([im.pixels for im in imgs], -1).astype(np.float32)
-        require(s.shape == HW + (3,) and np.isfinite(s).all(),
-                f"event {i}: bad scores {s.shape}")
-        worst = max(worst, float(np.abs(s.sum(-1) - 1.0).max()))
-    require(worst <= 1e-2, f"int8 score sums off by {worst}")
+    worst = _check_scores(out, EVENTS, "uburn_plane2", HW)
 
     sd, _ = load_reference_checkpoint(tar)
     inp = EventFileReader(src)
@@ -1200,6 +1254,241 @@ def int8_path(dev, card, work):
     require(agree_plain >= 0.99, f"int8 kernel path vs int8 plain path "
                                  f"argmax agreement {agree_plain}")
     return launches
+
+
+def _check_scores(path, n, producer, hw):
+    """Every event of ``path`` carries 3 finite ``producer`` score
+    images of ``hw`` summing to 1 ± 1e-2; returns the largest deviation
+    of a sum."""
+    import numpy as np
+
+    from ubresnet_tpu_torch.data.uevt import EventFileReader
+
+    reader = EventFileReader(path)
+    require(len(reader) == n, f"{path}: {len(reader)} events written")
+    worst = 0.0
+    for i in range(n):
+        imgs = reader.read_entry(i).get(producer, [])
+        require(len(imgs) == 3, f"event {i}: {len(imgs)} {producer} images")
+        s = np.stack([im.pixels for im in imgs], -1).astype(np.float32)
+        require(s.shape == tuple(hw) + (3,) and np.isfinite(s).all(),
+                f"event {i}: bad scores {s.shape}")
+        worst = max(worst, float(np.abs(s.sum(-1) - 1.0).max()))
+    require(worst <= 1e-2, f"{path}: score sums off by {worst}")
+    return worst
+
+
+def _times(table, n):
+    return {k: v * n for k, v in table.items()}
+
+
+def _merge(*counts):
+    return {k: sum(c.get(k, 0) for c in counts) for k in counts[0]}
+
+
+def wholeview_path(dev, card, work):
+    """Whole-plane deploy: WV_EVENTS synthetic 1008x3456 planes (seed 0)
+    through the port's wholeview CLI (--device cuda) with the deploy
+    smoke's weights: spatial (the default; first, warm, then with
+    --f16-scores), --stitched, and --int8 --int8-calib 2 (spatial).
+    Gates: 3 ubsnet_plane2 images per event summing to 1 ± 1e-2; exact
+    launch counts (per plane 11 spatial, 11 per 10-crop chunk stitched,
+    the int8 table under --int8); on one plane the kernel path against the
+    plain f32 path (TF32 off), spatial and stitched, and the int8 kernel
+    path against the int8 plain path on the same scales: argmax ≥ 0.99.
+    Reported: planes/s, the timing dicts, forward ms per plane (spatial
+    b1 1024x3456, stitched one b10 512x832 chunk, int8 spatial), the
+    spatial forward's stages and profile, peak memory. Returns the
+    launches of the CLI runs."""
+    import numpy as np
+    import torch
+
+    from ubresnet_tpu_torch import ops
+    from ubresnet_tpu_torch.cli.infer_wholeview import main as cli
+    from ubresnet_tpu_torch.core.precision import Policy
+    from ubresnet_tpu_torch.data.synthetic import make_synthetic_file
+    from ubresnet_tpu_torch.data.uevt import EventFileReader
+    from ubresnet_tpu_torch.deploy import WholeViewRunner
+    from ubresnet_tpu_torch.deploy.weights import load_reference_checkpoint
+    from ubresnet_tpu_torch.models import get_model
+    from ubresnet_tpu_torch.ops.tiling import extract_tiles
+
+    src, out, tar = (os.path.join(work, f) for f in
+                     ("planes.uevt", "plane_scores.uevt", "weights.tar"))
+    t0 = time.time()
+    make_synthetic_file(src, n_events=WV_EVENTS, seed=0, wholeview=True)
+    setup_s = time.time() - t0
+    sd, _ = load_reference_checkpoint(tar)
+    bf16 = get_model("uresnet", sd, device=dev)
+    stitched = WholeViewRunner(bf16)  # the CLI's default tiles and chunk
+    grid = stitched._grid(WV_HW)
+    chunks = -(-len(grid) // stitched.crop_batch)
+
+    def run_cli(*extra):
+        printed = io.StringIO()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.time()
+        with contextlib.redirect_stdout(printed):
+            rc = cli(["-i", src, "-o", out, "-c", tar, "--device", "cuda",
+                      *extra])
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        require(rc == 0, f"wholeview CLI {extra} returned {rc}")
+        launches = ops.launch_counts()
+        sums = _check_scores(out, WV_EVENTS, "ubsnet_plane2", WV_HW)
+        return {"cli_wall_s": wall, "planes_per_s_file_to_file":
+                WV_EVENTS / wall, "launches": launches,
+                "timing": json.loads(printed.getvalue().splitlines()[-1]),
+                "score_sum_max_dev": sums,
+                "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+    runs = {"spatial": run_cli(), "spatial_warm": run_cli(),
+            "spatial_f16_scores": run_cli("--f16-scores"),
+            "stitched": run_cli("--stitched"),
+            "int8": run_cli("--int8", "--int8-calib", str(WV_CALIB))}
+    want = {"spatial": _times(LAUNCHES_PER_BATCH, WV_EVENTS),
+            "spatial_warm": _times(LAUNCHES_PER_BATCH, WV_EVENTS),
+            "spatial_f16_scores": _times(LAUNCHES_PER_BATCH, WV_EVENTS),
+            "stitched": _times(LAUNCHES_PER_BATCH, WV_EVENTS * chunks),
+            "int8": _times(LAUNCHES_PER_BATCH_INT8, WV_EVENTS)}
+    for name, run in runs.items():
+        got = run["launches"]
+        exp = {k: want[name].get(k, 0) for k in got}
+        require(got == exp, f"wholeview {name} launch counts {got} != {exp}")
+
+    # one plane: kernel paths against plain paths
+    plane = EventFileReader(src).read_entry(0, producers=["wire"])[
+        "wire"][0].pixels
+    f32 = get_model("uresnet", sd, policy=Policy.f32(), device=dev)
+    agree = {}
+    for mode, spatial in (("spatial", True), ("stitched", False)):
+        k = WholeViewRunner(bf16, spatial=spatial).score_image(plane)
+        p = WholeViewRunner(f32, spatial=spatial).score_image(plane)
+        agree[mode] = float((k.argmax(-1) == p.argmax(-1)).mean())
+    del f32
+    q = get_model("uresnet", sd, policy=Policy.int8(), device=dev)
+    qr = WholeViewRunner(q, spatial=True)
+    n_tiles = qr.calibrate_from(src, n_images=WV_CALIB)
+    kq = qr.score_image(plane)
+    with plain_kernels():
+        pq = qr.score_image(plane)
+    agree_int8 = float((kq.argmax(-1) == pq.argmax(-1)).mean())
+
+    # forward ms per plane: the padded plane at b1, one 10-crop chunk
+    pad = np.zeros((1,) + tuple(-(-n // 32) * 32 for n in WV_HW) + (1,),
+                   np.float32)
+    pad[0, :WV_HW[0], :WV_HW[1], 0] = plane
+    x_sp = torch.from_numpy(pad).to(dev)
+    x_st = extract_tiles(x_sp[0], grid, stitched.tile_rows,
+                         stitched.tile_cols)[:stitched.crop_batch]
+    with torch.inference_mode():
+        fwd = {"spatial_bf16": time_ms(lambda: bf16(x_sp), 1000.0),
+               "stitched_bf16": chunks * time_ms(lambda: bf16(x_st),
+                                                 1000.0),
+               "spatial_int8": time_ms(lambda: q(x_sp), 1000.0)}
+        stages = stage_breakdown(bf16, x_sp)
+        profile = forward_profile(lambda: bf16(x_sp), fwd["spatial_bf16"])
+        profile_st = forward_profile(lambda: bf16(x_st),
+                                     fwd["stitched_bf16"] / chunks)
+    result = {
+        "phase": "wholeview", "card": card, "events": WV_EVENTS,
+        "hw": list(WV_HW), "setup_s": setup_s, "crop_chunks": chunks,
+        "runs": runs, "calib_tiles": n_tiles,
+        "argmax_agreement_vs_f32": agree,
+        "argmax_agreement_int8_kernel_vs_plain": agree_int8,
+        "forward_ms_per_plane": fwd,
+        "int8_over_bf16_spatial": fwd["spatial_int8"] / fwd["spatial_bf16"],
+        "stitched_over_spatial": fwd["stitched_bf16"] / fwd["spatial_bf16"],
+        "stage_ms_spatial": stages, "profile_spatial": profile,
+        "profile_stitched": profile_st,
+    }
+    emit(result)
+    for mode, a in agree.items():
+        require(a >= 0.99, f"wholeview {mode}: kernel path vs f32 argmax "
+                           f"agreement {a}")
+    require(agree_int8 >= 0.99, f"wholeview int8 kernel path vs int8 plain "
+                                f"path argmax agreement {agree_int8}")
+    return _merge(*(r["launches"] for r in runs.values()))
+
+
+def serve_path(dev, card, work):
+    """The serve loop (cli/serve.py --once, --device cuda, the deploy
+    smoke's weights) over two watch dirs: two precropped files of
+    SERVE_CROPS 512² crops and a corrupt file (-b 16), then one
+    whole-plane file of 2 events (--wholeview). Gates: the good files
+    served with score sums 1 ± 1e-2, the corrupt one quarantined with
+    its .failed marker, the shutdown line with the served count, exact
+    launches (11 per batch, 11 per plane). Returns the launches."""
+    import torch
+
+    from ubresnet_tpu_torch import ops
+    from ubresnet_tpu_torch.cli.serve import main as serve
+    from ubresnet_tpu_torch.data.synthetic import make_synthetic_file
+
+    tar = os.path.join(work, "weights.tar")
+    t0 = time.time()
+    dirs = {}
+    for name in ("crops", "planes"):
+        for side in ("in", "out"):
+            d = os.path.join(work, f"serve_{name}_{side}")
+            shutil.rmtree(d, ignore_errors=True)
+            os.makedirs(d)
+            dirs[name, side] = d
+    for i, f in enumerate(("a.uevt", "b.uevt")):
+        make_synthetic_file(os.path.join(dirs["crops", "in"], f),
+                            n_events=SERVE_CROPS, hw=HW, seed=10 + i)
+    with open(os.path.join(dirs["crops", "in"], "broken.uevt"), "wb") as f:
+        f.write(b"not an event file")
+    make_synthetic_file(os.path.join(dirs["planes", "in"], "wv.uevt"),
+                        n_events=2, seed=1, wholeview=True)
+    setup_s = time.time() - t0
+
+    def run(name, *extra):
+        printed, errors = io.StringIO(), io.StringIO()
+        ops.reset_launch_counts()
+        t0 = time.time()
+        with contextlib.redirect_stdout(printed), \
+                contextlib.redirect_stderr(errors):
+            rc = serve(["--watch-dir", dirs[name, "in"], "--out-dir",
+                        dirs[name, "out"], "-c", tar, "--once",
+                        "--device", "cuda", *extra])
+        torch.cuda.synchronize()
+        require(rc == 0, f"serve {name} returned {rc}")
+        lines = [json.loads(ln) for ln in printed.getvalue().splitlines()
+                 if ln.startswith("{")]
+        failed = [json.loads(ln) for ln in errors.getvalue().splitlines()
+                  if ln.startswith("{")]
+        return {"wall_s": time.time() - t0, "lines": lines,
+                "failed": failed, "launches": ops.launch_counts()}
+
+    crops = run("crops", "-b", str(BATCH_MAIN))
+    planes = run("planes", "--wholeview")
+    result = {"phase": "serve", "card": card, "setup_s": setup_s,
+              "crops": crops, "planes": planes}
+    emit(result)
+    out = dirs["crops", "out"]
+    require(crops["lines"][-1] == {"shutdown": True, "served": 2},
+            f"serve crops: {crops['lines']}")
+    require([ln.get("served") for ln in crops["lines"][:-1]]
+            == ["a.uevt", "b.uevt"], f"serve crops: {crops['lines']}")
+    require([f["failed"] for f in crops["failed"]] == ["broken.uevt"]
+            and os.path.exists(os.path.join(out, "broken.uevt.failed"))
+            and not os.path.exists(os.path.join(out, "broken_scores.uevt")),
+            f"corrupt file not quarantined: {crops['failed']}")
+    for f in ("a", "b"):
+        _check_scores(os.path.join(out, f"{f}_scores.uevt"), SERVE_CROPS,
+                      "uburn_plane2", HW)
+    require(planes["lines"][-1] == {"shutdown": True, "served": 1},
+            f"serve planes: {planes['lines']}")
+    _check_scores(os.path.join(dirs["planes", "out"], "wv_scores.uevt"), 2,
+                  "ubsnet_plane2", WV_HW)
+    batches = 2 * -(-SERVE_CROPS // BATCH_MAIN)
+    for name, got, n in (("crops", crops["launches"], batches),
+                         ("planes", planes["launches"], 2)):
+        exp = {k: LAUNCHES_PER_BATCH.get(k, 0) * n for k in got}
+        require(got == exp, f"serve {name} launch counts {got} != {exp}")
+    return _merge(crops["launches"], planes["launches"])
 
 
 def _train_batch(seed):
@@ -1700,6 +1989,10 @@ def main():
     os.makedirs(work, exist_ok=True)
     rows = check_kernels(kernel_rows(dev))
     rows += check_kernels(int8_kernel_rows(dev, rows))
+    for B, hw in WV_SHAPES:  # the zone at the wholeview paths' shapes
+        wv = check_kernels(kernel_rows(dev, B, hw))
+        rows += wv + check_kernels(int8_kernel_rows(dev, wv, B, hw))
+        torch.cuda.empty_cache()
     rows += check_kernels(train_kernel_rows(dev))
     rows += check_kernels(deconv_ad_rows(dev))
     emit(train_zone_per_step(rows))
@@ -1717,6 +2010,10 @@ def main():
     launches["qat"] = qat_path(dev, card, work)
     torch.cuda.empty_cache()
     launches["int8"] = int8_path(dev, card, work)
+    torch.cuda.empty_cache()
+    launches["wholeview"] = wholeview_path(dev, card, work)
+    torch.cuda.empty_cache()
+    launches["serve"] = serve_path(dev, card, work)
     line = kernels_line(rows, launches)
     for k in line["kernels"]:
         paths = SOURCES[k["name"]][3]

@@ -602,3 +602,161 @@ def test_deconv_ad_train_step_on_the_card(dev):
         "deconv_dw": 2}
     assert np.isfinite(m["loss"]) and m["nan_skipped"] == 0
     assert not torch.equal(model.dec_layer1.deconv.weight, w0)
+
+
+# The wholeview paths run the zone at batch 1 on the padded whole plane
+# (1024x3456: full, half and quarter resolution) and at batch 10 on
+# 512x832 crops; every zone layer at the plane's shapes:
+PLANE = (1024, 3456)
+PLANE_LAYERS = {  # layer → (kind, shape, input resolution divisor)
+    "stem pool": ("pool", 16, 1),
+    "enc1.res1": ("block", (16, 0, 32, True), 2),
+    "enc1.res2": ("block", (32, 0, 32, False), 2),
+    "dec2.deconv": ("deconv", (64, 32), 4),
+    "dec2.res.res1": ("block", (32, 32, 32, True), 2),
+    "dec1.deconv": ("deconv", (32, 16), 2),
+    "dec1.res.res1": ("block", (16, 16, 16, True), 1),
+    "dec1.res.res2": ("block", (16, 0, 16, False), 1),
+    "head conv10": ("conv", (16, 16, 7), 1),
+    "classifier conv11": ("conv", (16, 3, 7), 1),
+}
+
+
+@pytest.mark.parametrize("layer", sorted(PLANE_LAYERS))
+def test_zone_kernels_at_the_whole_plane(dev, layer):
+    """Each bf16 zone kernel at batch 1 on the padded whole plane
+    against its plain version; for the int8 zone (K1-s8 conv10, K2-s8,
+    K3-s8) the float32 output bit-identical to the plain version's."""
+    kind, shape, div = PLANE_LAYERS[layer]
+    hw = (PLANE[0] // div, PLANE[1] // div)
+    if kind == "pool":
+        x = _rand(dev, 1, *hw, shape, relu=True)
+        torch.testing.assert_close(pool.maxpool3x3s2(x),
+                                   pool.maxpool3x3s2_plain(x), rtol=0, atol=0)
+        return
+    f32 = torch.float32
+    if kind == "block":
+        args = _block_args(dev, 1, hw, shape)
+        _close(block.basic_block(*args), block.basic_block_plain(*args))
+        q = _block_s8_args(dev, 1, hw, shape)
+        _s8_same(block.basic_block_s8(*q, out_dtype=f32),
+                 block.basic_block_s8_plain(*q, out_dtype=f32))
+    elif kind == "deconv":
+        ci, co = shape
+        x = _rand(dev, 1, *hw, ci)
+        w = _rand(dev, 4, 4, ci, co, scale=0.1)
+        _close(deconv.deconv2x(x, w), deconv.deconv2x_plain(x, w))
+        xq, wq = _s8(dev, 1, *hw, ci), _s8(dev, 4, 4, ci, co)
+        g, _ = _gain(dev, co, 1e-3, ci)
+        _s8_same(deconv.deconv2x_s8(xq, wq, g, out_dtype=f32),
+                 deconv.deconv2x_s8_plain(xq, wq, g, f32))
+    else:
+        ci, co, k = shape
+        x = _rand(dev, 1, *hw, ci, relu=True)
+        w = _rand(dev, k, k, ci, co, scale=0.05)
+        g = torch.rand(co, device=dev) + 0.5
+        b = torch.randn(co, device=dev) * 0.1
+        act = co != 3
+        _close(conv.conv_bn_act(x, w, g, b, act=act),
+               conv.conv_bn_act_plain(x, w, g, b, act=act))
+        if conv.s8_supports(ci, co, k):
+            xq, wq = _s8(dev, 1, *hw, ci), _s8(dev, k, k, ci, co)
+            gq, bq = _gain(dev, co, 1e-4, ci + co)
+            _s8_same(conv.conv_bn_act_s8(xq, wq, gq, bq, out_dtype=f32),
+                     conv.conv_bn_act_s8_plain(xq, wq, gq, bq,
+                                               out_dtype=f32))
+
+
+def test_stitch_tiles_on_the_card_bit_equal_cpu(dev):
+    """Split and stitch on the card give the CPU's bits: the same adds
+    in grid order, the same divide."""
+    from ubresnet_tpu_torch.ops import tiling
+
+    rng = np.random.RandomState(0)
+    img = torch.from_numpy(rng.rand(1008, 3456, 3).astype(np.float32))
+    grid = tiling.tile_grid(1008, 3456)
+    tiles = torch.from_numpy(rng.rand(len(grid), 512, 832, 3)
+                             .astype(np.float32))
+    got = tiling.stitch_tiles(tiles.to(dev), grid, (1008, 3456))
+    want = tiling.stitch_tiles(tiles, grid, (1008, 3456))
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(tiling.extract_tiles(img.to(dev), grid, 512, 832)
+                       .cpu(), tiling.extract_tiles(img, grid, 512, 832))
+
+
+def test_wholeview_spatial_runner_on_the_card(dev):
+    """The spatial runner at batch 1 on a 96x1696 plane (48-row,
+    ragged-tile half resolution): 11 launches, and the argmax of the
+    plain bf16 path's runner (fused_eval off) on ≥ 99% of pixels."""
+    import dataclasses
+
+    from ubresnet_tpu_torch.core.precision import Policy
+    from ubresnet_tpu_torch.deploy import WholeViewRunner
+    from ubresnet_tpu_torch.deploy.weights import random_state_dict
+    from ubresnet_tpu_torch.models import get_model
+
+    sd = random_state_dict(seed=3)
+    rng = np.random.RandomState(1)
+    img = (rng.rand(96, 1696) * 60).astype(np.float32)
+    img[rng.rand(96, 1696) > 0.05] = 0.0
+    kernel = WholeViewRunner(get_model("uresnet", sd, device=dev),
+                             spatial=True)
+    plain = WholeViewRunner(get_model(
+        "uresnet", sd, policy=dataclasses.replace(Policy(), fused_eval=False),
+        device=dev), spatial=True)
+    ops.reset_launch_counts()
+    got = kernel.score_image(img)
+    counts = ops.launch_counts()
+    assert {k: v for k, v in counts.items() if v} == {
+        "conv_bn_act": 2, "basic_block": 6, "deconv2x": 2, "maxpool3x3s2": 1}
+    want = plain.score_image(img)
+    assert got.shape == want.shape == (96, 1696, 3)
+    np.testing.assert_allclose(got.sum(-1), 1.0, atol=1e-3)
+    assert (got.argmax(-1) == want.argmax(-1)).mean() >= 0.99
+
+
+def test_sparse_readback_on_the_card(dev, tmp_path):
+    """The precropped runner's sparse readback on the card: inside the
+    halo its scores equal the dense u8 readback's bit for bit, outside
+    it they are the zero-input field; 11 launches a batch, and 11 more
+    once for the field at batch 1. It ships fewer bytes than dense u8."""
+    import warnings
+
+    from ubresnet_tpu_torch.data.synthetic import make_synthetic_file
+    from ubresnet_tpu_torch.data.uevt import EventFileReader
+    from ubresnet_tpu_torch.deploy import PrecroppedRunner
+    from ubresnet_tpu_torch.deploy.weights import random_state_dict
+    from ubresnet_tpu_torch.models import get_model
+    from ubresnet_tpu_torch.ops.sparse import dilate_mask
+
+    path = make_synthetic_file(str(tmp_path / "in.uevt"), n_events=3,
+                               hw=(256, 256), seed=2)
+    sd = random_state_dict(seed=3)
+    sd["conv11.weight"] = sd["conv11.weight"] * 3e-4  # unsaturated scores
+    model = get_model("uresnet", sd, device=dev)
+    zone = {"conv_bn_act": 2, "basic_block": 6, "deconv2x": 2,
+            "maxpool3x3s2": 1}
+    scores = {}
+    for mode, forwards in (("u8", 2), ("sparse", 3)):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            runner = PrecroppedRunner(model, batch_size=2,
+                                      compact_readback=mode)
+        ops.reset_launch_counts()
+        runner.run(path, str(tmp_path / f"{mode}.uevt"))
+        counts = {k: v for k, v in ops.launch_counts().items() if v}
+        assert counts == {k: v * forwards for k, v in zone.items()}, mode
+        r = EventFileReader(str(tmp_path / f"{mode}.uevt"))
+        scores[mode] = np.stack([np.stack(
+            [im.pixels for im in r.read_entry(i)["uburn_plane2"]], -1)
+            for i in range(len(r))])
+        if mode == "sparse":
+            bg = runner._bg_field((256, 256))
+            assert runner._out_cap < 256 * 256
+    adc = EventFileReader(path)
+    halo = dilate_mask(np.stack([adc.read_entry(i)["wire"][0].pixels != 0
+                                 for i in range(3)]), 4)
+    np.testing.assert_array_equal(scores["sparse"][halo], scores["u8"][halo])
+    np.testing.assert_array_equal(
+        scores["sparse"][~halo],
+        np.broadcast_to(bg, scores["u8"].shape)[~halo])

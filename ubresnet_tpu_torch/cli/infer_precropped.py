@@ -3,7 +3,8 @@ ubresnet_tpu/cli/infer_precropped.py).
 
     python -m ubresnet_tpu_torch.cli.infer_precropped \\
         -i in.uevt -o out.uevt -c ckpt.tar -b 16 [--device cuda] \\
-        [--int8 [--int8-calib N] [--int8-percentile P]]
+        [--int8 [--int8-calib N] [--int8-percentile P]] \\
+        [--compact-readback {f16,u8,sparse} [--readback-dilate R]]
 
 Arg surface of the reference deploy/run_ubresnet_precropped.py:17-27
 (-i -o -c -p -t [-b -n -v]). Checkpoints are reference-format .tar
@@ -36,10 +37,17 @@ def build_parser():
     ap.add_argument("--f16-scores", action="store_true",
                     help="store score images as float16 (~5e-4 quantisation)")
     ap.add_argument("--compact-readback", nargs="?", const="f16",
-                    default=False, choices=["f16", "u8"],
+                    default=False, choices=["f16", "u8", "sparse"],
                     help="ship K-1 class scores off the device in f16 (the "
-                         "default when the flag is bare) or u8 fixed point; "
-                         "the host rebuilds the last class")
+                         "default when the flag is bare), u8 fixed point, "
+                         "or sparse (u8 at charge pixels and a "
+                         "--readback-dilate halo only; other pixels take "
+                         "the network's zero-input response, valid for "
+                         "trained weights); the host rebuilds the last "
+                         "class")
+    ap.add_argument("--readback-dilate", type=int, default=4, metavar="R",
+                    help="halo radius (pixels) around charge kept in "
+                         "--compact-readback sparse mode (default 4)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="where the model runs (default cuda; cpu only "
                          "when asked for)")
@@ -63,27 +71,15 @@ def build_parser():
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    from ubresnet_tpu_torch.core.precision import Policy
+    from ubresnet_tpu_torch.cli.common import load_model
     from ubresnet_tpu_torch.deploy import PrecroppedRunner
-    from ubresnet_tpu_torch.deploy.weights import load_reference_checkpoint
-    from ubresnet_tpu_torch.models import get_model
-    from ubresnet_tpu_torch.utils.platform import resolve_device, strict_f32
 
-    if args.int8 and args.f32:
-        raise SystemExit("--int8 and --f32 are mutually exclusive")
-    device = resolve_device(args.device)
-    policy = (Policy.f32() if args.f32 else
-              Policy.int8() if args.int8 else Policy())
-    if args.f32:
-        strict_f32()
-    if not args.checkpoint.endswith(".tar"):
-        raise SystemExit("the port reads reference-format .tar checkpoints")
-    sd, _ = load_reference_checkpoint(args.checkpoint)
-    model = get_model("uresnet", sd, policy=policy, device=device)
+    model = load_model(args)
     runner = PrecroppedRunner(
         model,
         batch_size=args.batchsize,
         compact_readback=args.compact_readback,
+        readback_dilate=args.readback_dilate,
         score_dtype=np.float16 if args.f16_scores else np.float32,
     )
     calib_s = None

@@ -5,7 +5,11 @@ fixed-capacity COO (flat index, value) pairs and the device scatters
 them into the dense image. The host-side helpers are numpy copies of
 the JAX package's; ``densify`` is a scatter-add on the device.
 Training batches travel in the same form (``sparsify_batch`` /
-``densify_batch``, the trainer's default transfer).
+``densify_batch``, the trainer's default transfer). The sparse
+readback of the deploy runners goes the other way: ``dilate_mask``
+and ``mask_indices`` pick the charge pixels and their halo on the
+host, and ``sparse_gather_forward`` returns the scores of those pixels
+only.
 """
 from __future__ import annotations
 
@@ -136,3 +140,36 @@ def mask_indices(mask: np.ndarray, capacity: int = None,
     idx = np.full((b, k), -1, np.int32)
     idx[rows[keep], slots[keep]] = cols[keep]
     return idx
+
+
+def dilate_mask(mask: np.ndarray, r: int) -> np.ndarray:
+    """(b, h, w) bool → square dilation by ``r`` pixels (separable
+    OR-shifts, O(r·hw)): the halo around charge where the network's
+    scores depart from its zero-input response. Never aliases its
+    input, also at r ≤ 0: callers may mutate the result."""
+    if r <= 0:
+        return mask.copy()
+    rowd = mask.copy()
+    for s in range(1, r + 1):
+        rowd[:, s:, :] |= mask[:, :-s, :]
+        rowd[:, :-s, :] |= mask[:, s:, :]
+    out = rowd.copy()
+    for s in range(1, r + 1):
+        out[:, :, s:] |= rowd[:, :, :-s]
+        out[:, :, :-s] |= rowd[:, :, s:]
+    return out
+
+
+def sparse_gather_forward(model, indices: torch.Tensor, values: torch.Tensor,
+                          out_idx: torch.Tensor, hw: Tuple[int, int]
+                          ) -> torch.Tensor:
+    """COO input (b, K) and output pixel indices (b, Ko) on the model's
+    device → (b, Ko, C-1) uint8 scores at those pixels: densify, the
+    model, exp, a gather at ``out_idx`` (the -1 pad sentinel clamped to
+    pixel 0, whose value the host paste drops), the first C-1 classes
+    in 255-level fixed point (the host rebuilds the last as 1 - sum)."""
+    probs = torch.exp(model(densify(indices, values, hw)))
+    b, h, w, c = probs.shape
+    idx = out_idx.long().clamp(min=0).unsqueeze(-1).expand(-1, -1, c)
+    g = torch.gather(probs.reshape(b, h * w, c), 1, idx)
+    return torch.round(g[..., :-1] * 255.0).to(torch.uint8)

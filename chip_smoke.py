@@ -9,7 +9,9 @@ Phases, each printing JSON lines; any failure exits non-zero:
              no run: without CUDA the script exits 1 before anything.
 2. build   — nvcc builds the twelve Hopper kernels from
              ubresnet_tpu_torch/ops/csrc for sm_90a (-Xptxas -v): every
-             kernel's registers, spills and static shared memory.
+             kernel's registers, spills and static shared memory; beside
+             it g++ builds the host libraries librootio and libuevt from
+             ubresnet_tpu_torch/cpp (compiler, seconds).
 3. kernels — every kernel-zone layer of the flagship UResNet at its
              main-path shape and batch (16): the kernel against its plain
              PyTorch version on the same bf16 inputs, the kernel's, the
@@ -133,13 +135,41 @@ Phases, each printing JSON lines; any failure exits non-zero:
              (--wholeview). Gates: the good files served (score sums
              1 ± 1e-2), the corrupt one quarantined (.failed), the
              shutdown line, launches exactly 11 per batch and per plane.
-10. summary — the kernels line (K1-K9, K1-s8, K2-s8, K3-s8) with the
-             launches of every path (wholeview and serve among them), the
-             times at the main cell and, under at_shapes, at the
-             wholeview cells; the card line, the result line.
+10. root   — larcv .root in and out on the card, at the main path's
+             sizes and weights: each codec of librootio linked, dlopen'ed
+             or absent, and the build phase's host build; the main
+             phase's 64 crops, the wholeview phase's 4 planes and the
+             train phase's 64 events .uevt → .root with uevt_to_root,
+             read back equal (pixels, meta, run/subrun/event);
+             infer_precropped .root → .root (-b 16; first and warm) and
+             infer_wholeview .root → .root (spatial; the wire producer),
+             each beside its .uevt → .uevt run: 3 float32 score images
+             an event summing to 1 ± 1e-2, launches exact (11 a batch or
+             a plane), argmax agreement with the .uevt scores ≥ 99.9% and
+             max|Δp| ≤ 1e-2 (bit equality printed); serve --once
+             --root-out over a .root, a .uevt and a corrupt .root (both
+             served to <name>_scores.root, the corrupt one quarantined,
+             launches exact); the train CLI on the .root (batch 16, 8
+             iterations, native: true) plain, with --set model.remat=true
+             and with --set remat=true: the NativeBatchLoader served,
+             finite losses, launches exactly the step table × 8 plus, per
+             step, K5 15 (stage remat) or K5 16, K4 1, K1 1 (whole
+             forward); 2 iterations under --trace (the trace names a zone
+             kernel) and --debug-dump (48 PNGs). On train_parity's batch
+             one Adam step without remat, with stage remat and with
+             whole-forward remat: each remat step's loss and gradients
+             within train_parity's gates of the no-remat step's, its BN
+             running stats within 1e-6·max|stat| of them, its launches
+             exactly the step table plus the remat launches above; step
+             ms (CUDA events) and peak memory of each.
+11. summary — the kernels line (K1-K9, K1-s8, K2-s8, K3-s8) with the
+             launches of every path (wholeview, serve and root among
+             them), the times at the main cell and, under at_shapes, at
+             the wholeview cells; the card line, the result line.
 
 Scratch files go under build/chip_smoke in the checkout.
 """
+import concurrent.futures
 import contextlib
 import io
 import json
@@ -183,6 +213,15 @@ LAUNCHES_PER_QAT_VALID = {"conv_bn_act": 2, "deconv2x": 2,
                           "maxpool3x3s2": 1}
 TRAIN_ITERS, VALID_EVERY = 8, 4
 QAT_ITERS, LADDER_STEPS = 4, 10
+# launches a train step adds under remat: stage remat (Policy.remat)
+# recomputes enc1, dec2 and dec1 in backward, their 15 BN-fed zone
+# convs (K5; the stem and the head are in no stage); whole-forward
+# remat (the step's remat) recomputes the forward: K5 16, the stem pool
+# K4 1 and the classifier's forward K1 1 (the loss K7 is outside it)
+REMAT_EXTRA = {"model_remat": {"conv_stats": 15},
+               "remat": {"conv_stats": 16, "maxpool3x3s2": 1,
+                         "conv_bn_act": 1}}
+TRACE_ITERS = 2             # iterations of the root phase's --trace run
 # kernels line entry → (source, the TPU kernel it replaces, row kernels,
 # the paths that must launch it)
 PALLAS = "ubresnet_tpu/ops/pallas_conv.py"
@@ -192,33 +231,33 @@ SOURCES = {
                     " + :1811 pallas_conv_ad (forward, dx)",
                     ("conv_bn_act",),
                     ("precropped", "train", "train_deconv", "qat", "int8",
-                     "wholeview", "serve")),
+                     "wholeview", "serve", "root")),
     "basic_block": ("ubresnet_tpu_torch/ops/csrc/basic_block.cu",
                     f"{PALLAS}:1483 fused_basic_block"
                     " + :699 fused_dual_block", ("basic_block",),
-                    ("precropped", "train", "wholeview", "serve")),
+                    ("precropped", "train", "wholeview", "serve", "root")),
     "deconv2x": ("ubresnet_tpu_torch/ops/csrc/deconv2x.cu",
                  f"{PALLAS}:898 fused_packed_deconv2x"
                  " + :1341 pallas_deconv2x_ad (forward)",
                  ("deconv2x",), ("precropped", "train", "train_deconv",
-                                 "qat", "wholeview", "serve")),
+                                 "qat", "wholeview", "serve", "root")),
     "maxpool3x3s2": ("ubresnet_tpu_torch/ops/csrc/maxpool3x3s2.cu",
                      f"{PALLAS}:525 fused_pool3x3s2"
                      " + ubresnet_tpu/ops/pool_ad.py:133 packed_pool_ad "
                      "(forward)", ("maxpool3x3s2",),
                      ("precropped", "train", "train_deconv", "qat", "int8",
-                      "wholeview", "serve")),
+                      "wholeview", "serve", "root")),
     "conv_stats": ("ubresnet_tpu_torch/ops/csrc/conv_stats.cu",
                    "ubresnet_tpu/ops/pallas_train.py:206 train_conv_stats",
-                   ("conv_stats",), ("train", "train_deconv", "qat")),
+                   ("conv_stats",), ("train", "train_deconv", "qat", "root")),
     "conv_dw": ("ubresnet_tpu_torch/ops/csrc/conv_dw.cu",
                 f"{PALLAS}:1677 pallas_conv_dw", ("conv_dw",),
-                ("train", "train_deconv", "qat")),
+                ("train", "train_deconv", "qat", "root")),
     "weighted_nll": ("ubresnet_tpu_torch/ops/csrc/weighted_nll.cu",
                      "ubresnet_tpu/ops/pallas_loss.py:100 "
                      "pallas_weighted_nll", ("weighted_nll",
                                              "weighted_nll_bwd"),
-                     ("train", "train_deconv", "qat")),
+                     ("train", "train_deconv", "qat", "root")),
     "conv_s2k4": ("ubresnet_tpu_torch/ops/csrc/conv_s2k4.cu",
                   f"{PALLAS}:1148 fused_conv_s2k4 (the dx leg of :1341 "
                   "pallas_deconv2x_ad)", ("conv_s2k4",), ("train_deconv",)),
@@ -1256,20 +1295,22 @@ def int8_path(dev, card, work):
     return launches
 
 
-def _check_scores(path, n, producer, hw):
-    """Every event of ``path`` carries 3 finite ``producer`` score
-    images of ``hw`` summing to 1 ± 1e-2; returns the largest deviation
-    of a sum."""
+def _check_scores(path, n, producer, hw, dtype=None):
+    """Every event of ``path`` (.uevt or larcv .root) carries 3 finite
+    ``producer`` score images of ``hw`` (stored as ``dtype`` when given)
+    summing to 1 ± 1e-2; returns the largest deviation of a sum."""
     import numpy as np
 
-    from ubresnet_tpu_torch.data.uevt import EventFileReader
+    from ubresnet_tpu_torch.data.rootio import open_event_file
 
-    reader = EventFileReader(path)
+    reader = open_event_file(path)
     require(len(reader) == n, f"{path}: {len(reader)} events written")
     worst = 0.0
     for i in range(n):
         imgs = reader.read_entry(i).get(producer, [])
         require(len(imgs) == 3, f"event {i}: {len(imgs)} {producer} images")
+        require(dtype is None or all(im.pixels.dtype == dtype for im in imgs),
+                f"event {i}: {producer} stored as {imgs[0].pixels.dtype}")
         s = np.stack([im.pixels for im in imgs], -1).astype(np.float32)
         require(s.shape == tuple(hw) + (3,) and np.isfinite(s).all(),
                 f"event {i}: bad scores {s.shape}")
@@ -1489,6 +1530,385 @@ def serve_path(dev, card, work):
         exp = {k: LAUNCHES_PER_BATCH.get(k, 0) * n for k in got}
         require(got == exp, f"serve {name} launch counts {got} != {exp}")
     return _merge(crops["launches"], planes["launches"])
+
+
+def _run_cli(fn, argv):
+    """``fn(argv)`` with its stdout and stderr captured and the kernels'
+    launches counted: (rc, stdout, stderr, wall s, launches)."""
+    import torch
+
+    from ubresnet_tpu_torch import ops
+
+    printed, errors = io.StringIO(), io.StringIO()
+    ops.reset_launch_counts()
+    t0 = time.time()
+    with contextlib.redirect_stdout(printed), \
+            contextlib.redirect_stderr(errors):
+        rc = fn(argv)
+    torch.cuda.synchronize()
+    return (rc, printed.getvalue(), errors.getvalue(), time.time() - t0,
+            ops.launch_counts())
+
+
+def _agreement(path_a, path_b, producer):
+    """Argmax agreement, max|Δp| and bit equality of two score files'
+    ``producer`` images (any format)."""
+    import numpy as np
+
+    from ubresnet_tpu_torch.data.rootio import open_event_file
+
+    a, b = open_event_file(path_a), open_event_file(path_b)
+    agree, dp, same = [], 0.0, True
+    for i in range(len(a)):
+        sa, sb = (np.stack([im.pixels.astype(np.float32)
+                            for im in r.read_entry(i)[producer]], -1)
+                  for r in (a, b))
+        agree.append(float((sa.argmax(-1) == sb.argmax(-1)).mean()))
+        dp = max(dp, float(np.abs(sa - sb).max()))
+        same = same and np.array_equal(sa, sb)
+    return {"argmax_agreement": float(np.mean(agree)), "max_abs_dp": dp,
+            "bit_equal": same}
+
+
+def _root_round_trip(src, dst, producers=None):
+    """``src`` (.uevt) → ``dst`` (.root) with the port's uevt_to_root
+    (``producers``, or all); read back, every image's pixels, meta and
+    ids must equal the source's. Returns the conversion's seconds."""
+    import dataclasses
+
+    import numpy as np
+
+    from ubresnet_tpu_torch.data.rootio import RootEventReader, uevt_to_root
+    from ubresnet_tpu_torch.data.uevt import EventFileReader
+
+    t0 = time.time()
+    n = uevt_to_root(src, dst, producers)
+    seconds = time.time() - t0
+    u, r = EventFileReader(src), RootEventReader(dst)
+    require(n == len(u) == len(r), f"{dst}: {len(r)} of {len(u)} entries")
+    for i in range(n):
+        eu, er = u.read_entry(i, producers), r.read_entry(i)
+        require(r.rse(i) == u.rse(i) and sorted(eu) == sorted(er),
+                f"{dst} entry {i}: ids or producers differ")
+        for prod, imgs in eu.items():
+            for a, b in zip(imgs, er[prod], strict=True):
+                require(np.array_equal(a.pixels.astype(np.float32), b.pixels)
+                        and dataclasses.astuple(a.meta)
+                        == dataclasses.astuple(b.meta) and a.rse == b.rse,
+                        f"{dst} entry {i} {prod}: pixels, meta or ids differ")
+    r.close()
+    return seconds
+
+
+def _remat_steps(dev):
+    """train_parity's batch and weights through one Adam step without
+    remat, with stage remat (Policy.remat) and with whole-forward remat
+    (the step's remat): each remat step's loss and gradients against the
+    no-remat step's under train_parity's gates, its BN running stats
+    within 1e-6·max|stat| of them (a recompute that moved them again
+    would be 10% off), its launches exactly the step table plus
+    REMAT_EXTRA; then 4 more steps timed with CUDA events and their peak
+    memory."""
+    import dataclasses
+
+    import torch
+
+    from ubresnet_tpu_torch import ops
+    from ubresnet_tpu_torch.core.precision import Policy
+    from ubresnet_tpu_torch.deploy.weights import random_state_dict
+    from ubresnet_tpu_torch.models import get_model
+    from ubresnet_tpu_torch.train import (
+        build_train_step,
+        create_train_state,
+        make_optimizer,
+    )
+
+    sd = random_state_dict(seed=0)
+    b = {k: torch.from_numpy(v).to(dev) for k, v in _train_batch(7).items()}
+    runs = {}
+    for mode, stage, whole in (("none", False, False),
+                               ("model_remat", True, False),
+                               ("remat", False, True)):
+        model = get_model("uresnet", sd, device=dev, train=True,
+                          policy=dataclasses.replace(Policy(), remat=stage))
+        opt = make_optimizer(model.parameters(), "adam", 1e-3,
+                             weight_decay=1e-4)
+        step = build_train_step(use_pallas_loss=True, remat=whole,
+                                device=dev)
+        state = create_train_state(model, opt)
+        ops.reset_launch_counts()
+        state, m = step(state, b)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in ops.launch_counts().items() if v}
+        grads = {k: p.grad.float().clone()
+                 for k, p in model.named_parameters()}
+        stats = {k: v.clone() for k, v in model.state_dict().items()
+                 if k.endswith(("running_mean", "running_var"))}
+        torch.cuda.reset_peak_memory_stats()
+        state, losses, times = _adam_steps(step, state, b, n=4)
+        runs[mode] = {"loss": m["loss"], "grads": grads, "stats": stats,
+                      "launches": launches,
+                      "step_ms": sum(times[1:]) / len(times[1:]),
+                      "peak_mem_gib":
+                          torch.cuda.max_memory_allocated() / 2 ** 30,
+                      "losses": losses}
+        del model, opt, state, step
+        torch.cuda.empty_cache()
+    ref = runs["none"]
+    gsc = max(float(g.abs().max()) for g in ref["grads"].values())
+    out = {"none": {k: ref[k] for k in ("loss", "step_ms", "peak_mem_gib",
+                                        "launches")}}
+    for mode in REMAT_EXTRA:
+        r = runs[mode]
+        want = {k: v + REMAT_EXTRA[mode].get(k, 0)
+                for k, v in ref["launches"].items()}
+        stat_err = max(float((r["stats"][k] - v).abs().max())
+                       / max(float(v.abs().max()), 1e-30)
+                       for k, v in ref["stats"].items())
+        out[mode] = {
+            "loss": r["loss"],
+            "loss_rel_vs_no_remat": abs(r["loss"] - ref["loss"])
+            / abs(ref["loss"]),
+            "grad_err_vs_no_remat": max(
+                float((r["grads"][k] - g).abs().max())
+                for k, g in ref["grads"].items()) / gsc,
+            "bn_stats_rel_err_vs_no_remat": stat_err,
+            "launches": r["launches"], "launches_want": want,
+            "step_ms": r["step_ms"], "peak_mem_gib": r["peak_mem_gib"],
+            "step_ms_over_no_remat": r["step_ms"] / ref["step_ms"],
+            "peak_mem_over_no_remat": r["peak_mem_gib"] / ref["peak_mem_gib"]}
+    require(ref["launches"] == LAUNCHES_PER_TRAIN_STEP,
+            f"train step launches {ref['launches']}")
+    return out
+
+
+def host_libraries():
+    """Build librootio and libuevt from the port's cpp/ copies (g++,
+    utils/native_build.py): the compiler, and each library's seconds
+    and whether this call built it."""
+    from ubresnet_tpu_torch.utils import native_build
+
+    cxx = native_build.compiler()
+    version = subprocess.run([cxx, "--version"], capture_output=True,
+                             text=True, timeout=60).stdout.splitlines()[0]
+    libs = {}
+    for name in ("rootio", "uevt"):
+        fresh = not native_build.library_path(name).exists()
+        t0 = time.time()
+        lib = native_build.build(name)
+        libs[name] = {"seconds": time.time() - t0, "built_now": fresh,
+                      "library": os.path.relpath(lib, HERE)}
+    return {"compiler": cxx, "version": version, "libraries": libs}
+
+
+def root_path(dev, card, work, gates, host_build):
+    """larcv .root in and out through every entry point, at the main
+    path's sizes and with its weights (``host_build``: the build phase's
+    report of the host libraries, printed with their codecs): the
+    main phase's 64 crops .uevt → .root and back (equal); precropped
+    deploy .root → .root (first, warm) against .uevt → .uevt; wholeview
+    .root → .root over the wholeview phase's 4 planes against .uevt;
+    serve --root-out over a .root, a .uevt and a corrupt .root; the
+    train CLI on a .root of the train phase's 64 events through the C++
+    filler, plain, with model.remat and with remat, then --trace and
+    --debug-dump; the remat steps on train_parity's batch. Returns the
+    launches of the deploy and train CLI runs."""
+    import numpy as np
+    import torch
+
+    from ubresnet_tpu_torch.cli.infer_precropped import main as precropped
+    from ubresnet_tpu_torch.cli.infer_wholeview import main as wholeview
+    from ubresnet_tpu_torch.cli.serve import main as serve
+    from ubresnet_tpu_torch.cli.train import main as train_cli
+    from ubresnet_tpu_torch.data import native, rootio
+    from ubresnet_tpu_torch.data.synthetic import make_synthetic_file
+
+    require(rootio.native_available() and native.native_available(),
+            "the host libraries do not load")
+    tar = os.path.join(work, "weights.tar")
+    p = {n: os.path.join(work, n) for n in (
+        "crops.uevt", "crops.root", "root_scores.root", "root_scores.uevt",
+        "planes.uevt", "planes.root", "plane_scores.root",
+        "plane_scores.uevt", "train.uevt", "train.root")}
+    t_phase = time.time()
+    result = {"phase": "root", "card": card, "host_build": host_build,
+              "codecs": rootio.codecs()}
+    launches = []
+
+    # 1. round trip of the main phase's crops
+    result["uevt_to_root_s"] = {"crops": _root_round_trip(
+        p["crops.uevt"], p["crops.root"])}
+
+    # 2. precropped deploy, .root → .root against .uevt → .uevt
+    batches = -(-EVENTS // BATCH_MAIN)
+    runs = {}
+    for name, src, out in (("root", "crops.root", "root_scores.root"),
+                           ("root_warm", "crops.root", "root_scores.root"),
+                           ("uevt_warm", "crops.uevt", "root_scores.uevt")):
+        rc, text, _, wall, got = _run_cli(precropped, [
+            "-i", p[src], "-o", p[out], "-c", tar, "-b", str(BATCH_MAIN),
+            "--device", "cuda"])
+        require(rc == 0, f"precropped {name} returned {rc}")
+        want = {k: LAUNCHES_PER_BATCH.get(k, 0) * batches for k in got}
+        require(got == want, f"precropped {name} launches {got} != {want}")
+        launches.append(got)
+        runs[name] = {"cli_wall_s": wall,
+                      "crops_per_s_file_to_file": EVENTS / wall,
+                      "timing": json.loads(text.strip().splitlines()[-1])}
+    sums = _check_scores(p["root_scores.root"], EVENTS, "uburn_plane2", HW,
+                         np.float32)
+    vs = _agreement(p["root_scores.root"], p["root_scores.uevt"],
+                    "uburn_plane2")
+    result["precropped"] = {"runs": runs, "score_sum_max_dev": sums,
+                            "root_vs_uevt": vs}
+    require(vs["argmax_agreement"] >= 0.999 and vs["max_abs_dp"] <= 1e-2,
+            f"precropped .root vs .uevt: {vs}")
+
+    # 3. wholeview deploy (spatial), .root → .root against .uevt (the
+    # scored producer only: the planes' labels and weights are 2/3 of
+    # the bytes and no deploy reads them)
+    result["uevt_to_root_s"]["planes"] = _root_round_trip(
+        p["planes.uevt"], p["planes.root"], ["wire"])
+    runs = {}
+    for name, src, out in (("root", "planes.root", "plane_scores.root"),
+                           ("uevt", "planes.uevt", "plane_scores.uevt")):
+        rc, text, _, wall, got = _run_cli(wholeview, [
+            "-i", p[src], "-o", p[out], "-c", tar, "--device", "cuda"])
+        require(rc == 0, f"wholeview {name} returned {rc}")
+        want = _times(LAUNCHES_PER_BATCH, WV_EVENTS)
+        want = {k: want.get(k, 0) for k in got}
+        require(got == want, f"wholeview {name} launches {got} != {want}")
+        launches.append(got)
+        runs[name] = {"cli_wall_s": wall,
+                      "planes_per_s_file_to_file": WV_EVENTS / wall,
+                      "timing": json.loads(text.strip().splitlines()[-1])}
+    sums = _check_scores(p["plane_scores.root"], WV_EVENTS, "ubsnet_plane2",
+                         WV_HW, np.float32)
+    vs = _agreement(p["plane_scores.root"], p["plane_scores.uevt"],
+                    "ubsnet_plane2")
+    result["wholeview"] = {"runs": runs, "score_sum_max_dev": sums,
+                           "root_vs_uevt": vs}
+    require(vs["argmax_agreement"] >= 0.999 and vs["max_abs_dp"] <= 1e-2,
+            f"wholeview .root vs .uevt: {vs}")
+
+    # 4. serve --root-out: a .root, a .uevt and a corrupt .root
+    watch, outd = (os.path.join(work, f"serve_root_{s}")
+                   for s in ("in", "out"))
+    for d in (watch, outd):
+        shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(watch)
+    make_synthetic_file(os.path.join(work, "serve_a.uevt"),
+                        n_events=SERVE_CROPS, hw=HW, seed=20)
+    rootio.uevt_to_root(os.path.join(work, "serve_a.uevt"),
+                        os.path.join(watch, "a.root"))
+    make_synthetic_file(os.path.join(watch, "b.uevt"), n_events=SERVE_CROPS,
+                        hw=HW, seed=21)
+    with open(os.path.join(watch, "c.root"), "wb") as f:
+        f.write(b"root" + bytes(60))
+    rc, text, err, wall, got = _run_cli(serve, [
+        "--watch-dir", watch, "--out-dir", outd, "-c", tar, "--once",
+        "--root-out", "-b", str(BATCH_MAIN), "--device", "cuda"])
+    lines = [json.loads(ln) for ln in text.splitlines() if ln.startswith("{")]
+    failed = [json.loads(ln) for ln in err.splitlines() if ln.startswith("{")]
+    result["serve"] = {"wall_s": wall, "lines": lines, "failed": failed}
+    require(rc == 0 and lines[-1] == {"shutdown": True, "served": 2}
+            and [ln.get("served") for ln in lines[:-1]]
+            == ["a.root", "b.uevt"], f"serve --root-out: {lines}")
+    require([f["failed"] for f in failed] == ["c.root"]
+            and os.path.exists(os.path.join(outd, "c.root.failed"))
+            and not os.path.exists(os.path.join(outd, "c_scores.root")),
+            f"corrupt .root not quarantined: {failed}")
+    for f in ("a", "b"):
+        _check_scores(os.path.join(outd, f"{f}_scores.root"), SERVE_CROPS,
+                      "uburn_plane2", HW, np.float32)
+    n = 2 * -(-SERVE_CROPS // BATCH_MAIN)
+    want = {k: LAUNCHES_PER_BATCH.get(k, 0) * n for k in got}
+    require(got == want, f"serve --root-out launches {got} != {want}")
+    launches.append(got)
+
+    # 5. training from .root through the C++ filler
+    result["uevt_to_root_s"]["train"] = _root_round_trip(
+        p["train.uevt"], p["train.root"])
+    cfg = {"model": {"precision": "bf16"},
+           "optim": {"name": "adam", "lr": 1e-3},
+           "train_data": {"files": [p["train.root"]],
+                          "batch_size": BATCH_MAIN, "native": True},
+           "num_iters": TRAIN_ITERS, "print_every": 1,
+           "checkpoint_every": TRAIN_ITERS, "seed": 0}
+    cfg_path = os.path.join(work, "train_root.json")
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f)
+    train = {}
+    for mode, extra, iters in (
+            ("plain", [], TRAIN_ITERS),
+            ("model_remat", ["--set", "model.remat=true"], TRAIN_ITERS),
+            ("remat", ["--set", "remat=true"], TRAIN_ITERS),
+            ("trace", ["--set", f"num_iters={TRACE_ITERS}", "--trace",
+                       os.path.join(work, "train_trace")], TRACE_ITERS)):
+        ckpt = os.path.join(work, f"train_root_ckpt_{mode}")
+        shutil.rmtree(ckpt, ignore_errors=True)
+        torch.cuda.reset_peak_memory_stats()
+        rc, out, _, wall, got = _run_cli(train_cli, [
+            "--config", cfg_path, "--set", f"checkpoint_dir={ckpt}",
+            *extra, "--device", "cuda"])
+        summary = json.loads(out[out.rfind("\n{\n") + 1:])
+        losses = [float(ln.split()[3]) for ln in out.splitlines()
+                  if ln.startswith("iter ")]
+        step = {k: v + REMAT_EXTRA.get(mode, {}).get(k, 0)
+                for k, v in LAUNCHES_PER_TRAIN_STEP.items()}
+        want = {k: step.get(k, 0) * iters for k in got}
+        train[mode] = {"rc": rc, "cli_wall_s": wall, "losses": losses,
+                       "loader": summary.get("loader"),
+                       "final_iter": summary.get("final_iter"),
+                       "launches": got,
+                       "host_step_ms_mean": 1e3 * summary.get(
+                           "meters", {}).get("time/step", float("nan")),
+                       "peak_mem_gib":
+                           torch.cuda.max_memory_allocated() / 2 ** 30}
+        require(rc == 0 and "error" not in summary
+                and summary["final_iter"] == iters,
+                f"train from .root ({mode}) failed:\n{out}")
+        require(summary["loader"] == "NativeBatchLoader",
+                f"train from .root ({mode}): {summary['loader']} served")
+        require(len(losses) == iters and np.isfinite(losses).all(),
+                f"train from .root ({mode}): losses {losses}")
+        require(got == want, f"train from .root ({mode}) launches {got} "
+                             f"!= {want}")
+        launches.append(got)
+    trace = os.path.join(work, "train_trace", "trace.json")
+    with open(trace) as f:
+        text = f.read()
+    named = sorted(z for z in ZONE_KERNELS if z in text)
+    train["trace"].update(trace_bytes=len(text), trace_zone_kernels=named)
+    require(named, f"{trace} names no zone kernel")
+    dump = os.path.join(work, "train_dump")
+    shutil.rmtree(dump, ignore_errors=True)
+    rc, out, _, _, _ = _run_cli(train_cli, ["--config", cfg_path,
+                                            "--debug-dump", dump])
+    pngs = sorted(os.listdir(dump)) if os.path.isdir(dump) else []
+    want = sorted(f"{k}_{i}.png" for k in ("adc", "label", "weight")
+                  for i in range(BATCH_MAIN))
+    train["debug_dump_pngs"] = len(pngs)
+    require(rc == 0 and pngs == want, f"--debug-dump wrote {pngs}")
+    for name in pngs:
+        with open(os.path.join(dump, name), "rb") as f:
+            require(f.read(8) == b"\x89PNG\r\n\x1a\n", f"{name}: not a PNG")
+    result["train"] = train
+    remat = _remat_steps(dev)
+    result.update(remat_steps=remat, seconds=time.time() - t_phase)
+    emit(result)
+    for mode in REMAT_EXTRA:
+        r = remat[mode]
+        require(r["loss_rel_vs_no_remat"] <= gates["loss_rel_vs_f32"]
+                and r["grad_err_vs_no_remat"] <= gates["grad_err_vs_f32"],
+                f"{mode} step vs no remat: {r}")
+        require(r["bn_stats_rel_err_vs_no_remat"] <= 1e-6,
+                f"{mode}: BN running stats moved off the no-remat step's "
+                f"({r['bn_stats_rel_err_vs_no_remat']})")
+        require(r["launches"] == r["launches_want"],
+                f"{mode} step launches {r['launches']} != "
+                f"{r['launches_want']}")
+    return _merge(*launches)
 
 
 def _train_batch(seed):
@@ -1855,6 +2275,7 @@ def train_path(dev, card, work):
               "batch": BATCH_MAIN, "hw": list(HW), "iters": TRAIN_ITERS,
               "rc": rc, "setup_s": setup_s, "cli_wall_s": wall,
               "losses": losses, "final_iter": summary.get("final_iter"),
+              "loader": summary.get("loader"),
               "launches": launches, "launches_want": want,
               "host_step_ms_mean": step_s * 1e3 if step_s else None,
               "meters": summary.get("meters"),
@@ -1968,6 +2389,7 @@ def main():
     from ubresnet_tpu_torch.ops import _build
     from ubresnet_tpu_torch.utils.platform import strict_f32
 
+    t_start = time.time()
     card = card_line()
     print(card, flush=True)
     emit({"phase": "device", "card": card,
@@ -1975,13 +2397,16 @@ def main():
           "kind": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count()})
     t0 = time.time()
-    lib = _build.build()
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        host = pool.submit(host_libraries)  # g++ beside the nvcc builds
+        lib = _build.build()
+        host_build = host.result()
     report = _build.ptxas_report()
     PTXAS.update({r["kernel"]: {k: r.get(k) for k in (
         "registers", "spill_stores", "spill_loads", "stack_bytes")}
         for r in report})
     emit({"phase": "build", "seconds": time.time() - t0, "library": str(lib),
-          "ptxas": report})
+          "host": host_build, "ptxas": report})
 
     strict_f32()  # the plain versions are f32 cuDNN convs: no TF32
     dev = torch.device("cuda", 0)
@@ -2003,6 +2428,7 @@ def main():
     ref = train_parity(dev, card)
     torch.cuda.empty_cache()
     launches["train_deconv"] = train_deconv(dev, card, ref, rows)
+    gates = ref["gates"]
     del ref
     torch.cuda.empty_cache()
     launches["train"] = train_path(dev, card, work)
@@ -2014,6 +2440,8 @@ def main():
     launches["wholeview"] = wholeview_path(dev, card, work)
     torch.cuda.empty_cache()
     launches["serve"] = serve_path(dev, card, work)
+    torch.cuda.empty_cache()
+    launches["root"] = root_path(dev, card, work, gates, host_build)
     line = kernels_line(rows, launches)
     for k in line["kernels"]:
         paths = SOURCES[k["name"]][3]
@@ -2021,6 +2449,7 @@ def main():
                 f"{k['name']} was not launched on its main path "
                 f"{paths}: {k['launches_by_path']}")
     emit(line)
+    emit({"phase": "elapsed", "seconds": time.time() - t_start})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -760,3 +760,39 @@ def test_sparse_readback_on_the_card(dev, tmp_path):
     np.testing.assert_array_equal(
         scores["sparse"][~halo],
         np.broadcast_to(bg, scores["u8"].shape)[~halo])
+
+
+def test_root_precropped_on_the_card_equals_uevt(dev, tmp_path):
+    """larcv .root in and out on the card: the same crops as .root and
+    as .uevt, scored by one bf16 kernel-zone model, give the same
+    float32 scores bit for bit (the forward does not see the format),
+    with 11 launches a batch either way."""
+    from ubresnet_tpu_torch.data.rootio import open_event_file, uevt_to_root
+    from ubresnet_tpu_torch.data.synthetic import make_synthetic_file
+    from ubresnet_tpu_torch.deploy import PrecroppedRunner
+    from ubresnet_tpu_torch.deploy.weights import random_state_dict
+    from ubresnet_tpu_torch.models import get_model
+
+    src = make_synthetic_file(str(tmp_path / "in.uevt"), n_events=5,
+                              hw=(256, 256), seed=4)
+    uevt_to_root(src, str(tmp_path / "in.root"))
+    sd = random_state_dict(seed=3)
+    sd["conv11.weight"] = sd["conv11.weight"] * 3e-4
+    runner = PrecroppedRunner(get_model("uresnet", sd, device=dev),
+                              batch_size=2, score_dtype=np.float16)
+    zone = {"conv_bn_act": 2, "basic_block": 6, "deconv2x": 2,
+            "maxpool3x3s2": 1}
+    scores = {}
+    for ext in ("uevt", "root"):
+        ops.reset_launch_counts()
+        runner.run(str(tmp_path / f"in.{ext}"), str(tmp_path / f"o.{ext}"))
+        assert {k: v for k, v in ops.launch_counts().items() if v} == {
+            k: 3 * v for k, v in zone.items()}
+        r = open_event_file(str(tmp_path / f"o.{ext}"))
+        scores[ext] = [np.stack([im.pixels for im in r.read_entry(i)[
+            "uburn_plane2"]], -1) for i in range(len(r))]
+    assert len(scores["root"]) == 5
+    for s_root, s_uevt in zip(scores["root"], scores["uevt"]):
+        assert s_root.dtype == np.float32 and s_uevt.dtype == np.float16
+        np.testing.assert_allclose(s_root.sum(-1), 1.0, atol=1e-2)
+        np.testing.assert_array_equal(s_root.astype(np.float16), s_uevt)

@@ -83,6 +83,47 @@ def test_sources_name_no_jax():
     assert len(files) > 20 and hits == []
 
 
+def test_sources_name_no_jax_cpp():
+    """No file of the port (Python, CUDA or C++) and not chip_smoke.py
+    names a path under the JAX package's cpp/ directory, builds with its
+    Makefile or loads a library from there: the port builds its own
+    copies (cpp/rootio.cpp, cpp/uevt.cpp) with utils/native_build.py."""
+    files = [p for p in PORT.rglob("*")
+             if p.suffix in (".py", ".cu", ".cuh", ".cpp")]
+    files.append(ROOT / "chip_smoke.py")
+    pat = re.compile(r"ubresnet_tpu[\\/]+cpp"
+                     r"|[\"']ubresnet_tpu[\"']\s*,\s*[\"']cpp[\"']"
+                     r"|\bmake\b[\"']?\s*,\s*[\"']-C")
+    hits = [f"{p.relative_to(ROOT)}:{i}" for p in files
+            for i, line in enumerate(p.read_text().splitlines(), 1)
+            if pat.search(line)]
+    assert any(p.suffix == ".cpp" for p in files) and hits == []
+    # every ctypes load in the port goes through one of its builds
+    loads = [f"{p.relative_to(ROOT)}:{i}" for p in files if p.suffix == ".py"
+             for i, line in enumerate(p.read_text().splitlines(), 1)
+             if "CDLL(" in line and "build(" not in line]
+    assert loads == [], loads
+
+
+def test_host_libraries_load_from_the_ports_build():
+    """Loading the port's ROOT I/O and batch filler (a fresh process)
+    maps the libraries from build/host/ and nothing from the JAX
+    package's cpp/."""
+    code = ("from ubresnet_tpu_torch.data import native, rootio\n"
+            "rootio._load(); native._load()\n"
+            "print('\\n'.join(sorted({l.split()[-1] for l in "
+            "open('/proc/self/maps') if l.rstrip().endswith('.so')})))\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, cwd=ROOT, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    libs = proc.stdout.split()
+    ours = [p for p in libs if "/build/host/lib" in p]
+    assert len(ours) == 2, libs
+    assert {pathlib.Path(p).name.split("-")[0] for p in ours} == {
+        "librootio", "libuevt"}
+    assert not [p for p in libs if "ubresnet_tpu/cpp" in p]
+
+
 def test_resolve_device_raises_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -13,6 +13,7 @@ from ubresnet_tpu.cli.infer_precropped import main as jax_main
 from ubresnet_tpu.data.uevt import EventFileReader as JaxReader
 from ubresnet_tpu.parity.torch_oracle import make_state_dict
 from ubresnet_tpu_torch.cli.infer_precropped import main as port_main
+from ubresnet_tpu_torch.data.rootio import open_event_file
 from ubresnet_tpu_torch.data.synthetic import make_synthetic_file
 from ubresnet_tpu_torch.data.uevt import EventFileReader as PortReader
 from ubresnet_tpu_torch.deploy.weights import save_reference_checkpoint
@@ -80,7 +81,47 @@ def test_port_compact_readback_and_f16_scores(files, mode, atol):
 
 
 def test_port_refuses_root_files(files):
+    """larcv .root in and out: a .root output holds the .uevt run's
+    float32 scores under uburn_plane2 and reads back as input; a file
+    that is not ROOT inside is refused by the reader."""
     d, data, ckpt = files
-    with pytest.raises(NotImplementedError, match="ROOT"):
-        port_main(["-i", data, "-o", str(d / "x.root"), "-c", ckpt,
-                   "--device", "cpu"])
+    base = ["-c", ckpt, "-b", "3", "--f32", "--device", "cpu"]
+    out_root, out_uevt = str(d / "x.root"), str(d / "x.uevt")
+    port_main(["-i", data, "-o", out_root, "--f16-scores"] + base)
+    port_main(["-i", data, "-o", out_uevt] + base)
+    root, uevt = open_event_file(out_root), PortReader(out_uevt)
+    assert len(root) == len(uevt) == 4
+    for i in range(4):
+        s_root, imgs = _scores(root, i)
+        assert imgs[0].pixels.dtype == np.float32
+        assert imgs[0].rse == uevt.rse(i)
+        np.testing.assert_array_equal(s_root, _scores(uevt, i)[0])
+    port_main(["-i", out_root, "-o", str(d / "y.uevt"), "-t",
+               "uburn_plane2"] + base)
+    fake = d / "fake.root"
+    fake.write_bytes(b"not a ROOT file")
+    with pytest.raises(OSError, match="cannot open ROOT file"):
+        port_main(["-i", str(fake), "-o", str(d / "z.uevt")] + base)
+
+
+def test_port_cli_takes_the_jax_flags(files):
+    """The JAX CLI's --arch, --config, --best, --data-parallel and
+    --trace parse: the ones the port cannot run yet exit naming their
+    ROADMAP item, --trace writes a torch.profiler trace of the run."""
+    import json
+
+    d, data, ckpt = files
+    base = ["-i", data, "-o", str(d / "flags.uevt"), "-c", ckpt,
+            "--device", "cpu", "--f32"]
+    for extra, item in ((["--arch", "aspp_resnet"], "item 7"),
+                        (["--config", "c.json"], "item 11"),
+                        (["--best"], "item 11"),
+                        (["--data-parallel"], "item 10")):
+        with pytest.raises(SystemExit, match=item):
+            port_main(base + extra)
+    assert port_main(base + ["--arch", "uresnet", "--trace",
+                             str(d / "trace")]) == 0
+    events = json.loads((d / "trace" / "trace.json").read_text())[
+        "traceEvents"]
+    assert any(e.get("name", "").startswith("aten::") for e in events)
+    assert len(PortReader(str(d / "flags.uevt"))) == 4

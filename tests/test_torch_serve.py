@@ -4,7 +4,7 @@ copies of the same watch dir and the same reference .tar: drain-once
 semantics, one warm model across files, the .failed quarantine,
 idempotent re-runs, int8 calibrated on the first served file
 (precropped and wholeview), a continuous loop that stops on SIGTERM,
-and the larcv .root paths that are not ported yet.
+a corrupt larcv .root quarantined and --root-out writing .root.
 
 Scores are compared at the bars of the CLI tests: float32 serve against
 JAX's float32 serve with argmax agreement >= 99.9% and max|Δp| <= 1e-3;
@@ -33,6 +33,7 @@ from ubresnet_tpu.cli.serve import main as jax_main
 from ubresnet_tpu_torch.cli.serve import main
 from ubresnet_tpu_torch.core.precision import Policy
 from ubresnet_tpu_torch.data.meta import Image2D, ImageMeta
+from ubresnet_tpu_torch.data.rootio import open_event_file
 from ubresnet_tpu_torch.data.synthetic import make_synthetic_file
 from ubresnet_tpu_torch.data.uevt import EventFileReader, EventFileWriter
 from ubresnet_tpu_torch.deploy import PrecroppedRunner, WholeViewRunner
@@ -140,8 +141,9 @@ def test_serve_once_drains_and_quarantines(tmp_path, ckpt, capsys):
     _sums(str(out / "b_scores.uevt"), 1)
     assert (out / "broken.uevt.failed").exists()
     assert not (out / "broken_scores.uevt").exists()  # partial removed
+    # a 4-byte .root is read as ROOT and refused as corrupt
     marker = (out / "r.root.failed").read_text()
-    assert "items 3 and 5" in marker and "NotImplementedError" in marker
+    assert marker.startswith("OSError: cannot open ROOT file")
     failed = _lines(captured.err)
     assert {f["failed"] for f in failed} == {"broken.uevt", "r.root"}
 
@@ -280,8 +282,18 @@ def test_serve_once_wholeview_int8(tmp_path, ckpt, capsys):
 def test_serve_refuses_root_out_and_mixed_precision(tmp_path, ckpt):
     base = ["--watch-dir", str(tmp_path), "--out-dir", str(tmp_path / "o"),
             "-c", ckpt, "--once", "--device", "cpu"]
-    with pytest.raises(SystemExit, match="items 3 and 5"):
-        main(base + ["--root-out"])
+    watch = tmp_path / "w"
+    watch.mkdir()
+    make_synthetic_file(str(watch / "a.uevt"), n_events=2, hw=(64, 64))
+    rout = tmp_path / "r"
+    # --root-out is ported: <name>_scores.root, float32 under --f16-scores
+    assert main(["--watch-dir", str(watch), "--out-dir", str(rout), "-c",
+                 ckpt, "--once", "--device", "cpu", "--root-out",
+                 "--f16-scores"]) == 0
+    assert sorted(os.listdir(rout)) == ["a_scores.root"]
+    imgs = open_event_file(str(rout / "a_scores.root")).read_entry(1)[
+        "uburn_plane2"]
+    assert len(imgs) == 3 and imgs[0].pixels.dtype == np.float32
     with pytest.raises(SystemExit, match="exclusive"):
         main(base + ["--int8", "--f32"])
     with pytest.raises(SystemExit, match="item 11"):

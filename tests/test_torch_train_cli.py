@@ -133,3 +133,46 @@ def test_fault_at_iter_exits_once_and_resumes(data, capsys):
                                      "--set", "resume=true"])
     assert rc == 0 and "resumed from iter 2" in out
     assert summary["final_iter"] == 3
+
+
+@pytest.mark.parametrize("native", [True, False], ids=["native", "python"])
+def test_debug_dump_writes_jax_pngs(data, capsys, native):
+    """--debug-dump DIR: the first batch's adc_i / label_i / weight_i
+    PNGs, byte-equal to the JAX CLI's for the same config (one loader
+    thread and one seed: the C++ filler or the Python loader gives both
+    packages the same batch), then exit 0."""
+    from ubresnet_tpu.cli.train import main as jax_main
+
+    d, path = data
+    cfg = _config(d, path, "f32", checkpoint_dir=str(d / "ckpt_dump"))
+    cfg_native = ["--set", f"train_data.native={json.dumps(native)}"]
+    port_dir, jax_dir = d / f"dump_port_{native}", d / f"dump_jax_{native}"
+    assert main(["--config", cfg, *cfg_native, "--debug-dump",
+                 str(port_dir)]) == 0
+    assert jax_main(["--config", cfg, *cfg_native, "--debug-dump",
+                     str(jax_dir)]) == 0
+    assert "dumped 2 samples" in capsys.readouterr().out
+    names = sorted(p.name for p in port_dir.iterdir())
+    assert names == sorted(f"{k}_{i}.png" for k in ("adc", "label",
+                                                   "weight")
+                           for i in range(2))
+    for name in names:
+        png = (port_dir / name).read_bytes()
+        assert png.startswith(b"\x89PNG") and png == (
+            jax_dir / name).read_bytes()
+    assert not (d / "ckpt_dump").exists()  # no training ran
+
+
+def test_trace_writes_a_chrome_trace(data, capsys):
+    """--trace DIR: training runs inside torch.profiler and DIR holds a
+    Chrome trace of it (CPU activities here; on the card CUDA too)."""
+    d, path = data
+    cfg = _config(d, path, "bf16", checkpoint_dir=str(d / "ckpt_trace"),
+                  num_iters=1, valid_data=None)
+    rc, summary, _ = _run(capsys, ["--config", cfg, "--device", "cpu",
+                                   "--trace", str(d / "trace")])
+    assert rc == 0 and summary["final_iter"] == 1
+    events = json.loads((d / "trace" / "trace.json").read_text())[
+        "traceEvents"]
+    names = {e.get("name", "") for e in events}
+    assert any(n.startswith("aten::conv") for n in names), sorted(names)[:20]

@@ -37,6 +37,7 @@ from ubresnet_tpu_torch.cli.infer_wholeview import main as port_main
 from ubresnet_tpu_torch.cli.infer_wholeview import resolve_spatial
 from ubresnet_tpu_torch.core.precision import Policy
 from ubresnet_tpu_torch.data.meta import Image2D, ImageMeta
+from ubresnet_tpu_torch.data.rootio import open_event_file
 from ubresnet_tpu_torch.data.synthetic import make_synthetic_file
 from ubresnet_tpu_torch.data.uevt import EventFileReader as PortReader
 from ubresnet_tpu_torch.data.uevt import EventFileWriter
@@ -308,8 +309,12 @@ def test_cli_refuses_what_is_not_ported(files):
     d, data, ckpts = files
     ckpt = ckpts["tame"]
     base = ["-i", data, "-c", ckpt, "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="ROOT"):
-        port_main(base + ["-o", str(d / "x.root"), *TILES])
+    # larcv .root output is ported: float32 scores whatever --f16-scores
+    assert port_main(base + ["-o", str(d / "x.root"), *TILES,
+                             "--f16-scores"]) == 0
+    img = open_event_file(str(d / "x.root")).read_entry(0)[
+        "ubsnet_plane2"][0]
+    assert img.pixels.dtype == np.float32 and img.pixels.shape == HW
     with pytest.raises(SystemExit, match="item 7"):
         port_main(base + ["-o", str(d / "x.uevt"), "--arch", "aspp_resnet"])
     with pytest.raises(SystemExit, match="item 11"):

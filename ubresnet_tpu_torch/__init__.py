@@ -12,6 +12,10 @@ Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 (utils/platform.py:resolve_device); with no card and no explicit CPU
 request they raise.
 
+larcv ROOT I/O (data/rootio.py) and the C++ batch filler
+(data/native.py) bind the package's own cpp/rootio.cpp and cpp/uevt.cpp,
+built with g++ at first use (utils/native_build.py).
+
 The package imports torch and numpy only: never jax, never the JAX
 package.
 """

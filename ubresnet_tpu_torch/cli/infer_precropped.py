@@ -2,19 +2,26 @@
 ubresnet_tpu/cli/infer_precropped.py).
 
     python -m ubresnet_tpu_torch.cli.infer_precropped \\
-        -i in.uevt -o out.uevt -c ckpt.tar -b 16 [--device cuda] \\
-        [--int8 [--int8-calib N] [--int8-percentile P]] \\
-        [--compact-readback {f16,u8,sparse} [--readback-dilate R]]
+        -i in.uevt|.root -o out.uevt|.root -c ckpt.tar -b 16 \\
+        [--device cuda] [--int8 [--int8-calib N] [--int8-percentile P]] \\
+        [--compact-readback {f16,u8,sparse} [--readback-dilate R]] \\
+        [--trace DIR]
 
 Arg surface of the reference deploy/run_ubresnet_precropped.py:17-27
-(-i -o -c -p -t [-b -n -v]). Checkpoints are reference-format .tar
-files. Runs on the card unless ``--device cpu`` is given; prints the
-timing dict as one JSON line (with ``--int8`` also the calibration's
-seconds, ``calibrate``).
+(-i -o -c -p -t [-b -n -v]). Input and output are .uevt or larcv
+.root (a .root output stores float32 scores whatever ``--f16-scores``
+says). Checkpoints are reference-format .tar files; ``--arch
+aspp_resnet``, ``--config``/``--best`` (orbax checkpoints) and
+``--data-parallel`` exit naming the ROADMAP item that ports them.
+``--trace DIR`` writes a torch.profiler Chrome trace of the run to
+``DIR/trace.json``. Runs on the card unless ``--device cpu`` is given;
+prints the timing dict as one JSON line (with ``--int8`` also the
+calibration's seconds, ``calibrate``).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import time
 
@@ -23,8 +30,11 @@ import numpy as np
 
 def build_parser():
     ap = argparse.ArgumentParser(description="Score precropped event images")
-    ap.add_argument("-i", "--input", required=True, help="input .uevt file")
-    ap.add_argument("-o", "--output", required=True, help="output .uevt file")
+    ap.add_argument("-i", "--input", required=True,
+                    help="input event file (.uevt or larcv .root)")
+    ap.add_argument("-o", "--output", required=True,
+                    help="output file (.uevt, or .root for larcv "
+                         "write-back)")
     ap.add_argument("-c", "--checkpoint", required=True,
                     help="reference-format .tar checkpoint")
     ap.add_argument("-p", "--plane", type=int, default=2, help="wire plane id")
@@ -32,10 +42,18 @@ def build_parser():
     ap.add_argument("-b", "--batchsize", type=int, default=8)
     ap.add_argument("-n", "--nevents", type=int, default=None)
     ap.add_argument("-v", "--verbose", action="store_true")
+    ap.add_argument("--config", default=None,
+                    help="orbax checkpoints: not ported (exits)")
+    ap.add_argument("--arch", default="uresnet",
+                    choices=["uresnet", "aspp_resnet"],
+                    help="aspp_resnet is not ported (exits)")
+    ap.add_argument("--best", action="store_true",
+                    help="orbax checkpoints: not ported (exits)")
     ap.add_argument("--f32", action="store_true",
                     help="full-f32 parity mode (no kernel zone, TF32 off)")
     ap.add_argument("--f16-scores", action="store_true",
-                    help="store score images as float16 (~5e-4 quantisation)")
+                    help="store score images as float16 in .uevt outputs "
+                         "(~5e-4 quantisation; .root outputs stay f32)")
     ap.add_argument("--compact-readback", nargs="?", const="f16",
                     default=False, choices=["f16", "u8", "sparse"],
                     help="ship K-1 class scores off the device in f16 (the "
@@ -66,11 +84,20 @@ def build_parser():
                          "nonzero |x| instead of abs-max (e.g. 99.9; "
                          "outlier-robust, saturates the largest "
                          "activations)")
+    ap.add_argument("--trace", default=None, metavar="DIR",
+                    help="wrap the run in a torch.profiler trace written "
+                         "to DIR/trace.json (Chrome trace)")
+    ap.add_argument("--data-parallel", action="store_true",
+                    help="shard each batch over every visible device: not "
+                         "ported (exits)")
     return ap
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    if args.data_parallel:
+        raise SystemExit("--data-parallel is not ported yet (ROADMAP queue "
+                         "1 item 10)")
     from ubresnet_tpu_torch.cli.common import load_model
     from ubresnet_tpu_torch.deploy import PrecroppedRunner
 
@@ -91,9 +118,15 @@ def main(argv=None):
         calib_s = time.time() - t0
         if args.verbose:
             print(f"int8: calibrated on {n_cal} images")
-    timing = runner.run(args.input, args.output, plane=args.plane,
-                        producer=args.producer, n_entries=args.nevents,
-                        verbose=args.verbose)
+    ctx = contextlib.nullcontext()
+    if args.trace:
+        from ubresnet_tpu_torch.utils.profiling import trace
+
+        ctx = trace(args.trace)
+    with ctx:
+        timing = runner.run(args.input, args.output, plane=args.plane,
+                            producer=args.producer, n_entries=args.nevents,
+                            verbose=args.verbose)
     if calib_s is not None:
         timing["calibrate"] = calib_s
     print(json.dumps(timing))

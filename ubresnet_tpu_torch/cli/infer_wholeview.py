@@ -3,7 +3,8 @@ ubresnet_tpu/cli/infer_wholeview.py; the reference's
 deploy/run_ubresnet_wholeview.py): score whole-plane images.
 
     python -m ubresnet_tpu_torch.cli.infer_wholeview \\
-        -i planes.uevt -o scores.uevt -c ckpt.tar [--device cuda] \\
+        -i planes.uevt|.root -o scores.uevt|.root -c ckpt.tar \\
+        [--device cuda] \\
         [--planes 0 1 2] [--stitched | --detsplit] [--passthrough] \\
         [--int8 [--int8-calib N] [--int8-percentile P]] [--f16-scores]
 
@@ -13,7 +14,9 @@ overlapping 512x832 crops ``--crop-batch`` at a time and
 overlap-averages them, and ``--detsplit`` places those crops as
 3D-consistent triplets across the U/V/Y planes (crop semantics, so it
 implies ``--stitched``). Scores go to producer ``ubsnet_plane%d`` with
-the input's meta and ids. Checkpoints are reference-format .tar files.
+the input's meta and ids; input and output are .uevt or larcv .root
+(a .root output stores float32 scores whatever ``--f16-scores`` says).
+Checkpoints are reference-format .tar files.
 Runs on the card unless ``--device cpu`` is given; prints the timing
 dict (total / read / splitscore / write, and ``calibrate`` with
 ``--int8``) as one JSON line.
@@ -47,8 +50,11 @@ def resolve_spatial(spatial, stitched, detsplit) -> bool:
 
 def build_parser():
     ap = argparse.ArgumentParser(description="Score whole-plane event images")
-    ap.add_argument("-i", "--input", required=True, help="input .uevt file")
-    ap.add_argument("-o", "--output", required=True, help="output .uevt file")
+    ap.add_argument("-i", "--input", required=True,
+                    help="input event file (.uevt or larcv .root)")
+    ap.add_argument("-o", "--output", required=True,
+                    help="output file (.uevt, or .root for larcv "
+                         "write-back)")
     ap.add_argument("-c", "--checkpoint", required=True,
                     help="reference-format .tar checkpoint")
     ap.add_argument("-t", "--producer", default="wire")

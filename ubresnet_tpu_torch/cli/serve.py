@@ -6,17 +6,18 @@ the production wrapper around the precropped and wholeview runners.
         -c model.tar [-p 2] [--device cuda]
     ... --once            # drain the backlog and exit
     ... --wholeview       # whole-plane split/score/stitch
+    ... --root-out        # write larcv .root outputs
 
-A file counts as processed when its output (``<name>_scores.uevt``)
-exists; a ``<name>.failed`` marker quarantines a file that raised (its
+Inputs are .uevt or larcv .root files (sniffed by magic). A file counts
+as processed when its output (``<name>_scores.uevt``, or
+``<name>_scores.root`` with ``--root-out``: float32 scores under the
+runners' producers) exists; a ``<name>.failed`` marker quarantines a file that raised (its
 partial output removed), so one bad file cannot wedge the loop. A new
 file is served only after its size held across two polls (a writer may
 be mid-copy). Prints one JSON line per served file, and
 ``{"shutdown": true, "served": N}`` when SIGTERM, SIGINT or ``--once``
 ends the loop. ``--wholeview`` scores crops and stitches them, as the
-JAX package's serve loop does. larcv ``.root`` files are not ported
-yet: ``--root-out`` exits, and a ``.root`` input is quarantined with
-the runners' message saying so (deploy/common.py).
+JAX package's serve loop does.
 """
 from __future__ import annotations
 
@@ -57,7 +58,7 @@ def build_parser():
     ap.add_argument("--once", action="store_true",
                     help="process the current backlog, then exit")
     ap.add_argument("--root-out", action="store_true",
-                    help="write .root outputs: not ported (exits)")
+                    help="write .root (larcv write-back) outputs")
     ap.add_argument("--f16-scores", action="store_true",
                     help="store score images as float16 (half the bytes)")
     ap.add_argument("--f32", action="store_true",
@@ -89,10 +90,6 @@ def _candidates(watch_dir):
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    from ubresnet_tpu_torch.deploy.common import ROOT_IO
-
-    if args.root_out:
-        raise SystemExit(f"--root-out: {ROOT_IO}")
     import numpy as np
 
     from ubresnet_tpu_torch.cli.common import load_model
@@ -132,6 +129,7 @@ def main(argv=None) -> int:
 def _serve(args, runner, stop) -> int:
     """The watch loop until ``stop["flag"]`` or, with ``--once``, the
     end of the backlog; returns the number of files served."""
+    ext = ".root" if args.root_out else ".uevt"
     sizes = {}
     served = 0
     calibrated = False
@@ -139,7 +137,7 @@ def _serve(args, runner, stop) -> int:
         backlog = []
         for name in _candidates(args.watch_dir):
             base = os.path.splitext(name)[0]
-            out = os.path.join(args.out_dir, base + "_scores.uevt")
+            out = os.path.join(args.out_dir, base + "_scores" + ext)
             failed = os.path.join(args.out_dir, name + ".failed")
             if os.path.exists(out) or os.path.exists(failed):
                 continue

@@ -1,17 +1,22 @@
 """Training CLI (counterpart of ubresnet_tpu/cli/train.py).
 
     python -m ubresnet_tpu_torch.cli.train --config cfg.json \\
-        [--set optim.lr=1e-4 ...] [--device cuda|cpu]
+        [--set optim.lr=1e-4 ...] [--device cuda|cpu] \\
+        [--trace DIR] [--debug-dump DIR]
 
 A JSON or PSet config (core/config.py, the JAX package's keys) plus
-``--set a.b=c`` overrides. Runs on the card unless ``--device cpu``;
-prints the run summary as JSON and returns 1 when the run failed.
-``--trace`` and ``--debug-dump`` are not in the port yet and raise.
+``--set a.b=c`` overrides (``--set model.remat=true`` recomputes each
+stage in backward, ``--set remat=true`` the whole forward). Runs on the
+card unless ``--device cpu``; prints the run summary as JSON and
+returns 1 when the run failed. ``--trace DIR`` writes a torch.profiler
+Chrome trace of the run to ``DIR/trace.json``; ``--debug-dump DIR``
+writes the first batch's adc_i / label_i / weight_i PNGs and exits.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 
 from ubresnet_tpu_torch.core.config import TrainConfig
 
@@ -52,10 +57,38 @@ def build_parser():
                     help="where training runs (default cuda; cpu only when "
                          "asked for)")
     ap.add_argument("--debug-dump", default=None, metavar="DIR",
-                    help="not in the port yet")
+                    help="dump one batch as ADC/label/weight PNGs and exit "
+                         "(the reference's debug fixture, "
+                         "train_ubresnet2018_wlarcv2.py:188-207)")
     ap.add_argument("--trace", default=None, metavar="DIR",
-                    help="not in the port yet")
+                    help="wrap training in a torch.profiler trace written "
+                         "to DIR/trace.json (Chrome trace; the "
+                         "reference's RUNPROFILER block, "
+                         "train_ubresnet2018_wlarcv2.py:51,209)")
     return ap
+
+
+def debug_dump(cfg: TrainConfig, out_dir: str) -> int:
+    """The first training batch as adc_i / label_i / weight_i heat-map
+    PNGs in ``out_dir``; returns the number of samples."""
+    from ubresnet_tpu_torch.train.trainer import make_loader
+    from ubresnet_tpu_torch.utils.png import save_heatmap
+
+    os.makedirs(out_dir, exist_ok=True)
+    loader = make_loader(cfg.train_data, seed=cfg.seed).start()
+    try:
+        batch = loader[0]
+    finally:
+        loader.stop()
+    n = batch["image"].shape[0]
+    for i in range(n):
+        save_heatmap(os.path.join(out_dir, f"adc_{i}.png"),
+                     batch["image"][i, ..., 0])
+        save_heatmap(os.path.join(out_dir, f"label_{i}.png"),
+                     batch["label"][i], 0, cfg.model.num_classes - 1)
+        save_heatmap(os.path.join(out_dir, f"weight_{i}.png"),
+                     batch["weight"][i])
+    return n
 
 
 def main(argv=None):
@@ -64,12 +97,20 @@ def main(argv=None):
     if args.dump_config:
         print(cfg.to_json())
         return 0
-    if args.debug_dump or args.trace:
-        raise NotImplementedError("--debug-dump and --trace are not in the "
-                                  "port yet")
+    if args.debug_dump:
+        n = debug_dump(cfg, args.debug_dump)
+        print(f"dumped {n} samples to {args.debug_dump}")
+        return 0
     from ubresnet_tpu_torch.train.trainer import Trainer
 
-    summary = Trainer(cfg, device=args.device).run()
+    trainer = Trainer(cfg, device=args.device)
+    if args.trace:
+        from ubresnet_tpu_torch.utils.profiling import trace
+
+        with trace(args.trace):
+            summary = trainer.run()
+    else:
+        summary = trainer.run()
     print(json.dumps({k: v for k, v in summary.items() if k != "error"},
                      indent=2))
     return 1 if "error" in summary else 0

@@ -11,8 +11,8 @@ configs keep working, and any dataclass config round-trips to/from the
 PSet text form.
 
 Keys the port does not run yet raise in the trainer (train/trainer.py):
-model_axis > 1, remat, model.remat. ``native`` is read and
-the Python loader runs, as the JAX trainer does without its C++ build.
+model_axis > 1. ``native`` takes the C++ batch filler (data/native.py)
+where it applies, as in the JAX trainer.
 """
 from __future__ import annotations
 

@@ -62,6 +62,15 @@ class Policy:
                    grid is ``quant_percentile``. The zone exists at
                    depth 5 for input widths that are a multiple of 16;
                    elsewhere the models raise.
+    remat:         the train-mode model recomputes each encoder and
+                   decoder stage in backward (torch.utils.checkpoint;
+                   JAX's nn.remat per stage) instead of holding its
+                   activations; only the stage boundaries (the skips)
+                   stay. The parameters and the state_dict are the
+                   same, so checkpoints interchange. With fused_train
+                   each step launches K5 15 more times (enc1, dec2 and
+                   dec1 recomputed; the stem and the head are in no
+                   stage).
     """
 
     compute_dtype: torch.dtype = torch.bfloat16
@@ -72,6 +81,7 @@ class Policy:
     quant_eval: bool = False
     quant_percentile: float = 0.0
     quant_train: bool = False
+    remat: bool = False
 
     @staticmethod
     def f32() -> "Policy":

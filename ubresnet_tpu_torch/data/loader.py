@@ -10,11 +10,14 @@ the sparse transfer form when asked (ops/sparse.py:sparsify_batch) and
 starts its copy from pinned memory.
 
 Public API as the JAX package's: ``loader.start()``, ``loader[0]``,
-``loader.getbatch(bs)``, ``loader.stop()``. larcv ``.root`` inputs
-are not read by the port yet and raise.
+``loader.getbatch(bs)``, ``loader.stop()``. larcv ``.root`` inputs are
+converted once to a cached ``.uevt`` (``training_paths``), which both
+this loader and the C++ filler (data/native.py) read.
 """
 from __future__ import annotations
 
+import hashlib
+import os
 import queue
 import threading
 from typing import Callable, Dict, List, Optional, Sequence, Union
@@ -23,26 +26,60 @@ import numpy as np
 import torch
 
 from ubresnet_tpu_torch.data.augment import remap_labels
-from ubresnet_tpu_torch.data.uevt import MAGIC, EventFileReader
+from ubresnet_tpu_torch.data.uevt import EventFileReader
 from ubresnet_tpu_torch.ops.sparse import sparsify_batch
+from ubresnet_tpu_torch.utils.native_build import build_dir
+
+
+def root_cache_dir() -> str:
+    """Where converted ``.root`` training files are cached:
+    ``build/root_cache/`` under the checkout, the port's own."""
+    return str(build_dir().parent / "root_cache")
+
+
+def _root_training_cache(path: str) -> str:
+    """One-time .root → .uevt conversion for training, cached by
+    (abspath, mtime, size); concurrent converters race safely through a
+    temporary file and an atomic rename."""
+    from ubresnet_tpu_torch.data.rootio import root_to_uevt
+
+    st = os.stat(path)
+    key = hashlib.sha1(
+        f"{os.path.abspath(path)}:{st.st_mtime_ns}:{st.st_size}".encode()
+    ).hexdigest()[:16]
+    cache_dir = root_cache_dir()
+    os.makedirs(cache_dir, exist_ok=True)
+    cached = os.path.join(cache_dir, key + ".uevt")
+    if not os.path.exists(cached):
+        tmp = cached + f".tmp{os.getpid()}"
+        n = root_to_uevt(path, tmp)
+        os.replace(tmp, cached)
+        print(f"converted {path} -> {cached} ({n} entries, cached for "
+              "training reuse)", flush=True)
+    return cached
+
+
+def training_paths(paths):
+    """Map larcv .root inputs to their cached-UEVT equivalents (magic
+    sniffed); .uevt paths pass through. Both loaders use it, so the C++
+    filler serves .root-configured trainings too."""
+    out = []
+    for p in paths:
+        with open(p, "rb") as f:
+            head = f.read(4)
+        out.append(_root_training_cache(p) if head == b"root" else p)
+    return out
 
 
 def _open_training_file(path: str) -> EventFileReader:
-    with open(path, "rb") as f:
-        head = f.read(4)
-    if head == b"root" or path.endswith(".root"):
-        raise NotImplementedError(
-            f"{path}: ROOT event files are not supported by the port yet "
-            "(convert to .uevt with the JAX package's ubtpu-convert)")
-    if head != MAGIC:
-        raise ValueError(f"{path}: not a UEVT file")
-    return EventFileReader(path)
+    return EventFileReader(training_paths([path])[0])
 
 
 class SegmentDataset:
-    """UEVT entries → {image, label, weight} numpy sample dicts.
-    Producer and plane selection mirror the ThreadProcessor cfg
-    (training/ubresnet_train.cfg:7-27)."""
+    """UEVT (or larcv .root) entries → {image, label, weight, rse} numpy
+    sample dicts. Producer and plane selection mirror the
+    ThreadProcessor cfg (training/ubresnet_train.cfg:7-27);
+    ``label_offset`` is added to the labels before ``class_map``."""
 
     def __init__(self, paths: Union[str, Sequence[str]],
                  image_producer: str = "wire",
@@ -50,6 +87,7 @@ class SegmentDataset:
                  weight_producer: Optional[str] = "weight",
                  plane: Optional[int] = None,
                  class_map: Optional[Sequence[int]] = None,
+                 label_offset: int = 0,
                  adc_threshold: float = 0.0):
         if isinstance(paths, str):
             paths = [paths]
@@ -64,6 +102,7 @@ class SegmentDataset:
         self.weight_producer = weight_producer
         self.plane = plane
         self.class_map = class_map
+        self.label_offset = label_offset
         self.adc_threshold = adc_threshold
 
     def __len__(self):
@@ -81,9 +120,10 @@ class SegmentDataset:
         reader, entry = self._entries[idx]
         ev = reader.read_entry(entry)
         img = self._pick(ev[self.image_producer])
-        label = remap_labels(
-            self._pick(ev[self.label_producer]).pixels.astype(np.int32),
-            self.class_map)
+        label = self._pick(ev[self.label_producer]).pixels.astype(np.int32)
+        if self.label_offset:
+            label = label + self.label_offset
+        label = remap_labels(label, self.class_map)
         if self.weight_producer and self.weight_producer in ev:
             weight = self._pick(ev[self.weight_producer]).pixels.astype(
                 np.float32)
@@ -93,17 +133,20 @@ class SegmentDataset:
         pixels = img.pixels.astype(np.float32)
         if self.adc_threshold > 0:
             pixels = np.where(pixels < self.adc_threshold, 0.0, pixels)
-        return {"image": pixels[..., None], "label": label, "weight": weight}
+        return {"image": pixels[..., None], "label": label, "weight": weight,
+                "rse": np.asarray(img.rse, np.int32)}
 
 
 class BatchLoader:
     """N threads × a bounded queue of ready batches, random access
     (NumThreads / NumBatchStorage / RandomAccess of the reference's
-    ThreadProcessor)."""
+    ThreadProcessor). ``with_rse`` adds each sample's (run, subrun,
+    event) as ``rse`` (b, 3) int32."""
 
     def __init__(self, dataset: SegmentDataset, batch_size: int = 4,
                  n_threads: int = 2, n_buffers: int = 4, shuffle: bool = True,
-                 augment: Optional[Callable] = None, seed: int = 0):
+                 augment: Optional[Callable] = None, seed: int = 0,
+                 with_rse: bool = False):
         self.dataset = dataset
         self.batch_size = batch_size
         self.n_threads = n_threads
@@ -111,6 +154,7 @@ class BatchLoader:
         self.shuffle = shuffle
         self.augment = augment
         self.seed = seed
+        self.with_rse = with_rse
         self._queue: Optional[queue.Queue] = None
         self._stop = threading.Event()
         self._threads: List[threading.Thread] = []
@@ -160,8 +204,11 @@ class BatchLoader:
 
     def _assemble(self, idxs) -> Dict[str, np.ndarray]:
         samples = [self.dataset.get(int(i)) for i in idxs]
-        return {k: np.stack([s[k] for s in samples])
-                for k in ("image", "label", "weight")}
+        batch = {k: np.stack([s[k] for s in samples])
+                 for k in ("image", "label", "weight")}
+        if self.with_rse:
+            batch["rse"] = np.stack([s["rse"] for s in samples])
+        return batch
 
     def __getitem__(self, _ignored) -> Dict[str, np.ndarray]:
         if self._queue is None:
@@ -190,21 +237,24 @@ class BatchLoader:
 
 class DevicePrefetcher:
     """Keep ``depth`` batches in flight on ``device``: a background
-    thread pulls host batches, converts them to the sparse transfer form
-    when ``sparse_bucket`` is set, and starts each copy from pinned
-    memory. Each batch keeps its own COO capacity (the JAX prefetcher
-    holds capacities sticky so its compiled step sees few shapes; an
-    eager step has nothing to recompile)."""
+    thread pulls host batches, drops ``drop_keys`` (the host-side
+    ``rse`` by default), converts them to the sparse transfer form when
+    ``sparse_bucket`` is set, and starts each copy from pinned memory.
+    Each batch keeps its own COO capacity (the JAX prefetcher holds
+    capacities sticky so its compiled step sees few shapes; an eager
+    step has nothing to recompile)."""
 
-    depth = 2  # batches in flight
-
-    def __init__(self, source, device: torch.device, sparse_bucket: int = 0):
+    def __init__(self, source, device: torch.device, depth: int = 2,
+                 drop_keys=("rse",), sparse_bucket: int = 0):
         self.source = iter(source)
         self.device = device
+        self.depth = depth
+        self.drop_keys = drop_keys
         self.sparse_bucket = sparse_bucket
         self.hw = None  # (h, w) of the sparse batches, set on the first
 
     def _put(self, batch):
+        batch = {k: v for k, v in batch.items() if k not in self.drop_keys}
         if self.sparse_bucket:
             batch = sparsify_batch(batch, bucket=self.sparse_bucket)
             self.hw = batch.pop("hw")

@@ -6,8 +6,8 @@ is not portable, so the rebuild defines a simple mmap-friendly binary
 container with the same capabilities: multiple named producers per
 event, (run, subrun, event) ids, physical-coordinate metas, random
 access by entry. The fixed-stride little-endian layout is designed for
-the native C++ reader (ubresnet_tpu/cpp) to mmap and batch-fill without
-any parsing beyond the index.
+the native C++ reader (cpp/uevt.cpp, data/native.py) to mmap and
+batch-fill without any parsing beyond the index.
 
 Layout:
   header   : magic 'UEVT' | u32 version | u64 n_entries | u64 index_off

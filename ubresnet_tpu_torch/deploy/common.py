@@ -1,33 +1,26 @@
-"""What the deploy runners share: event-file I/O with the one refusal
-of larcv ``.root`` files, and the host↔device transfers of their
-pipelines (pinned memory and a CUDA event per copy on the card)."""
+"""What the deploy runners share: the score writer for ``.uevt`` or
+larcv ``.root`` outputs, and the host↔device transfers of their
+pipelines (pinned memory and a CUDA event per copy on the card). Their
+input is opened by data/rootio.py:open_event_file (.uevt or .root,
+sniffed by magic)."""
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ubresnet_tpu_torch.data.uevt import MAGIC, EventFileReader
-
-ROOT_IO = ("larcv ROOT (.root) input and output are not ported yet "
-           "(ROADMAP queue 1 items 3 and 5): the port reads and writes "
-           ".uevt only")
+from ubresnet_tpu_torch.data.rootio import RootWriter
+from ubresnet_tpu_torch.data.uevt import EventFileWriter
 
 
-def open_event_file(path: str) -> EventFileReader:
-    """Open a .uevt event file; a ``.root`` file raises."""
-    with open(path, "rb") as f:
-        head = f.read(4)
-    if head == b"root" or path.endswith(".root"):
-        raise NotImplementedError(f"{path}: {ROOT_IO}")
-    if head != MAGIC:
-        raise ValueError(f"{path}: not a UEVT file")
-    return EventFileReader(path)
-
-
-def check_output(path: str) -> None:
-    """Refuse a ``.root`` output path before anything is written."""
+def open_score_writer(path: str, score_dtype):
+    """(writer, dtype the scores are stored in) for ``path``: a larcv
+    ``RootWriter`` for ``.root`` (the reference's IOManager kWRITE
+    write-back), which stores float32 whatever ``score_dtype`` asks
+    (larcv Image2D is float; JAX deploy/wholeview.py:361-368), else a
+    .uevt ``EventFileWriter`` in ``score_dtype``."""
     if path.endswith(".root"):
-        raise NotImplementedError(f"{path}: {ROOT_IO}")
+        return RootWriter(path), np.dtype(np.float32)
+    return EventFileWriter(path), np.dtype(score_dtype)
 
 
 def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:

@@ -39,10 +39,9 @@ import numpy as np
 import torch
 
 from ubresnet_tpu_torch.data.meta import Image2D
-from ubresnet_tpu_torch.data.uevt import EventFileWriter
+from ubresnet_tpu_torch.data.rootio import open_event_file
 from ubresnet_tpu_torch.deploy.common import (
-    check_output,
-    open_event_file,
+    open_score_writer,
     to_device,
     to_host_async,
     wait_host,
@@ -61,8 +60,9 @@ SPARSE_BUCKET = 4096  # COO capacity grain (pixels per crop)
 
 
 class PrecroppedRunner:
-    """Score every event of a .uevt file with ``model`` (a port
-    UResNet; its device is the runner's device).
+    """Score every event of a .uevt or larcv .root file with ``model``
+    (a port UResNet; its device is the runner's device); a .root output
+    stores float32 scores whatever ``score_dtype`` says.
 
     sparse: ship the crops as COO pixels and densify on the device
     (default), or dense; no CLI sets ``sparse=False``, which stays as
@@ -224,8 +224,7 @@ class PrecroppedRunner:
             [("total", 0.0), ("read", 0.0), ("forward", 0.0), ("write", 0.0)])
         t_total = time.time()
         reader = open_event_file(input_file)
-        check_output(output_file)
-        writer = EventFileWriter(output_file)
+        writer, out_dt = open_score_writer(output_file, self.score_dtype)
         out_producer = f"uburn_plane{plane}"
         n = len(reader) if n_entries is None else min(n_entries, len(reader))
 
@@ -271,7 +270,7 @@ class PrecroppedRunner:
                         writer.set_id(*img.rse)
                         for c in range(score.shape[-1]):
                             writer.append(out_producer, Image2D(
-                                score[..., c].astype(self.score_dtype),
+                                score[..., c].astype(out_dt),
                                 img.meta, *img.rse))
                         writer.save_entry()
                 except BaseException as e:  # surfaced after the join

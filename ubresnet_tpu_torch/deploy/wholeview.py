@@ -4,7 +4,8 @@
 The reference's deploy/run_ubresnet_wholeview.py pipeline, for the
 single-input, per-plane, 3-class UResNet:
 
-  1. read whole-plane ADC images (e.g. 1008x3456),
+  1. read whole-plane ADC images (e.g. 1008x3456) from .uevt or larcv
+     .root,
   2. ship each as sparse COO pixels and densify it on the device,
   3. either tile it into overlapping 512x832 crops (UBSplitDetector
      role, ops/tiling.py), score the crops ``crop_batch`` at a time and
@@ -12,7 +13,7 @@ single-input, per-plane, 3-class UResNet:
      path — or, with ``spatial``, pad the plane to a multiple of 32 and
      score it in one forward at batch 1,
   4. write per-class images to producer ``ubsnet_plane%d`` with the
-     input's meta and run/subrun/event ids.
+     input's meta and run/subrun/event ids, to .uevt or larcv .root.
 
 Only the stitched scores leave the device. ``run`` dispatches every
 plane of an entry before it drains any, so plane k's device→host copy
@@ -33,10 +34,9 @@ import torch
 import torch.nn.functional as F
 
 from ubresnet_tpu_torch.data.meta import Image2D
-from ubresnet_tpu_torch.data.uevt import EventFileWriter
+from ubresnet_tpu_torch.data.rootio import open_event_file
 from ubresnet_tpu_torch.deploy.common import (
-    check_output,
-    open_event_file,
+    open_score_writer,
     to_device,
     to_host_async,
     wait_host,
@@ -63,7 +63,8 @@ class WholeViewRunner:
     ``SPATIAL_DIVISOR`` on the high side) instead of crop-and-stitch;
     ``grid`` arguments are then ignored. sparse: ship planes as COO
     pixels (capacity on a ``sparse_bucket`` grid, which only grows) or
-    dense. score_dtype: storage dtype of the written score images."""
+    dense. score_dtype: storage dtype of the written score images
+    (.uevt outputs; a .root output stores float32)."""
 
     # UResNet downsamples by 2^5 (stem pool + four stride-2 encoders):
     # the spatial path pads to this so every decoder upsample is an
@@ -284,8 +285,7 @@ class WholeViewRunner:
              ("write", 0.0)])
         t_total = time.time()
         reader = open_event_file(input_file)
-        check_output(output_file)
-        writer = EventFileWriter(output_file)
+        writer, out_dt = open_score_writer(output_file, self.score_dtype)
         n = len(reader) if n_entries is None else min(n_entries, len(reader))
 
         write_q: "queue.Queue" = queue.Queue(maxsize=2)
@@ -308,7 +308,7 @@ class WholeViewRunner:
                         for c in range(score.shape[-1]):
                             writer.append(
                                 f"ubsnet_plane{img.meta.plane}",
-                                Image2D(score[..., c].astype(self.score_dtype),
+                                Image2D(score[..., c].astype(out_dt),
                                         img.meta, *img.rse))
                     # one output entry per event, all planes
                     if images:

@@ -50,12 +50,14 @@ W-packing factor its input has there).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import re
 from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint as checkpoint_lib
 from torch import nn
 
 from ubresnet_tpu_torch.core.precision import Policy
@@ -582,6 +584,13 @@ def stem_pool(x: torch.Tensor, fused: bool, train: bool = False
 # every ConvBN's input and kernel, the classifier's kernel only, the
 # deconv's input and kernel; ``qpack`` is the W-packing factor JAX's
 # tensor has there, which shapes a percentile's subsample.
+#
+# Remat (``remat``): a module call whose activations backward recomputes
+# (torch.utils.checkpoint) instead of keeping them, as jax.checkpoint /
+# nn.remat do in JAX. The recompute runs the forward again, and a
+# train-mode BatchNorm updates its running stats in place, so the
+# recompute freezes them (``frozen_stats``): each step still moves them
+# once, as JAX's functional BN does.
 
 BN_DECAY = 0.9  # running-average decay (flax momentum; torch's 0.1)
 
@@ -662,6 +671,7 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", own("running_mean"))
         self.register_buffer("running_var", own("running_var"))
         self.cdt = policy.compute_dtype
+        self.update_stats = True  # off while a remat recompute runs
 
     def forward(self, y: torch.Tensor, stats=None) -> torch.Tensor:
         if self.training:
@@ -674,15 +684,45 @@ class BatchNorm(nn.Module):
                 mean = stats[0] / n
                 var = stats[1] / n - mean * mean
             var = var.clamp_min(0.0)
-            with torch.no_grad():
-                self.running_mean.copy_(BN_DECAY * self.running_mean
-                                        + (1 - BN_DECAY) * mean)
-                self.running_var.copy_(BN_DECAY * self.running_var
-                                       + (1 - BN_DECAY) * var)
+            if self.update_stats:
+                with torch.no_grad():
+                    self.running_mean.copy_(BN_DECAY * self.running_mean
+                                            + (1 - BN_DECAY) * mean)
+                    self.running_var.copy_(BN_DECAY * self.running_var
+                                           + (1 - BN_DECAY) * var)
         else:
             mean, var = self.running_mean, self.running_var
         g, b = fold_bn(self.weight, self.bias, mean, var)
         return y.to(self.cdt) * g.to(self.cdt) + b.to(self.cdt)
+
+
+@contextlib.contextmanager
+def frozen_stats(module: nn.Module):
+    """Every BatchNorm under ``module`` leaves its running stats alone
+    inside the block."""
+    bns = [m for m in module.modules() if isinstance(m, BatchNorm)]
+    saved = [m.update_stats for m in bns]
+    for m in bns:
+        m.update_stats = False
+    try:
+        yield
+    finally:
+        for m, s in zip(bns, saved):
+            m.update_stats = s
+
+
+def remat(module: nn.Module, *args, **kwargs):
+    """``module(*args, **kwargs)`` with its activations recomputed in
+    backward (torch.utils.checkpoint, non-reentrant) and its BatchNorms'
+    running stats frozen during the recompute. The recompute runs the
+    whole forward (no early stop), so its kernels launch again, each
+    once."""
+    def contexts():
+        return contextlib.nullcontext(), frozen_stats(module)
+
+    with checkpoint_lib.set_checkpoint_early_stop(False):
+        return checkpoint_lib.checkpoint(module, *args, use_reentrant=False,
+                                         context_fn=contexts, **kwargs)
 
 
 def conv_bn(conv: Conv, bn: BatchNorm, x: torch.Tensor, *,

@@ -38,6 +38,7 @@ from ubresnet_tpu_torch.models.blocks import (
     TrainDecoderBlock,
     TrainDoubleResNet,
     conv_bn,
+    remat,
     stem_pool,
 )
 from ubresnet_tpu_torch.utils.platform import resolve_device
@@ -194,6 +195,10 @@ class UResNet(nn.Module):
         return torch.log_softmax(y, dim=-1)
 
 
+def _call(module: nn.Module, *args):
+    return module(*args)
+
+
 class TrainUResNet(nn.Module):
     """The trainable UResNet: the same network as ``UResNet`` with f32
     parameters and BN running stats as nn.Parameters and buffers under
@@ -210,9 +215,12 @@ class TrainUResNet(nn.Module):
     torch.nn.functional ops under autograd. With ``policy.quant_train``
     (QAT) the JAX package's packed zone — stem, enc1, dec2, dec1, head,
     the classifier's kernel — is fake-quantized; it needs depth 5 and
-    input widths that are a multiple of 16, and raises otherwise.
-    Input (b, h, w, c) NHWC; output (b, h, w, num_classes) logits (or
-    log-probabilities) in ``policy.output_dtype``."""
+    input widths that are a multiple of 16, and raises otherwise. With
+    ``policy.remat`` (train mode) each encoder and decoder stage is
+    recomputed in backward (models/blocks.py:remat), and the BN running
+    stats still move once a step. Input (b, h, w, c) NHWC; output (b, h,
+    w, num_classes) logits (or log-probabilities) in
+    ``policy.output_dtype``."""
 
     def __init__(self, state_dict: Dict[str, torch.Tensor],
                  policy: Policy = Policy(), device=None):
@@ -245,12 +253,15 @@ class TrainUResNet(nn.Module):
         x0 = conv_bn(self.conv1, self.bn1,
                      x.to(pol.compute_dtype).contiguous(), act=True)
         y = stem_pool(x0, fused=pol.fused_train, train=True)
+        # Policy.remat: each encoder and decoder stage is recomputed in
+        # backward (JAX's nn.remat per stage, uresnet.py:92-104)
+        stage = remat if pol.remat and self.training else _call
         skips = [x0]
         for i in range(1, depth + 1):
-            y = getattr(self, f"enc_layer{i}")(y)
+            y = stage(getattr(self, f"enc_layer{i}"), y)
             skips.append(y)
         for i in range(depth, 0, -1):
-            y = getattr(self, f"dec_layer{i}")(y, skips[i - 1])
+            y = stage(getattr(self, f"dec_layer{i}"), y, skips[i - 1])
         y = conv_bn(self.conv10, self.bn10, y, act=True)
         y = self.conv11(y).to(pol.output_dtype)
         if logits:

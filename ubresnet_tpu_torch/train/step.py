@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from ubresnet_tpu_torch.losses import pixelwise_weighted_nll_from_logits
+from ubresnet_tpu_torch.models.blocks import remat as remat_call
 from ubresnet_tpu_torch.ops import loss as loss_ops
 from ubresnet_tpu_torch.ops.sparse import densify_batch
 from ubresnet_tpu_torch.train.metrics import pixel_accuracy
@@ -72,7 +73,8 @@ def build_train_step(num_classes: int = 3,
                      class_weights: Optional[Sequence[float]] = None,
                      use_pallas_loss: bool = False,
                      sparse_hw: Optional[tuple] = None,
-                     accum_steps: int = 1, device=None):
+                     accum_steps: int = 1, remat: bool = False,
+                     device=None):
     """Returns step(state, batch) -> (state, metrics).
 
     batch: image (b, h, w, c) f32, label (b, h, w) int32, weight
@@ -81,7 +83,10 @@ def build_train_step(num_classes: int = 3,
     (floats): loss, acc_class{c}, acc_total, acc_nonzero (means over
     the microbatches) and nan_skipped, the run's count of skipped
     updates. ``use_pallas_loss`` takes the loss kernel K7 (which has no
-    class weights) for the loss and its gradient."""
+    class weights) for the loss and its gradient. ``remat`` recomputes
+    the whole forward in backward (the JAX step's jax.checkpoint,
+    models/blocks.py:remat): per step the forward's kernels launch
+    twice, the loss's once."""
     device = resolve_device(device)
     if use_pallas_loss and class_weights is not None:
         raise NotImplementedError(
@@ -112,7 +117,10 @@ def build_train_step(num_classes: int = 3,
         micro = []
         for i in range(accum_steps):
             part = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
-            logits = model(part["image"], logits=True)
+            if remat:
+                logits = remat_call(model, part["image"], logits=True)
+            else:
+                logits = model(part["image"], logits=True)
             loss = loss_impl(logits, part["label"], part["weight"])
             loss.backward()
             m = {"loss": loss.detach()}

@@ -13,9 +13,15 @@ more than ``max_nan_recoveries`` steps were skipped.
 The model starts from deploy/weights.py:random_state_dict(seed), the
 reference initialisation. ``model.qat`` (and ``model.qat_percentile``)
 set the policy's int8 QAT (``quant_train``, ``quant_percentile``), as
-the JAX trainer does; validation then runs fake-quantized too. Runs
-on the card unless ``device="cpu"``. Not in the port yet, and refused:
-model_axis > 1 (and multi-process runs), remat / model.remat.
+the JAX trainer does; validation then runs fake-quantized too.
+``model.remat`` recomputes each encoder and decoder stage in backward
+(Policy.remat), ``remat`` the whole forward (train/step.py). Training
+files are .uevt or larcv .root (converted once to a cached .uevt,
+data/loader.py:training_paths); the C++ filler (data/native.py) serves
+them when the config asks for it, and the run summary names the loader
+that served (``loader``). Runs on the card unless
+``device="cpu"``. Not in the port yet, and refused: model_axis > 1 (and
+multi-process runs).
 """
 from __future__ import annotations
 
@@ -35,6 +41,7 @@ from ubresnet_tpu_torch.data.loader import (
     BatchLoader,
     DevicePrefetcher,
     SegmentDataset,
+    training_paths,
 )
 from ubresnet_tpu_torch.deploy.weights import random_state_dict
 from ubresnet_tpu_torch.models import get_model
@@ -55,14 +62,29 @@ from ubresnet_tpu_torch.train.step import (
 from ubresnet_tpu_torch.utils.platform import resolve_device, strict_f32
 
 
-def make_loader(dcfg: DataConfig, seed: int = 0) -> BatchLoader:
-    """The Python BatchLoader. The JAX package's C++ filler
-    (``native``) is not in the port: the Python loader runs and one
-    line says so, as the JAX trainer does when its library is not
-    built."""
+def make_loader(dcfg: DataConfig, seed: int = 0):
+    """The C++ threaded filler (data/native.py) when the config asks
+    for it (``native``) and needs no Python-only augment (``pad_crop``)
+    and no sequential reads (the filler is random-access only, so
+    ``shuffle=False`` takes the Python path); otherwise, or when its
+    library cannot be built (one line says so), the Python
+    BatchLoader."""
     if dcfg.native and not dcfg.pad_crop and dcfg.shuffle:
-        print("native loader not in the port; using the Python loader",
-              flush=True)
+        from ubresnet_tpu_torch.data.native import NativeBatchLoader
+
+        try:
+            return NativeBatchLoader(
+                training_paths(dcfg.files), batch_size=dcfg.batch_size,
+                image_producer=dcfg.image_producer,
+                label_producer=dcfg.label_producer,
+                weight_producer=dcfg.weight_producer,
+                plane=-1 if dcfg.plane is None else dcfg.plane,
+                n_threads=dcfg.n_threads, n_buffers=dcfg.n_buffers,
+                mirror=dcfg.mirror, adc_threshold=dcfg.adc_threshold,
+                class_map=dcfg.class_map, seed=seed)
+        except RuntimeError as e:  # no toolchain, build failed
+            print(f"native loader unavailable ({e}); using Python loader",
+                  flush=True)
     ds = SegmentDataset(dcfg.files, image_producer=dcfg.image_producer,
                         label_producer=dcfg.label_producer,
                         weight_producer=dcfg.weight_producer,
@@ -85,8 +107,6 @@ def _refuse_unported(cfg: TrainConfig) -> None:
     if cfg.model_axis > 1:
         raise NotImplementedError(
             "model_axis > 1: multi-device training is not in the port yet")
-    if cfg.remat or cfg.model.remat:
-        raise NotImplementedError("remat is not in the port yet")
     if cfg.model.name != "uresnet":
         raise NotImplementedError(f"model '{cfg.model.name}' is not in the "
                                   "port yet (uresnet is)")
@@ -102,6 +122,8 @@ class Trainer:
             policy = dataclasses.replace(
                 policy, quant_train=True,
                 quant_percentile=cfg.model.qat_percentile)
+        if cfg.model.remat:
+            policy = dataclasses.replace(policy, remat=True)
         if cfg.model.precision == "f32" and self.device.type == "cuda":
             strict_f32()
         self.policy = policy
@@ -122,7 +144,7 @@ class Trainer:
                                 use_pallas_loss=self.policy.fused_train,
                                 sparse_hw=sparse_hw,
                                 accum_steps=self.cfg.accum_steps,
-                                device=self.device)
+                                remat=self.cfg.remat, device=self.device)
 
     def run(self) -> dict:
         cfg = self.cfg
@@ -148,7 +170,9 @@ class Trainer:
         summary = {}
         path = None
         nan_seen = 0
-        n_train = len(train_loader.dataset)
+        n_train = (len(train_loader.dataset)
+                   if isinstance(train_loader, BatchLoader)
+                   else train_loader.n_entries)
 
         def epoch():  # as the reference counts it: iter · batch / entries
             return state.step * cfg.train_data.batch_size / n_train
@@ -218,6 +242,7 @@ class Trainer:
                 valid_loader.stop()
             self.writer.close()
         summary.update({
+            "loader": type(train_loader).__name__,
             "final_checkpoint": path,
             "final_iter": state.step,
             "best_acc": best,

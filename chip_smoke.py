@@ -162,10 +162,27 @@ Phases, each printing JSON lines; any failure exits non-zero:
              running stats within 1e-6·max|stat| of them, its launches
              exactly the step table plus the remat launches above; step
              ms (CUDA events) and peak memory of each.
-11. summary — the kernels line (K1-K9, K1-s8, K2-s8, K3-s8) with the
-             launches of every path (wholeview, serve and root among
-             them), the times at the main cell and, under at_shapes, at
-             the wholeview cells; the card line, the result line.
+11. aspp   — ASPP-ResNet (inplanes 16, branches 16, seeded random
+             weights in a reference .tar) at full width and depth: the
+             main phase's 64 crops through infer_precropped --arch
+             aspp_resnet -b 16 (first, warm) and with the default --arch
+             (the same bytes); 11 launches a batch, score sums 1 ± 1e-2,
+             argmax ≥ 99% against the f32 path on the timed b16 batch;
+             forward-only b16 ms and crops/s, the stage breakdown (aspp3-5,
+             their recompressions, dec5, dec4 named); --int8 (calibrated
+             on 32): the int8 table per batch, mean|Δp| from f32
+             reported; 2 whole 1008x3456 planes through infer_wholeview
+             --arch aspp_resnet: 11 launches a plane, argmax against f32 on
+             one plane ≥ 99%, forward ms per plane; train_parity's batch
+             under its gates, 5 Adam steps (loss falls, exactly the step
+             table's launches), step ms and crops/s; the train CLI with
+             --set model.name=aspp_resnet, 4 iterations and one
+             validation: the step table x 4 + 11 launches.
+12. summary — the kernels line (K1-K9, K1-s8, K2-s8, K3-s8) with the
+             launches of every path (wholeview, serve, root and the aspp
+             paths among them), the times at the main cell and, under
+             at_shapes, at the wholeview cells; the card line, the result
+             line.
 
 Scratch files go under build/chip_smoke in the checkout.
 """
@@ -231,33 +248,38 @@ SOURCES = {
                     " + :1811 pallas_conv_ad (forward, dx)",
                     ("conv_bn_act",),
                     ("precropped", "train", "train_deconv", "qat", "int8",
-                     "wholeview", "serve", "root")),
+                     "wholeview", "serve", "root", "aspp", "aspp_int8",
+                     "aspp_train")),
     "basic_block": ("ubresnet_tpu_torch/ops/csrc/basic_block.cu",
                     f"{PALLAS}:1483 fused_basic_block"
                     " + :699 fused_dual_block", ("basic_block",),
-                    ("precropped", "train", "wholeview", "serve", "root")),
+                    ("precropped", "train", "wholeview", "serve", "root",
+                     "aspp")),
     "deconv2x": ("ubresnet_tpu_torch/ops/csrc/deconv2x.cu",
                  f"{PALLAS}:898 fused_packed_deconv2x"
                  " + :1341 pallas_deconv2x_ad (forward)",
                  ("deconv2x",), ("precropped", "train", "train_deconv",
-                                 "qat", "wholeview", "serve", "root")),
+                                 "qat", "wholeview", "serve", "root", "aspp",
+                                 "aspp_train")),
     "maxpool3x3s2": ("ubresnet_tpu_torch/ops/csrc/maxpool3x3s2.cu",
                      f"{PALLAS}:525 fused_pool3x3s2"
                      " + ubresnet_tpu/ops/pool_ad.py:133 packed_pool_ad "
                      "(forward)", ("maxpool3x3s2",),
                      ("precropped", "train", "train_deconv", "qat", "int8",
-                      "wholeview", "serve", "root")),
+                      "wholeview", "serve", "root", "aspp", "aspp_int8",
+                      "aspp_train")),
     "conv_stats": ("ubresnet_tpu_torch/ops/csrc/conv_stats.cu",
                    "ubresnet_tpu/ops/pallas_train.py:206 train_conv_stats",
-                   ("conv_stats",), ("train", "train_deconv", "qat", "root")),
+                   ("conv_stats",), ("train", "train_deconv", "qat", "root",
+                                     "aspp_train")),
     "conv_dw": ("ubresnet_tpu_torch/ops/csrc/conv_dw.cu",
                 f"{PALLAS}:1677 pallas_conv_dw", ("conv_dw",),
-                ("train", "train_deconv", "qat", "root")),
+                ("train", "train_deconv", "qat", "root", "aspp_train")),
     "weighted_nll": ("ubresnet_tpu_torch/ops/csrc/weighted_nll.cu",
                      "ubresnet_tpu/ops/pallas_loss.py:100 "
                      "pallas_weighted_nll", ("weighted_nll",
                                              "weighted_nll_bwd"),
-                     ("train", "train_deconv", "qat", "root")),
+                     ("train", "train_deconv", "qat", "root", "aspp_train")),
     "conv_s2k4": ("ubresnet_tpu_torch/ops/csrc/conv_s2k4.cu",
                   f"{PALLAS}:1148 fused_conv_s2k4 (the dx leg of :1341 "
                   "pallas_deconv2x_ad)", ("conv_s2k4",), ("train_deconv",)),
@@ -267,16 +289,16 @@ SOURCES = {
     "conv_bn_act_s8": ("ubresnet_tpu_torch/ops/csrc/conv_bn_act_s8.cu",
                        f"{PALLAS}:315 fused_packed_conv (_conv_kernel :251,"
                        " quantized :282-300)", ("conv_bn_act_s8",),
-                       ("int8", "wholeview")),
+                       ("int8", "wholeview", "aspp_int8")),
     "basic_block_s8": ("ubresnet_tpu_torch/ops/csrc/basic_block_s8.cu",
                        f"{PALLAS}:1483 fused_basic_block (_block_kernel "
                        ":1372) + :699 fused_dual_block (_dual_block_kernel"
                        " :587), quantized", ("basic_block_s8",),
-                       ("int8", "wholeview")),
+                       ("int8", "wholeview", "aspp_int8")),
     "deconv2x_s8": ("ubresnet_tpu_torch/ops/csrc/deconv2x_s8.cu",
                     f"{PALLAS}:898 fused_packed_deconv2x (_deconv_kernel "
                     ":847), quantized", ("deconv2x_s8",),
-                    ("int8", "wholeview")),
+                    ("int8", "wholeview", "aspp_int8")),
 }
 # the train zone at batch 16: (ci, co, k) of each distinct conv, the
 # resolution it runs at and how many of the step's 16 BN-fed zone convs
@@ -1041,13 +1063,18 @@ def kernels_line(rows, launches_by_path):
 
 
 def stage_breakdown(model, x, reps=5):
-    """Device ms per forward of each top-level stage, from CUDA events
-    recorded by forward hooks; ``stem pool`` is the gap between the stem
-    conv and enc1, ``rest`` the forward's remainder (log-softmax)."""
+    """Device ms per forward of each top-level stage (with an ASPP model
+    also each ASPP and its recompression), from CUDA events recorded by
+    forward hooks; ``stem pool`` is the gap between the stem conv and
+    enc1, ``rest`` the forward's remainder (log-softmax), ``between
+    stages`` the time no hook brackets."""
     import torch
 
     stages = [("stem conv", model.conv1)]
     stages += [(f"enc{i + 1}", m) for i, m in enumerate(model.enc)]
+    for i, (a, c) in enumerate(zip(getattr(model, "aspp", ()),
+                                   getattr(model, "combine", ()))):
+        stages += [(f"aspp{i + 3}", a), (f"aspp{i + 3}_post", c)]
     depth = len(model.dec)
     stages += [(f"dec{depth - i}", m) for i, m in enumerate(model.dec)]
     stages += [("head conv10", model.conv10), ("classifier conv11", model.conv11)]
@@ -1085,6 +1112,9 @@ def stage_breakdown(model, x, reps=5):
         h.remove()
     out = {k: v / reps for k, v in ms.items()}
     out["total"] = total / reps
+    # what no hook brackets: the skip joins (ASPP's widening concats)
+    out["between stages"] = out["total"] - sum(
+        v for k, v in out.items() if k != "total")
     return out
 
 
@@ -2027,17 +2057,18 @@ def _adam_steps(step, state, b, n=5):
     return state, losses, times
 
 
-def _loss_grads(sd, pol, b, dev):
+def _loss_grads(sd, pol, b, dev, arch="uresnet"):
     """Loss and parameter gradients (f32 copies) of one train-mode
-    forward and backward of ``sd`` under ``pol`` on batch ``b``: the
-    loss kernel where the train zone is on, as the trainer runs it."""
+    forward and backward of ``sd`` (an ``arch`` model) under ``pol`` on
+    batch ``b``: the loss kernel where the train zone is on, as the
+    trainer runs it."""
     import torch
 
     from ubresnet_tpu_torch.losses import pixelwise_weighted_nll_from_logits
     from ubresnet_tpu_torch.models import get_model
     from ubresnet_tpu_torch.ops.loss import weighted_nll
 
-    model = get_model("uresnet", sd, policy=pol, device=dev, train=True)
+    model = get_model(arch, sd, policy=pol, device=dev, train=True)
     logits = model(b["image"], logits=True)
     if pol.fused_train:
         loss = weighted_nll(logits, b["label"], b["weight"])
@@ -2065,16 +2096,19 @@ def _vs_f32(loss, grads, ref):
             "grad_err_median_vs_f32": float(np.median(list(per.values())))}
 
 
-def train_parity(dev, card):
-    """Loss and gradients of the train kernel path against the plain
-    bf16 and f32 paths on one batch, then 5 Adam steps. Returns what
-    ``train_deconv`` holds its path against: the plain paths' results
-    and gates, and this path's step ms."""
+def train_parity(dev, card, arch="uresnet", phase="train_parity"):
+    """Loss and gradients of the train kernel path of ``arch`` (seeded
+    random weights) against the plain bf16 and f32 paths on one batch,
+    then 5 Adam steps whose launches must be exactly the step table's.
+    Returns what ``train_deconv`` holds its path against: the plain
+    paths' results and gates, this path's step ms and the Adam steps'
+    launches."""
     import dataclasses
 
     import numpy as np
     import torch
 
+    from ubresnet_tpu_torch import ops
     from ubresnet_tpu_torch.core.precision import Policy
     from ubresnet_tpu_torch.deploy.weights import random_state_dict
     from ubresnet_tpu_torch.models import get_model
@@ -2084,14 +2118,15 @@ def train_parity(dev, card):
         make_optimizer,
     )
 
-    sd = random_state_dict(seed=0)
+    sd = random_state_dict(seed=0, arch=arch)
     batch = _train_batch(7)
     b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
     kernel_pol = Policy()
     paths = {"kernel_bf16": kernel_pol,
              "plain_bf16": dataclasses.replace(kernel_pol, fused_train=False),
              "plain_f32": Policy.f32()}
-    res = {name: _loss_grads(sd, pol, b, dev) for name, pol in paths.items()}
+    res = {name: _loss_grads(sd, pol, b, dev, arch)
+           for name, pol in paths.items()}
     l32, g32 = res["plain_f32"]
     gsc = max(float(g.abs().max()) for g in g32.values())
     ref = {"loss_f32": l32, "grads_f32": g32, "grad_scale": gsc}
@@ -2102,7 +2137,7 @@ def train_parity(dev, card):
     kp = max(float((gk[k] - gp[k]).abs().max()) for k in gk) / gsc
     loss_gate = max(2 * plain["loss_rel_vs_f32"], 1e-3)
     grad_gate = max(2 * plain["grad_err_vs_f32"], 1e-2)
-    result = {"phase": "train_parity", "card": card, "batch": BATCH_MAIN,
+    result = {"phase": phase, "card": card, "batch": BATCH_MAIN,
               "hw": list(HW), "loss_f32": l32, "grad_scale_f32": gsc,
               "kernel_bf16": kern, "plain_bf16": plain,
               "kernel_vs_plain_bf16": {
@@ -2114,15 +2149,18 @@ def train_parity(dev, card):
     torch.cuda.empty_cache()
 
     # 5 Adam steps on the batch: the loss must fall; steps 2-5 timed
-    model = get_model("uresnet", sd, policy=kernel_pol, device=dev,
-                      train=True)
+    model = get_model(arch, sd, policy=kernel_pol, device=dev, train=True)
     opt = make_optimizer(model.parameters(), "adam", 1e-3, weight_decay=1e-4)
     step = build_train_step(use_pallas_loss=True, device=dev)
     state = create_train_state(model, opt)
     torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
     state, losses, times = _adam_steps(step, state, b)
+    launches = ops.launch_counts()
+    want = {k: 5 * LAUNCHES_PER_TRAIN_STEP.get(k, 0) for k in launches}
     step_ms = sum(times[1:]) / len(times[1:])
-    result.update({"adam_losses": losses, "adam_step_ms": times,
+    result.update({"launches": launches, "launches_want": want,
+                   "adam_losses": losses, "adam_step_ms": times,
                    "train_step_ms_b16": step_ms,
                    "train_crops_per_s_b16": BATCH_MAIN / step_ms * 1e3,
                    "train_peak_mem_gib":
@@ -2137,7 +2175,8 @@ def train_parity(dev, card):
             f"{grad_gate}")
     require(all(np.isfinite(losses)) and losses[-1] < losses[0],
             f"5 Adam steps did not lower the loss: {losses}")
-    ref["step_ms"] = step_ms
+    require(launches == want, f"{phase} launch counts {launches} != {want}")
+    ref.update(step_ms=step_ms, launches=launches)
     return ref
 
 
@@ -2379,6 +2418,211 @@ def qat_path(dev, card, work):
     return launches
 
 
+ASPP_WV_EVENTS = 2           # whole planes the aspp phase scores
+ASPP_TRAIN_ITERS = 4         # train CLI iterations with model.name=aspp
+
+
+def aspp_path(dev, card, work):
+    """ASPP-ResNet (inplanes 16, branches 16, seeded random weights in a
+    reference .tar) through the port's entry points, at full width and
+    depth. Precropped: the main phase's 64 crops through infer_precropped
+    --arch aspp_resnet -b 16 (first and warm) and with the default
+    --arch (the same bytes); forward-only b16 ms, the stage breakdown
+    with aspp3-5 and dec5/dec4, argmax against the f32 path (TF32 off)
+    ≥ 0.99. int8: --int8 (calibrated on 32 crops), the int8 table per
+    batch; mean|Δp| from f32 reported. Wholeview: 2 planes spatial, 11
+    launches a plane, argmax against f32 on one plane ≥ 0.99, forward ms
+    per plane. Train: ``train_parity`` with ASPP weights (its own line,
+    phase ``aspp_train_parity``: the gates, 5 Adam steps, their
+    launches); then the train CLI with --set model.name=aspp_resnet (4
+    iterations, one validation).
+    Returns the launches of the aspp, aspp_int8 and aspp_train paths."""
+    import numpy as np
+    import torch
+
+    from ubresnet_tpu_torch.cli.infer_precropped import main as precropped
+    from ubresnet_tpu_torch.cli.infer_wholeview import main as wholeview
+    from ubresnet_tpu_torch.cli.train import main as train_cli
+    from ubresnet_tpu_torch.core.precision import Policy
+    from ubresnet_tpu_torch.data.synthetic import make_synthetic_file
+    from ubresnet_tpu_torch.data.uevt import EventFileReader
+    from ubresnet_tpu_torch.deploy import PrecroppedRunner, WholeViewRunner
+    from ubresnet_tpu_torch.deploy.weights import (
+        random_state_dict,
+        save_reference_checkpoint,
+    )
+    from ubresnet_tpu_torch.models import get_model
+
+    t_phase = time.time()
+    src = os.path.join(work, "crops.uevt")
+    planes = os.path.join(work, "aspp_planes.uevt")
+    tar = os.path.join(work, "aspp.tar")
+    t0 = time.time()
+    sd = random_state_dict(seed=0, arch="aspp_resnet")
+    save_reference_checkpoint(sd, tar)
+    make_synthetic_file(planes, n_events=ASPP_WV_EVENTS, seed=0,
+                        wholeview=True)
+    setup_s = time.time() - t0
+    batches = -(-EVENTS // BATCH_MAIN)
+    result = {"phase": "aspp", "card": card, "setup_s": setup_s,
+              "events": EVENTS, "batch": BATCH_MAIN, "hw": list(HW)}
+
+    def cli(fn, argv, table, n, name):
+        rc, out, err, wall, launches = _run_cli(fn, argv)
+        require(rc == 0, f"aspp {name} returned {rc}:\n{err[-2000:]}")
+        want = {k: table.get(k, 0) * n for k in launches}
+        require(launches == want,
+                f"aspp {name} launch counts {launches} != {want}")
+        return {"cli_wall_s": wall,
+                "timing": json.loads(out.strip().splitlines()[-1])}, launches
+
+    # precropped: first, warm, and the default --arch on the same .tar
+    outs = {m: os.path.join(work, f"aspp_scores_{m}.uevt")
+            for m in ("first", "warm", "default_arch")}
+    runs, counts = {}, []
+    for mode, out in outs.items():
+        arch = [] if mode == "default_arch" else ["--arch", "aspp_resnet"]
+        runs[mode], c = cli(precropped, ["-i", src, "-o", out, "-c", tar,
+                                         "-b", str(BATCH_MAIN), "--device",
+                                         "cuda", *arch],
+                            LAUNCHES_PER_BATCH, batches, f"precropped {mode}")
+        counts.append(c)
+    worst = _check_scores(outs["first"], EVENTS, "uburn_plane2", HW)
+    with open(outs["first"], "rb") as f_a, \
+            open(outs["default_arch"], "rb") as f_b:
+        same_bytes = f_a.read() == f_b.read()
+    runs["crops_per_s_file_to_file_warm"] = (
+        EVENTS / runs["warm"]["cli_wall_s"])
+
+    # forward-only at b16, the stages, argmax against f32
+    inp = EventFileReader(src)
+    x = torch.from_numpy(np.stack(
+        [inp.read_entry(i, producers=["wire"])["wire"][0].pixels
+         for i in range(BATCH_MAIN)])[..., None]).to(dev)
+    model = get_model("aspp_resnet", sd, device=dev)
+    f32 = get_model("aspp_resnet", sd, policy=Policy.f32(), device=dev)
+    with torch.inference_mode():
+        fwd_ms = time_ms(lambda: model(x), budget_ms=1000.0)
+        stages = stage_breakdown(model, x)
+        profile = forward_profile(lambda: model(x), fwd_ms)
+        lp = model(x)
+        lp_f32 = f32(x)
+    agree = float((lp.argmax(-1) == lp_f32.argmax(-1)).float().mean())
+    result.update({
+        "precropped": runs, "score_sum_max_dev": worst,
+        "default_arch_same_bytes": same_bytes,
+        "forward_ms_b16": fwd_ms,
+        "crops_per_s_forward_b16": BATCH_MAIN / fwd_ms * 1e3,
+        "stage_ms_b16": stages, "profile_b16": profile,
+        "argmax_agreement_b16_vs_f32": agree})
+
+    # int8: the CLI, then the accuracy against f32 on the b16 batch
+    q_run, q_counts = cli(precropped, [
+        "-i", src, "-o", os.path.join(work, "aspp_scores_int8.uevt"),
+        "-c", tar, "-b", str(BATCH_MAIN), "--arch", "aspp_resnet", "--int8",
+        "--int8-calib", str(INT8_CALIB), "--device", "cuda"],
+        LAUNCHES_PER_BATCH_INT8, batches, "int8")
+    q_worst = _check_scores(os.path.join(work, "aspp_scores_int8.uevt"),
+                            EVENTS, "uburn_plane2", HW)
+    q = get_model("aspp_resnet", sd, policy=Policy.int8(), device=dev)
+    PrecroppedRunner(q, batch_size=BATCH_MAIN).calibrate_from(
+        src, n_images=INT8_CALIB)
+    with torch.inference_mode():
+        q_ms = time_ms(lambda: q(x), budget_ms=1000.0)
+        lq = q(x)
+    result["int8"] = {
+        **q_run, "score_sum_max_dev": q_worst,
+        "forward_ms_b16_int8": q_ms,
+        "crops_per_s_forward_b16_int8": BATCH_MAIN / q_ms * 1e3,
+        "vs_f32_not_gated": {
+            "mean_abs_dp": float((lq.exp() - lp_f32.exp()).abs().mean()),
+            "argmax_agreement": float((lq.argmax(-1) == lp_f32.argmax(-1))
+                                      .float().mean())}}
+    del q, lq, lp, lp_f32
+    torch.cuda.empty_cache()
+
+    # wholeview: two planes spatial, one against f32
+    wv_run, wv_counts = cli(wholeview, [
+        "-i", planes, "-o", os.path.join(work, "aspp_plane_scores.uevt"),
+        "-c", tar, "--arch", "aspp_resnet", "--device", "cuda"],
+        LAUNCHES_PER_BATCH, ASPP_WV_EVENTS, "wholeview")
+    wv_worst = _check_scores(os.path.join(work, "aspp_plane_scores.uevt"),
+                             ASPP_WV_EVENTS, "ubsnet_plane2", WV_HW)
+    plane = EventFileReader(planes).read_entry(0, producers=["wire"])[
+        "wire"][0].pixels
+    k = WholeViewRunner(model, spatial=True).score_image(plane)
+    p = WholeViewRunner(f32, spatial=True).score_image(plane)
+    wv_agree = float((k.argmax(-1) == p.argmax(-1)).mean())
+    pad = np.zeros((1,) + tuple(-(-n // 32) * 32 for n in WV_HW) + (1,),
+                   np.float32)
+    pad[0, :WV_HW[0], :WV_HW[1], 0] = plane
+    x_sp = torch.from_numpy(pad).to(dev)
+    with torch.inference_mode():
+        wv_ms = time_ms(lambda: model(x_sp), budget_ms=1000.0)
+        wv_stages = stage_breakdown(model, x_sp)
+    result["wholeview"] = {
+        **wv_run, "planes": ASPP_WV_EVENTS, "hw": list(WV_HW),
+        "score_sum_max_dev": wv_worst, "argmax_agreement_vs_f32": wv_agree,
+        "forward_ms_per_plane_spatial": wv_ms,
+        "stage_ms_spatial": wv_stages,
+        "planes_per_s_file_to_file": ASPP_WV_EVENTS / wv_run["cli_wall_s"]}
+    result["seconds"] = time.time() - t_phase
+    emit(result)
+    require(same_bytes, "aspp: the default --arch wrote other bytes than "
+                        "--arch aspp_resnet")
+    require(agree >= 0.99, f"aspp kernel path vs f32 argmax agreement "
+                           f"{agree}")
+    require(wv_agree >= 0.99, f"aspp wholeview kernel path vs f32 argmax "
+                              f"agreement {wv_agree}")
+    del model, f32, x_sp
+    torch.cuda.empty_cache()
+
+    # train: train_parity's batch, gates and launch gate, 5 Adam steps
+    t0 = time.time()
+    adam_counts = train_parity(dev, card, "aspp_resnet",
+                               "aspp_train_parity")["launches"]
+    torch.cuda.empty_cache()
+
+    # the train CLI with model.name=aspp_resnet
+    data = os.path.join(work, "train.uevt")
+    ckpt = os.path.join(work, "aspp_train_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    cfg = {"model": {"precision": "bf16"},
+           "optim": {"name": "adam", "lr": 1e-3},
+           "train_data": {"files": [data], "batch_size": BATCH_MAIN},
+           "valid_data": {"files": [data], "batch_size": BATCH_MAIN},
+           "num_iters": ASPP_TRAIN_ITERS, "print_every": 1,
+           "valid_every": ASPP_TRAIN_ITERS, "valid_batches": 1,
+           "checkpoint_dir": ckpt, "seed": 0}
+    cfg_path = os.path.join(work, "aspp_train.json")
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f)
+    rc, out, err, wall, cli_counts = _run_cli(
+        train_cli, ["--config", cfg_path, "--device", "cuda", "--set",
+                    "model.name=aspp_resnet"])
+    summary = json.loads(out[out.rfind("\n{\n") + 1:]) if rc == 0 else {}
+    cli_losses = [float(ln.split()[3]) for ln in out.splitlines()
+                  if ln.startswith("iter ")]
+    cli_want = {k: (LAUNCHES_PER_TRAIN_STEP.get(k, 0) * ASPP_TRAIN_ITERS
+                    + LAUNCHES_PER_BATCH.get(k, 0)) for k in cli_counts}
+    emit({"phase": "aspp_train_cli", "card": card, "rc": rc,
+          "cli_wall_s": wall, "iters": ASPP_TRAIN_ITERS,
+          "losses": cli_losses, "final_iter": summary.get("final_iter"),
+          "loader": summary.get("loader"), "launches": cli_counts,
+          "launches_want": cli_want, "meters": summary.get("meters"),
+          "train_seconds": time.time() - t0,
+          "phase_seconds": time.time() - t_phase})
+    require(rc == 0 and "error" not in summary
+            and summary.get("final_iter") == ASPP_TRAIN_ITERS,
+            f"aspp train CLI failed:\n{out[-2000:]}\n{err[-2000:]}")
+    require(len(cli_losses) == ASPP_TRAIN_ITERS
+            and np.isfinite(cli_losses).all(), f"losses {cli_losses}")
+    require(cli_counts == cli_want,
+            f"aspp train CLI launch counts {cli_counts} != {cli_want}")
+    return {"aspp": _merge(*counts, wv_counts), "aspp_int8": q_counts,
+            "aspp_train": _merge(adam_counts, cli_counts)}
+
+
 def main():
     import torch
 
@@ -2442,6 +2686,8 @@ def main():
     launches["serve"] = serve_path(dev, card, work)
     torch.cuda.empty_cache()
     launches["root"] = root_path(dev, card, work, gates, host_build)
+    torch.cuda.empty_cache()
+    launches.update(aspp_path(dev, card, work))
     line = kernels_line(rows, launches)
     for k in line["kernels"]:
         paths = SOURCES[k["name"]][3]

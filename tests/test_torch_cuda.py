@@ -796,3 +796,79 @@ def test_root_precropped_on_the_card_equals_uevt(dev, tmp_path):
         assert s_root.dtype == np.float32 and s_uevt.dtype == np.float16
         np.testing.assert_allclose(s_root.sum(-1), 1.0, atol=1e-2)
         np.testing.assert_array_equal(s_root.astype(np.float16), s_uevt)
+
+
+def _aspp_input(dev, b=2, hw=(64, 96)):
+    rng = np.random.RandomState(4)
+    x = np.zeros((b, *hw, 1), np.float32)
+    n = hw[0] * hw[1] // 16
+    for i in range(b):
+        x[i, rng.randint(0, hw[0], n), rng.randint(0, hw[1], n), 0] = \
+            rng.rand(n) * 50 + 5
+    return torch.from_numpy(x).to(dev)
+
+
+def test_aspp_forward_on_the_card(dev):
+    """ASPP-ResNet at the flagship width: the forward through the zone
+    kernels — UResNet's 11 launches, K1 2, K2 6, K3 2, K4 1 — against
+    the same model on the plain versions (fused_eval off): probability
+    sums 1 ± 1e-3, argmax on ≥ 99% of pixels."""
+    import dataclasses
+
+    from ubresnet_tpu_torch.core.precision import Policy
+    from ubresnet_tpu_torch.deploy.weights import random_state_dict
+    from ubresnet_tpu_torch.models import get_model
+
+    sd = random_state_dict(seed=3, arch="aspp_resnet")
+    sd["conv11.weight"] = sd["conv11.weight"] * 3e-5
+    x = _aspp_input(dev)
+    ops.reset_launch_counts()
+    with torch.inference_mode():
+        got = get_model("aspp_resnet", sd, device=dev)(x)
+        counts = ops.launch_counts()
+        want = get_model("aspp_resnet", sd, device=dev, policy=(
+            dataclasses.replace(Policy(), fused_eval=False)))(x)
+    assert {k: v for k, v in counts.items() if v} == {
+        "conv_bn_act": 2, "basic_block": 6, "deconv2x": 2, "maxpool3x3s2": 1}
+    assert got.shape == want.shape == (2, 64, 96, 3)
+    torch.testing.assert_close(got.exp().sum(-1), torch.ones(2, 64, 96,
+                                                             device=dev),
+                               rtol=0, atol=1e-3)
+    assert float((got.argmax(-1) == want.argmax(-1)).float().mean()) >= 0.99
+
+
+def test_aspp_int8_forward_on_the_card(dev):
+    """The int8 ASPP forward: the int8 zone's launches per forward (K1-s8
+    1, K2-s8 6, K3-s8 2, K4 1, K1 1) and, on the same scales, the argmax
+    of the int8 plain versions on ≥ 99% of pixels."""
+    from ubresnet_tpu_torch.core.precision import Policy
+    from ubresnet_tpu_torch.deploy.weights import random_state_dict
+    from ubresnet_tpu_torch.models import get_model
+    from ubresnet_tpu_torch.ops.quant import calibrate
+
+    sd = random_state_dict(seed=3, arch="aspp_resnet")
+    sd["conv11.weight"] = sd["conv11.weight"] * 3e-5
+    x = _aspp_input(dev)
+    model = get_model("aspp_resnet", sd, policy=Policy.int8(), device=dev)
+    model.set_quant_scales(calibrate(model, [x]))
+    ops.reset_launch_counts()
+    with torch.inference_mode():
+        got = model(x)
+    assert {k: v for k, v in ops.launch_counts().items() if v} == {
+        "conv_bn_act_s8": 1, "basic_block_s8": 6, "deconv2x_s8": 2,
+        "maxpool3x3s2": 1, "conv_bn_act": 1}
+    swaps = [(conv, "conv_bn_act", conv.conv_bn_act_plain),
+             (conv, "conv_bn_act_s8", conv.conv_bn_act_s8_plain),
+             (block, "basic_block_s8", block.basic_block_s8_plain),
+             (deconv, "deconv2x_s8", deconv.deconv2x_s8_plain),
+             (pool, "maxpool3x3s2", pool.maxpool3x3s2_plain)]
+    saved = [(m, n, getattr(m, n)) for m, n, _ in swaps]
+    try:
+        for m, n, fn in swaps:
+            setattr(m, n, fn)
+        with torch.inference_mode():
+            want = model(x)
+    finally:
+        for m, n, fn in saved:
+            setattr(m, n, fn)
+    assert float((got.argmax(-1) == want.argmax(-1)).float().mean()) >= 0.99

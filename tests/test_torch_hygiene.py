@@ -137,7 +137,8 @@ def test_resolve_device_raises_without_cuda(monkeypatch):
 
 @pytest.mark.parametrize("build", ["UResNet", "ConvBN", "BasicBlock",
                                    "Deconv2x", "get_model", "TrainUResNet",
-                                   "get_model_train"])
+                                   "get_model_train", "ASPPResNet",
+                                   "TrainASPPResNet", "ASPP"])
 def test_models_default_to_cuda(monkeypatch, build):
     """A model or block built with no device asks for the card and
     raises without one; it never lands on the CPU unasked."""
@@ -145,6 +146,7 @@ def test_models_default_to_cuda(monkeypatch, build):
     from ubresnet_tpu_torch.deploy.weights import random_state_dict
 
     sd = random_state_dict(seed=0)
+    aspp = random_state_dict(seed=0, inplanes=4, arch="aspp_resnet")
     make = {
         "UResNet": lambda: models.UResNet(sd),
         "ConvBN": lambda: models.ConvBN(sd, "conv10", "bn10"),
@@ -154,6 +156,9 @@ def test_models_default_to_cuda(monkeypatch, build):
         "TrainUResNet": lambda: models.TrainUResNet(sd),
         "get_model_train": lambda: models.get_model("uresnet", sd,
                                                     train=True),
+        "ASPPResNet": lambda: models.ASPPResNet(aspp),
+        "TrainASPPResNet": lambda: models.TrainASPPResNet(aspp),
+        "ASPP": lambda: models.ASPP(aspp, "ASPP_layer_enc3"),
     }[build]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

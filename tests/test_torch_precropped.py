@@ -106,19 +106,33 @@ def test_port_refuses_root_files(files):
 
 def test_port_cli_takes_the_jax_flags(files):
     """The JAX CLI's --arch, --config, --best, --data-parallel and
-    --trace parse: the ones the port cannot run yet exit naming their
-    ROADMAP item, --trace writes a torch.profiler trace of the run."""
+    --trace parse: --arch aspp_resnet scores an ASPP .tar and exits on
+    this UResNet .tar naming the missing ASPP keys, the ones the port
+    cannot run yet exit naming their ROADMAP item (--config and --best
+    also the export route), --trace writes a torch.profiler trace of
+    the run."""
     import json
+
+    from ubresnet_tpu_torch.deploy.weights import random_state_dict
 
     d, data, ckpt = files
     base = ["-i", data, "-o", str(d / "flags.uevt"), "-c", ckpt,
             "--device", "cpu", "--f32"]
-    for extra, item in ((["--arch", "aspp_resnet"], "item 7"),
+    for extra, item in ((["--arch", "aspp_resnet"], "ASPP_layer_enc3"),
                         (["--config", "c.json"], "item 11"),
                         (["--best"], "item 11"),
+                        (["--best"], "export_torch"),
                         (["--data-parallel"], "item 10")):
         with pytest.raises(SystemExit, match=item):
             port_main(base + extra)
+    aspp = save_reference_checkpoint(
+        random_state_dict(seed=0, arch="aspp_resnet"), str(d / "aspp.tar"))
+    assert port_main(["-i", data, "-o", str(d / "aspp.uevt"), "-c", aspp,
+                      "--device", "cpu", "--arch", "aspp_resnet"]) == 0
+    scores = np.stack([_scores(PortReader(str(d / "aspp.uevt")), i)[0]
+                       for i in range(4)])
+    assert scores.shape == (4, 64, 64, 3) and np.isfinite(scores).all()
+    np.testing.assert_allclose(scores.sum(-1), 1.0, atol=1e-2)
     assert port_main(base + ["--arch", "uresnet", "--trace",
                              str(d / "trace")]) == 0
     events = json.loads((d / "trace" / "trace.json").read_text())[

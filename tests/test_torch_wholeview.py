@@ -315,8 +315,20 @@ def test_cli_refuses_what_is_not_ported(files):
     img = open_event_file(str(d / "x.root")).read_entry(0)[
         "ubsnet_plane2"][0]
     assert img.pixels.dtype == np.float32 and img.pixels.shape == HW
-    with pytest.raises(SystemExit, match="item 7"):
+    # --arch aspp_resnet: a UResNet .tar exits naming the missing keys,
+    # an ASPP .tar scores
+    with pytest.raises(SystemExit, match="ASPP_layer_enc3"):
         port_main(base + ["-o", str(d / "x.uevt"), "--arch", "aspp_resnet"])
+    aspp = save_reference_checkpoint(
+        random_state_dict(seed=2, arch="aspp_resnet"), str(d / "aspp.tar"))
+    assert port_main(["-i", data, "-c", aspp, "--device", "cpu", "-o",
+                      str(d / "aspp.uevt"), "--arch", "aspp_resnet",
+                      *TILES]) == 0
+    scores = _planes(PortReader(str(d / "aspp.uevt")))
+    assert len(scores) == N and all(s.shape == HW + (3,)
+                                    for s, _ in scores.values())
+    for s, _ in scores.values():
+        np.testing.assert_allclose(s.sum(-1), 1.0, atol=1e-2)
     with pytest.raises(SystemExit, match="item 11"):
         port_main(base + ["-o", str(d / "x.uevt"), "--config", "c.json"])
     with pytest.raises(SystemExit, match="exclusive"):

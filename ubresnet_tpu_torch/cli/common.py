@@ -4,10 +4,13 @@ from __future__ import annotations
 
 
 def load_model(args):
-    """The eval UResNet of ``args.checkpoint`` (a reference-format .tar)
+    """The eval model of ``args.checkpoint`` (a reference-format .tar)
     on ``args.device``, under the policy the precision flags ask for:
     ``--f32`` (TF32 off), ``--int8`` or the default bf16 kernel zone.
-    What the port cannot load exits."""
+    The architecture is ASPP-ResNet when ``--arch aspp_resnet`` asks for
+    it or the checkpoint holds ASPP keys (so the default ``--arch`` runs
+    an ASPP .tar as ASPP, as the JAX package does), else UResNet. What
+    the port cannot load exits."""
     from ubresnet_tpu_torch.core.precision import Policy
     from ubresnet_tpu_torch.deploy.weights import load_reference_checkpoint
     from ubresnet_tpu_torch.models import get_model
@@ -15,12 +18,12 @@ def load_model(args):
 
     if args.int8 and args.f32:
         raise SystemExit("--int8 and --f32 are mutually exclusive")
-    if getattr(args, "arch", "uresnet") != "uresnet":
-        raise SystemExit(f"--arch {args.arch} is not ported yet (ROADMAP "
-                         "queue 1 item 7)")
     if getattr(args, "config", None) or getattr(args, "best", False):
-        raise SystemExit("orbax checkpoints (--config, --best) are not "
-                         "ported yet (ROADMAP queue 1 item 11)")
+        raise SystemExit(
+            "the port does not read orbax checkpoints (--config, --best): "
+            "write a reference .tar from one with the JAX package's "
+            "export_torch CLI (ubresnet_tpu/cli/export_torch.py) and pass "
+            "it with -c (ROADMAP queue 1 item 11)")
     device = resolve_device(args.device)
     policy = (Policy.f32() if args.f32 else
               Policy.int8() if args.int8 else Policy())
@@ -28,5 +31,10 @@ def load_model(args):
         strict_f32()
     if not args.checkpoint.endswith(".tar"):
         raise SystemExit("the port reads reference-format .tar checkpoints")
-    sd, _ = load_reference_checkpoint(args.checkpoint)
-    return get_model("uresnet", sd, policy=policy, device=device)
+    sd, info = load_reference_checkpoint(args.checkpoint)
+    arch = getattr(args, "arch", "uresnet")
+    if arch == "aspp_resnet" and info["arch"] != "aspp_resnet":
+        raise SystemExit(
+            f"--arch aspp_resnet: {args.checkpoint} has no ASPP_layer_enc3 "
+            "keys (ASPP_layer_enc3.B1_conv.weight ...); it holds a UResNet")
+    return get_model(info["arch"], sd, policy=policy, device=device)

@@ -10,9 +10,10 @@ ubresnet_tpu/cli/infer_precropped.py).
 Arg surface of the reference deploy/run_ubresnet_precropped.py:17-27
 (-i -o -c -p -t [-b -n -v]). Input and output are .uevt or larcv
 .root (a .root output stores float32 scores whatever ``--f16-scores``
-says). Checkpoints are reference-format .tar files; ``--arch
-aspp_resnet``, ``--config``/``--best`` (orbax checkpoints) and
-``--data-parallel`` exit naming the ROADMAP item that ports them.
+says). Checkpoints are reference-format .tar files of a UResNet or an
+ASPP-ResNet (``--arch aspp_resnet``, or the default ``--arch`` on a
+.tar that holds ASPP keys); ``--config``/``--best`` (orbax checkpoints)
+and ``--data-parallel`` exit naming the ROADMAP item that ports them.
 ``--trace DIR`` writes a torch.profiler Chrome trace of the run to
 ``DIR/trace.json``. Runs on the card unless ``--device cpu`` is given;
 prints the timing dict as one JSON line (with ``--int8`` also the
@@ -46,7 +47,9 @@ def build_parser():
                     help="orbax checkpoints: not ported (exits)")
     ap.add_argument("--arch", default="uresnet",
                     choices=["uresnet", "aspp_resnet"],
-                    help="aspp_resnet is not ported (exits)")
+                    help="model architecture (default uresnet; a .tar "
+                         "holding ASPP keys runs as aspp_resnet either "
+                         "way)")
     ap.add_argument("--best", action="store_true",
                     help="orbax checkpoints: not ported (exits)")
     ap.add_argument("--f32", action="store_true",

@@ -16,10 +16,11 @@ overlap-averages them, and ``--detsplit`` places those crops as
 implies ``--stitched``). Scores go to producer ``ubsnet_plane%d`` with
 the input's meta and ids; input and output are .uevt or larcv .root
 (a .root output stores float32 scores whatever ``--f16-scores`` says).
-Checkpoints are reference-format .tar files.
-Runs on the card unless ``--device cpu`` is given; prints the timing
-dict (total / read / splitscore / write, and ``calibrate`` with
-``--int8``) as one JSON line.
+Checkpoints are reference-format .tar files of a UResNet or an
+ASPP-ResNet (``--arch aspp_resnet``, or the default ``--arch`` on a
+.tar that holds ASPP keys). Runs on the card unless ``--device cpu`` is
+given; prints the timing dict (total / read / splitscore / write, and
+``calibrate`` with ``--int8``) as one JSON line.
 """
 from __future__ import annotations
 
@@ -70,7 +71,9 @@ def build_parser():
                     help="orbax checkpoints: not ported (exits)")
     ap.add_argument("--arch", default="uresnet",
                     choices=["uresnet", "aspp_resnet"],
-                    help="aspp_resnet is not ported (exits)")
+                    help="model architecture (default uresnet; a .tar "
+                         "holding ASPP keys runs as aspp_resnet either "
+                         "way)")
     ap.add_argument("--best", action="store_true",
                     help="orbax checkpoints: not ported (exits)")
     ap.add_argument("--f32", action="store_true",

@@ -38,7 +38,11 @@ def build_parser():
     ap.add_argument("--config", help="orbax checkpoints: not ported (exits)")
     ap.add_argument("--best", action="store_true",
                     help="orbax checkpoints: not ported (exits)")
-    ap.add_argument("--arch", default="uresnet")
+    ap.add_argument("--arch", default="uresnet",
+                    choices=["uresnet", "aspp_resnet"],
+                    help="model architecture (default uresnet; a .tar "
+                         "holding ASPP keys runs as aspp_resnet either "
+                         "way)")
     ap.add_argument("-p", "--plane", type=int, default=2)
     ap.add_argument("-t", "--producer", default="wire")
     ap.add_argument("-b", "--batchsize", type=int, default=8)

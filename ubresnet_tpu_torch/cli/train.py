@@ -5,8 +5,9 @@
         [--trace DIR] [--debug-dump DIR]
 
 A JSON or PSet config (core/config.py, the JAX package's keys) plus
-``--set a.b=c`` overrides (``--set model.remat=true`` recomputes each
-stage in backward, ``--set remat=true`` the whole forward). Runs on the
+``--set a.b=c`` overrides (``--set model.name=aspp_resnet`` trains an
+ASPP-ResNet, ``--set model.remat=true`` recomputes each stage in
+backward, ``--set remat=true`` the whole forward). Runs on the
 card unless ``--device cpu``; prints the run summary as JSON and
 returns 1 when the run failed. ``--trace DIR`` writes a torch.profiler
 Chrome trace of the run to ``DIR/trace.json``; ``--debug-dump DIR``
@@ -45,7 +46,8 @@ def apply_overrides(cfg: TrainConfig, overrides):
 
 
 def build_parser():
-    ap = argparse.ArgumentParser(description="Train a UResNet on the card")
+    ap = argparse.ArgumentParser(
+        description="Train a UResNet or an ASPP-ResNet on the card")
     ap.add_argument("--config", "-c", required=True,
                     help="JSON or PSet config file")
     ap.add_argument("--set", action="append", dest="overrides",

@@ -1,11 +1,12 @@
 """Precropped inference — batched scoring of event files (counterpart of
 ubresnet_tpu/deploy/precropped.py).
 
-Reads one plane's precropped ADC images, scores each batch with the
-port's UResNet on its device and writes the per-class score images to
-producer ``uburn_plane%d`` with the input's meta and run/subrun/event
-ids (the reference's deploy/run_ubresnet_precropped.py:115-194, with
-batches that really fill to ``batch_size``).
+Reads one plane's precropped ADC images, scores each batch with a
+port eval model (UResNet or ASPP-ResNet) on its device and writes the
+per-class score images to producer ``uburn_plane%d`` with the input's
+meta and run/subrun/event ids (the reference's
+deploy/run_ubresnet_precropped.py:115-194, with batches that really
+fill to ``batch_size``).
 
 Structure, as in the JAX runner: a pre-scan fixes one sparse capacity
 for the whole run; the host ships COO pixels and the device densifies
@@ -61,7 +62,9 @@ SPARSE_BUCKET = 4096  # COO capacity grain (pixels per crop)
 
 class PrecroppedRunner:
     """Score every event of a .uevt or larcv .root file with ``model``
-    (a port UResNet; its device is the runner's device); a .root output
+    (a port eval model, UResNet or ASPP-ResNet: ``model(x)`` gives
+    log-probabilities, ``model.device`` is the runner's device, and
+    ``calibrate_from`` calls ops/quant.py:calibrate on it); a .root output
     stores float32 scores whatever ``score_dtype`` says.
 
     sparse: ship the crops as COO pixels and densify on the device
@@ -91,7 +94,7 @@ class PrecroppedRunner:
                 "trained network's scores decay within that halo.",
                 stacklevel=2)
         self.model = model
-        self.device = next(model.buffers()).device
+        self.device = model.device
         self.batch_size = batch_size
         self.sparse = sparse
         self.compact = compact_readback or False

@@ -19,6 +19,8 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from ubresnet_tpu_torch.models.registry import arch_of
+
 StateDict = Dict[str, torch.Tensor]
 
 
@@ -27,9 +29,11 @@ def _t(a) -> torch.Tensor:
 
 
 def state_dict_from_jax(variables: Dict) -> StateDict:
-    """JAX-package UResNet variables ``{params, batch_stats}`` (nested
-    dicts of arrays) → reference UResNet state_dict (mirrors
-    ubresnet_tpu/deploy/exporters.py:export_uresnet_state_dict)."""
+    """JAX-package UResNet or ASPPResNet variables ``{params,
+    batch_stats}`` (nested dicts of arrays) → reference UResNet or
+    ASPP_ResNet state_dict (mirrors ubresnet_tpu/deploy/exporters.py:
+    export_uresnet_state_dict, and export_aspp_state_dict when the
+    params hold ``aspp3``, as importers.py:160 tells them apart)."""
     p, s = variables["params"], variables["batch_stats"]
     out: StateDict = {}
 
@@ -67,6 +71,15 @@ def state_dict_from_jax(variables: Dict) -> StateDict:
              transpose=(2, 3, 0, 1))
         double(f"dec_layer{i}.res", p[f"dec{i}"]["res"], s[f"dec{i}"]["res"])
         i += 1
+    if "aspp3" in p:
+        for i in (3, 4, 5):
+            for b in (1, 2, 3, 4):
+                convbn(f"ASPP_layer_enc{i}.B{b}_conv",
+                       f"ASPP_layer_enc{i}.B{b}_bn",
+                       p[f"aspp{i}"][f"b{b}"], s[f"aspp{i}"][f"b{b}"])
+            convbn(f"ASPP_combine_enc{i}.ASPP_conv",
+                   f"ASPP_combine_enc{i}.ASPP_bn",
+                   p[f"aspp{i}_post"]["post"], s[f"aspp{i}_post"]["post"])
     convbn("conv10", "bn10", p["head"], s["head"])
     conv("conv11", p["classifier"])
     return out
@@ -103,7 +116,8 @@ def load_reference_checkpoint(path: str) -> Tuple[StateDict, Dict]:
     """Read a reference ``.tar`` checkpoint → (state_dict of f32 CPU
     tensors without the ``module.`` prefix, info). ``info`` carries the
     geometry the importer infers (inplanes, input_channels,
-    num_classes).
+    num_classes) and the architecture the keys hold (``arch``:
+    models/registry.py:arch_of).
     The file is a pickle, as the reference writes it: load only
     checkpoints you trust."""
     payload = torch.load(path, map_location="cpu", weights_only=False)
@@ -118,6 +132,7 @@ def load_reference_checkpoint(path: str) -> Tuple[StateDict, Dict]:
         "inplanes": int(w.shape[0]),
         "input_channels": int(w.shape[1]),
         "num_classes": int(sd["conv11.weight"].shape[0]),
+        "arch": arch_of(sd),
     }
     return sd, info
 
@@ -137,13 +152,23 @@ def save_reference_checkpoint(sd: StateDict, path: str) -> str:
 
 def random_state_dict(seed: int = 0, *, inplanes: int = 16,
                       input_channels: int = 1, num_classes: int = 3,
-                      depth: int = 5) -> StateDict:
+                      depth: int = 5, arch: str = "uresnet",
+                      aspp_branch_features: int = 16) -> StateDict:
     """Seeded random weights of a UResNet — by default the flagship
     (inplanes 16, 1 input channel, 3 classes, depth 5;
-    final_conv_kernels 16) — under the reference key names: convs drawn
-    as the reference initialises them (normal with std
+    final_conv_kernels 16) — or, with ``arch="aspp_resnet"``, of an
+    ASPP_ResNet of depth 5 (ASPP_ResNet.py naming, the layout
+    tests/test_aspp_importer.py builds: the widened dec5, dec4 and dec3
+    and, at encoder stages 3-5, four ``aspp_branch_features``-wide
+    branches and the recompression), under the reference key names:
+    convs drawn as the reference initialises them (normal with std
     sqrt(2 / (k·k·out)), ub_uresnet.py:72-79), BN near identity with
     random running statistics, small conv biases."""
+    if arch not in ("uresnet", "aspp_resnet"):
+        raise ValueError(f"unknown arch {arch!r}")
+    aspp = arch == "aspp_resnet"
+    if aspp and depth != 5:
+        raise ValueError(f"ASPP_ResNet has depth 5, not {depth}")
     fk = 16
     rng = np.random.RandomState(seed)
     sd: StateDict = {}
@@ -175,12 +200,30 @@ def random_state_dict(seed: int = 0, *, inplanes: int = 16,
     for i in range(1, depth + 1):
         block(f"enc_layer{i}.res1", chans[i - 1], chans[i], 1 if i == 1 else 2)
         block(f"enc_layer{i}.res2", chans[i], chans[i], 1)
+    # decoder stage i: deconv (ci → cu), then res over cu + skip → co
+    plan = {i: (chans[i], chans[i - 1], 2 * chans[i - 1], chans[i - 1])
+            for i in range(1, depth + 1)}
+    if aspp:  # ASPP_ResNet.py:361-375
+        p = inplanes
+        plan.update({5: (64 * p, 16 * p, 48 * p, 32 * p),
+                     4: (32 * p, 8 * p, 24 * p, 16 * p),
+                     3: (16 * p, 4 * p, 8 * p, 4 * p)})
     for i in range(depth, 0, -1):
-        cin, cout = chans[i], chans[i - 1]
-        std = math.sqrt(2.0 / (16 * cout))
-        sd[f"dec_layer{i}.deconv.weight"] = _t(rng.randn(cin, cout, 4, 4) * std)
-        block(f"dec_layer{i}.res.res1", 2 * cout, cout, 1)
+        cin, cu, cres, cout = plan[i]
+        std = math.sqrt(2.0 / (16 * cu))
+        sd[f"dec_layer{i}.deconv.weight"] = _t(rng.randn(cin, cu, 4, 4) * std)
+        block(f"dec_layer{i}.res.res1", cres, cout, 1)
         block(f"dec_layer{i}.res.res2", cout, cout, 1)
+    if aspp:
+        bf = aspp_branch_features
+        for i in (3, 4, 5):
+            cin = chans[i]
+            for b, k in ((1, 1), (2, 3), (3, 3), (4, 3)):
+                conv(f"ASPP_layer_enc{i}.B{b}_conv", bf, cin, k, bias=True)
+                bn(f"ASPP_layer_enc{i}.B{b}_bn", bf)
+            conv(f"ASPP_combine_enc{i}.ASPP_conv", cin, 4 * bf + cin, 1,
+                 bias=True)
+            bn(f"ASPP_combine_enc{i}.ASPP_bn", cin)
     conv("conv10", fk, inplanes, 7, bias=True)
     bn("bn10", fk)
     conv("conv11", num_classes, fk, 7, bias=True)

@@ -2,7 +2,7 @@
 (counterpart of ubresnet_tpu/deploy/wholeview.py).
 
 The reference's deploy/run_ubresnet_wholeview.py pipeline, for the
-single-input, per-plane, 3-class UResNet:
+single-input, per-plane, 3-class UResNet or ASPP-ResNet:
 
   1. read whole-plane ADC images (e.g. 1008x3456) from .uevt or larcv
      .root,
@@ -56,8 +56,9 @@ from ubresnet_tpu_torch.ops.tiling import (
 
 
 class WholeViewRunner:
-    """Score whole planes with ``model`` (a port UResNet; its device is
-    the runner's device).
+    """Score whole planes with ``model`` (a port eval model, UResNet or
+    ASPP-ResNet, as PrecroppedRunner takes it; ``model.device`` is the
+    runner's device).
 
     spatial: score each plane in one forward (padded to
     ``SPATIAL_DIVISOR`` on the high side) instead of crop-and-stitch;
@@ -66,7 +67,7 @@ class WholeViewRunner:
     dense. score_dtype: storage dtype of the written score images
     (.uevt outputs; a .root output stores float32)."""
 
-    # UResNet downsamples by 2^5 (stem pool + four stride-2 encoders):
+    # both models downsample by 2^5 (stem pool + four stride-2 encoders):
     # the spatial path pads to this so every decoder upsample is an
     # exact 2x (1008 -> 1024 rows), as the JAX package pads
     SPATIAL_DIVISOR = 32
@@ -87,7 +88,7 @@ class WholeViewRunner:
         score_dtype=np.float32,
     ):
         self.model = model
-        self.device = next(model.buffers()).device
+        self.device = model.device
         self.tile_rows = tile_rows
         self.tile_cols = tile_cols
         self.min_overlap_rows = min_overlap_rows

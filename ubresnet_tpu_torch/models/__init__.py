@@ -1,4 +1,11 @@
+from ubresnet_tpu_torch.models.aspp_resnet import (  # noqa: F401
+    ASPPResNet,
+    ASPPResNetConfig,
+    TrainASPPResNet,
+)
 from ubresnet_tpu_torch.models.blocks import (  # noqa: F401
+    ASPP,
+    ASPPCombine,
     BasicBlock,
     BatchNorm,
     Conv,
@@ -6,6 +13,8 @@ from ubresnet_tpu_torch.models.blocks import (  # noqa: F401
     DecoderBlock,
     Deconv2x,
     DoubleResNet,
+    TrainASPP,
+    TrainASPPCombine,
     TrainBasicBlock,
     TrainDecoderBlock,
     TrainDeconv2x,
@@ -14,6 +23,8 @@ from ubresnet_tpu_torch.models.blocks import (  # noqa: F401
 )
 from ubresnet_tpu_torch.models.registry import (  # noqa: F401
     MODEL_REGISTRY,
+    arch_of,
+    eval_class_of,
     get_model,
 )
 from ubresnet_tpu_torch.models.uresnet import (  # noqa: F401

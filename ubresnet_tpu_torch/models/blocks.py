@@ -82,10 +82,17 @@ def jax_name(key: str) -> Optional[str]:
     """The JAX package's module path of a reference layer prefix, as its
     'quant' collection names it: conv1 → stem, conv10 → head,
     enc_layer1.res1 → enc1.res1, dec_layer2.res.res1 → dec2.res.res1,
-    dec_layer2.deconv → dec2.deconv; None for the classifier (JAX's
-    PackedConv records no scale)."""
+    dec_layer2.deconv → dec2.deconv, ASPP_layer_enc3.B1_conv → aspp3.b1,
+    ASPP_combine_enc3.ASPP_conv → aspp3_post.post; None for the
+    classifier (JAX's PackedConv records no scale)."""
     if key in ("conv1", "conv10"):
         return {"conv1": "stem", "conv10": "head"}[key]
+    m = re.fullmatch(r"ASPP_layer_enc(\d+)\.B(\d+)_conv", key)
+    if m:
+        return f"aspp{m[1]}.b{m[2]}"
+    m = re.fullmatch(r"ASPP_combine_enc(\d+)\.ASPP_conv", key)
+    if m:
+        return f"aspp{m[1]}_post.post"
     name = re.sub(r"^(enc|dec)_layer(\d+)", r"\1\2", key)
     return None if name == key else name
 
@@ -132,8 +139,11 @@ def _nhwc(y: torch.Tensor) -> torch.Tensor:
 class ConvBN(nn.Module):
     """Stride-1 'same' conv (+bias) → eval BN → [ReLU]; ``bn_key=None``
     drops the BN (the classifier). Runs on K1 (ops/conv.py) when the
-    policy fuses and (ci, co, k) is compiled, else as one F.conv2d with
-    BN folded into its weight and bias. In the int8 zone: K1-s8 with the
+    policy fuses, (ci, co, k) is compiled and ``dilation`` is 1, else as
+    one F.conv2d with BN folded into its weight and bias (a dilated
+    conv, ASPP's branches, pads dilation·(k // 2); K1 has no dilation,
+    and at inplanes 4 a d3 or d5 branch has a compiled (ci, co, k)).
+    In the int8 zone: K1-s8 with the
     dequant and BN folded into its gain when the policy fuses and the
     shape is compiled, else the exact integer conv, ``acc·(sx·sw) +
     bias`` in f32, cast to the compute dtype, BN in the compute dtype
@@ -141,14 +151,16 @@ class ConvBN(nn.Module):
 
     def __init__(self, sd: StateDict, conv_key: str, bn_key: Optional[str],
                  *, act: bool = True, policy: Policy = Policy(), device=None,
-                 quant: bool = False, qpack: int = 1, qat: bool = False):
+                 quant: bool = False, qpack: int = 1, qat: bool = False,
+                 dilation: int = 1):
         super().__init__()
         device = resolve_device(device)
         w = sd[f"{conv_key}.weight"].float()  # OIHW
         co, ci, k, _ = w.shape
         g, b = _affine(sd, conv_key, bn_key)
         cdt = policy.compute_dtype
-        self.pad, self.act, self.cdt = k // 2, act, cdt
+        self.pad, self.act, self.cdt = dilation * (k // 2), act, cdt
+        self.dilation = dilation
         self.qname, self.qpack, self.observer = jax_name(conv_key), qpack, None
         self.quant = quant and policy.quant_eval
         # QAT: the input is fake-quantized where a BN follows (a ConvBN),
@@ -157,8 +169,9 @@ class ConvBN(nn.Module):
         self.qat_input = self.qat and bn_key is not None
         self.pct = policy.quant_percentile
         if self.quant:
-            if bn_key is None:
-                raise ValueError(f"{conv_key}: an int8 ConvBN needs its BN")
+            if bn_key is None or dilation != 1:
+                raise ValueError(f"{conv_key}: an int8 ConvBN needs its BN "
+                                 "and dilation 1")
             self.kernel = policy.fused_eval and conv_ops.s8_supports(ci, co, k)
             self._device = device
             # the raw HWIO kernel and, for K1-s8's epilogue, the BN folded
@@ -175,7 +188,8 @@ class ConvBN(nn.Module):
                                sd[f"{bn_key}.running_mean"],
                                sd[f"{bn_key}.running_var"]))
             return
-        self.kernel = policy.fused_eval and conv_ops.supports(ci, co, k)
+        self.kernel = (policy.fused_eval and dilation == 1
+                       and conv_ops.supports(ci, co, k))
         if self.qat:
             wq = quant_ops.fake_quant_weight(w.permute(2, 3, 1, 0))
             if self.kernel:
@@ -258,11 +272,13 @@ class ConvBN(nn.Module):
             return conv_ops.conv_bn_act(x, self.w, self.g, self.b,
                                         act=self.act)
         if self.qat:
-            y = F.conv2d(_nchw(x), self.w, self.cbias, padding=self.pad)
+            y = F.conv2d(_nchw(x), self.w, self.cbias, padding=self.pad,
+                         dilation=self.dilation)
             if self.gbn is not None:
                 y = y * self.gbn.view(1, -1, 1, 1) + self.bbn.view(1, -1, 1, 1)
         else:
-            y = F.conv2d(_nchw(x), self.w, self.b, padding=self.pad)
+            y = F.conv2d(_nchw(x), self.w, self.b, padding=self.pad,
+                         dilation=self.dilation)
         if self.act:
             y = torch.relu(y)
         return _nhwc(y)
@@ -547,6 +563,48 @@ class DecoderBlock(nn.Module):
         return self.res(up, dual=skip)
 
 
+# ASPP's branches (ASPP_ResNet.py:188-263, JAX blocks.py ASPP): the
+# reference's name and the dilation; the kernel (1x1 for B1, else 3x3)
+# comes with the weight
+ASPP_BRANCHES = (("B1", 1), ("B2", 1), ("B3", 3), ("B4", 5))
+
+
+def aspp_pool(x: torch.Tensor) -> torch.Tensor:
+    """ASPP's fifth branch: MaxPool2d(3, 1, 1) of NHWC ``x``, channels
+    kept."""
+    return _nhwc(F.max_pool2d(_nchw(x), 3, 1, 1))
+
+
+class ASPP(nn.Module):
+    """Atrous spatial pyramid pooling over ``pref`` (the reference's
+    ``ASPP_layer_enc{i}``): four biased conv-BN-ReLU branches — 1x1,
+    3x3, 3x3 at dilation 3, 3x3 at dilation 5 — and the 3x3 stride-1
+    max pool of the input cast to their dtype, concatenated in that
+    order. All F.conv2d (cuDNN on the card), as XLA convs in JAX."""
+
+    def __init__(self, sd: StateDict, pref: str, *, policy: Policy = Policy(),
+                 device=None):
+        super().__init__()
+        self.branches = nn.ModuleList(
+            ConvBN(sd, f"{pref}.{b}_conv", f"{pref}.{b}_bn", dilation=d,
+                   policy=policy, device=device)
+            for b, d in ASPP_BRANCHES)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        outs = [branch(x) for branch in self.branches]
+        return torch.cat(outs + [aspp_pool(x).to(outs[0].dtype)], dim=-1)
+
+
+class ASPPCombine(ConvBN):
+    """ASPP's 1x1 conv-BN-ReLU recompression over ``pref`` (the
+    reference's ``ASPP_combine_enc{i}``)."""
+
+    def __init__(self, sd: StateDict, pref: str, *, policy: Policy = Policy(),
+                 device=None):
+        super().__init__(sd, f"{pref}.ASPP_conv", f"{pref}.ASPP_bn",
+                         policy=policy, device=device)
+
+
 def stem_pool(x: torch.Tensor, fused: bool, train: bool = False
               ) -> torch.Tensor:
     """MaxPool2d(3, 2, 1) on NHWC; K4 when ``fused`` and the shape
@@ -600,11 +658,13 @@ class Conv(nn.Module):
     optional ``bias``, f32 — and its train-mode forward. ``bn``: the
     conv feeds a BatchNorm, so the zone form is K5 with its statistics
     (``with_stats``, which also fake-quantizes the input under QAT);
-    otherwise it is conv_ad + bias (``forward``)."""
+    otherwise it is conv_ad + bias (``forward``). A ``dilation`` other
+    than 1 (ASPP's branches) is never in the zone: the kernels have
+    none."""
 
     def __init__(self, sd: StateDict, key: str, *, stride: int = 1,
                  bn: bool = True, policy: Policy = Policy(), device=None,
-                 qat: bool = False, qpack: int = 1):
+                 qat: bool = False, qpack: int = 1, dilation: int = 1):
         super().__init__()
         device = resolve_device(device)
         w = sd[f"{key}.weight"].float()
@@ -613,13 +673,15 @@ class Conv(nn.Module):
         b = sd.get(f"{key}.bias")
         self.bias = (nn.Parameter(b.float().to(device).clone())
                      if b is not None else None)
-        self.stride, self.pad = stride, k // 2
+        self.stride, self.pad = stride, dilation * (k // 2)
+        self.dilation = dilation
         self.cdt = policy.compute_dtype
         self.qat = qat and policy.quant_train
         self.qpack, self.pct = qpack, policy.quant_percentile
         fits = (train_ops.supports(ci, co, k) if bn
                 else conv_ops.ad_supports(ci, co, k))
-        self.zone = policy.fused_train and stride == 1 and fits
+        self.zone = (policy.fused_train and stride == 1 and dilation == 1
+                     and fits)
 
     def _kernel_weight(self) -> torch.Tensor:
         """(k, k, ci, co) in the compute dtype, under autograd
@@ -637,7 +699,7 @@ class Conv(nn.Module):
         w = (self._kernel_weight().permute(3, 2, 0, 1) if self.qat
              else self.weight.to(self.cdt))
         return _nhwc(F.conv2d(_nchw(x), w, b, stride=self.stride,
-                              padding=self.pad))
+                              padding=self.pad, dilation=self.dilation))
 
     def with_stats(self, x: torch.Tensor):
         """(y, (Σy, Σy²)) from K5 in the zone, else (y, None)."""
@@ -827,3 +889,38 @@ class TrainDecoderBlock(nn.Module):
     def forward(self, x, skip):
         up = self.deconv(x, (skip.shape[1], skip.shape[2]))
         return self.res(up, dual=skip)
+
+
+class TrainASPP(nn.Module):
+    """Train-mode ASPP: ``B{b}_conv`` / ``B{b}_bn`` under ``pref`` as the
+    reference names them, each branch a train-mode ConvBN (a dilated
+    conv never in the zone), then the max-pool branch and the concat."""
+
+    def __init__(self, sd: StateDict, pref: str, *, policy: Policy = Policy(),
+                 device=None):
+        super().__init__()
+        kw = dict(policy=policy, device=device)
+        for b, d in ASPP_BRANCHES:
+            self.add_module(f"{b}_conv", Conv(sd, f"{pref}.{b}_conv",
+                                              dilation=d, **kw))
+            self.add_module(f"{b}_bn", BatchNorm(sd, f"{pref}.{b}_bn", **kw))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        outs = [conv_bn(getattr(self, f"{b}_conv"), getattr(self, f"{b}_bn"),
+                        x, act=True) for b, _ in ASPP_BRANCHES]
+        return torch.cat(outs + [aspp_pool(x).to(outs[0].dtype)], dim=-1)
+
+
+class TrainASPPCombine(nn.Module):
+    """Train-mode ASPP recompression: ``ASPP_conv`` → ``ASPP_bn`` →
+    ReLU."""
+
+    def __init__(self, sd: StateDict, pref: str, *, policy: Policy = Policy(),
+                 device=None):
+        super().__init__()
+        kw = dict(policy=policy, device=device)
+        self.ASPP_conv = Conv(sd, f"{pref}.ASPP_conv", **kw)
+        self.ASPP_bn = BatchNorm(sd, f"{pref}.ASPP_bn", **kw)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv_bn(self.ASPP_conv, self.ASPP_bn, x, act=True)

@@ -105,7 +105,41 @@ def zone_packs(cfg: UResNetConfig) -> Dict[str, int]:
             "head": p_for(cfg.final_conv_kernels)}
 
 
-class UResNet(nn.Module):
+class ZoneModel(nn.Module):
+    """What the runners, calibration and the trainer call on an eval
+    model beyond ``forward(x, logits=False)``, ``config``, ``policy``
+    and ``device``: ``packed_zone(width)`` (the subclass's),
+    ``calibration_model()``, ``observe(fn)`` and
+    ``set_quant_scales(scales)``. The subclass keeps its source weights
+    in ``_sd``."""
+
+    def packed_zone(self, width: int) -> bool:
+        raise NotImplementedError
+
+    def calibration_model(self) -> "ZoneModel":
+        """The same weights unfused and unquantized on the same device:
+        the forward ``ops.quant.calibrate`` observes, as JAX calibrates
+        (ops/quant.py:154-167)."""
+        pol = dataclasses.replace(self.policy, fused_eval=False,
+                                  quant_eval=False)
+        return type(self)(self._sd, policy=pol, device=self.device)
+
+    def observe(self, fn) -> None:
+        """Route every layer's input to ``fn(name, x, pack)`` (None
+        stops it)."""
+        for m in self.modules():
+            if hasattr(m, "observer"):
+                m.observer = fn
+
+    def set_quant_scales(self, scales: Dict[str, torch.Tensor]) -> None:
+        """Quantize the int8 zone's weights and fold its gains from the
+        calibrated activation scales ({JAX layer name: scalar})."""
+        for m in self.modules():
+            if getattr(m, "quant", False):
+                m.set_scales(scales)
+
+
+class UResNet(ZoneModel):
     """Input (b, h, w, c) NHWC; output (b, h, w, num_classes)
     log-probabilities (or logits) in ``policy.output_dtype``.
 
@@ -156,28 +190,6 @@ class UResNet(nn.Module):
         return (self.config.depth == 5
                 and width % (2 * zone_packs(self.config)["stem"]) == 0)
 
-    def calibration_model(self) -> "UResNet":
-        """The same weights unfused and unquantized on the same device:
-        the forward ``ops.quant.calibrate`` observes, as JAX calibrates
-        (ops/quant.py:154-167)."""
-        pol = dataclasses.replace(self.policy, fused_eval=False,
-                                  quant_eval=False)
-        return UResNet(self._sd, policy=pol, device=self.device)
-
-    def observe(self, fn) -> None:
-        """Route every layer's input to ``fn(name, x, pack)`` (None
-        stops it)."""
-        for m in self.modules():
-            if hasattr(m, "observer"):
-                m.observer = fn
-
-    def set_quant_scales(self, scales: Dict[str, torch.Tensor]) -> None:
-        """Quantize the int8 zone's weights and fold its gains from the
-        calibrated activation scales ({JAX layer name: scalar})."""
-        for m in self.modules():
-            if getattr(m, "quant", False):
-                m.set_scales(scales)
-
     def forward(self, x: torch.Tensor, logits: bool = False) -> torch.Tensor:
         pol = self.policy
         check_zone(self.config, pol, x.shape[2])
@@ -195,8 +207,15 @@ class UResNet(nn.Module):
         return torch.log_softmax(y, dim=-1)
 
 
-def _call(module: nn.Module, *args):
+def plain_call(module: nn.Module, *args):
     return module(*args)
+
+
+def stage_call(policy: Policy, training: bool):
+    """How a train-mode model calls a stage: ``remat`` under
+    ``policy.remat`` in train mode (JAX's nn.remat per stage), else a
+    plain call."""
+    return remat if policy.remat and training else plain_call
 
 
 class TrainUResNet(nn.Module):
@@ -255,7 +274,7 @@ class TrainUResNet(nn.Module):
         y = stem_pool(x0, fused=pol.fused_train, train=True)
         # Policy.remat: each encoder and decoder stage is recomputed in
         # backward (JAX's nn.remat per stage, uresnet.py:92-104)
-        stage = remat if pol.remat and self.training else _call
+        stage = stage_call(pol, self.training)
         skips = [x0]
         for i in range(1, depth + 1):
             y = stage(getattr(self, f"enc_layer{i}"), y)

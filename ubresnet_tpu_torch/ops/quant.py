@@ -17,7 +17,7 @@ written out on the sorted nonzero |x|.
 JAX name, the input of every ConvBN (the [up, skip] concat for a
 decoder block's res1, the conv1 output for cb2) and of every Deconv2x;
 a scale is the running max over batches of range / 127. The model takes
-the result through ``UResNet.set_quant_scales``.
+the result through its ``set_quant_scales``.
 """
 from __future__ import annotations
 
@@ -210,9 +210,11 @@ def int_conv_transpose2d(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
 
 def calibrate(model, batches: Iterable, percentile: float = None
               ) -> Dict[str, torch.Tensor]:
-    """Activation scales of ``model`` (a port UResNet) from eval
-    forwards over ``batches`` (dense NHWC images, numpy or torch):
-    {JAX layer name: float32 scalar}, e.g. ``enc1.res1.cb1``.
+    """Activation scales of ``model`` (a port eval model, UResNet or
+    ASPP-ResNet: ``policy``, ``calibration_model()``, ``observe``,
+    ``packed_zone``) from eval forwards over ``batches`` (dense NHWC
+    images, numpy or torch): {JAX layer name: float32 scalar}, e.g.
+    ``enc1.res1.cb1`` or ``aspp3.b1``.
     ``percentile`` overrides the policy's ``quant_percentile``."""
     pct = model.policy.quant_percentile if percentile is None else percentile
     cal = model.calibration_model()

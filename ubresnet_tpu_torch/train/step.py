@@ -154,11 +154,12 @@ def build_train_step(num_classes: int = 3,
 def build_eval_step(num_classes: int = 3,
                     class_weights: Optional[Sequence[float]] = None,
                     device=None):
-    """Returns step(state, batch) -> metrics: the eval UResNet built
-    from the live state_dict (running-stats BN folded, the eval kernel
+    """Returns step(state, batch) -> metrics: the eval model the
+    registry pairs with the trained model's class, built from the live
+    state_dict (running-stats BN folded, the eval kernel
     zone under the model's policy), then the plain loss and the
     accuracies, no update."""
-    from ubresnet_tpu_torch.models.uresnet import UResNet
+    from ubresnet_tpu_torch.models.registry import eval_class_of
 
     device = resolve_device(device)
     cw = (None if class_weights is None else
@@ -168,8 +169,9 @@ def build_eval_step(num_classes: int = 3,
     def step(state: TrainState, batch: dict) -> dict:
         batch = to_device(batch, device)
         with torch.inference_mode():
-            model = UResNet(state.model.state_dict(),
-                            policy=state.model.policy, device=device)
+            model = eval_class_of(state.model)(
+                state.model.state_dict(), policy=state.model.policy,
+                device=device)
             logits = model(batch["image"], logits=True)
             metrics = {"loss": pixelwise_weighted_nll_from_logits(
                 logits, batch["label"], batch["weight"], cw)}

@@ -10,7 +10,8 @@ checkpoint (wlarcv2:230-251,282-289). Batches prefetch onto the card
 non-finite loss or gradients (train/step.py), and the run aborts once
 more than ``max_nan_recoveries`` steps were skipped.
 
-The model starts from deploy/weights.py:random_state_dict(seed), the
+The model (``model.name``: uresnet or aspp_resnet) starts from
+deploy/weights.py:random_state_dict(seed, arch=model.name), the
 reference initialisation. ``model.qat`` (and ``model.qat_percentile``)
 set the policy's int8 QAT (``quant_train``, ``quant_percentile``), as
 the JAX trainer does; validation then runs fake-quantized too.
@@ -44,7 +45,7 @@ from ubresnet_tpu_torch.data.loader import (
     training_paths,
 )
 from ubresnet_tpu_torch.deploy.weights import random_state_dict
-from ubresnet_tpu_torch.models import get_model
+from ubresnet_tpu_torch.models import MODEL_REGISTRY, get_model
 from ubresnet_tpu_torch.train.checkpoint import (
     latest_step,
     prune_checkpoints,
@@ -107,9 +108,9 @@ def _refuse_unported(cfg: TrainConfig) -> None:
     if cfg.model_axis > 1:
         raise NotImplementedError(
             "model_axis > 1: multi-device training is not in the port yet")
-    if cfg.model.name != "uresnet":
+    if cfg.model.name not in MODEL_REGISTRY:
         raise NotImplementedError(f"model '{cfg.model.name}' is not in the "
-                                  "port yet (uresnet is)")
+                                  f"port (it has {sorted(MODEL_REGISTRY)})")
 
 
 class Trainer:
@@ -129,7 +130,8 @@ class Trainer:
         self.policy = policy
         sd = random_state_dict(cfg.seed, inplanes=cfg.model.inplanes,
                                input_channels=cfg.model.input_channels,
-                               num_classes=cfg.model.num_classes)
+                               num_classes=cfg.model.num_classes,
+                               arch=cfg.model.name)
         self.model = get_model(cfg.model.name, sd, policy=policy,
                                device=self.device, train=True)
         self.optimizer = optimizer_from_config(cfg.optim,

@@ -178,11 +178,41 @@ Phases, each printing JSON lines; any failure exits non-zero:
              table's launches), step ms and crops/s; the train CLI with
              --set model.name=aspp_resnet, 4 iterations and one
              validation: the step table x 4 + 11 launches.
-12. summary — the kernels line (K1-K9, K1-s8, K2-s8, K3-s8) with the
-             launches of every path (wholeview, serve, root and the aspp
-             paths among them), the times at the main cell and, under
-             at_shapes, at the wholeview cells; the card line, the result
-             line.
+12. distributed — the multi-process layer at the flagship width on the
+             train smoke's 64 events (batch 16 a process): python -m
+             ubresnet_tpu_torch.cli.launch --distributed 1 (NCCL), 8
+             iterations: its log names the NCCL backend and cuda:0, its
+             losses (the JSONL log) equal the plain train CLI's on the
+             same config within 1e-6 relative, its launches the step
+             table x 8; two ranks spawned on the one card (gloo), each
+             taking half of train_parity's b16 batch, one Adam step,
+             against one process taking it whole: loss, accuracies,
+             gradients, BN running stats and the updated parameters
+             each within 4x this run's spread of reduction order alone
+             (one process on the batch reordered two ways), and within
+             train_parity's loss and gradient gates and twice the
+             zone-vs-plain BN stats distance; the replicas bit-equal,
+             each rank's launches the step table; a negative control,
+             two ranks with per-rank BN moments, must exceed the BN
+             stats and loss bounds; one NCCL rank (the one-rank
+             timings);
+             launch --sweep of two 4-iteration jobs at --parallel 2 on a
+             tree whose kernel stamp was removed (one build, under the
+             lock, restores it), one job with fault_at_iter=2 and
+             --retries 1: both exit 0, the faulted one logs its restart
+             and "resumed from iter 2", both end at step 4;
+             infer_precropped --data-parallel -b 16 on the main phase's
+             64 crops: the main phase's bytes, 11 launches a batch.
+             Reported, not gated: step ms (CUDA events) of one process,
+             one NCCL rank and two gloo ranks sharing the card, the
+             gradient all-reduce's ms and the BN collectives' total per
+             step under gloo and NCCL, the phase's seconds; the card
+             line again.
+13. summary — the kernels line (K1-K9, K1-s8, K2-s8, K3-s8) with the
+             launches of every path (wholeview, serve, root, the aspp
+             paths and distributed among them), the times at the main
+             cell and, under at_shapes, at the wholeview cells; the card
+             line, the result line.
 
 Scratch files go under build/chip_smoke in the checkout.
 """
@@ -193,6 +223,7 @@ import json
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import time
@@ -249,7 +280,7 @@ SOURCES = {
                     ("conv_bn_act",),
                     ("precropped", "train", "train_deconv", "qat", "int8",
                      "wholeview", "serve", "root", "aspp", "aspp_int8",
-                     "aspp_train")),
+                     "aspp_train", "distributed")),
     "basic_block": ("ubresnet_tpu_torch/ops/csrc/basic_block.cu",
                     f"{PALLAS}:1483 fused_basic_block"
                     " + :699 fused_dual_block", ("basic_block",),
@@ -267,19 +298,21 @@ SOURCES = {
                      "(forward)", ("maxpool3x3s2",),
                      ("precropped", "train", "train_deconv", "qat", "int8",
                       "wholeview", "serve", "root", "aspp", "aspp_int8",
-                      "aspp_train")),
+                      "aspp_train", "distributed")),
     "conv_stats": ("ubresnet_tpu_torch/ops/csrc/conv_stats.cu",
                    "ubresnet_tpu/ops/pallas_train.py:206 train_conv_stats",
                    ("conv_stats",), ("train", "train_deconv", "qat", "root",
-                                     "aspp_train")),
+                                     "aspp_train", "distributed")),
     "conv_dw": ("ubresnet_tpu_torch/ops/csrc/conv_dw.cu",
                 f"{PALLAS}:1677 pallas_conv_dw", ("conv_dw",),
-                ("train", "train_deconv", "qat", "root", "aspp_train")),
+                ("train", "train_deconv", "qat", "root", "aspp_train",
+                 "distributed")),
     "weighted_nll": ("ubresnet_tpu_torch/ops/csrc/weighted_nll.cu",
                      "ubresnet_tpu/ops/pallas_loss.py:100 "
                      "pallas_weighted_nll", ("weighted_nll",
                                              "weighted_nll_bwd"),
-                     ("train", "train_deconv", "qat", "root", "aspp_train")),
+                     ("train", "train_deconv", "qat", "root", "aspp_train",
+                      "distributed")),
     "conv_s2k4": ("ubresnet_tpu_torch/ops/csrc/conv_s2k4.cu",
                   f"{PALLAS}:1148 fused_conv_s2k4 (the dx leg of :1341 "
                   "pallas_deconv2x_ad)", ("conv_s2k4",), ("train_deconv",)),
@@ -2623,6 +2656,422 @@ def aspp_path(dev, card, work):
             "aspp_train": _merge(adam_counts, cli_counts)}
 
 
+DIST_ITERS = 8               # launch --distributed 1: iterations
+SWEEP_ITERS, SWEEP_FAULT = 4, 2   # each sweep job's iterations, the fault
+
+
+def _dist_rank(rank, out, per_rank_bn=False):
+    """One rank of the distributed phase's spawned worlds (two ranks on
+    the card over gloo, or one over NCCL): train_parity's weights and
+    its fixed b16 batch, this rank's contiguous share, one Adam step of
+    the kernel path with its launches, then 3 more steps timed with
+    CUDA events and the step's collectives replayed and timed: the
+    gradient all-reduce and one (2, C) all-reduce per BatchNorm forward
+    and backward. ``per_rank_bn``: the negative control — every
+    BatchNorm normalises with its rank's own moments (DDP's default),
+    one step, untimed. Writes ``<out>/rank<r>.pt``."""
+    import torch
+
+    from ubresnet_tpu_torch import ops
+    from ubresnet_tpu_torch.core.mesh import make_mesh
+    from ubresnet_tpu_torch.deploy.weights import random_state_dict
+    from ubresnet_tpu_torch.models import get_model
+    from ubresnet_tpu_torch.models.blocks import BatchNorm
+    from ubresnet_tpu_torch.parallel import distributed
+    from ubresnet_tpu_torch.parallel.sharding import (
+        all_reduce_grads,
+        psum,
+        shard_batch,
+        shard_state,
+    )
+    from ubresnet_tpu_torch.train import (
+        build_train_step,
+        create_train_state,
+        make_optimizer,
+    )
+    from ubresnet_tpu_torch.utils.platform import resolve_device
+
+    distributed.initialize(device="cuda")
+    dev = resolve_device("cuda")
+    mesh = make_mesh()
+    model = get_model("uresnet", random_state_dict(seed=0), device=dev,
+                      train=True)
+    opt = make_optimizer(model.parameters(), "adam", 1e-3, weight_decay=1e-4)
+    state = shard_state(create_train_state(model, opt), mesh)
+    if per_rank_bn:
+        for mod in model.modules():
+            if isinstance(mod, BatchNorm):
+                mod.data_group = None
+    step = build_train_step(use_pallas_loss=True, device=dev, mesh=mesh)
+    b = {k: torch.from_numpy(v).to(dev)
+         for k, v in shard_batch(_train_batch(7), mesh).items()}
+    ops.reset_launch_counts()
+    state, m = step(state, b)
+    torch.cuda.synchronize()
+    res = {"backend": distributed.backend(), "device": str(dev),
+           "world": distributed.process_count(), "metrics": m,
+           "launches": {k: v for k, v in ops.launch_counts().items() if v},
+           "grads": {k: p.grad.float().cpu()
+                     for k, p in model.named_parameters()},
+           "state": {k: v.cpu() for k, v in model.state_dict().items()}}
+    if per_rank_bn:
+        torch.save(res, os.path.join(out, f"rank{rank}.pt"))
+        distributed.barrier("rank_done")
+        distributed.shutdown()
+        return
+    state, _, res["step_ms"] = _adam_steps(step, state, b, n=3)
+
+    def timed(fn, reps=5):
+        out = []
+        for _ in range(reps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            out.append(start.elapsed_time(end))
+        return sorted(out)[len(out) // 2]
+
+    bns = [mod for mod in model.modules() if isinstance(mod, BatchNorm)]
+    bufs = [torch.zeros(2, mod.weight.numel(), device=dev) for mod in bns]
+
+    def bn_collectives():  # one forward and one backward all-reduce each
+        for t in bufs + bufs:
+            psum(t, mesh.group)
+
+    res["grad_allreduce_ms"] = timed(
+        lambda: all_reduce_grads(model.parameters(), mesh.group))
+    res["bn_collectives_ms_per_step"] = timed(bn_collectives)
+    res["bn_layers"] = len(bns)
+    res["grad_bytes"] = 4 * sum(p.numel() for p in model.parameters())
+    torch.save(res, os.path.join(out, f"rank{rank}.pt"))
+    distributed.barrier("rank_done")
+    distributed.shutdown()
+
+
+def _jsonl_losses(path):
+    """Per-iteration train/loss values of a ScalarWriter log."""
+    with open(path) as f:
+        rows = [json.loads(line) for line in f]
+    return [r["value"] for r in rows if r["tag"] == "train/loss"]
+
+
+def _summary(text):
+    """The train CLI's run summary (the last JSON object it printed)."""
+    return json.loads(text[text.rfind("\n{\n") + 1:])
+
+
+def distributed_path(dev, card, work, gates):
+    """The multi-process layer (parallel/, core/mesh.py, cli/launch.py,
+    --data-parallel) at the flagship width on the train smoke's data.
+    Returns the launches of the distributed path (the NCCL rank's run,
+    each gloo rank's step, the data-parallel deploy)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from ubresnet_tpu_torch import ops
+    from ubresnet_tpu_torch.cli.infer_precropped import main as precropped
+    from ubresnet_tpu_torch.cli.train import main as train_cli
+    from ubresnet_tpu_torch.core.precision import Policy
+    from ubresnet_tpu_torch.deploy.weights import random_state_dict
+    from ubresnet_tpu_torch.models import get_model
+    from ubresnet_tpu_torch.ops import _build
+    from ubresnet_tpu_torch.train import (
+        build_train_step,
+        create_train_state,
+        make_optimizer,
+    )
+
+    t_phase = time.time()
+    root = os.path.join(work, "distributed")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    env = dict(os.environ, PYTHONPATH=HERE)
+    result = {"phase": "distributed", "card": card}
+    counts = []
+
+    def launch(args, timeout=600):
+        t0 = time.time()
+        proc = subprocess.run(
+            [sys.executable, "-m", "ubresnet_tpu_torch.cli.launch", *args],
+            capture_output=True, text=True, env=env, cwd=HERE,
+            timeout=timeout)
+        return proc.returncode, proc.stdout + proc.stderr, time.time() - t0
+
+    # the train smoke's config without validation, one loader thread
+    # (the same batches in the same order in every run), a log of every
+    # loss
+    cfg = {"model": {"precision": "bf16"},
+           "optim": {"name": "adam", "lr": 1e-3},
+           "train_data": {"files": [os.path.join(work, "train.uevt")],
+                          "batch_size": BATCH_MAIN, "n_threads": 1},
+           "num_iters": DIST_ITERS, "print_every": 1,
+           "checkpoint_every": DIST_ITERS, "seed": 0}
+    cfg_path = os.path.join(root, "train.json")
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f)
+
+    # 1. launch --sweep, started first: two jobs at once on a tree without
+    # the kernels' stamp (they build once, under the lock); one faults and
+    # resumes. The runs of 2-4 go on meanwhile (their gates are exact;
+    # the timed worlds of 5 run after it, alone)
+    sweep_cfg = dict(cfg, num_iters=SWEEP_ITERS,
+                     checkpoint_every=SWEEP_FAULT)
+    base = os.path.join(root, "sweep_base.json")
+    with open(base, "w") as f:
+        json.dump(sweep_cfg, f)
+    spec = os.path.join(root, "sweep.json")
+    with open(spec, "w") as f:
+        json.dump({"base": base, "jobs": [
+            {"name": "steady"},
+            {"name": "flaky", "set": {"fault_at_iter": SWEEP_FAULT}}]}, f)
+    stamp = _build.build_dir() / (_build.LIB_NAME + ".stamp")
+    stamp.unlink()
+    t_sweep = time.time()
+    sweep = subprocess.Popen(
+        [sys.executable, "-m", "ubresnet_tpu_torch.cli.launch", "--sweep",
+         spec, "--workdir", os.path.join(root, "sweep"), "--parallel", "2",
+         "--retries", "1"], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, env=env, cwd=HERE,
+        start_new_session=True)
+
+    try:
+        # 2. launch --distributed 1 (NCCL) against the plain train CLI
+        rc, out, err, wall, _ = _run_cli(train_cli, [
+            "--config", cfg_path, "--device", "cuda", "--set",
+            f"checkpoint_dir={root}/plain_ck", "--set",
+            f"log_dir={root}/plain_log"])
+        require(rc == 0,
+                f"plain train CLI failed:\n{out[-2000:]}{err[-2000:]}")
+        plain = _jsonl_losses(os.path.join(root, "plain_log", "run.jsonl"))
+        rc, out, wall = launch(["--distributed", "1", "--config", cfg_path,
+                                "--workdir", os.path.join(root, "nccl"),
+                                "--set", f"checkpoint_dir={root}/nccl_ck",
+                                "--set", f"log_dir={root}/nccl_log"])
+        log = open(os.path.join(root, "nccl", "proc0.log")).read()
+        require(rc == 0, f"launch --distributed 1 returned {rc}:\n"
+                         f"{out[-2000:]}\n{log[-3000:]}")
+        nccl = _jsonl_losses(os.path.join(root, "nccl_log", "run.jsonl"))
+        rank_counts = {k: v for k, v in
+                       _summary(log)["kernel_launches"].items() if v}
+        want = {k: v * DIST_ITERS for k, v in LAUNCHES_PER_TRAIN_STEP.items()}
+        line = next((ln for ln in log.splitlines()
+                     if ln.startswith("distributed: process")), "")
+        rel = max(abs(a - b) / abs(b) for a, b in zip(nccl, plain))
+        result["nccl_world1"] = {
+            "wall_s": wall, "log_line": line, "losses": nccl,
+            "plain_losses": plain, "loss_rel_vs_plain": rel,
+            "launches": rank_counts, "launches_want": want}
+        require("backend nccl" in line and "device cuda:0" in line,
+                f"launch --distributed 1 log: {line!r}")
+        require(len(nccl) == len(plain) == DIST_ITERS
+                and np.isfinite(nccl).all(), f"losses {nccl} / {plain}")
+        require(rel <= 1e-6, f"NCCL world 1 losses {nccl} != plain {plain}")
+        require(rank_counts == want,
+                f"NCCL rank launches {rank_counts} != {want}")
+        counts.append(rank_counts)
+
+        # 3. infer_precropped --data-parallel: the main phase's bytes
+        dp_out = os.path.join(root, "scores_dp.uevt")
+        rc, out, err, wall, dp_counts = _run_cli(precropped, [
+            "-i", os.path.join(work, "crops.uevt"), "-o", dp_out, "-c",
+            os.path.join(work, "weights.tar"), "-b", str(BATCH_MAIN),
+            "--device", "cuda", "--data-parallel"])
+        with open(dp_out, "rb") as a, \
+                open(os.path.join(work, "scores.uevt"), "rb") as b_:
+            dp_same = a.read() == b_.read()
+        batches = -(-EVENTS // BATCH_MAIN)
+        dp_want = {k: LAUNCHES_PER_BATCH.get(k, 0) * batches
+                   for k in dp_counts}
+        result["data_parallel"] = {
+            "rc": rc, "wall_s": wall, "cards": torch.cuda.device_count(),
+            "same_bytes": dp_same, "launches": dp_counts}
+        require(rc == 0 and dp_same, f"--data-parallel: rc {rc}, same bytes "
+                                     f"{dp_same}\n{err[-2000:]}")
+        require(dp_counts == dp_want,
+                f"--data-parallel launches {dp_counts} != {dp_want}")
+        counts.append(dp_counts)
+        # 4. the sweep, finished
+        out, _ = sweep.communicate(timeout=900)
+    finally:  # its jobs and their trainings too
+        if sweep.poll() is None:
+            os.killpg(sweep.pid, signal.SIGKILL)
+            sweep.wait()
+    rc, wall = sweep.returncode, time.time() - t_sweep
+    jobs = {j: os.path.join(root, "sweep", j) for j in ("steady", "flaky")}
+    logs = {j: open(os.path.join(d, "train.log")).read()
+            for j, d in jobs.items()}
+    flaky_launch = open(os.path.join(jobs["flaky"], "launch.log")).read()
+    finals = {j: os.path.exists(os.path.join(
+        d, "checkpoints", f"step_{SWEEP_ITERS:08d}.tar"))
+        for j, d in jobs.items()}
+    result["sweep"] = {"rc": rc, "wall_s": wall, "final_checkpoints": finals,
+                       "stamp_restored": stamp.exists(),
+                       "restart_logged": "restarting with resume"
+                                         in flaky_launch}
+    require(rc == 0 and "sweep done: exit codes [0, 0]" in out,
+            f"sweep returned {rc}:\n{out[-2000:]}\n{logs}")
+    require(result["sweep"]["restart_logged"] and
+            f"resumed from iter {SWEEP_FAULT}" in logs["flaky"],
+            f"the faulted job did not resume:\n{logs['flaky'][-3000:]}")
+    require(all(finals.values()), f"final checkpoints {finals}")
+    require(stamp.exists() and stamp.read_text() == _build._source_hash(),
+            "the sweep's jobs did not restore the kernel build")
+
+    # 5. two ranks on the card (gloo) and one (NCCL) against one process.
+    # Two gloo ranks compute the one-process step but for the order of
+    # the sums over the shards (BN moments, gradients, loss); the bf16
+    # zone amplifies that order into visible distances, so each gate is
+    # set from this run's own spread of reduction order alone: one
+    # process on the same batch with its samples reordered (halves
+    # swapped; reversed), distance to the unreordered step, x4. A
+    # negative control, two ranks with per-rank BN moments, must fail
+    # the BN stats and loss bounds.
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from torch_dist_workers import run_spawned
+
+    sd = random_state_dict(seed=0)
+    b = {k: torch.from_numpy(v).to(dev)
+         for k, v in _train_batch(7).items()}
+    nb = b["image"].shape[0]
+
+    def one_process(pol, order=None, timed=True):
+        model = get_model("uresnet", sd, policy=pol, device=dev, train=True)
+        opt = make_optimizer(model.parameters(), "adam", 1e-3,
+                             weight_decay=1e-4)
+        step = build_train_step(use_pallas_loss=pol.fused_train, device=dev)
+        init = {k: p.detach().float().cpu().clone()
+                for k, p in model.named_parameters()}
+        bb = b if order is None else {k: v[order] for k, v in b.items()}
+        state, m = step(create_train_state(model, opt), bb)
+        out = {"metrics": m, "init": init,
+               "grads": {k: p.grad.float().cpu() for k, p in
+                         model.named_parameters()},
+               "state": {k: v.cpu() for k, v in model.state_dict().items()}}
+        if timed:
+            _, _, out["step_ms"] = _adam_steps(step, state, bb, n=3)
+        return out
+
+    ref = one_process(Policy())
+    plain_ref = one_process(dataclasses.replace(Policy(), fused_train=False),
+                            timed=False)
+    half = nb // 2
+    reordered = [one_process(Policy(), order=order, timed=False) for order in
+                 (torch.cat([torch.arange(half, nb), torch.arange(half)]),
+                  torch.arange(nb - 1, -1, -1))]
+    torch.cuda.empty_cache()
+
+    def stat_err(a, b):
+        return max(float((a[k] - v).abs().max())
+                   / max(float(v.abs().max()), 1e-30)
+                   for k, v in b.items()
+                   if k.endswith(("running_mean", "running_var")))
+
+    gsc = max(float(g.abs().max()) for g in ref["grads"].values())
+    m1 = ref["metrics"]
+    upd = sum(float((ref["state"][k] - v).abs().sum())
+              for k, v in ref["init"].items())
+
+    def distance(r):
+        """r's distance to the one-process step: loss (relative),
+        accuracies, gradients (of the largest |grad|), running stats (of
+        each stat's largest), updated parameters (L1 of the difference
+        over the L1 of the step's update)."""
+        return {
+            "loss_rel": abs(r["metrics"]["loss"] - m1["loss"])
+            / abs(m1["loss"]),
+            "acc_max_abs": max(abs(r["metrics"][k] - m1[k]) for k in m1
+                               if k.startswith("acc")),
+            "grad_err": max(float((r["grads"][k] - g).abs().max())
+                            for k, g in ref["grads"].items()) / gsc,
+            "bn_stats_rel_err": stat_err(r["state"], ref["state"]),
+            "param_update_err": sum(
+                float((r["state"][k] - ref["state"][k]).abs().sum())
+                for k in ref["init"]) / upd}
+
+    spread = {}
+    for r in reordered:
+        for k, v in distance(r).items():
+            spread[k] = max(spread.get(k, 0.0), v)
+    floors = {"loss_rel": 1e-6, "acc_max_abs": 1e-6, "grad_err": 1e-4,
+              "bn_stats_rel_err": 1e-6, "param_update_err": 1e-5}
+    bounds = {k: max(4 * v, floors[k]) for k, v in spread.items()}
+    stats_gate = max(2 * stat_err(plain_ref["state"], ref["state"]), 1e-6)
+    worlds = {}
+    for name, n, extra in (("gloo_2_ranks", 2, ()), ("nccl_1_rank", 1, ()),
+                           ("gloo_2_ranks_per_rank_bn", 2, (True,))):
+        out_dir = os.path.join(root, name)
+        os.makedirs(out_dir)
+        t0 = time.time()
+        run_spawned(_dist_rank, n, (out_dir, *extra), timeout_s=300)
+        ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
+                            weights_only=False) for r in range(n)]
+        worlds[name] = {"seconds": time.time() - t0, "ranks": ranks}
+    two = worlds["gloo_2_ranks"]["ranks"]
+    cmp = [dict(distance(r), backend=r["backend"], device=r["device"],
+                launches=r["launches"]) for r in two]
+    control = [distance(r) for r in worlds["gloo_2_ranks_per_rank_bn"]
+               ["ranks"]]
+    control_fails = sorted({k for c in control for k, v in c.items()
+                            if v > bounds[k]})
+    same = all(torch.equal(v, two[1]["state"][k])
+               for k, v in two[0]["state"].items())
+    one = worlds["nccl_1_rank"]["ranks"][0]
+    result["two_ranks_one_card"] = {
+        "vs_one_process": cmp, "replicas_bit_equal": same,
+        "reorder_spread": spread, "bounds": bounds,
+        "per_rank_bn_control": control,
+        "per_rank_bn_control_fails": control_fails,
+        "stats_gate": stats_gate, "gates": gates,
+        "seconds": worlds["gloo_2_ranks"]["seconds"]}
+    result["timing_not_gated"] = {
+        "step_ms_one_process": ref["step_ms"],
+        "step_ms_nccl_1_rank": one["step_ms"],
+        "step_ms_gloo_2_ranks_one_card": [r["step_ms"] for r in two],
+        "grad_allreduce_ms": {"gloo_2_ranks": [r["grad_allreduce_ms"]
+                                               for r in two],
+                              "nccl_1_rank": one["grad_allreduce_ms"]},
+        "bn_collectives_ms_per_step": {
+            "gloo_2_ranks": [r["bn_collectives_ms_per_step"] for r in two],
+            "nccl_1_rank": one["bn_collectives_ms_per_step"]},
+        "bn_layers": one["bn_layers"], "grad_bytes": one["grad_bytes"],
+        "nccl_1_rank_backend": one["backend"]}
+    for c in cmp:
+        require(c["backend"] == "gloo", f"two ranks on one card: {c}")
+        for k, bound in bounds.items():
+            require(c[k] <= bound, f"2 ranks vs one process: {k} {c[k]} > "
+                                   f"{bound} (4x the reordering spread)")
+        # and train_parity's gates
+        require(c["loss_rel"] <= gates["loss_rel_vs_f32"]
+                and c["acc_max_abs"] <= gates["loss_rel_vs_f32"],
+                f"2 ranks vs one process: loss/accuracy {c}")
+        require(c["grad_err"] <= gates["grad_err_vs_f32"]
+                and c["param_update_err"] <= gates["grad_err_vs_f32"],
+                f"2 ranks vs one process: gradients/parameters {c}")
+        require(c["bn_stats_rel_err"] <= stats_gate,
+                f"2 ranks vs one process: BN stats {c} > {stats_gate}")
+        require(c["launches"] == LAUNCHES_PER_TRAIN_STEP,
+                f"rank launches {c['launches']}")
+    require(same, "the two ranks' parameters differ")
+    require({"bn_stats_rel_err", "loss_rel"} <= set(control_fails),
+            f"per-rank BN moments passed the BN stats or loss bound: "
+            f"{control} within {bounds}")
+    require(one["backend"] == "nccl" and one["launches"]
+            == LAUNCHES_PER_TRAIN_STEP, f"NCCL rank: {one['backend']}, "
+                                        f"{one['launches']}")
+    counts += [r["launches"] for r in two] + [one["launches"]]
+    del ref, plain_ref, reordered, worlds, two, one
+    torch.cuda.empty_cache()
+
+    result["seconds"] = time.time() - t_phase
+    emit(result)
+    print(card_line(), flush=True)
+    return {k: sum(c.get(k, 0) for c in counts) for k in ops.KERNELS}
+
+
 def main():
     import torch
 
@@ -2688,6 +3137,8 @@ def main():
     launches["root"] = root_path(dev, card, work, gates, host_build)
     torch.cuda.empty_cache()
     launches.update(aspp_path(dev, card, work))
+    torch.cuda.empty_cache()
+    launches["distributed"] = distributed_path(dev, card, work, gates)
     line = kernels_line(rows, launches)
     for k in line["kernels"]:
         paths = SOURCES[k["name"]][3]

@@ -872,3 +872,94 @@ def test_aspp_int8_forward_on_the_card(dev):
         for m, n, fn in saved:
             setattr(m, n, fn)
     assert float((got.argmax(-1) == want.argmax(-1)).float().mean()) >= 0.99
+
+
+@pytest.mark.parametrize("inplanes", [8, 4])
+def test_int8_off_the_kernels_on_the_card(dev, inplanes):
+    """int8 at widths the kernels hold few shapes of. Each int8 layer,
+    fed on the card the input it got in a CPU forward, takes JAX's
+    route (models/blocks.py ``_fused_form``): where JAX fuses, the
+    layer launches its kernel once and gives the CPU's bits when the
+    shape is compiled, and raises naming the kernel when it is not (no
+    plain stand-in on the card); where JAX leaves its fused kernel (the
+    per-conv XLA route), it gives the CPU's bits and launches nothing.
+    The whole forward raises at both widths: each holds a layer that
+    JAX fuses at 8 channels (ROADMAP item 8)."""
+    from ubresnet_tpu_torch.core.precision import Policy
+    from ubresnet_tpu_torch.data.synthetic import synth_event
+    from ubresnet_tpu_torch.deploy.weights import random_state_dict
+    from ubresnet_tpu_torch.models import UResNet
+    from ubresnet_tpu_torch.models.blocks import BasicBlock, ConvBN, Deconv2x
+    from ubresnet_tpu_torch.ops.quant import calibrate
+
+    sd = random_state_dict(seed=2, inplanes=inplanes)
+    rng = np.random.RandomState(7)
+    x = np.stack([synth_event(rng, (64, 64))["wire"]
+                  for _ in range(2)])[..., None].astype(np.float32)
+    cpu = UResNet(sd, policy=Policy.int8(), device="cpu")
+    card = UResNet(sd, policy=Policy.int8(), device=dev)
+    scales = calibrate(cpu, [x])
+    cpu.set_quant_scales(scales)
+    card.set_quant_scales(scales)
+    layers = {n: m for n, m in cpu.named_modules()
+              if isinstance(m, (BasicBlock, ConvBN, Deconv2x))
+              and getattr(m, "quant", False)}
+    seen = {}
+
+    def keep(name):
+        def hook(mod, args, kwargs):
+            seen[name] = (args, kwargs)
+        return hook
+
+    handles = [m.register_forward_pre_hook(keep(n), with_kwargs=True)
+               for n, m in layers.items()]
+    with torch.inference_mode():
+        cpu(torch.from_numpy(x))
+    for h in handles:
+        h.remove()
+
+    def route(m, args):
+        if isinstance(m, BasicBlock):
+            dual = args[1] if len(args) > 1 else None
+            return ("kernel" if m.kernel or m._fused_form(args[0], dual)
+                    else "per_conv")
+        if isinstance(m, ConvBN):
+            return "kernel" if m._fused_form(args[0].shape[2]) else "xla"
+        h, w = args[0].shape[1:3]
+        exact = len(args) < 2 or tuple(args[1]) == (2 * h, 2 * w)
+        return ("kernel" if exact and (m.kernel or m._fused_form(w))
+                else "xla")
+
+    card_mods = dict(card.named_modules())
+    got_routes = {}
+
+    def on_card(t):
+        return t.to(dev) if isinstance(t, torch.Tensor) else t
+
+    with torch.inference_mode():
+        for n, (args, kwargs) in seen.items():
+            m = layers[n]
+            r = route(m, args)
+            if r == "per_conv":  # its ConvBNs are checked one by one
+                continue
+            if r == "kernel" and not m.kernel:
+                r = "raise"
+            got_routes[n] = r
+            dargs = [on_card(a) for a in args]
+            dkw = {k: on_card(v) for k, v in kwargs.items()}
+            ops.reset_launch_counts()
+            if r == "raise":
+                with pytest.raises(ValueError, match="kernel has no"):
+                    card_mods[n](*dargs, **dkw)
+                continue
+            y = card_mods[n](*dargs, **dkw)
+            torch.cuda.synchronize()
+            launched = sum(ops.launch_counts().values())
+            assert launched == (1 if r == "kernel" else 0), (n, r)
+            assert torch.equal(y.cpu(), m(*args, **kwargs)), n
+        with pytest.raises(ValueError, match="kernel has no"):
+            card(torch.from_numpy(x).to(dev))
+    counts = {r: sum(v == r for v in got_routes.values())
+              for r in ("kernel", "raise", "xla")}
+    assert counts == ({"kernel": 4, "raise": 5, "xla": 1} if inplanes == 8
+                      else {"kernel": 0, "raise": 8, "xla": 7}), got_routes

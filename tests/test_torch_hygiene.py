@@ -83,6 +83,32 @@ def test_sources_name_no_jax():
     assert len(files) > 20 and hits == []
 
 
+def test_sources_spawn_no_jax_module():
+    """No string of the port or of chip_smoke.py names a JAX-package
+    module to run: no ``-m ubresnet_tpu.…`` in a command line or an
+    argument list, no module name assembled from "ubresnet_tpu" (the
+    launcher is the port's first module that spawns modules by name);
+    and the launcher's own module names are the port's."""
+    from ubresnet_tpu_torch.cli import launch
+
+    files = [p for p in PORT.rglob("*.py")] + [ROOT / "chip_smoke.py"]
+    pat = re.compile(r"-m\s+ubresnet_tpu(?!_torch)"
+                     r"|[\"']-m[\"']\s*,\s*[\"']ubresnet_tpu(?!_torch)"
+                     r"|[\"']ubresnet_tpu[\"']\s*\+"
+                     r"|[\"']ubresnet_tpu(?!_torch)[\"']\s*,\s*[\"']cli")
+    hits = [f"{p.relative_to(ROOT)}:{i}" for p in files
+            for i, line in enumerate(p.read_text().splitlines(), 1)
+            if pat.search(line)]
+    assert hits == []
+    src = pathlib.Path(launch.__file__).read_text()
+    mods = re.findall(r"[\"'](ubresnet_tpu\w*\.cli\.\w+)", src)
+    assert mods and all(m.startswith("ubresnet_tpu_torch.cli.")
+                        for m in mods), mods
+    for bad in ('"-m", "ubresnet_tpu.cli.train"', "-m ubresnet_tpu.cli.x",
+                '"ubresnet_tpu" + ".cli.train"'):
+        assert pat.search(bad), bad
+
+
 def test_sources_name_no_jax_cpp():
     """No file of the port (Python, CUDA or C++) and not chip_smoke.py
     names a path under the JAX package's cpp/ directory, builds with its

@@ -110,7 +110,8 @@ def test_port_cli_takes_the_jax_flags(files):
     this UResNet .tar naming the missing ASPP keys, the ones the port
     cannot run yet exit naming their ROADMAP item (--config and --best
     also the export route), --trace writes a torch.profiler trace of
-    the run."""
+    the run, --data-parallel on one device writes the same bytes as
+    without it."""
     import json
 
     from ubresnet_tpu_torch.deploy.weights import random_state_dict
@@ -121,8 +122,7 @@ def test_port_cli_takes_the_jax_flags(files):
     for extra, item in ((["--arch", "aspp_resnet"], "ASPP_layer_enc3"),
                         (["--config", "c.json"], "item 11"),
                         (["--best"], "item 11"),
-                        (["--best"], "export_torch"),
-                        (["--data-parallel"], "item 10")):
+                        (["--best"], "export_torch")):
         with pytest.raises(SystemExit, match=item):
             port_main(base + extra)
     aspp = save_reference_checkpoint(
@@ -139,3 +139,8 @@ def test_port_cli_takes_the_jax_flags(files):
         "traceEvents"]
     assert any(e.get("name", "").startswith("aten::") for e in events)
     assert len(PortReader(str(d / "flags.uevt"))) == 4
+    dp = str(d / "flags_dp.uevt")
+    assert port_main(base[:2] + ["-o", dp] + base[4:]
+                     + ["--data-parallel"]) == 0
+    with open(dp, "rb") as a, open(d / "flags.uevt", "rb") as b:
+        assert a.read() == b.read()

@@ -5,7 +5,7 @@ ubresnet_tpu/cli/infer_precropped.py).
         -i in.uevt|.root -o out.uevt|.root -c ckpt.tar -b 16 \\
         [--device cuda] [--int8 [--int8-calib N] [--int8-percentile P]] \\
         [--compact-readback {f16,u8,sparse} [--readback-dilate R]] \\
-        [--trace DIR]
+        [--trace DIR] [--data-parallel]
 
 Arg surface of the reference deploy/run_ubresnet_precropped.py:17-27
 (-i -o -c -p -t [-b -n -v]). Input and output are .uevt or larcv
@@ -13,7 +13,9 @@ Arg surface of the reference deploy/run_ubresnet_precropped.py:17-27
 says). Checkpoints are reference-format .tar files of a UResNet or an
 ASPP-ResNet (``--arch aspp_resnet``, or the default ``--arch`` on a
 .tar that holds ASPP keys); ``--config``/``--best`` (orbax checkpoints)
-and ``--data-parallel`` exit naming the ROADMAP item that ports them.
+exit naming the ROADMAP item that ports them. ``--data-parallel``
+scores each batch as equal shards on every visible card, one eval
+replica a card, the same bytes as without it on one card.
 ``--trace DIR`` writes a torch.profiler Chrome trace of the run to
 ``DIR/trace.json``. Runs on the card unless ``--device cpu`` is given;
 prints the timing dict as one JSON line (with ``--int8`` also the
@@ -91,16 +93,24 @@ def build_parser():
                     help="wrap the run in a torch.profiler trace written "
                          "to DIR/trace.json (Chrome trace)")
     ap.add_argument("--data-parallel", action="store_true",
-                    help="shard each batch over every visible device: not "
-                         "ported (exits)")
+                    help="shard each batch over every visible card, one "
+                         "eval replica a card (-b must divide by the card "
+                         "count; one card is the plain path)")
     return ap
+
+
+def data_parallel_devices(model) -> list:
+    """Every visible card for ``--data-parallel``, or the model's own
+    device on the CPU."""
+    if model.device.type != "cuda":
+        return [model.device]
+    import torch
+
+    return [f"cuda:{i}" for i in range(torch.cuda.device_count())]
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.data_parallel:
-        raise SystemExit("--data-parallel is not ported yet (ROADMAP queue "
-                         "1 item 10)")
     from ubresnet_tpu_torch.cli.common import load_model
     from ubresnet_tpu_torch.deploy import PrecroppedRunner
 
@@ -111,6 +121,7 @@ def main(argv=None):
         compact_readback=args.compact_readback,
         readback_dilate=args.readback_dilate,
         score_dtype=np.float16 if args.f16_scores else np.float32,
+        devices=data_parallel_devices(model) if args.data_parallel else None,
     )
     calib_s = None
     if args.int8:

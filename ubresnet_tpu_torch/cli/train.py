@@ -8,8 +8,12 @@ A JSON or PSet config (core/config.py, the JAX package's keys) plus
 ``--set a.b=c`` overrides (``--set model.name=aspp_resnet`` trains an
 ASPP-ResNet, ``--set model.remat=true`` recomputes each stage in
 backward, ``--set remat=true`` the whole forward). Runs on the
-card unless ``--device cpu``; prints the run summary as JSON and
-returns 1 when the run failed. ``--trace DIR`` writes a torch.profiler
+card unless ``--device cpu`` (or ``UBTPU_PLATFORM=cpu``, the JAX
+package's switch, which the launcher's children inherit); prints the
+run summary as JSON and returns 1 when the run failed. Started by
+``cli/launch.py --distributed N`` (the UBTPU_* env contract), it first
+joins the process group (parallel/distributed.py) and prints
+``distributed: process i/n, backend …, device …``. ``--trace DIR`` writes a torch.profiler
 Chrome trace of the run to ``DIR/trace.json``; ``--debug-dump DIR``
 writes the first batch's adc_i / label_i / weight_i PNGs and exits.
 """
@@ -20,6 +24,10 @@ import json
 import os
 
 from ubresnet_tpu_torch.core.config import TrainConfig
+from ubresnet_tpu_torch.utils.platform import (
+    PLATFORM_ENV,
+    default_device_name,
+)
 
 
 def apply_overrides(cfg: TrainConfig, overrides):
@@ -55,9 +63,10 @@ def build_parser():
                                               "(dot paths)")
     ap.add_argument("--dump-config", action="store_true",
                     help="print the resolved config and exit")
-    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+    ap.add_argument("--device", default=default_device_name(),
+                    choices=["cuda", "cpu"],
                     help="where training runs (default cuda; cpu only when "
-                         "asked for)")
+                         "asked for, or with UBTPU_PLATFORM=cpu)")
     ap.add_argument("--debug-dump", default=None, metavar="DIR",
                     help="dump one batch as ADC/label/weight PNGs and exit "
                          "(the reference's debug fixture, "
@@ -103,8 +112,22 @@ def main(argv=None):
         n = debug_dump(cfg, args.debug_dump)
         print(f"dumped {n} samples to {args.debug_dump}")
         return 0
+    from ubresnet_tpu_torch.parallel import distributed
     from ubresnet_tpu_torch.train.trainer import Trainer
+    from ubresnet_tpu_torch.utils.platform import resolve_device
 
+    # one training across processes when the launcher set the UBTPU_*
+    # env contract (a no-op otherwise); every run names its device, and
+    # the switch when it put the run on the CPU
+    if distributed.initialize(device=args.device):
+        print(f"distributed: process {distributed.process_index()}/"
+              f"{distributed.process_count()}, backend "
+              f"{distributed.backend()}, device "
+              f"{resolve_device(args.device)}", flush=True)
+    else:
+        via = (f" ({PLATFORM_ENV}=cpu)" if args.device == "cpu"
+               and default_device_name() == "cpu" else "")
+        print(f"device: {resolve_device(args.device)}{via}", flush=True)
     trainer = Trainer(cfg, device=args.device)
     if args.trace:
         from ubresnet_tpu_torch.utils.profiling import trace
@@ -115,7 +138,10 @@ def main(argv=None):
         summary = trainer.run()
     print(json.dumps({k: v for k, v in summary.items() if k != "error"},
                      indent=2))
-    return 1 if "error" in summary else 0
+    if "error" in summary:
+        return 1  # leave the group to the exit: peers may be gone
+    distributed.shutdown()
+    return 0
 
 
 if __name__ == "__main__":

@@ -26,6 +26,15 @@ charge pixels and a ``readback_dilate`` halo around them
 network's zero-input response at that shape (``_bg_field``), which is
 the fill of every pixel outside the halo — valid only for trained
 networks whose scores decay to it within the halo.
+
+``devices`` (``--data-parallel``): one eval replica per device (the
+model is the first; the others are built from its weights, and
+calibration gives every one the same scales); each batch splits into
+equal contiguous shards, one a device, each shipped, scored and read
+back on its own, and the scores are gathered in order — JAX's
+batch-sharded data-parallel inference (deploy/precropped.py:88-104).
+``batch_size`` must divide by the device count; with one device the
+runner is the plain one.
 """
 from __future__ import annotations
 
@@ -77,7 +86,7 @@ class PrecroppedRunner:
 
     def __init__(self, model, batch_size: int = 8, compact_readback=False,
                  score_dtype=np.float32, sparse: bool = True,
-                 readback_dilate: int = 4):
+                 readback_dilate: int = 4, devices=None):
         if compact_readback not in (False, None, "f16", "u8", "sparse"):
             raise ValueError(f"compact_readback={compact_readback!r}: the "
                              "port supports f16, u8 and sparse")
@@ -96,6 +105,13 @@ class PrecroppedRunner:
         self.model = model
         self.device = model.device
         self.batch_size = batch_size
+        self.replicas = [model]
+        if devices is not None and len(devices) > 1:
+            if batch_size % len(devices):
+                raise ValueError(
+                    f"batch_size ({batch_size}) must be divisible by the "
+                    f"device count ({len(devices)})")
+            self.replicas += [model.replica(d) for d in devices[1:]]
         self.sparse = sparse
         self.compact = compact_readback or False
         self.readback_dilate = readback_dilate
@@ -113,16 +129,24 @@ class PrecroppedRunner:
             return probs[..., :-1].to(torch.float16)
         return probs
 
+    def _dispatch(self, batch: np.ndarray) -> list:
+        """(b, h, w, 1) host batch → one ``_dispatch_on`` result per
+        replica, each for its contiguous shard."""
+        share = batch.shape[0] // len(self.replicas)
+        return [self._dispatch_on(m, batch[i * share:(i + 1) * share])
+                for i, m in enumerate(self.replicas)]
+
     @torch.inference_mode()
-    def _dispatch(self, batch: np.ndarray):
+    def _dispatch_on(self, model, batch: np.ndarray):
         """(b, h, w, 1) host batch → (``to_host_async``'s pair, the
-        output pixel indices of the sparse readback or None): the
-        forward and the device→host copy are enqueued; on the card
-        nothing waits here."""
+        output pixel indices of the sparse readback or None), scored by
+        ``model`` on its device: the forward and the device→host copy
+        are enqueued; on the card nothing waits here."""
         hw = batch.shape[1:3]
+        device = model.device
         out_idx = None
         if not self.sparse:
-            x = to_device(batch, self.device)
+            x = to_device(batch, device)
         else:
             sp = sparsify(batch[..., 0], bucket=SPARSE_BUCKET)
             k = sp["indices"].shape[1]
@@ -131,8 +155,7 @@ class PrecroppedRunner:
             if k < self._cap:
                 pad = ((0, 0), (0, self._cap - k))
                 idx, val = np.pad(idx, pad), np.pad(val, pad)
-            idx_t, val_t = (to_device(idx, self.device),
-                            to_device(val, self.device))
+            idx_t, val_t = to_device(idx, device), to_device(val, device)
         if self.compact == "sparse":
             halo = dilate_mask(batch[..., 0] != 0.0, self.readback_dilate)
             out_idx = mask_indices(halo, bucket=SPARSE_BUCKET)
@@ -143,12 +166,12 @@ class PrecroppedRunner:
                 # (0, 0), and 0-padded slots would overwrite its fill
                 out_idx = np.pad(out_idx, ((0, 0), (0, self._out_cap - ko)),
                                  constant_values=-1)
-            dev = sparse_gather_forward(self.model, idx_t, val_t,
-                                        to_device(out_idx, self.device), hw)
+            dev = sparse_gather_forward(model, idx_t, val_t,
+                                        to_device(out_idx, device), hw)
         else:
             if self.sparse:
                 x = densify(idx_t, val_t, hw)
-            dev = self._post(torch.exp(self.model(x)))
+            dev = self._post(torch.exp(model(x)))
         return to_host_async(dev), out_idx
 
     def _bg_field(self, hw) -> np.ndarray:
@@ -182,10 +205,18 @@ class PrecroppedRunner:
         out[rows, idx[rows, slots]] = vals[rows, slots]
         return out.reshape((n,) + bg.shape)
 
-    def _fetch(self, pending, n: int, hw) -> np.ndarray:
+    def _fetch(self, pending: list, n: int, hw) -> np.ndarray:
         """Wait for a dispatched batch and return its first ``n`` rows
-        as (n, h, w, c) float32 probabilities, rebuilding the dropped
-        class in compact mode."""
+        as (n, h, w, c) float32 probabilities: the shards in order."""
+        if len(pending) == 1:
+            return self._fetch_one(pending[0], n, hw)
+        share = self.batch_size // len(pending)
+        return np.concatenate([self._fetch_one(p, share, hw)
+                               for p in pending])[:n]
+
+    def _fetch_one(self, pending, n: int, hw) -> np.ndarray:
+        """One shard's first ``n`` rows, rebuilding the dropped class in
+        compact mode."""
         copy, out_idx = pending
         out = wait_host(copy)[:n].numpy()
         if self.compact == "sparse":
@@ -215,8 +246,9 @@ class PrecroppedRunner:
         if not images:
             raise ValueError(f"no '{producer}' images in {input_file}")
         batch = np.stack(images)[..., None].astype(np.float32)
-        self.model.set_quant_scales(
-            calibrate(self.model, [batch], percentile=percentile))
+        scales = calibrate(self.model, [batch], percentile=percentile)
+        for m in self.replicas:
+            m.set_quant_scales(scales)
         self._bg_fields.clear()  # the zero-input field moves with the scales
         return len(images)
 

@@ -40,9 +40,11 @@ int8 (``policy.quant_eval``, ops/quant.py): a module built with
 NOT folded into it: int8 quantizes the raw kernel per output channel
 and folds the BN into the gain, as JAX's ``fold_q``) until
 ``set_scales`` gets the calibrated activation scales; then it holds the
-int8 weights and folded f32 gains and runs K1-s8 / K2-s8 / K3-s8, or,
-where no kernel is compiled for its shape (the 1-channel stem, as XLA
-in JAX), the exact integer conv in plain torch dequantized into the
+int8 weights and folded f32 gains and runs K1-s8 / K2-s8 / K3-s8
+where JAX runs its fused int8 kernels (on the card a shape no kernel
+was compiled for raises), or, where JAX leaves them (the 1-channel
+stem, a stride-2 conv, channels too few to fill its lanes: its XLA
+route), the exact integer conv in plain torch dequantized into the
 BN. Before ``set_scales`` an int8 module raises. Every module also
 reports its inputs to ``observer`` during calibration (``qname`` is the
 layer's name in the JAX package's 'quant' collection, ``qpack`` the
@@ -67,6 +69,7 @@ from ubresnet_tpu_torch.ops import deconv as deconv_ops
 from ubresnet_tpu_torch.ops import pool as pool_ops
 from ubresnet_tpu_torch.ops import quant as quant_ops
 from ubresnet_tpu_torch.ops import train_conv as train_ops
+from ubresnet_tpu_torch.parallel.sharding import psum, world_of
 from ubresnet_tpu_torch.utils.platform import resolve_device
 
 BN_EPS = 1e-5
@@ -127,6 +130,15 @@ def _affine(sd: StateDict, conv_key: str, bn_key: Optional[str]):
                    cbias)
 
 
+def _lane_pack(c: int, width: int, pack: int) -> int:
+    """The JAX package's lane-filling pack for a fused int8 kernel over
+    ``c`` channels of an input ``width`` wide (blocks.py:_p_eff): 128/c
+    when that is at most 16 and divides the width, else the stage's
+    ``pack``. Its fused-kernel gates test c·pack >= 128."""
+    pe = 128 // c if 128 % c == 0 else 0
+    return pe if pe and pe <= 16 and width % pe == 0 else pack
+
+
 def _nchw(x: torch.Tensor) -> torch.Tensor:
     """Zero-copy channels-last NCHW view of a contiguous NHWC tensor."""
     return x.permute(0, 3, 1, 2)
@@ -137,9 +149,9 @@ def _nhwc(y: torch.Tensor) -> torch.Tensor:
 
 
 class ConvBN(nn.Module):
-    """Stride-1 'same' conv (+bias) → eval BN → [ReLU]; ``bn_key=None``
-    drops the BN (the classifier). Runs on K1 (ops/conv.py) when the
-    policy fuses, (ci, co, k) is compiled and ``dilation`` is 1, else as
+    """'same' conv (+bias) → eval BN → [ReLU]; ``bn_key=None`` drops the
+    BN (the classifier). Runs on K1 (ops/conv.py) when the policy fuses,
+    (ci, co, k) is compiled and ``dilation`` and ``stride`` are 1, else as
     one F.conv2d with BN folded into its weight and bias (a dilated
     conv, ASPP's branches, pads dilation·(k // 2); K1 has no dilation,
     and at inplanes 4 a d3 or d5 branch has a compiled (ci, co, k)).
@@ -147,12 +159,18 @@ class ConvBN(nn.Module):
     dequant and BN folded into its gain when the policy fuses and the
     shape is compiled, else the exact integer conv, ``acc·(sx·sw) +
     bias`` in f32, cast to the compute dtype, BN in the compute dtype
-    (JAX's PackedBN), ReLU — the XLA route of blocks.py:400-414."""
+    (JAX's PackedBN), ReLU — the XLA route of blocks.py:400-414 (a
+    ``stride`` other than 1 only there: a per-conv int8 block's first
+    conv or projection at stride 2). Which of the two is JAX's choice
+    per call (``_fused_form``, use_fused_q): where JAX fuses, K1-s8's
+    wrapper runs, which on the card raises at a shape it was not
+    compiled for; the XLA route runs only where JAX leaves its fused
+    kernel."""
 
     def __init__(self, sd: StateDict, conv_key: str, bn_key: Optional[str],
                  *, act: bool = True, policy: Policy = Policy(), device=None,
                  quant: bool = False, qpack: int = 1, qat: bool = False,
-                 dilation: int = 1):
+                 dilation: int = 1, stride: int = 1):
         super().__init__()
         device = resolve_device(device)
         w = sd[f"{conv_key}.weight"].float()  # OIHW
@@ -160,7 +178,7 @@ class ConvBN(nn.Module):
         g, b = _affine(sd, conv_key, bn_key)
         cdt = policy.compute_dtype
         self.pad, self.act, self.cdt = dilation * (k // 2), act, cdt
-        self.dilation = dilation
+        self.dilation, self.stride = dilation, stride
         self.qname, self.qpack, self.observer = jax_name(conv_key), qpack, None
         self.quant = quant and policy.quant_eval
         # QAT: the input is fake-quantized where a BN follows (a ConvBN),
@@ -172,23 +190,25 @@ class ConvBN(nn.Module):
             if bn_key is None or dilation != 1:
                 raise ValueError(f"{conv_key}: an int8 ConvBN needs its BN "
                                  "and dilation 1")
-            self.kernel = policy.fused_eval and conv_ops.s8_supports(ci, co, k)
-            self._device = device
-            # the raw HWIO kernel and, for K1-s8's epilogue, the BN folded
-            # with the conv bias; for the plain route the conv bias and
-            # the BN apart (JAX's PackedBN)
-            self._qsrc = {"w": w.permute(2, 3, 1, 0).contiguous()}
-            if self.kernel:
-                self._qsrc.update(g=g, b=b)
-            else:
-                cbias = sd.get(f"{conv_key}.bias")
-                self._qsrc.update(
-                    cbias=None if cbias is None else cbias.float(),
-                    bn=fold_bn(sd[f"{bn_key}.weight"], sd[f"{bn_key}.bias"],
-                               sd[f"{bn_key}.running_mean"],
-                               sd[f"{bn_key}.running_var"]))
+            # JAX's use_fused_q (blocks.py:364-369) but for the lane
+            # test, which depends on the width (``_fused_form``)
+            self.fused_q = (policy.fused_eval and stride == 1
+                            and 2 * (k // 2) * ci <= 128)
+            self.kernel = self.fused_q and conv_ops.s8_supports(ci, co, k)
+            self._ci, self._device = ci, device
+            # the raw HWIO kernel; for the fused epilogue (K1-s8's) the
+            # BN folded with the conv bias, for JAX's XLA route the conv
+            # bias and the BN apart (JAX's PackedBN)
+            cbias = sd.get(f"{conv_key}.bias")
+            self._qsrc = {"w": w.permute(2, 3, 1, 0).contiguous(), "g": g,
+                          "b": b,
+                          "cbias": None if cbias is None else cbias.float(),
+                          "bn": fold_bn(sd[f"{bn_key}.weight"],
+                                        sd[f"{bn_key}.bias"],
+                                        sd[f"{bn_key}.running_mean"],
+                                        sd[f"{bn_key}.running_var"])}
             return
-        self.kernel = (policy.fused_eval and dilation == 1
+        self.kernel = (policy.fused_eval and dilation == 1 and stride == 1
                        and conv_ops.supports(ci, co, k))
         if self.qat:
             wq = quant_ops.fake_quant_weight(w.permute(2, 3, 1, 0))
@@ -235,37 +255,58 @@ class ConvBN(nn.Module):
         self.register_buffer("sx", sx.to(dev))
         self.register_buffer("wq", quant_ops.quantize_weight(src["w"], sw)
                              .to(dev))
-        if self.kernel:  # blocks.py:381-386: g·sw·sx, beta
-            self.register_buffer("g", (src["g"] * sw * sx).to(dev))
-            self.register_buffer("b", src["b"].to(dev))
-            return
-        g, b = src["bn"]  # blocks.py:407-411
+        # the fused epilogue, blocks.py:381-386: g·sw·sx, beta
+        self.register_buffer("g", (src["g"] * sw * sx).to(dev))
+        self.register_buffer("b", src["b"].to(dev))
+        g, b = src["bn"]  # the XLA route, blocks.py:407-411
         self.register_buffer("gq", (sx * sw).to(dev))
         self.register_buffer("cbias", None if src["cbias"] is None
                              else src["cbias"].to(dev))
         self.register_buffer("gbn", g.to(dev, self.cdt))
         self.register_buffer("bbn", b.to(dev, self.cdt))
 
-    def _forward_int8(self, x: torch.Tensor) -> torch.Tensor:
+    def _fused_form(self, width: int) -> bool:
+        """Whether JAX computes this int8 conv in its fused kernel's
+        epilogue form at this input width (use_fused_q's lane test)."""
+        ci = self._ci
+        return self.fused_q and ci * _lane_pack(ci, width, self.qpack) >= 128
+
+    def _forward_int8(self, x: torch.Tensor,
+                      residual: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
+        """``residual``: a per-conv block's tail — relu(y + residual)
+        after this conv's ReLU, in the epilogue of the fused form
+        (float32) as JAX's fused_packed_conv adds it, after the cast on
+        the XLA route (blocks.py:388-395, 412-414)."""
         if not hasattr(self, "sx"):
             raise ValueError(NO_SCALES)
         xq = quant_ops.quantize_act(x, self.sx)
-        if self.kernel:
-            return conv_ops.conv_bn_act_s8(xq, self.wq, self.g, self.b,
-                                           act=self.act, out_dtype=self.cdt)
-        acc = quant_ops.int_conv2d(xq, self.wq, self.pad)
+        if self._fused_form(x.shape[2]):
+            # JAX's fused int8 conv: K1-s8, whose wrapper raises on the
+            # card at a shape it was not compiled for
+            tail = residual is not None
+            return conv_ops.conv_bn_act_s8(
+                xq, self.wq, self.g, self.b, residual,
+                pre_act=self.act and tail, act=self.act or tail,
+                out_dtype=self.cdt)
+        acc = quant_ops.int_conv2d(xq, self.wq, self.pad, self.stride)
         # dequant (+ conv bias), cast, BN: each affine one FMA, as XLA
         # compiles blocks.py:407-411
         y = (acc * self.gq if self.cbias is None
              else quant_ops.fma(acc, self.gq, self.cbias))
         y = quant_ops.fma(y.to(self.cdt), self.gbn, self.bbn).to(self.cdt)
-        return (torch.relu(y) if self.act else y).contiguous()
+        if self.act:
+            y = torch.relu(y)
+        if residual is not None:
+            y = torch.relu(y + residual)
+        return y.contiguous()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                residual: Optional[torch.Tensor] = None) -> torch.Tensor:
         if self.observer is not None and self.qname is not None:
             self.observer(self.qname, x, self.qpack)
         if self.quant:
-            return self._forward_int8(x)
+            return self._forward_int8(x, residual)
         if self.qat_input:
             x = quant_ops.fake_quant_act(x, self.pct, self.qpack)
         if self.kernel:
@@ -273,12 +314,12 @@ class ConvBN(nn.Module):
                                         act=self.act)
         if self.qat:
             y = F.conv2d(_nchw(x), self.w, self.cbias, padding=self.pad,
-                         dilation=self.dilation)
+                         dilation=self.dilation, stride=self.stride)
             if self.gbn is not None:
                 y = y * self.gbn.view(1, -1, 1, 1) + self.bbn.view(1, -1, 1, 1)
         else:
             y = F.conv2d(_nchw(x), self.w, self.b, padding=self.pad,
-                         dilation=self.dilation)
+                         dilation=self.dilation, stride=self.stride)
         if self.act:
             y = torch.relu(y)
         return _nhwc(y)
@@ -296,9 +337,23 @@ class BasicBlock(nn.Module):
     In the int8 zone the block runs on K2-s8 (JAX's fused int8 block,
     blocks.py:643-704): both streams quantized with cb1's scale sx1, m
     requantized on chip on cb2's grid s_mid, the identity bypass
-    dequantized as sx1·xq. The port has no per-conv int8 route for a
-    block: an int8-zone block whose shape K2-s8 is not compiled for
-    raises at construction.
+    dequantized as sx1·xq. Where K2-s8 does not apply — a (ca, cb, co,
+    projection) it was never compiled for, stride 2, or fused_eval off
+    (``per_conv``) — the block computes what JAX's computes at those
+    widths, deciding per call by JAX's own gates (``_fused_form``:
+    use_block / use_dual, blocks.py:571-628, on its lane geometry; its
+    VMEM fit test has no counterpart here). Where JAX takes its fused
+    int8 block, the block calls K2-s8's wrapper: on the CPU its plain
+    version, on the card the kernel, which raises at a shape it was not
+    compiled for (no kernel for 8- or 4-channel streams yet, ROADMAP
+    item 8). Only where JAX itself leaves its fused kernel
+    (blocks.py:737-750) does the block run per conv: int8 ConvBNs cb1,
+    bypass and cb2 over the explicit concat, each quantizing its input
+    with its own calibrated scale (JAX's 'quant' names
+    ``<block>.cb1`` / ``.bypass`` / ``.cb2``), an exact integer conv,
+    ``sx·sw`` folded into its affine, cb2 carrying the block's tail —
+    JAX's XLA route, not a stand-in for a kernel; each ConvBN takes
+    K1-s8 where JAX fuses that conv, by the same rule.
 
     Under QAT (``qat``) the block runs per conv: ConvBNs cb1, bypass and
     cb2, each fake-quantizing its own input, never K2."""
@@ -322,6 +377,9 @@ class BasicBlock(nn.Module):
         if self.proj:
             convs.append(("b", "bypass", "bnpass"))
         self.qat = qat and policy.quant_train and not self.quant
+        self.per_conv = self.quant and not (
+            policy.fused_eval and stride == 1
+            and block_ops.s8_supports(ca, cb, co, self.proj))
         if self.qat:
             self.kernel = False
             pol = dataclasses.replace(policy, fused_eval=False)
@@ -335,18 +393,28 @@ class BasicBlock(nn.Module):
                     self.cb[tag].qname = f"{self.qname}.{name}"
             return
         if self.quant:
-            if not (policy.fused_eval and stride == 1
-                    and block_ops.s8_supports(ca, cb, co, self.proj)):
-                raise ValueError(
-                    f"{pref}: int8 blocks run on K2-s8, compiled for "
-                    f"{sorted(block_ops.S8_SHAPES)} with fused_eval; got "
-                    f"{(ca, cb, co, self.proj)}, stride {stride}")
-            self.kernel, self.cdt, self._device = True, cdt, device
+            self.kernel = not self.per_conv
+            self.cdt, self._device = cdt, device
             self._qsrc = {
                 tag: (sd[f"{pref}.{ck}.weight"].float().permute(2, 3, 1, 0)
                       .contiguous(),
                       *_affine(sd, f"{pref}.{ck}", f"{pref}.{bk}"))
                 for tag, ck, bk in convs}
+            if self.kernel:
+                return
+            # JAX's fused_ok, less its lane test (``_fused_form``)
+            self._fused_ok = (policy.fused_eval and stride == 1
+                              and 2 * co <= 128)
+            self._co = co
+            self.cb = nn.ModuleDict({
+                tag: ConvBN(sd, f"{pref}.{ck}", f"{pref}.{bk}",
+                            act=tag != "b", policy=policy, device=device,
+                            quant=True, qpack=qpack,
+                            stride=1 if tag == "2" else stride)
+                for tag, ck, bk in convs})
+            for tag, name in (("1", "cb1"), ("2", "cb2"), ("b", "bypass")):
+                if tag in self.cb:  # JAX's 'quant' collection names
+                    self.cb[tag].qname = f"{self.qname}.{name}"
             return
         self.kernel = (policy.fused_eval and stride == 1
                        and block_ops.supports(ca, cb, co, self.proj))
@@ -367,7 +435,11 @@ class BasicBlock(nn.Module):
 
     def set_scales(self, scales: Dict[str, torch.Tensor]) -> None:
         """int8 weights and folded gains from cb1's and cb2's calibrated
-        input scales (JAX's fold_q, f32, in its order)."""
+        input scales (JAX's fold_q, f32, in its order); per conv, each
+        ConvBN's from its own as well."""
+        if self.per_conv:
+            for cb in self.cb.values():
+                cb.set_scales(scales)
         sx1 = scales[f"{self.qname}.cb1"].float()
         s_mid = scales[f"{self.qname}.cb2"].float()
 
@@ -392,9 +464,30 @@ class BasicBlock(nn.Module):
         for name, t in params.items():
             self.register_buffer(name, t.to(self._device))
 
+    def _fused_form(self, x, dual) -> bool:
+        """Whether JAX runs this int8 block in its fused kernel at these
+        inputs: use_block / use_dual's lane tests, at the lane-filling
+        pack of the first stream."""
+        c_x = x.shape[-1]
+        c_d = 0 if dual is None else dual.shape[-1]
+        pe = _lane_pack(c_x, x.shape[2], self.qpack)
+        lanes = self._co * pe >= 128
+        if dual is not None:
+            return (self._fused_ok and lanes and self.proj and c_x == c_d
+                    and c_x * pe >= 128 and 2 * c_x <= 128)
+        return (self._fused_ok and lanes and c_x * pe >= 128
+                and 2 * c_x <= 128)
+
     def _forward_int8(self, x, dual):
         if not hasattr(self, "sx"):
             raise ValueError(NO_SCALES)
+        if self.per_conv and not self._fused_form(x, dual):
+            if dual is not None:
+                x = torch.cat([x, dual], dim=-1)
+            r = self.cb["b"](x) if self.proj else x
+            return self.cb["2"](self.cb["1"](x), residual=r)
+        # K2-s8; where JAX fuses a block it was not compiled for, its
+        # wrapper raises on the card
         return block_ops.basic_block_s8(
             quant_ops.quantize_act(x, self.sx),
             None if dual is None else quant_ops.quantize_act(dual, self.sx),
@@ -462,9 +555,15 @@ class Deconv2x(nn.Module):
     F.conv_transpose2d with output_padding and a high-side crop, which
     reproduces the JAX package's static padding for every target in
     [2d - 2, 2d + 1] (blocks.py Deconv2x). In the int8 zone: K3-s8 with
-    the dequant sx·sw, exact 2x only (a compiled shape is required at
-    construction, an exact 2x target per call). Under QAT the input
-    and the kernel are fake-quantized before either route."""
+    the dequant sx·sw at an exact 2x target where the (ci, co) is
+    compiled or JAX runs its fused int8 deconv (``_fused_form``,
+    blocks.py:855-866; on the card the wrapper raises at a shape it was
+    not compiled for); elsewhere, as JAX leaves its fused kernel, the
+    exact integer deconv (ops/quant.py:int_conv_transpose2d) to any
+    target, as ``deconv_to`` reaches it, times sx·sw in f32, cast to
+    the compute dtype — JAX's packed_deconv2x route
+    (blocks.py:867-873). Under QAT the input and the kernel are
+    fake-quantized before either route."""
 
     def __init__(self, sd: StateDict, key: str, *, policy: Policy = Policy(),
                  device=None, quant: bool = False, qpack: int = 1,
@@ -479,12 +578,10 @@ class Deconv2x(nn.Module):
         self.qat = qat and policy.quant_train and not self.quant
         self.pct = policy.quant_percentile
         if self.quant:
-            if not (policy.fused_eval and deconv_ops.s8_supports(ci, co)):
-                raise ValueError(
-                    f"{key}: int8 deconvs run on K3-s8, compiled for "
-                    f"{sorted(deconv_ops.S8_SHAPES)} with fused_eval; got "
-                    f"{(ci, co)}")
-            self.kernel, self.cdt, self._device = True, cdt, device
+            self.kernel = policy.fused_eval and deconv_ops.s8_supports(ci, co)
+            # JAX's fused-deconv gate but for the lane test (_fused_form)
+            self.fused_q = policy.fused_eval and 2 * ci <= 128
+            self._ci, self.cdt, self._device = ci, cdt, device
             self._qsrc = w.permute(2, 3, 0, 1).contiguous()  # (4, 4, ci, co)
             return
         self.kernel = policy.fused_eval and deconv_ops.supports(ci, co)
@@ -505,6 +602,12 @@ class Deconv2x(nn.Module):
                              .to(self._device))
         self.register_buffer("g", (sw * sx).to(self._device))
 
+    def _fused_form(self, width: int) -> bool:
+        """Whether JAX runs this int8 deconv in its fused kernel at this
+        input width (at an exact 2x target)."""
+        ci = self._ci
+        return self.fused_q and ci * _lane_pack(ci, width, self.qpack) >= 128
+
     def forward(self, x: torch.Tensor,
                 target_hw: Optional[Tuple[int, int]] = None) -> torch.Tensor:
         if self.observer is not None:
@@ -516,12 +619,13 @@ class Deconv2x(nn.Module):
         if self.quant:
             if not hasattr(self, "sx"):
                 raise ValueError(NO_SCALES)
-            if (th, tw) != (2 * h, 2 * w):
-                raise ValueError(f"int8 deconv {self.qname}: target "
-                                 f"{(th, tw)} is not 2x {(h, w)}")
-            return deconv_ops.deconv2x_s8(quant_ops.quantize_act(x, self.sx),
-                                          self.wq, self.g,
-                                          out_dtype=self.cdt)
+            xq = quant_ops.quantize_act(x, self.sx)
+            if (th, tw) == (2 * h, 2 * w) and (self.kernel
+                                               or self._fused_form(w)):
+                return deconv_ops.deconv2x_s8(xq, self.wq, self.g,
+                                              out_dtype=self.cdt)
+            acc = quant_ops.int_conv_transpose2d(xq, self.wq, (th, tw))
+            return (acc * self.g).to(self.cdt)
         if self.kernel and (th, tw) == (2 * h, 2 * w):
             return deconv_ops.deconv2x(x, self.wk)
         return deconv_to(x, self.w, (th, tw))
@@ -719,7 +823,18 @@ class BatchNorm(nn.Module):
     flax's BatchNorm does), from K5's sums when given, else from torch
     reductions of y in the same form; running stats ← 0.9·running +
     0.1·batch with the biased var. Eval: the running stats. Normalises
-    through fold_bn in the compute dtype."""
+    through fold_bn in the compute dtype.
+
+    Data-parallel (``data_group``, set by parallel/sharding.py:
+    shard_state): the moments are the global batch's, as JAX's under
+    GSPMD — K5's (Σy, Σy²) or the plain (mean, E[y²]) of the rank's
+    shard, stacked into one tensor, summed over the group by the
+    differentiable ``psum`` (its backward sums the cotangents, through
+    K5's VJP too) and divided by the ranks' total (every rank holds an
+    equal shard, so n·W, or W for the moments). Every rank then
+    normalises and updates its running stats with the same values. With
+    one rank the reduction is the identity and the arithmetic is the
+    single-process one."""
 
     def __init__(self, sd: StateDict, key: str, *, policy: Policy = Policy(),
                  device=None):
@@ -734,17 +849,27 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", own("running_var"))
         self.cdt = policy.compute_dtype
         self.update_stats = True  # off while a remat recompute runs
+        self.data_group = None
 
     def forward(self, y: torch.Tensor, stats=None) -> torch.Tensor:
         if self.training:
+            group = self.data_group
             if stats is None:
                 yf = _f32(y)
                 mean = yf.mean((0, 1, 2))
-                var = (yf * yf).mean((0, 1, 2)) - mean * mean
+                e2 = (yf * yf).mean((0, 1, 2))
+                if group is not None:
+                    mean, e2 = psum(torch.stack([mean, e2]),
+                                    group) / world_of(group)
+                var = e2 - mean * mean
             else:
                 n = y.numel() // y.shape[-1]
-                mean = stats[0] / n
-                var = stats[1] / n - mean * mean
+                s1, s2 = stats
+                if group is not None:
+                    s1, s2 = psum(torch.stack([s1, s2]), group)
+                    n *= world_of(group)
+                mean = s1 / n
+                var = s2 / n - mean * mean
             var = var.clamp_min(0.0)
             if self.update_stats:
                 with torch.no_grad():

@@ -109,7 +109,7 @@ class ZoneModel(nn.Module):
     """What the runners, calibration and the trainer call on an eval
     model beyond ``forward(x, logits=False)``, ``config``, ``policy``
     and ``device``: ``packed_zone(width)`` (the subclass's),
-    ``calibration_model()``, ``observe(fn)`` and
+    ``calibration_model()``, ``replica(device)``, ``observe(fn)`` and
     ``set_quant_scales(scales)``. The subclass keeps its source weights
     in ``_sd``."""
 
@@ -123,6 +123,11 @@ class ZoneModel(nn.Module):
         pol = dataclasses.replace(self.policy, fused_eval=False,
                                   quant_eval=False)
         return type(self)(self._sd, policy=pol, device=self.device)
+
+    def replica(self, device) -> "ZoneModel":
+        """The same weights and policy on ``device`` (no scales: give it
+        ``set_quant_scales``'s)."""
+        return type(self)(self._sd, policy=self.policy, device=device)
 
     def observe(self, fn) -> None:
         """Route every layer's input to ``fn(name, x, pack)`` (None

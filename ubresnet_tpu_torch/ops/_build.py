@@ -34,12 +34,18 @@ registers, spills and static shared memory from those logs.
 
 Nothing here runs at import: the first kernel launch builds (or finds
 an up-to-date build, keyed by a hash of the sources) and loads the
-library. A CPU-only host may have no nvcc at all; the CPU path never calls
+library. A build holds an exclusive ``fcntl`` lock on
+``<build dir>/.build.lock`` from its stamp check to its stamp, so
+processes that start on a fresh checkout at once (the ranks of one
+training, the jobs of a sweep) build once: the others wait, then find
+the stamp. A CPU-only host may have no nvcc at all; the CPU path never calls
 in here.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import re
@@ -185,12 +191,29 @@ def _nvcc() -> str:
                        "the CUDA toolkit (PATH or /usr/local/cuda/bin)")
 
 
+@contextlib.contextmanager
+def file_lock(path: Path):
+    """An exclusive ``fcntl`` lock on ``path`` (created if missing),
+    held for the block: serialises builds across processes."""
+    with open(path, "a") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def build() -> Path:
     """Compile every csrc/*.cu in parallel and link the shared library;
     a build whose stamp matches the sources' hash is reused. Returns
-    the library path."""
+    the library path. Runs under the build directory's file lock."""
     out = build_dir()
     out.mkdir(parents=True, exist_ok=True)
+    with file_lock(out / ".build.lock"):
+        return _build_locked(out)
+
+
+def _build_locked(out: Path) -> Path:
     lib = out / LIB_NAME
     stamp = out / (LIB_NAME + ".stamp")
     key = _source_hash()

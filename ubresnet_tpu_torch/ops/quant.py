@@ -174,9 +174,10 @@ def _full_f32_matmul():
         torch.set_float32_matmul_precision(prev)
 
 
-def int_conv2d(xq: torch.Tensor, wq: torch.Tensor, pad: int) -> torch.Tensor:
-    """Exact s8 x s8 → s32 stride-1 conv of NHWC ``xq`` with a
-    (kh, kw, ci, co) ``wq``, returned as float32 NHWC (exact: every sum
+def int_conv2d(xq: torch.Tensor, wq: torch.Tensor, pad: int,
+               stride: int = 1) -> torch.Tensor:
+    """Exact s8 x s8 → s32 conv of NHWC ``xq`` with a (kh, kw, ci, co)
+    ``wq`` at ``stride``, returned as float32 NHWC (exact: every sum
     of this network's shapes is below 2^24). Computed in float64 and
     rounded, so any convolution algorithm gives the exact integers, on
     the CPU and on the card alike (where a float32 convolution may run
@@ -188,23 +189,38 @@ def int_conv2d(xq: torch.Tensor, wq: torch.Tensor, pad: int) -> torch.Tensor:
     k, _, ci, co = wq.shape
     if ci * k * k <= SMALL_REDUCTION:
         b, h, w, _ = xq.shape
-        cols = F.unfold(xq.permute(0, 3, 1, 2).float(), k, padding=pad)
+        cols = F.unfold(xq.permute(0, 3, 1, 2).float(), k, padding=pad,
+                        stride=stride)
         w2 = wq.permute(3, 2, 0, 1).reshape(co, ci * k * k).float()
         with _full_f32_matmul():
             acc = torch.matmul(cols.transpose(1, 2), w2.t())
-        return acc.view(b, h, w, co)
+        ho = (h + 2 * pad - k) // stride + 1
+        wo = (w + 2 * pad - k) // stride + 1
+        return acc.view(b, ho, wo, co)
     y = F.conv2d(xq.permute(0, 3, 1, 2).double(),
-                 wq.permute(3, 2, 0, 1).double(), padding=pad)
+                 wq.permute(3, 2, 0, 1).double(), padding=pad, stride=stride)
     return y.round().float().permute(0, 2, 3, 1).contiguous()
 
 
-def int_conv_transpose2d(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
+def int_conv_transpose2d(xq: torch.Tensor, wq: torch.Tensor,
+                         target_hw=None) -> torch.Tensor:
     """Exact s8 x s8 → s32 ConvTranspose2d(k=4, s=2, p=1) of NHWC ``xq``
     with a (4, 4, ci, co) ``wq`` (no spatial flip: torch semantics), as
-    float32 NHWC; float64 and rounded, as ``int_conv2d``."""
+    float32 NHWC; float64 and rounded, as ``int_conv2d``. ``target_hw``
+    (default 2x) takes an output_padding and a high-side crop, as
+    models/blocks.py:deconv_to does for the float deconv."""
+    h, w = xq.shape[1], xq.shape[2]
+    th, tw = (2 * h, 2 * w) if target_hw is None else target_hw
+    pads = []
+    for d, t in ((h, th), (w, tw)):
+        if not 2 * d - 2 <= t <= 2 * d + 1:
+            raise ValueError(f"deconv target size {t} unreachable from "
+                             f"input {d}")
+        pads.append(max(0, t - 2 * d))
     y = F.conv_transpose2d(xq.permute(0, 3, 1, 2).double(),
                            wq.permute(2, 3, 0, 1).double(), stride=2,
-                           padding=1)
+                           padding=1, output_padding=tuple(pads))
+    y = y[:, :, :th, :tw]
     return y.round().float().permute(0, 2, 3, 1).contiguous()
 
 

@@ -41,13 +41,19 @@ def _write(obj, path: str) -> None:
     os.replace(tmp, path)
 
 
+def checkpoint_path(directory: str, step: int) -> str:
+    """<dir>/step_<N>.tar, absolute."""
+    return os.path.join(os.path.abspath(directory), f"step_{step:08d}.tar")
+
+
 def save_checkpoint(directory: str, state, *, best: bool = False,
                     epoch: float = 0.0) -> str:
     """Save under <dir>/step_<N>.tar; also refresh <dir>/best.tar when
-    ``best``. Returns the step file's path."""
+    ``best``. Returns the step file's path. In a distributed run only
+    rank 0 calls this (train/trainer.py)."""
     directory = os.path.abspath(directory)
     os.makedirs(directory, exist_ok=True)
-    path = os.path.join(directory, f"step_{state.step:08d}.tar")
+    path = checkpoint_path(directory, state.step)
     _write(_payload(state, epoch), path)
     if best:
         tmp = os.path.join(directory, f"best.tar.{os.getpid()}.tmp")

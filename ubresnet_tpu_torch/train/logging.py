@@ -4,7 +4,8 @@ of ubresnet_tpu/train/logging.py).
 Reference: tensorboardX SummaryWriter with grouped scalars
 (train_ubresnet2018_wlarcv2.py:79,390-394,463-467). The JSONL stream
 is the source of truth; TensorBoard is an add-on when its package is
-present.
+present. A writer without ``log_dir`` writes nothing: in a distributed
+run the trainer gives one only to rank 0.
 """
 from __future__ import annotations
 

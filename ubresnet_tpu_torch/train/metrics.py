@@ -13,25 +13,51 @@ from typing import Dict
 import torch
 
 
+def pixel_counts(logits: torch.Tensor, labels: torch.Tensor,
+                 num_classes: int = 3) -> torch.Tensor:
+    """The counts pixel accuracy is made of, as one f32 vector: per
+    class (correct, pixels), then (correct, pixels) over all and over
+    the nonzero classes. Counts add over the shards of a batch, so the
+    data-parallel step sums them over its ranks (train/step.py) and
+    ``accuracy_from_counts`` gives the global batch's accuracies, as
+    JAX's are under GSPMD — not the mean of per-rank ratios."""
+    correct = (logits.argmax(-1) == labels).float()
+    parts = []
+    for c in range(num_classes):
+        mask = (labels == c).float()
+        parts += [(correct * mask).sum(), mask.sum()]
+    nz = (labels > 0).float()
+    parts += [correct.sum(), correct.new_tensor(float(correct.numel())),
+              (correct * nz).sum(), nz.sum()]
+    return torch.stack(parts)
+
+
+def accuracy_from_counts(counts: torch.Tensor, num_classes: int = 3
+                         ) -> Dict[str, torch.Tensor]:
+    """``pixel_counts``' vector (or a sum of them) → acc_class{c},
+    acc_total, acc_nonzero as 0-d f32 tensors; a class without pixels
+    scores 0."""
+    zero = counts.new_zeros(())
+    out: Dict[str, torch.Tensor] = {}
+
+    def ratio(i):
+        n = counts[i + 1]
+        return torch.where(n > 0, counts[i] / n.clamp_min(1.0), zero)
+
+    for c in range(num_classes):
+        out[f"acc_class{c}"] = ratio(2 * c)
+    out["acc_total"] = ratio(2 * num_classes)
+    out["acc_nonzero"] = ratio(2 * num_classes + 2)
+    return out
+
+
 def pixel_accuracy(logits: torch.Tensor, labels: torch.Tensor,
                    num_classes: int = 3) -> Dict[str, torch.Tensor]:
     """Per-class, total and nonzero (all classes > 0) pixel accuracy, as
     0-d f32 tensors. logits or log-probs (b, h, w, c) — the argmax is
     the same; labels (b, h, w) int."""
-    correct = (logits.argmax(-1) == labels).float()
-    zero = correct.new_zeros(())
-    out: Dict[str, torch.Tensor] = {}
-    for c in range(num_classes):
-        mask = (labels == c).float()
-        n = mask.sum()
-        out[f"acc_class{c}"] = torch.where(
-            n > 0, (correct * mask).sum() / n.clamp_min(1.0), zero)
-    out["acc_total"] = correct.mean()
-    nz = (labels > 0).float()
-    n_nz = nz.sum()
-    out["acc_nonzero"] = torch.where(
-        n_nz > 0, (correct * nz).sum() / n_nz.clamp_min(1.0), zero)
-    return out
+    return accuracy_from_counts(pixel_counts(logits, labels, num_classes),
+                                num_classes)
 
 
 class AverageMeter:

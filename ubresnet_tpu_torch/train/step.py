@@ -12,6 +12,19 @@ stats, which the forward already moved, are left as they were
 on the host: the step synchronises once, where the JAX step keeps the
 check on the device.
 
+Data-parallel (``mesh``, core/mesh.py, with parallel/sharding.py:
+shard_state on the state): each rank steps on its shard; BatchNorm
+normalises with the global batch's moments (models/blocks.py), the
+gradients are all-reduced and divided by the world size after backward
+(and after ``accum_steps`` microbatches) — the loss is a per-pixel mean
+over equal shards, so that is the global mean's gradient — the loss and
+the accuracy counts are summed over the ranks, and the non-finite guard
+decides once for all of them (a MIN all-reduce), so no rank updates
+where another skips. The reductions are written in the step, not
+through DistributedDataParallel's hooks, which would not compose with
+the microbatch loop, whole-forward remat and the guard; overlapping
+the gradient all-reduce with backward is left to a later change.
+
 ``build_train_step`` and ``build_eval_step`` run on the card unless
 ``device="cpu"`` is passed; without a card they raise.
 """
@@ -27,7 +40,16 @@ from ubresnet_tpu_torch.losses import pixelwise_weighted_nll_from_logits
 from ubresnet_tpu_torch.models.blocks import remat as remat_call
 from ubresnet_tpu_torch.ops import loss as loss_ops
 from ubresnet_tpu_torch.ops.sparse import densify_batch
-from ubresnet_tpu_torch.train.metrics import pixel_accuracy
+from ubresnet_tpu_torch.parallel.sharding import (
+    all_reduce_grads,
+    all_true,
+    psum,
+    world_of,
+)
+from ubresnet_tpu_torch.train.metrics import (
+    accuracy_from_counts,
+    pixel_counts,
+)
 from ubresnet_tpu_torch.train.optimizers import Optimizer
 from ubresnet_tpu_torch.utils.platform import resolve_device
 
@@ -62,6 +84,19 @@ def to_device(batch: dict, device: torch.device) -> dict:
     return out
 
 
+def _global_metrics(per: torch.Tensor, group, num_classes: int) -> dict:
+    """Rows of (loss, pixel_counts) — one per microbatch — summed over
+    ``group`` (the loss divided by its ranks: a mean over equal shards)
+    → metrics, each the mean over the rows of its global value, as JAX
+    averages its microbatches' metrics."""
+    if group is not None:
+        per = psum(per, group)
+        per = torch.cat([per[:, :1] / world_of(group), per[:, 1:]], dim=1)
+    rows = [{"loss": row[0], **accuracy_from_counts(row[1:], num_classes)}
+            for row in per]
+    return {k: torch.stack([r[k] for r in rows]).mean() for k in rows[0]}
+
+
 def _scalars(metrics: dict) -> dict:
     """0-d tensors → Python floats with one device→host copy."""
     keys = list(metrics)
@@ -74,7 +109,7 @@ def build_train_step(num_classes: int = 3,
                      use_pallas_loss: bool = False,
                      sparse_hw: Optional[tuple] = None,
                      accum_steps: int = 1, remat: bool = False,
-                     device=None):
+                     device=None, mesh=None):
     """Returns step(state, batch) -> (state, metrics).
 
     batch: image (b, h, w, c) f32, label (b, h, w) int32, weight
@@ -86,8 +121,11 @@ def build_train_step(num_classes: int = 3,
     class weights) for the loss and its gradient. ``remat`` recomputes
     the whole forward in backward (the JAX step's jax.checkpoint,
     models/blocks.py:remat): per step the forward's kernels launch
-    twice, the loss's once."""
+    twice, the loss's once. ``mesh``: step this rank's shard of a
+    data-parallel batch (the module docstring); the metrics are the
+    global batch's."""
     device = resolve_device(device)
+    group = None if mesh is None else mesh.group
     if use_pallas_loss and class_weights is not None:
         raise NotImplementedError(
             "the loss kernel (K7) does not take class_weights")
@@ -123,19 +161,20 @@ def build_train_step(num_classes: int = 3,
                 logits = model(part["image"], logits=True)
             loss = loss_impl(logits, part["label"], part["weight"])
             loss.backward()
-            m = {"loss": loss.detach()}
-            m.update(pixel_accuracy(logits.detach(), part["label"],
-                                    num_classes))
-            micro.append(m)
+            micro.append(torch.cat([
+                loss.detach().float().view(1),
+                pixel_counts(logits.detach(), part["label"], num_classes)]))
         grads = [p.grad for p in model.parameters() if p.grad is not None]
         if accum_steps > 1:
             torch._foreach_div_(grads, float(accum_steps))
-        metrics = {k: torch.stack([m[k] for m in micro]).mean()
-                   for k in micro[0]}
+        if group is not None:
+            all_reduce_grads(model.parameters(), group)
+            grads = [p.grad for p in model.parameters()]
+        metrics = _global_metrics(torch.stack(micro), group, num_classes)
         # max |g| per tensor carries any inf or NaN through
         worst = torch.stack(torch._foreach_norm(grads, float("inf")))
-        ok = bool(torch.isfinite(metrics["loss"])
-                  & torch.isfinite(worst).all())
+        ok = all_true(bool(torch.isfinite(metrics["loss"])
+                           & torch.isfinite(worst).all()), group, device)
         if ok:
             opt.step()
         else:
@@ -153,15 +192,16 @@ def build_train_step(num_classes: int = 3,
 
 def build_eval_step(num_classes: int = 3,
                     class_weights: Optional[Sequence[float]] = None,
-                    device=None):
+                    device=None, mesh=None):
     """Returns step(state, batch) -> metrics: the eval model the
     registry pairs with the trained model's class, built from the live
     state_dict (running-stats BN folded, the eval kernel
     zone under the model's policy), then the plain loss and the
-    accuracies, no update."""
+    accuracies, no update; with ``mesh``, the global batch's."""
     from ubresnet_tpu_torch.models.registry import eval_class_of
 
     device = resolve_device(device)
+    group = None if mesh is None else mesh.group
     cw = (None if class_weights is None else
           torch.as_tensor(np.asarray(class_weights, np.float32),
                           device=device))
@@ -173,10 +213,10 @@ def build_eval_step(num_classes: int = 3,
                 state.model.state_dict(), policy=state.model.policy,
                 device=device)
             logits = model(batch["image"], logits=True)
-            metrics = {"loss": pixelwise_weighted_nll_from_logits(
-                logits, batch["label"], batch["weight"], cw)}
-            metrics.update(pixel_accuracy(logits, batch["label"],
-                                          num_classes))
-            return _scalars(metrics)
+            loss = pixelwise_weighted_nll_from_logits(
+                logits, batch["label"], batch["weight"], cw)
+            per = torch.cat([loss.float().view(1), pixel_counts(
+                logits, batch["label"], num_classes)])
+            return _scalars(_global_metrics(per[None], group, num_classes))
 
     return step

@@ -21,8 +21,27 @@ files are .uevt or larcv .root (converted once to a cached .uevt,
 data/loader.py:training_paths); the C++ filler (data/native.py) serves
 them when the config asks for it, and the run summary names the loader
 that served (``loader``). Runs on the card unless
-``device="cpu"``. Not in the port yet, and refused: model_axis > 1 (and
-multi-process runs).
+``device="cpu"``.
+
+Multi-process (the ranks of ``cli/launch.py --distributed N``, after
+parallel/distributed.py:initialize): one data-parallel training, one
+card per process. ``train_data.batch_size`` is per process, so the
+global batch is batch × world (JAX trainer.py:129-142); each rank's
+loaders draw seed + rank·7919 (validation + 1, JAX :182-184), for the
+Python loader and the C++ filler alike; the step reduces gradients, BN
+moments and metrics over the ranks (train/step.py). Before the first
+collective every rank loads its first batch and builds the kernel
+library, then meets the others at ``barrier("first_step_compiled")``,
+so a cold nvcc build never runs into a collective's timeout; then
+``shard_state`` gives every rank rank 0's weights. Only rank 0 writes
+checkpoints and scalars, the others wait at a barrier after each save;
+on resume every rank reads the same checkpoint. A rank that fails
+saves (rank 0) and leaves without waiting for its peers, which the
+launcher's gang kill then ends. ``fault_at_iter`` hard-exits rank 0
+once, as in JAX. Several cards visible to one process: the port trains
+on one of them (one process per card is its idiom; JAX spreads one
+process over them) and says how to use them all. Not in the port yet,
+and refused: model_axis > 1.
 """
 from __future__ import annotations
 
@@ -34,8 +53,10 @@ import time
 import traceback
 
 import numpy as np
+import torch
 
 from ubresnet_tpu_torch.core.config import DataConfig, TrainConfig
+from ubresnet_tpu_torch.core.mesh import make_mesh
 from ubresnet_tpu_torch.core.precision import Policy
 from ubresnet_tpu_torch.data.augment import mirror, pad_and_crop
 from ubresnet_tpu_torch.data.loader import (
@@ -46,7 +67,10 @@ from ubresnet_tpu_torch.data.loader import (
 )
 from ubresnet_tpu_torch.deploy.weights import random_state_dict
 from ubresnet_tpu_torch.models import MODEL_REGISTRY, get_model
+from ubresnet_tpu_torch.parallel import distributed
+from ubresnet_tpu_torch.parallel.sharding import shard_state
 from ubresnet_tpu_torch.train.checkpoint import (
+    checkpoint_path,
     latest_step,
     prune_checkpoints,
     restore_checkpoint,
@@ -107,7 +131,8 @@ def make_loader(dcfg: DataConfig, seed: int = 0):
 def _refuse_unported(cfg: TrainConfig) -> None:
     if cfg.model_axis > 1:
         raise NotImplementedError(
-            "model_axis > 1: multi-device training is not in the port yet")
+            "model_axis > 1 (channel sharding) is not in the port yet: "
+            "ROADMAP queue 1, item 10")
     if cfg.model.name not in MODEL_REGISTRY:
         raise NotImplementedError(f"model '{cfg.model.name}' is not in the "
                                   f"port (it has {sorted(MODEL_REGISTRY)})")
@@ -118,6 +143,16 @@ class Trainer:
         _refuse_unported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.mesh = make_mesh(model_axis=cfg.model_axis)
+        self.rank = distributed.process_index()
+        self.world = distributed.process_count()
+        if (not distributed.is_initialized() and self.device.type == "cuda"
+                and torch.cuda.device_count() > 1):
+            n = torch.cuda.device_count()
+            print(f"trainer: {n} cards visible, training on "
+                  f"{self.device}; one process per card: python -m "
+                  f"ubresnet_tpu_torch.cli.launch --distributed {n} "
+                  "--config ...", flush=True)
         policy = Policy.f32() if cfg.model.precision == "f32" else Policy()
         if cfg.model.qat:  # ubresnet_tpu/train/trainer.py:104-117
             policy = dataclasses.replace(
@@ -136,9 +171,9 @@ class Trainer:
                                device=self.device, train=True)
         self.optimizer = optimizer_from_config(cfg.optim,
                                                self.model.parameters())
-        self.writer = ScalarWriter(cfg.log_dir)
+        self.writer = ScalarWriter(cfg.log_dir if self.rank == 0 else None)
         self.eval_step = build_eval_step(num_classes=cfg.model.num_classes,
-                                         device=self.device)
+                                         device=self.device, mesh=self.mesh)
 
     def _train_step(self, sparse_hw):
         # same function as the plain loss (JAX's trainer never uses its kernel)
@@ -146,12 +181,20 @@ class Trainer:
                                 use_pallas_loss=self.policy.fused_train,
                                 sparse_hw=sparse_hw,
                                 accum_steps=self.cfg.accum_steps,
-                                remat=self.cfg.remat, device=self.device)
+                                remat=self.cfg.remat, device=self.device,
+                                mesh=self.mesh)
+
+    def _saved(self, what: str) -> None:
+        """After rank 0's save: every rank meets the others."""
+        if self.world > 1:
+            distributed.barrier(what)
 
     def run(self) -> dict:
         cfg = self.cfg
-        train_loader = make_loader(cfg.train_data, seed=cfg.seed).start()
-        valid_loader = (make_loader(cfg.valid_data, seed=cfg.seed + 1).start()
+        # each rank draws its own stream: its share of the global batch
+        pseed = cfg.seed + self.rank * 7919
+        train_loader = make_loader(cfg.train_data, seed=pseed).start()
+        valid_loader = (make_loader(cfg.valid_data, seed=pseed + 1).start()
                         if cfg.valid_data else None)
         prefetcher = DevicePrefetcher(train_loader, self.device,
                                       sparse_bucket=cfg.train_data.sparse_bucket)
@@ -167,6 +210,18 @@ class Trainer:
         if cfg.resume and latest_step(cfg.checkpoint_dir) is not None:
             state = restore_checkpoint(cfg.checkpoint_dir, state)
             print(f"resumed from iter {state.step}", flush=True)
+        if distributed.is_initialized():
+            # the first batch is loaded; build the kernels, then meet the
+            # peers before the first collective (shard_state's)
+            t0 = time.time()
+            if self.device.type == "cuda":
+                from ubresnet_tpu_torch.ops import _build
+
+                _build.library()
+            distributed.barrier("first_step_compiled")
+            print(f"distributed: kernels built + peers synced in "
+                  f"{time.time() - t0:.1f}s", flush=True)
+        state = shard_state(state, self.mesh)
         meters = MeterDict()
         best = state.best_metric
         summary = {}
@@ -177,7 +232,8 @@ class Trainer:
                    else train_loader.n_entries)
 
         def epoch():  # as the reference counts it: iter · batch / entries
-            return state.step * cfg.train_data.batch_size / n_train
+            return (state.step * cfg.train_data.batch_size * self.world
+                    / n_train)
 
         try:
             it = state.step
@@ -218,16 +274,22 @@ class Trainer:
                 if valid_iter and (it + 1) % cfg.valid_every == 0:
                     vm = self.validate(state, valid_iter, cfg.valid_batches)
                     self.writer.add_scalars("valid", vm, it + 1)
-                    if vm["acc_total"] > best:
+                    if vm["acc_total"] > best:  # the same on every rank
                         best = state.best_metric = vm["acc_total"]
-                        save_checkpoint(cfg.checkpoint_dir, state, best=True,
-                                        epoch=epoch())
+                        if self.rank == 0:
+                            save_checkpoint(cfg.checkpoint_dir, state,
+                                            best=True, epoch=epoch())
+                        self._saved("best_checkpoint")
                 if (it + 1) % cfg.checkpoint_every == 0:
-                    save_checkpoint(cfg.checkpoint_dir, state,
-                                    epoch=epoch())
-                    prune_checkpoints(cfg.checkpoint_dir, cfg.keep_checkpoints)
+                    if self.rank == 0:
+                        save_checkpoint(cfg.checkpoint_dir, state,
+                                        epoch=epoch())
+                        prune_checkpoints(cfg.checkpoint_dir,
+                                          cfg.keep_checkpoints)
+                    self._saved("checkpoint")
                 it += 1
-                if cfg.fault_at_iter and it == cfg.fault_at_iter:
+                if (cfg.fault_at_iter and it == cfg.fault_at_iter
+                        and self.rank == 0):
                     self._maybe_inject_fault(it)
         except Exception:
             # contain, checkpoint, report (the reference breaks the loop
@@ -236,15 +298,26 @@ class Trainer:
             summary["error"] = traceback.format_exc()
             sys.stdout.flush()
         finally:
-            path = save_checkpoint(cfg.checkpoint_dir, state,
-                                   epoch=epoch())
-            prune_checkpoints(cfg.checkpoint_dir, cfg.keep_checkpoints)
+            if self.rank == 0:
+                path = save_checkpoint(cfg.checkpoint_dir, state,
+                                       epoch=epoch())
+                prune_checkpoints(cfg.checkpoint_dir, cfg.keep_checkpoints)
+            else:
+                path = checkpoint_path(cfg.checkpoint_dir, state.step)
+            # a failed rank does not wait: its peers may be blocked in a
+            # collective it will never join (the launcher ends them)
+            if "error" not in summary:
+                self._saved("final_checkpoint")
             train_loader.stop()
             if valid_loader:
                 valid_loader.stop()
             self.writer.close()
+        from ubresnet_tpu_torch import ops
+
         summary.update({
             "loader": type(train_loader).__name__,
+            "process": [self.rank, self.world],
+            "kernel_launches": ops.launch_counts(),
             "final_checkpoint": path,
             "final_iter": state.step,
             "best_acc": best,

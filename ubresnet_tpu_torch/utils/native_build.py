@@ -4,8 +4,11 @@ with g++ at first use.
 Each library lands in ``build/host/`` under the checkout as
 ``lib<name>-<hash>.so``, where the hash covers the compiler command and
 the source, so an edited source builds anew and an unchanged one is
-reused. A build writes a temporary file and renames it into place, so
-processes that build at once (test workers) never load a half-written
+reused. A build runs under an exclusive ``fcntl`` lock on
+``build/host/.<name>.lock`` (and a thread lock), checking for the
+library inside it, so processes that start at once (test workers, the
+ranks of a training, sweep jobs) compile once; it writes a temporary
+file and renames it into place, so nothing loads a half-written
 library. A failed build raises with the compiler's log.
 
 ``rootio`` links zlib and loads zstd, lz4 and lzma with dlopen at their
@@ -20,6 +23,8 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+
+from ubresnet_tpu_torch.ops._build import file_lock
 
 CPP = Path(__file__).resolve().parents[1] / "cpp"
 # no -march=native: a build directory may be copied to another host
@@ -58,11 +63,11 @@ def build(name: str) -> Path:
     """Build (or find built) ``lib<name>`` and return its path."""
     if name not in LIBS:
         raise ValueError(f"unknown host library {name!r}")
-    with _lock:
-        lib = library_path(name)
+    lib = library_path(name)
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    with _lock, file_lock(lib.parent / f".{name}.lock"):
         if lib.exists():
             return lib
-        lib.parent.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
         proc = subprocess.run(_command(name, tmp), stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True,

@@ -208,11 +208,31 @@ Phases, each printing JSON lines; any failure exits non-zero:
              gradient all-reduce's ms and the BN collectives' total per
              step under gloo and NCCL, the phase's seconds; the card
              line again.
-13. summary — the kernels line (K1-K9, K1-s8, K2-s8, K3-s8) with the
+13. golden  — the 2018-paper Caffe parity stack at the oracle shape
+             (512², the ssnet2018 graph at inplanes 16): golden_parity's
+             three surrogate caffemodels (sha256 each, draw + write
+             seconds; one parsed and written again, the same bytes, each
+             step timed); python -m ubresnet_tpu_torch.cli.infer_caffe
+             --device cuda over a 2-event three-plane file (3
+             ssnet_plane%d float32 images of 512x512 per plane per event
+             summing to 1 ± 1e-5, no port kernel launched); on one crop
+             the f32 oracle (TF32 off) against the same net in float64 on
+             the card, label agreement ≥ 0.999 over ADC > 10 and softmax
+             max|Δp| ≤ 1e-4, which the same net with TF32 let in must
+             exceed; the b1 forward's ms (CUDA events) and profile;
+             golden_parity --dry-run --device cuda -n 16: exit 0, every
+             plane ≥ 0.999, the negative control detected (its margin in
+             pixels reported), each caffe leg's timing; official mode with the three surrogates and a
+             tame reference .tar (the classifier x 3e-5): the exit code
+             0 if the report is ok else 1, every plane with pixels over
+             threshold, launches exactly 11 a plane (one batch each of
+             the port's infer_precropped); agreement reported (two
+             unrelated random networks).
+14. summary — the kernels line (K1-K9, K1-s8, K2-s8, K3-s8) with the
              launches of every path (wholeview, serve, root, the aspp
-             paths and distributed among them), the times at the main
-             cell and, under at_shapes, at the wholeview cells; the card
-             line, the result line.
+             paths, distributed and golden among them), the times at the
+             main cell and, under at_shapes, at the wholeview cells; the
+             card line, the result line.
 
 Scratch files go under build/chip_smoke in the checkout.
 """
@@ -280,25 +300,25 @@ SOURCES = {
                     ("conv_bn_act",),
                     ("precropped", "train", "train_deconv", "qat", "int8",
                      "wholeview", "serve", "root", "aspp", "aspp_int8",
-                     "aspp_train", "distributed")),
+                     "aspp_train", "distributed", "golden")),
     "basic_block": ("ubresnet_tpu_torch/ops/csrc/basic_block.cu",
                     f"{PALLAS}:1483 fused_basic_block"
                     " + :699 fused_dual_block", ("basic_block",),
                     ("precropped", "train", "wholeview", "serve", "root",
-                     "aspp")),
+                     "aspp", "golden")),
     "deconv2x": ("ubresnet_tpu_torch/ops/csrc/deconv2x.cu",
                  f"{PALLAS}:898 fused_packed_deconv2x"
                  " + :1341 pallas_deconv2x_ad (forward)",
                  ("deconv2x",), ("precropped", "train", "train_deconv",
                                  "qat", "wholeview", "serve", "root", "aspp",
-                                 "aspp_train")),
+                                 "aspp_train", "golden")),
     "maxpool3x3s2": ("ubresnet_tpu_torch/ops/csrc/maxpool3x3s2.cu",
                      f"{PALLAS}:525 fused_pool3x3s2"
                      " + ubresnet_tpu/ops/pool_ad.py:133 packed_pool_ad "
                      "(forward)", ("maxpool3x3s2",),
                      ("precropped", "train", "train_deconv", "qat", "int8",
                       "wholeview", "serve", "root", "aspp", "aspp_int8",
-                      "aspp_train", "distributed")),
+                      "aspp_train", "distributed", "golden")),
     "conv_stats": ("ubresnet_tpu_torch/ops/csrc/conv_stats.cu",
                    "ubresnet_tpu/ops/pallas_train.py:206 train_conv_stats",
                    ("conv_stats",), ("train", "train_deconv", "qat", "root",
@@ -3072,6 +3092,211 @@ def distributed_path(dev, card, work, gates):
     return {k: sum(c.get(k, 0) for c in counts) for k in ops.KERNELS}
 
 
+GOLDEN_EVENTS = 2            # events of the golden phase's 3-plane file
+# The dry run's: its negative control (plane 2's weights x 1 + 0.2·randn)
+# cleared the bar of 1 pixel in 1000 by about one pixel over 2 events
+# (1.4 in 1000), by about 35 over 16 (3.5 in 1000; H100).
+GOLDEN_DRY_EVENTS = 16
+# max|Δp| of the f32 oracle's softmax against float64 on one 512² crop:
+# 7.6e-6-8.3e-6 with TF32 off, 6.8e-3 with it on (H100).
+F32_DP_LIMIT = 1e-4
+
+
+@contextlib.contextmanager
+def _tf32_on():
+    """Stands in for parity/caffe.py's strict_f32_scope in the oracle's
+    negative control: TF32 on for the body."""
+    import torch
+
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+
+
+def _golden_scores(path, n, hw):
+    """Every event of ``path`` carries, for each plane 0-2, 3 float32
+    ``ssnet_plane%d`` images of ``hw`` summing to 1 ± 1e-5; returns the
+    largest deviation of a sum."""
+    import numpy as np
+
+    from ubresnet_tpu_torch.data.rootio import open_event_file
+
+    reader = open_event_file(path)
+    require(len(reader) == n, f"{path}: {len(reader)} events written")
+    worst = 0.0
+    for i in range(n):
+        ev = reader.read_entry(i)
+        for plane in (0, 1, 2):
+            imgs = ev.get(f"ssnet_plane{plane}", [])
+            require(len(imgs) == 3 and all(
+                im.pixels.dtype == np.float32 and im.pixels.shape == hw
+                for im in imgs), f"event {i} plane {plane}: bad scores")
+            s = np.stack([im.pixels for im in imgs])
+            require(np.isfinite(s).all(), f"event {i}: non-finite scores")
+            worst = max(worst, float(np.abs(s.sum(0) - 1.0).max()))
+    require(worst <= 1e-5, f"{path}: score sums off by {worst}")
+    return worst
+
+
+def _leg_timings(text):
+    """The infer_caffe timing lines in ``text``, one a caffe leg."""
+    return [json.loads(line) for line in text.splitlines()
+            if line.startswith('{"total"')]
+
+
+def golden_path(dev, card, work):
+    """The 2018-paper Caffe parity stack at the oracle shape (512²,
+    inplanes 16): surrogate caffemodels (sha256, draw+write, parse and
+    write seconds of one, the rewrite byte-equal), infer_caffe --device
+    cuda over a 3-plane file (score sums, forward ms, f32 against
+    float64 on one crop), golden_parity --dry-run, and official mode on
+    a tame reference .tar, whose second leg (the port's infer_precropped,
+    one batch a plane) is the golden path's kernel launches."""
+    import hashlib
+    import pathlib
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from ubresnet_tpu_torch.cli import golden_parity
+    from ubresnet_tpu_torch.cli.infer_caffe import main as infer_caffe
+    from ubresnet_tpu_torch.data.rootio import open_event_file
+    from ubresnet_tpu_torch.deploy.weights import (
+        random_state_dict,
+        save_reference_checkpoint,
+    )
+    from ubresnet_tpu_torch.models.ssnet2018 import ssnet2018_prototxt
+    from ubresnet_tpu_torch.parity import caffe
+    from ubresnet_tpu_torch.parity.caffe import (
+        CaffeNet,
+        parse_caffemodel,
+        write_caffemodel,
+    )
+
+    t_phase = time.time()
+    root = os.path.join(work, "golden")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    result = {"phase": "golden", "card": card, "hw": list(HW),
+              "events": GOLDEN_EVENTS}
+
+    t0 = time.time()
+    weights = golden_parity.make_surrogate_weights(root)
+    result["surrogates_draw_write_s"] = time.time() - t0
+    result["surrogate_sha256"] = {
+        str(p): hashlib.sha256(pathlib.Path(f).read_bytes()).hexdigest()
+        for p, f in weights.items()}
+    result["caffemodel_bytes"] = os.path.getsize(weights[2])
+    t0 = time.time()
+    params = parse_caffemodel(weights[2])
+    result["caffemodel_parse_s"] = time.time() - t0
+    again = os.path.join(root, "rewrite.caffemodel")
+    t0 = time.time()
+    write_caffemodel(again, params)
+    result["caffemodel_write_s"] = time.time() - t0
+    require(pathlib.Path(again).read_bytes() ==
+            pathlib.Path(weights[2]).read_bytes(),
+            "parse → write of a surrogate changed its bytes")
+
+    events = golden_parity.make_three_plane_file(
+        os.path.join(root, "events.uevt"), GOLDEN_EVENTS, HW)
+    scores = os.path.join(root, "caffe.uevt")
+    argv = ["-i", events, "-o", scores, "--device", "cuda"]
+    for plane, path in weights.items():
+        argv += ["-w", f"{plane}:{path}"]
+    rc, out, _, wall, launches = _run_cli(infer_caffe, argv)
+    require(rc == 0, f"infer_caffe returned {rc}")
+    require(not any(launches.values()),
+            f"the caffe oracle launched port kernels: {launches}")
+    result["infer_caffe"] = {"wall_s": wall, "timing": _leg_timings(out)[-1],
+                             "score_sum_max_dev": _golden_scores(
+                                 scores, GOLDEN_EVENTS, HW)}
+
+    # one crop: the card's f32 oracle against the same net in float64,
+    # and a control with TF32 let in, which the max|Δp| gate must catch
+    crop = open_event_file(events).read_entry(0)["wire"][2].pixels
+    x = torch.from_numpy(np.ascontiguousarray(crop[None, ..., None])).to(dev)
+    net = CaffeNet(ssnet2018_prototxt(), weights=params, device=dev)
+    with torch.inference_mode():
+        fwd_ms = time_ms(lambda: net(x)["softmax"], budget_ms=300.0)
+        profile = forward_profile(lambda: net(x)["softmax"], fwd_ms)
+        p32 = net(x)["softmax"][0]
+        strict = caffe.strict_f32_scope
+        caffe.strict_f32_scope = _tf32_on
+        try:
+            ptf = net(x)["softmax"][0]
+        finally:
+            caffe.strict_f32_scope = strict
+        p64 = net.double()(x)["softmax"][0]
+    mask = torch.from_numpy(crop > 10.0).to(dev)
+    agree = float((p32.argmax(-1) == p64.argmax(-1))[mask].double().mean())
+    dp = float((p32.double() - p64).abs().max())
+    dp_tf32 = float((ptf.double() - p64).abs().max())
+    result.update({"forward_ms_b1": fwd_ms, "profile_b1": profile,
+                   "f32_vs_f64": {"label_agreement_adc10": agree,
+                                  "max_abs_dp": dp,
+                                  "max_abs_dp_limit": F32_DP_LIMIT,
+                                  "max_abs_dp_tf32_control": dp_tf32,
+                                  "n_pixels": int(mask.sum())}})
+    require(agree >= 0.999, f"f32 oracle vs float64: agreement {agree}")
+    require(dp <= F32_DP_LIMIT, f"f32 oracle vs float64: max|Δp| {dp}")
+    require(dp_tf32 > F32_DP_LIMIT,
+            f"the TF32 control passed the max|Δp| gate: {dp_tf32}")
+    del net, p32, ptf, p64
+    torch.cuda.empty_cache()
+
+    saved, tempfile.tempdir = tempfile.tempdir, root
+    try:
+        report = os.path.join(root, "dry_run.json")
+        rc, out, _, wall, _ = _run_cli(golden_parity.main, [
+            "--dry-run", "--device", "cuda", "-n", str(GOLDEN_DRY_EVENTS),
+            "-o", report])
+        rep = json.loads(pathlib.Path(report).read_text())
+        require(rc == 0 and rep["ok"], f"dry run returned {rc}: {rep}")
+        require(all(m["label_agreement"] >= 0.999
+                    for m in rep["planes"].values())
+                and rep["negative_control"]["detected"],
+                f"dry run gates: {rep}")
+        neg = rep["negative_control"]
+        result["dry_run"] = {
+            "wall_s": wall, "legs": _leg_timings(out),
+            "planes": rep["planes"], "negative_control": neg,
+            # disagreeing pixels past the most the bar lets through
+            "negative_margin_px": neg["n_entries"] * neg["n_pixels"] * (
+                rep["threshold"] - neg["label_agreement"])}
+
+        sd = random_state_dict(seed=2)
+        sd["conv11.weight"] = sd["conv11.weight"] * 3e-5  # unsaturated
+        tar = save_reference_checkpoint(sd, os.path.join(root, "tame.tar"))
+        report = os.path.join(root, "official.json")
+        argv = ["-i", events, "-c", tar, "--device", "cuda", "-n",
+                str(GOLDEN_EVENTS), "-o", report]
+        for plane, path in weights.items():
+            argv += ["-w", f"{plane}:{path}"]
+        rc, out, _, wall, launches = _run_cli(golden_parity.main, argv)
+    finally:
+        tempfile.tempdir = saved
+    rep = json.loads(pathlib.Path(report).read_text())
+    require(rc == (0 if rep["ok"] else 1), f"official mode returned {rc}")
+    require(sorted(rep["planes"]) == ["0", "1", "2"] and all(
+        m["n_pixels"] > 0 for m in rep["planes"].values()),
+        f"official mode planes: {rep['planes']}")
+    want = {k: LAUNCHES_PER_BATCH.get(k, 0) * 3 for k in launches}
+    require(launches == want, f"official mode launches {launches} != {want}")
+    result["official"] = {"wall_s": wall, "ok": rep["ok"],
+                          "planes": rep["planes"], "launches": launches}
+    result["seconds"] = time.time() - t_phase
+    emit(result)
+    return launches
+
+
 def main():
     import torch
 
@@ -3139,6 +3364,8 @@ def main():
     launches.update(aspp_path(dev, card, work))
     torch.cuda.empty_cache()
     launches["distributed"] = distributed_path(dev, card, work, gates)
+    torch.cuda.empty_cache()
+    launches["golden"] = golden_path(dev, card, work)
     line = kernels_line(rows, launches)
     for k in line["kernels"]:
         paths = SOURCES[k["name"]][3]

@@ -51,6 +51,27 @@ def test_int8_modules_pull_in_no_jax(module):
     assert proc.stdout.strip() == "[]", proc.stdout
 
 
+def test_parity_stack_pulls_in_no_jax():
+    """The Caffe parity stack and its CLIs, describe and the checkpoint
+    directory loader import without jax or the JAX package (a fresh
+    process), though the JAX package holds JAX-free modules of the same
+    names (protobuf_lite, align, ssnet2018): the port keeps copies."""
+    mods = ["parity", "parity.caffe", "parity.protobuf_lite", "parity.align",
+            "parity.compare", "parity.evaluate", "models.ssnet2018",
+            "cli.infer_caffe", "cli.compare", "cli.evaluate",
+            "cli.golden_parity", "cli.common", "utils.describe"]
+    code = ("import sys\n"
+            + "".join(f"import ubresnet_tpu_torch.{m}\n" for m in mods)
+            + "print(sorted(n for n in sys.modules if n == 'jax'\n"
+            "             or n.startswith(('jax.', 'jaxlib', 'flax'))\n"
+            "             or n == 'ubresnet_tpu'\n"
+            "             or n.startswith('ubresnet_tpu.')))\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, cwd=ROOT, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]", proc.stdout
+
+
 @pytest.mark.parametrize("module", ["ubresnet_tpu_torch.tools.int8_ladder",
                                     "ubresnet_tpu_torch.tools.profile_train",
                                     "ubresnet_tpu_torch.tools.kernel_ab"])
@@ -164,12 +185,14 @@ def test_resolve_device_raises_without_cuda(monkeypatch):
 @pytest.mark.parametrize("build", ["UResNet", "ConvBN", "BasicBlock",
                                    "Deconv2x", "get_model", "TrainUResNet",
                                    "get_model_train", "ASPPResNet",
-                                   "TrainASPPResNet", "ASPP"])
+                                   "TrainASPPResNet", "ASPP", "CaffeNet"])
 def test_models_default_to_cuda(monkeypatch, build):
     """A model or block built with no device asks for the card and
     raises without one; it never lands on the CPU unasked."""
     from ubresnet_tpu_torch import models
     from ubresnet_tpu_torch.deploy.weights import random_state_dict
+    from ubresnet_tpu_torch.models.ssnet2018 import ssnet2018_prototxt
+    from ubresnet_tpu_torch.parity.caffe import CaffeNet
 
     sd = random_state_dict(seed=0)
     aspp = random_state_dict(seed=0, inplanes=4, arch="aspp_resnet")
@@ -185,6 +208,7 @@ def test_models_default_to_cuda(monkeypatch, build):
         "ASPPResNet": lambda: models.ASPPResNet(aspp),
         "TrainASPPResNet": lambda: models.TrainASPPResNet(aspp),
         "ASPP": lambda: models.ASPP(aspp, "ASPP_layer_enc3"),
+        "CaffeNet": lambda: CaffeNet(ssnet2018_prototxt(inplanes=4)),
     }[build]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

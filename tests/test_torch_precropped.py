@@ -107,11 +107,11 @@ def test_port_refuses_root_files(files):
 def test_port_cli_takes_the_jax_flags(files):
     """The JAX CLI's --arch, --config, --best, --data-parallel and
     --trace parse: --arch aspp_resnet scores an ASPP .tar and exits on
-    this UResNet .tar naming the missing ASPP keys, the ones the port
-    cannot run yet exit naming their ROADMAP item (--config and --best
-    also the export route), --trace writes a torch.profiler trace of
-    the run, --data-parallel on one device writes the same bytes as
-    without it."""
+    this UResNet .tar naming the missing ASPP keys, --config and --best
+    on a .tar exit naming the checkpoint directories they pick from
+    (tests/test_torch_checkpoint_dirs.py loads those), --trace writes a
+    torch.profiler trace of the run, --data-parallel on one device
+    writes the same bytes as without it."""
     import json
 
     from ubresnet_tpu_torch.deploy.weights import random_state_dict
@@ -120,9 +120,9 @@ def test_port_cli_takes_the_jax_flags(files):
     base = ["-i", data, "-o", str(d / "flags.uevt"), "-c", ckpt,
             "--device", "cpu", "--f32"]
     for extra, item in ((["--arch", "aspp_resnet"], "ASPP_layer_enc3"),
-                        (["--config", "c.json"], "item 11"),
-                        (["--best"], "item 11"),
-                        (["--best"], "export_torch")):
+                        (["--config", "c.json"], "checkpoint directory"),
+                        (["--best"], "checkpoint directory"),
+                        (["--best"], "step_<N>.tar, best.tar")):
         with pytest.raises(SystemExit, match=item):
             port_main(base + extra)
     aspp = save_reference_checkpoint(

@@ -296,7 +296,7 @@ def test_serve_refuses_root_out_and_mixed_precision(tmp_path, ckpt):
     assert len(imgs) == 3 and imgs[0].pixels.dtype == np.float32
     with pytest.raises(SystemExit, match="exclusive"):
         main(base + ["--int8", "--f32"])
-    with pytest.raises(SystemExit, match="item 11"):
+    with pytest.raises(SystemExit, match="checkpoint directory"):
         main(base + ["--config", "cfg.json"])
     assert not (tmp_path / "o").exists()
 

@@ -329,7 +329,7 @@ def test_cli_refuses_what_is_not_ported(files):
                                     for s, _ in scores.values())
     for s, _ in scores.values():
         np.testing.assert_allclose(s.sum(-1), 1.0, atol=1e-2)
-    with pytest.raises(SystemExit, match="item 11"):
+    with pytest.raises(SystemExit, match="checkpoint directory"):
         port_main(base + ["-o", str(d / "x.uevt"), "--config", "c.json"])
     with pytest.raises(SystemExit, match="exclusive"):
         port_main(base + ["-o", str(d / "x.uevt"), "--spatial", "--detsplit"])

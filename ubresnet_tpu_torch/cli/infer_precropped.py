@@ -12,10 +12,11 @@ Arg surface of the reference deploy/run_ubresnet_precropped.py:17-27
 .root (a .root output stores float32 scores whatever ``--f16-scores``
 says). Checkpoints are reference-format .tar files of a UResNet or an
 ASPP-ResNet (``--arch aspp_resnet``, or the default ``--arch`` on a
-.tar that holds ASPP keys); ``--config``/``--best`` (orbax checkpoints)
-exit naming the ROADMAP item that ports them. ``--data-parallel``
-scores each batch as equal shards on every visible card, one eval
-replica a card, the same bytes as without it on one card.
+.tar that holds ASPP keys); ``-c DIR --config cfg`` reads a training
+checkpoint directory (its newest ``step_<N>.tar``, or ``best.tar``
+with ``--best``). ``--data-parallel`` scores each batch as equal
+shards on every visible card, one eval replica a card, the same bytes
+as without it on one card.
 ``--trace DIR`` writes a torch.profiler Chrome trace of the run to
 ``DIR/trace.json``. Runs on the card unless ``--device cpu`` is given;
 prints the timing dict as one JSON line (with ``--int8`` also the
@@ -39,21 +40,24 @@ def build_parser():
                     help="output file (.uevt, or .root for larcv "
                          "write-back)")
     ap.add_argument("-c", "--checkpoint", required=True,
-                    help="reference-format .tar checkpoint")
+                    help="reference-format .tar checkpoint, or a "
+                         "training checkpoint directory (--config)")
     ap.add_argument("-p", "--plane", type=int, default=2, help="wire plane id")
     ap.add_argument("-t", "--producer", default="wire", help="ADC image producer")
     ap.add_argument("-b", "--batchsize", type=int, default=8)
     ap.add_argument("-n", "--nevents", type=int, default=None)
     ap.add_argument("-v", "--verbose", action="store_true")
     ap.add_argument("--config", default=None,
-                    help="orbax checkpoints: not ported (exits)")
+                    help="TrainConfig of a checkpoint directory -c DIR: "
+                         "its model section")
     ap.add_argument("--arch", default="uresnet",
                     choices=["uresnet", "aspp_resnet"],
                     help="model architecture (default uresnet; a .tar "
                          "holding ASPP keys runs as aspp_resnet either "
                          "way)")
     ap.add_argument("--best", action="store_true",
-                    help="orbax checkpoints: not ported (exits)")
+                    help="a checkpoint directory's best.tar, not its "
+                         "newest step")
     ap.add_argument("--f32", action="store_true",
                     help="full-f32 parity mode (no kernel zone, TF32 off)")
     ap.add_argument("--f16-scores", action="store_true",

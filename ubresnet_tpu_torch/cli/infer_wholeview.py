@@ -18,7 +18,8 @@ the input's meta and ids; input and output are .uevt or larcv .root
 (a .root output stores float32 scores whatever ``--f16-scores`` says).
 Checkpoints are reference-format .tar files of a UResNet or an
 ASPP-ResNet (``--arch aspp_resnet``, or the default ``--arch`` on a
-.tar that holds ASPP keys). Runs on the card unless ``--device cpu`` is
+.tar that holds ASPP keys), or ``-c DIR --config cfg [--best]`` for a
+training checkpoint directory. Runs on the card unless ``--device cpu`` is
 given; prints the timing dict (total / read / splitscore / write, and
 ``calibrate`` with ``--int8``) as one JSON line.
 """
@@ -57,7 +58,8 @@ def build_parser():
                     help="output file (.uevt, or .root for larcv "
                          "write-back)")
     ap.add_argument("-c", "--checkpoint", required=True,
-                    help="reference-format .tar checkpoint")
+                    help="reference-format .tar checkpoint, or a "
+                         "training checkpoint directory (--config)")
     ap.add_argument("-t", "--producer", default="wire")
     ap.add_argument("-n", "--nevents", type=int, default=None)
     ap.add_argument("-v", "--verbose", action="store_true")
@@ -68,14 +70,16 @@ def build_parser():
     ap.add_argument("--overlap-cols", type=int, default=176)
     ap.add_argument("--crop-batch", type=int, default=10)
     ap.add_argument("--config", default=None,
-                    help="orbax checkpoints: not ported (exits)")
+                    help="TrainConfig of a checkpoint directory -c DIR: "
+                         "its model section")
     ap.add_argument("--arch", default="uresnet",
                     choices=["uresnet", "aspp_resnet"],
                     help="model architecture (default uresnet; a .tar "
                          "holding ASPP keys runs as aspp_resnet either "
                          "way)")
     ap.add_argument("--best", action="store_true",
-                    help="orbax checkpoints: not ported (exits)")
+                    help="a checkpoint directory's best.tar, not its "
+                         "newest step")
     ap.add_argument("--f32", action="store_true",
                     help="full-f32 parity mode (no kernel zone, TF32 off)")
     ap.add_argument("--f16-scores", action="store_true",

@@ -34,10 +34,14 @@ def build_parser():
     ap.add_argument("--watch-dir", required=True)
     ap.add_argument("--out-dir", required=True)
     ap.add_argument("-c", "--checkpoint", required=True,
-                    help="reference-format .tar checkpoint")
-    ap.add_argument("--config", help="orbax checkpoints: not ported (exits)")
+                    help="reference-format .tar checkpoint, or a "
+                         "training checkpoint directory (--config)")
+    ap.add_argument("--config",
+                    help="TrainConfig of a checkpoint directory -c DIR: "
+                         "its model section")
     ap.add_argument("--best", action="store_true",
-                    help="orbax checkpoints: not ported (exits)")
+                    help="a checkpoint directory's best.tar, not its "
+                         "newest step")
     ap.add_argument("--arch", default="uresnet",
                     choices=["uresnet", "aspp_resnet"],
                     help="model architecture (default uresnet; a .tar "

@@ -83,11 +83,11 @@ def latest_step(directory: str) -> Optional[int]:
     return steps[-1] if steps else None
 
 
-def restore_checkpoint(directory: str, state, *, step: Optional[int] = None,
-                       best: bool = False):
-    """Load a checkpoint (the latest by default) into ``state``: the
-    model's parameters and running stats, the optimizer, the step and
-    the best metric."""
+def checkpoint_file(directory: str, *, step: Optional[int] = None,
+                    best: bool = False) -> str:
+    """The file a restore reads: <dir>/best.tar with ``best``, else
+    <dir>/step_<N>.tar of ``step`` or, by default, the newest step.
+    Raises FileNotFoundError when there is none."""
     directory = os.path.abspath(directory)
     if best:
         path = os.path.join(directory, "best.tar")
@@ -96,6 +96,17 @@ def restore_checkpoint(directory: str, state, *, step: Optional[int] = None,
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {directory}")
         path = os.path.join(directory, f"step_{step:08d}.tar")
+    if not os.path.isfile(path):
+        raise FileNotFoundError(f"no checkpoint {path}")
+    return path
+
+
+def restore_checkpoint(directory: str, state, *, step: Optional[int] = None,
+                       best: bool = False):
+    """Load a checkpoint (the latest by default) into ``state``: the
+    model's parameters and running stats, the optimizer, the step and
+    the best metric."""
+    path = checkpoint_file(directory, step=step, best=best)
     payload = torch.load(path, map_location="cpu", weights_only=False)
     state.model.load_state_dict(payload["state_dict"])
     state.optimizer.load_state_dict(payload["optimizer"])

@@ -12,6 +12,7 @@ host.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 from typing import Optional, Union
 
@@ -75,3 +76,15 @@ def strict_f32():
     f32 reference paths call this before they run."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+
+
+@contextlib.contextmanager
+def strict_f32_scope():
+    """strict_f32 for the body only: the settings it found are put back
+    after, so the caller's process keeps its own."""
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    strict_f32()
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved

@@ -60,6 +60,16 @@ Phases, each printing JSON lines; any failure exits non-zero:
              The eval and int8 rows again at the wholeview paths' cells:
              b10 512x832 (one stitched chunk of crops) and b1 1024x3456
              (the spatial path's padded plane), under the same checks.
+             The reference's other two UResNets (the widths phase): the
+             inplanes-32 zone where JAX fuses it (K4 at C = 32, K2 ×6 —
+             (32, 0, 64) resident, (64, 0, 64) and the dual (64, 64, 64)
+             in the streamed form —, K3 (64, 32), the classifier) bf16
+             and int8 at b16 512², the streamed blocks again at the
+             wholeview cells, its train zone (K5, K1 dx, K6 at its seven
+             shapes) on b16 256² crops; the 4-class classifier (16, 4,
+             7), its dx and dW legs and K7 at C = 4. Their rows name
+             their cell ("inplanes 32", "4 classes"); K2 rows give their
+             form (resident or streamed) beside their ptxas figures.
 4. main    — 64 synthetic 512x512 crops scored file → file through the
              port's CLI (-b 16, cuda) with seeded random weights in a
              reference-format .tar; every event must carry 3 score
@@ -228,10 +238,28 @@ Phases, each printing JSON lines; any failure exits non-zero:
              threshold, launches exactly 11 a plane (one batch each of
              the port's infer_precropped); agreement reported (two
              unrelated random networks).
-14. summary — the kernels line (K1-K9, K1-s8, K2-s8, K3-s8) with the
+14. widths  — the reference's other two UResNets, every layer routed as
+             the JAX package routes it (models/blocks.py routes), seeded
+             random weights: inplanes 32 (its trainer's) — the main
+             phase's 64 crops through infer_precropped -b 16 (launches
+             exactly K4 1, K2 6, K3 1, K1 1 a batch, 3 score images
+             summing to 1 ± 1e-2, argmax ≥ 99% against f32 on the b16
+             batch, forward ms and crops/s beside the flagship's) and
+             --int8 (K4 1, K2-s8 6, K3-s8 1, K1 1 a batch; argmax ≥ 0.99
+             against the int8 plain path); train_parity's gates and 5
+             Adam steps on a b16 256² batch (K5 14, K1 16, K6 15, K4 1,
+             K7 1 + 1 a step, the loss falls; step ms, crops/s, peak
+             memory); the train CLI with model.inplanes 32 on 64 256²
+             events, 4 iterations and one validation (exact launches,
+             finite losses); 4 classes (the precropped deploy's) — the
+             64 crops bf16 and --int8 (4 score images an event, the
+             flagship's tables, K1 at (16, 4, 7)), train_parity with
+             4-class labels under its gates. The phase's seconds.
+15. summary — the kernels line (K1-K9, K1-s8, K2-s8, K3-s8) with the
              launches of every path (wholeview, serve, root, the aspp
-             paths, distributed and golden among them), the times at the
-             main cell and, under at_shapes, at the wholeview cells; the
+             paths, distributed, golden and the widths paths among
+             them), the times at the main cell and, under at_shapes, at
+             the other cells; before it the seconds of each phase; the
              card line, the result line.
 
 Scratch files go under build/chip_smoke in the checkout.
@@ -300,39 +328,46 @@ SOURCES = {
                     ("conv_bn_act",),
                     ("precropped", "train", "train_deconv", "qat", "int8",
                      "wholeview", "serve", "root", "aspp", "aspp_int8",
-                     "aspp_train", "distributed", "golden")),
+                     "aspp_train", "distributed", "golden", "widths_32",
+                     "widths_32_int8", "widths_32_train", "widths_4",
+                     "widths_4_int8", "widths_4_train")),
     "basic_block": ("ubresnet_tpu_torch/ops/csrc/basic_block.cu",
                     f"{PALLAS}:1483 fused_basic_block"
                     " + :699 fused_dual_block", ("basic_block",),
                     ("precropped", "train", "wholeview", "serve", "root",
-                     "aspp", "golden")),
+                     "aspp", "golden", "widths_32", "widths_32_train",
+                     "widths_4")),
     "deconv2x": ("ubresnet_tpu_torch/ops/csrc/deconv2x.cu",
                  f"{PALLAS}:898 fused_packed_deconv2x"
                  " + :1341 pallas_deconv2x_ad (forward)",
                  ("deconv2x",), ("precropped", "train", "train_deconv",
                                  "qat", "wholeview", "serve", "root", "aspp",
-                                 "aspp_train", "golden")),
+                                 "aspp_train", "golden", "widths_32",
+                                 "widths_4")),
     "maxpool3x3s2": ("ubresnet_tpu_torch/ops/csrc/maxpool3x3s2.cu",
                      f"{PALLAS}:525 fused_pool3x3s2"
                      " + ubresnet_tpu/ops/pool_ad.py:133 packed_pool_ad "
                      "(forward)", ("maxpool3x3s2",),
                      ("precropped", "train", "train_deconv", "qat", "int8",
                       "wholeview", "serve", "root", "aspp", "aspp_int8",
-                      "aspp_train", "distributed", "golden")),
+                      "aspp_train", "distributed", "golden", "widths_32",
+                      "widths_32_int8", "widths_32_train", "widths_4",
+                      "widths_4_int8", "widths_4_train")),
     "conv_stats": ("ubresnet_tpu_torch/ops/csrc/conv_stats.cu",
                    "ubresnet_tpu/ops/pallas_train.py:206 train_conv_stats",
                    ("conv_stats",), ("train", "train_deconv", "qat", "root",
-                                     "aspp_train", "distributed")),
+                                     "aspp_train", "distributed",
+                                     "widths_32_train", "widths_4_train")),
     "conv_dw": ("ubresnet_tpu_torch/ops/csrc/conv_dw.cu",
                 f"{PALLAS}:1677 pallas_conv_dw", ("conv_dw",),
                 ("train", "train_deconv", "qat", "root", "aspp_train",
-                 "distributed")),
+                 "distributed", "widths_32_train", "widths_4_train")),
     "weighted_nll": ("ubresnet_tpu_torch/ops/csrc/weighted_nll.cu",
                      "ubresnet_tpu/ops/pallas_loss.py:100 "
                      "pallas_weighted_nll", ("weighted_nll",
                                              "weighted_nll_bwd"),
                      ("train", "train_deconv", "qat", "root", "aspp_train",
-                      "distributed")),
+                      "distributed", "widths_32_train", "widths_4_train")),
     "conv_s2k4": ("ubresnet_tpu_torch/ops/csrc/conv_s2k4.cu",
                   f"{PALLAS}:1148 fused_conv_s2k4 (the dx leg of :1341 "
                   "pallas_deconv2x_ad)", ("conv_s2k4",), ("train_deconv",)),
@@ -342,16 +377,18 @@ SOURCES = {
     "conv_bn_act_s8": ("ubresnet_tpu_torch/ops/csrc/conv_bn_act_s8.cu",
                        f"{PALLAS}:315 fused_packed_conv (_conv_kernel :251,"
                        " quantized :282-300)", ("conv_bn_act_s8",),
-                       ("int8", "wholeview", "aspp_int8")),
+                       ("int8", "wholeview", "aspp_int8", "widths_4_int8")),
     "basic_block_s8": ("ubresnet_tpu_torch/ops/csrc/basic_block_s8.cu",
                        f"{PALLAS}:1483 fused_basic_block (_block_kernel "
                        ":1372) + :699 fused_dual_block (_dual_block_kernel"
                        " :587), quantized", ("basic_block_s8",),
-                       ("int8", "wholeview", "aspp_int8")),
+                       ("int8", "wholeview", "aspp_int8", "widths_32_int8",
+                        "widths_4_int8")),
     "deconv2x_s8": ("ubresnet_tpu_torch/ops/csrc/deconv2x_s8.cu",
                     f"{PALLAS}:898 fused_packed_deconv2x (_deconv_kernel "
                     ":847), quantized", ("deconv2x_s8",),
-                    ("int8", "wholeview", "aspp_int8")),
+                    ("int8", "wholeview", "aspp_int8", "widths_32_int8",
+                     "widths_4_int8")),
 }
 # the train zone at batch 16: (ci, co, k) of each distinct conv, the
 # resolution it runs at and how many of the step's 16 BN-fed zone convs
@@ -362,6 +399,32 @@ TRAIN_ZONE = [((16, 32, 3), 256, 1), ((16, 32, 1), 256, 1),
               ((32, 16, 1), 512, 1), ((16, 16, 3), 512, 3),
               ((16, 16, 7), 512, 1)]
 CLASSIFIER = ((16, 3, 7), 512, 1)
+# the reference's other two UResNets (widths phase): the trainer's at
+# inplanes 32 and the precropped deploy's 4-class model. Per batch at
+# inplanes 32 (JAX fuses neither dec2's (128, 64) upsample nor the head
+# conv10 (32, 16, 7)): K4 1, K2 6, K3 1, K1 1 (the classifier); int8 the
+# same with K2-s8 and K3-s8. Per train step: K5 14 (dec2's first conv
+# stays off), K1 14 + 2 (dx legs, the classifier's forward and dx), K6
+# 15, K4 1, K7 1 + 1. The train zone at batch 16 on the reference
+# trainer's 256² crops: (ci, co, k), resolution, count.
+LAUNCHES_PER_BATCH_32 = {"conv_bn_act": 1, "basic_block": 6, "deconv2x": 1,
+                         "maxpool3x3s2": 1}
+LAUNCHES_PER_BATCH_INT8_32 = {"basic_block_s8": 6, "deconv2x_s8": 1,
+                              "maxpool3x3s2": 1, "conv_bn_act": 1}
+LAUNCHES_PER_TRAIN_STEP_32 = {"conv_stats": 14, "conv_bn_act": 16,
+                              "conv_dw": 15, "maxpool3x3s2": 1,
+                              "weighted_nll": 1, "weighted_nll_bwd": 1}
+TRAIN_HW_32 = (256, 256)
+TRAIN_ZONE_32 = [((32, 64, 3), 128, 1), ((32, 64, 1), 128, 1),
+                 ((64, 64, 3), 128, 6), ((128, 64, 1), 128, 1),
+                 ((64, 32, 3), 256, 1), ((64, 32, 1), 256, 1),
+                 ((32, 32, 3), 256, 3)]
+CLASSIFIER_32 = ((16, 3, 7), 256, 1)
+CLASSIFIER_4 = ((16, 4, 7), 512, 1)
+# K2 / K2-s8 layers of the inplanes-32 UResNet whose weights stream
+STREAMED = {"enc1.res2", "dec2.res.res1", "dec2.res.res2"}
+STREAMED_S8 = {"dec2.res.res1"}
+WIDTHS_ITERS = 4            # train CLI iterations at inplanes 32
 
 
 def emit(obj):
@@ -485,7 +548,13 @@ def ptxas_of(kernel, instance):
     args = ", ".join(str(int(v)) if isinstance(v, bool) else str(v)
                      for v in instance)
     name = f"{kernel}_kernel<{args}>"
-    hit = [v for k, v in PTXAS.items() if _template_args(k).endswith(name)]
+    # K2 and K2-s8 instances whose weights do not fit shared memory
+    # compile as the streamed form
+    streamed = f"{kernel}_streamed_kernel<{args}>"
+    hit = [dict(v, form="streamed" if _template_args(k).endswith(streamed)
+                else "resident") if kernel.startswith("basic_block") else v
+           for k, v in PTXAS.items()
+           if _template_args(k).endswith((name, streamed))]
     return hit[0] if hit else {"missing": name}
 
 
@@ -494,10 +563,11 @@ def _cell(B, hw):
     return f"b{B} {hw[0]}x{hw[1]}"
 
 
-def _tagged(rows, B, hw):
-    """Mark rows with their cell; rows outside the main cell name it in
-    their layer and count in no train step."""
-    cell = _cell(B, hw)
+def _tagged(rows, B, hw, model=""):
+    """Mark rows with their cell (``model``: the UResNet they belong to
+    when not the flagship); rows outside the main cell name it in their
+    layer and count in no train step."""
+    cell = _cell(B, hw) + (f" {model}" if model else "")
     for r in rows:
         r["cell"] = cell
         if cell != MAIN_CELL:
@@ -506,9 +576,57 @@ def _tagged(rows, B, hw):
     return rows
 
 
-def kernel_rows(dev, B=BATCH_MAIN, hw=HW):
-    """One row per kernel-zone layer of the eval forward at batch ``B``
-    and input ``hw`` (default: the main path's)."""
+def zone_layers(inplanes=16, classes=3):
+    """The kernel-zone layers of a UResNet's eval forward where the JAX
+    package fuses them (models/blocks.py routes, at the zone's widths):
+    [(layer, kind, shape, resolution divisor)], kind "pool" (C),
+    "block" (ca, cb, co, proj), "deconv" (ci, co) at its input's
+    divisor, "conv" (ci, co, k)."""
+    from ubresnet_tpu_torch.models import blocks
+    from ubresnet_tpu_torch.models.uresnet import UResNetConfig, zone_packs
+
+    c = inplanes
+    packs = zone_packs(UResNetConfig(inplanes=c, num_classes=classes))
+    out = []
+    if blocks.pool_fuses(c, 2, 2 * packs["stem"], packs["stem"]):
+        out.append(("stem pool", "pool", (c,), 1))
+
+    def block(name, ca, cb, co, proj, div, pack):
+        if blocks.block_fuses(ca, cb, co, proj, None, pack):
+            out.append((name, "block", (ca, cb, co, proj), div))
+
+    def deconv(name, ci, co, div, pack):
+        if blocks.deconv_fuses(ci, None, pack):
+            out.append((name, "deconv", (ci, co), div))
+
+    block("enc1.res1", c, 0, 2 * c, True, 2, packs["enc1"])
+    block("enc1.res2", 2 * c, 0, 2 * c, False, 2, packs["enc1"])
+    deconv("dec2.deconv", 4 * c, 2 * c, 4, packs["dec2"])
+    block("dec2.res.res1", 2 * c, 2 * c, 2 * c, True, 2, packs["dec2"])
+    block("dec2.res.res2", 2 * c, 0, 2 * c, False, 2, packs["dec2"])
+    deconv("dec1.deconv", 2 * c, c, 2, packs["dec1"])
+    block("dec1.res.res1", c, c, c, True, 1, packs["dec1"])
+    block("dec1.res.res2", c, 0, c, False, 1, packs["dec1"])
+    if blocks.conv_fuses(c, 7, None, packs["head"]):
+        out.append(("head conv10", "conv", (c, 16, 7), 1))
+    if blocks.classifier_fuses(16, packs["head"]):
+        out.append(("classifier conv11", "conv", (16, classes, 7), 1))
+    return out
+
+
+def _model_tag(inplanes, classes):
+    """The cell suffix of a UResNet other than the flagship."""
+    return " ".join(t for t in (
+        f"inplanes {inplanes}" if inplanes != 16 else "",
+        f"{classes} classes" if classes != 3 else "") if t)
+
+
+def kernel_rows(dev, B=BATCH_MAIN, hw=HW, inplanes=16, classes=3,
+                only=None):
+    """One row per kernel-zone layer (``zone_layers``) of the eval
+    forward of the UResNet at ``inplanes`` and ``classes`` (default: the
+    flagship) at batch ``B`` and input ``hw`` (default: the main
+    path's); ``only``: the layers to take (default: all)."""
     import torch
     import torch.nn.functional as F
 
@@ -517,7 +635,7 @@ def kernel_rows(dev, B=BATCH_MAIN, hw=HW):
     gen = torch.Generator(device=dev).manual_seed(0)
     bf = torch.bfloat16
     H, W = hw
-    H2, W2, H4, W4 = H // 2, W // 2, H // 4, W // 4
+    H2, W2 = H // 2, W // 2
 
     def act(*shape):
         return torch.relu(torch.randn(*shape, generator=gen, device=dev)).to(bf)
@@ -540,15 +658,17 @@ def kernel_rows(dev, B=BATCH_MAIN, hw=HW):
     rows = []
     n2 = lambda t: t.numel() * t.element_size()  # noqa: E731
 
-    # K4 stem pool: full resolution x 16 -> half
-    x = act(B, H, W, 16)
-    out_elems = B * H2 * W2 * 16
-    rows.append(_row("stem pool", "maxpool3x3s2",
-                     lambda x=x: pool.maxpool3x3s2(x),
-                     lambda x=x: pool.maxpool3x3s2_plain(x),
-                     lambda x=x: F.max_pool2d(cl(x), 3, 2, 1),
-                     n2(x) + out_elems * 2, 8 * out_elems, F32_FLOPS,
-                     check=exact_check, library="F.max_pool2d", per_step=1))
+    # K4 stem pool: full resolution -> half
+    def pool_row(name, c):
+        x = act(B, H, W, c)
+        out_elems = B * H2 * W2 * c
+        rows.append(_row(name, "maxpool3x3s2",
+                         lambda x=x: pool.maxpool3x3s2(x),
+                         lambda x=x: pool.maxpool3x3s2_plain(x),
+                         lambda x=x: F.max_pool2d(cl(x), 3, 2, 1),
+                         n2(x) + out_elems * 2, 8 * out_elems, F32_FLOPS,
+                         check=exact_check, library="F.max_pool2d",
+                         per_step=1))
 
     # K2 blocks
     def block_row(name, hw, ca, cb, co, proj):
@@ -580,10 +700,8 @@ def kernel_rows(dev, B=BATCH_MAIN, hw=HW):
                          lambda: block.basic_block(*args),
                          lambda: block.basic_block_plain(*args),
                          library, nbytes, 2 * macs, BF16_TENSOR_FLOPS,
-                         library="cuDNN block sequence"))
-
-    block_row("enc1.res1", (H2, W2), 16, 0, 32, True)
-    block_row("enc1.res2", (H2, W2), 32, 0, 32, False)
+                         library="cuDNN block sequence",
+                         instance=(ca, cb, co, proj)))
 
     def deconv_row(name, hw, ci, co):
         x = act(B, *hw, ci)
@@ -599,17 +717,10 @@ def kernel_rows(dev, B=BATCH_MAIN, hw=HW):
                          2 * out_pix * 4 * ci * co, BF16_TENSOR_FLOPS,
                          library="F.conv_transpose2d", per_step_ad=1))
 
-    deconv_row("dec2.deconv", (H4, W4), 64, 32)
-    block_row("dec2.res.res1", (H2, W2), 32, 32, 32, True)
-    block_row("dec2.res.res2", (H2, W2), 32, 0, 32, False)
-    deconv_row("dec1.deconv", (H2, W2), 32, 16)
-    block_row("dec1.res.res1", (H, W), 16, 16, 16, True)
-    block_row("dec1.res.res2", (H, W), 16, 0, 16, False)
-
     # K1 head conv10 (BN + ReLU) and classifier conv11 (bias only)
-    def conv_row(name, co, act_on):
-        x = act(B, H, W, 16)
-        w = weight(7, 7, 16, co, fan=49 * co)
+    def conv_row(name, ci, co, act_on):
+        x = act(B, H, W, ci)
+        w = weight(7, 7, ci, co, fan=49 * co)
         g, b = affine(co)
         if not act_on:
             g = torch.ones(co, device=dev)
@@ -625,20 +736,34 @@ def kernel_rows(dev, B=BATCH_MAIN, hw=HW):
                          lambda: conv.conv_bn_act_plain(x, w, g, b,
                                                         act=act_on),
                          library, n2(x) + pix * co * 2 + n2(w),
-                         2 * pix * 49 * 16 * co, BF16_TENSOR_FLOPS,
+                         2 * pix * 49 * ci * co, BF16_TENSOR_FLOPS,
                          library="F.conv2d + folded affine",
                          per_step=int(not act_on),  # conv_ad's forward
-                         instance=(16, co, 7)))
+                         instance=(ci, co, 7)))
 
-    conv_row("head conv10", 16, True)
-    conv_row("classifier conv11", 3, False)
-    return _tagged(rows, B, hw)
+    for name, kind, shape, div in zone_layers(inplanes, classes):
+        if only is not None and name not in only:
+            continue
+        at = (H // div, W // div)
+        if kind == "pool":
+            pool_row(name, *shape)
+        elif kind == "block":
+            block_row(name, at, *shape)
+        elif kind == "deconv":
+            deconv_row(name, at, *shape)
+        else:
+            conv_row(name, shape[0], shape[1], name == "head conv10")
+    return _tagged(rows, B, hw, _model_tag(inplanes, classes))
 
 
-def train_kernel_rows(dev):
+def train_kernel_rows(dev, zone=TRAIN_ZONE, classifier=CLASSIFIER,
+                      classes=3, model="", cell_hw=HW, loss_rows=True):
     """One row per distinct shape of the train zone at batch 16 and its
-    own resolution: K5 forward (9), K1 input gradient (10), K6 weight
-    gradient (10), K7 forward and backward at (16, 512, 512, 3)."""
+    own resolution (default: the flagship's): K5 forward (9), K1 input
+    gradient (10), K6 weight gradient (10), K7 forward and backward at
+    (16, 512, 512, ``classes``). ``model``: the cell suffix of another
+    UResNet (its rows count in no flagship step), whose crops are
+    ``cell_hw``; ``loss_rows``: the K7 rows too."""
     import torch
     import torch.nn.functional as F
 
@@ -665,7 +790,7 @@ def train_kernel_rows(dev):
     def oihw(w):
         return w.permute(3, 2, 0, 1).contiguous()
 
-    for (ci, co, k), hw, count in TRAIN_ZONE:
+    for (ci, co, k), hw, count in zone:
         x = act(B, hw, hw, ci)
         w = weight(k, ci, co)
         bias = 0.05 * torch.randn(co, generator=gen, device=dev)
@@ -686,7 +811,7 @@ def train_kernel_rows(dev):
             library="F.conv2d + two channel sums", per_step=count,
             instance=(ci, co, k), same_bits=True))
 
-    for (ci, co, k), hw, count in TRAIN_ZONE + [CLASSIFIER]:
+    for (ci, co, k), hw, count in zone + [classifier]:
         dy = grad(B, hw, hw, co)
         w = weight(k, ci, co)
         wt = w.flip((0, 1)).transpose(2, 3)
@@ -720,9 +845,11 @@ def train_kernel_rows(dev):
             library="torch.nn.grad.conv2d_weight", per_step=count,
             instance=(ci, co, k)))
 
-    n = B * 512 * 512
-    logits = 3 * torch.randn(B, 512, 512, 3, generator=gen, device=dev)
-    labels = torch.randint(0, 3, (B, 512, 512), generator=gen, device=dev,
+    if not loss_rows:
+        return _tagged(rows, B, cell_hw, model)
+    n, C = B * 512 * 512, classes
+    logits = 3 * torch.randn(B, 512, 512, C, generator=gen, device=dev)
+    labels = torch.randint(0, C, (B, 512, 512), generator=gen, device=dev,
                            dtype=torch.int32)
     weights = 2 * torch.rand(B, 512, 512, generator=gen, device=dev)
     g = torch.tensor(1.0, device=dev)
@@ -735,20 +862,21 @@ def train_kernel_rows(dev):
     lreq = lt.detach().clone().requires_grad_(True)
     lib_loss = library_fwd(lreq)
     rows.append(_row(
-        "K7 loss forward (16,512,512,3)", "weighted_nll",
+        f"K7 loss forward (16,512,512,{C})", "weighted_nll",
         lambda: loss.weighted_nll_fwd(logits, labels, weights),
         lambda: loss.weighted_nll_fwd_plain(logits, labels, weights),
-        library_fwd, n * (12 + 4 + 4) + 4, 20 * n, F32_FLOPS,
+        library_fwd, n * (4 * C + 4 + 4) + 4, (7 * C - 1) * n, F32_FLOPS,
         check=f32_check(1e-5),
         library="F.cross_entropy(reduction='none')·w, mean", per_step=1))
     rows.append(_row(
-        "K7 loss backward (16,512,512,3)", "weighted_nll_bwd",
+        f"K7 loss backward (16,512,512,{C})", "weighted_nll_bwd",
         lambda: loss.weighted_nll_bwd(logits, labels, weights, g),
         lambda: loss.weighted_nll_bwd_plain(logits, labels, weights, g),
         lambda: torch.autograd.grad(lib_loss, lreq, retain_graph=True),
-        n * (12 + 4 + 4 + 12), 30 * n, F32_FLOPS, check=f32_check(1e-5),
+        n * (4 * C + 4 + 4 + 4 * C), 10 * C * n, F32_FLOPS,
+        check=f32_check(1e-5),
         library="autograd backward of the forward's sequence", per_step=1))
-    return rows
+    return _tagged(rows, B, cell_hw, model) if model else rows
 
 
 def ad_check(got, want):
@@ -890,11 +1018,13 @@ def s8_check(exact):
     return check
 
 
-def int8_kernel_rows(dev, eval_rows, B=BATCH_MAIN, hw=HW):
+def int8_kernel_rows(dev, eval_rows, B=BATCH_MAIN, hw=HW, inplanes=16,
+                     only=None):
     """One row per int8-zone layer of the int8 forward at batch ``B``
-    and input ``hw`` (default: the main path's): K1-s8 (head conv10),
-    K2-s8 (the six blocks, two
-    dual), K3-s8 (dec2, dec1 upsamples). Inputs are int8 on the grid a
+    and input ``hw`` (default: the main path's) of the UResNet at
+    ``inplanes`` (``zone_layers``; the flagship's: K1-s8 head conv10,
+    K2-s8 the six blocks, two dual, K3-s8 the dec2 and dec1 upsamples).
+    Inputs are int8 on the grid a
     calibrated model gives (post-ReLU activations, 0..127), weights
     int8, gains as the model folds them. No single PyTorch call computes
     an int8 conv, so library_ms is null; the bf16 kernel's and the cuDNN
@@ -907,8 +1037,8 @@ def int8_kernel_rows(dev, eval_rows, B=BATCH_MAIN, hw=HW):
     gen = torch.Generator(device=dev).manual_seed(3)
     bf, f32 = torch.bfloat16, torch.float32
     H, W = hw
-    H2, W2, H4, W4 = H // 2, W // 2, H // 4, W // 4
-    cell = _cell(B, hw)
+    model = _model_tag(inplanes, 3)
+    cell = _cell(B, hw) + (f" {model}" if model else "")
     bf16_rows = {r["layer"]: r for r in eval_rows if r["cell"] == cell}
     tag = "" if cell == MAIN_CELL else f" @{cell}"
     rows = []
@@ -932,20 +1062,21 @@ def int8_kernel_rows(dev, eval_rows, B=BATCH_MAIN, hw=HW):
         r["bf16"] = bf16_rows[layer + tag]
         rows.append(r)
 
-    # K1-s8 head conv10: full resolution, 16 -> 16, 7x7
-    x, w = act(B, H, W, 16), weight(7, 7, 16, 16)
-    g, b = gain(16, 2e-5)
-    one, zero = torch.ones(16, device=dev), torch.zeros(16, device=dev)
-    pix = B * H * W
-    add("head conv10", "conv_bn_act_s8",
-        lambda: conv.conv_bn_act_s8(x, w, g, b),
-        lambda: conv.conv_bn_act_s8_plain(x, w, g, b),
-        lambda: (conv.conv_bn_act_s8(x, w, one, zero, act=False,
-                                     out_dtype=f32),
-                 conv.conv_bn_act_s8_plain(x, w, one, zero, act=False,
-                                           out_dtype=f32)),
-        n2(x) + pix * 16 * 2 + n2(w), pix * 49 * 16 * 16,
-        instance=(16, 16, 7, "__nv_bfloat16"))
+    # K1-s8 head conv10: full resolution, 7x7
+    def conv_row(name, ci, co):
+        x, w = act(B, H, W, ci), weight(7, 7, ci, co)
+        g, b = gain(co, 2e-5)
+        one, zero = torch.ones(co, device=dev), torch.zeros(co, device=dev)
+        pix = B * H * W
+        add(name, "conv_bn_act_s8",
+            lambda: conv.conv_bn_act_s8(x, w, g, b),
+            lambda: conv.conv_bn_act_s8_plain(x, w, g, b),
+            lambda: (conv.conv_bn_act_s8(x, w, one, zero, act=False,
+                                         out_dtype=f32),
+                     conv.conv_bn_act_s8_plain(x, w, one, zero, act=False,
+                                               out_dtype=f32)),
+            n2(x) + pix * co * 2 + n2(w), pix * 49 * ci * co,
+            instance=(ci, co, 7, "__nv_bfloat16"))
 
     def block_row(name, hw, ca, cb, co, proj):
         a = act(B, *hw, ca)
@@ -986,15 +1117,18 @@ def int8_kernel_rows(dev, eval_rows, B=BATCH_MAIN, hw=HW):
             n2(xq) + p * co * 2 + n2(wq), p * 4 * ci * co,
             instance=(ci, co, "__nv_bfloat16"))
 
-    block_row("enc1.res1", (H2, W2), 16, 0, 32, True)
-    block_row("enc1.res2", (H2, W2), 32, 0, 32, False)
-    deconv_row("dec2.deconv", (H4, W4), 64, 32)
-    block_row("dec2.res.res1", (H2, W2), 32, 32, 32, True)
-    block_row("dec2.res.res2", (H2, W2), 32, 0, 32, False)
-    deconv_row("dec1.deconv", (H2, W2), 32, 16)
-    block_row("dec1.res.res1", (H, W), 16, 16, 16, True)
-    block_row("dec1.res.res2", (H, W), 16, 0, 16, False)
-    return _tagged(rows, B, hw)
+    layers = [lay for lay in zone_layers(inplanes)
+              if only is None or lay[0] in only]
+    for name, kind, shape, div in layers:
+        if name == "head conv10":  # the classifier stays bf16
+            conv_row(name, *shape[:2])
+    for name, kind, shape, div in layers:
+        at = (H // div, W // div)
+        if kind == "block":
+            block_row(name, at, *shape)
+        elif kind == "deconv":
+            deconv_row(name, at, *shape)
+    return _tagged(rows, B, hw, model)
 
 
 def _ratios(r):
@@ -1248,7 +1382,7 @@ def main_path(dev, card, work):
     }
     emit(result)
     require(agree >= 0.99, f"kernel path vs f32 argmax agreement {agree}")
-    return launches
+    return launches, fwd_ms
 
 
 @contextlib.contextmanager
@@ -1378,10 +1512,11 @@ def int8_path(dev, card, work):
     return launches
 
 
-def _check_scores(path, n, producer, hw, dtype=None):
-    """Every event of ``path`` (.uevt or larcv .root) carries 3 finite
-    ``producer`` score images of ``hw`` (stored as ``dtype`` when given)
-    summing to 1 ± 1e-2; returns the largest deviation of a sum."""
+def _check_scores(path, n, producer, hw, dtype=None, classes=3):
+    """Every event of ``path`` (.uevt or larcv .root) carries ``classes``
+    finite ``producer`` score images of ``hw`` (stored as ``dtype`` when
+    given) summing to 1 ± 1e-2; returns the largest deviation of a
+    sum."""
     import numpy as np
 
     from ubresnet_tpu_torch.data.rootio import open_event_file
@@ -1391,11 +1526,12 @@ def _check_scores(path, n, producer, hw, dtype=None):
     worst = 0.0
     for i in range(n):
         imgs = reader.read_entry(i).get(producer, [])
-        require(len(imgs) == 3, f"event {i}: {len(imgs)} {producer} images")
+        require(len(imgs) == classes,
+                f"event {i}: {len(imgs)} {producer} images")
         require(dtype is None or all(im.pixels.dtype == dtype for im in imgs),
                 f"event {i}: {producer} stored as {imgs[0].pixels.dtype}")
         s = np.stack([im.pixels for im in imgs], -1).astype(np.float32)
-        require(s.shape == tuple(hw) + (3,) and np.isfinite(s).all(),
+        require(s.shape == tuple(hw) + (classes,) and np.isfinite(s).all(),
                 f"event {i}: bad scores {s.shape}")
         worst = max(worst, float(np.abs(s.sum(-1) - 1.0).max()))
     require(worst <= 1e-2, f"{path}: score sums off by {worst}")
@@ -1994,18 +2130,22 @@ def root_path(dev, card, work, gates, host_build):
     return _merge(*launches)
 
 
-def _train_batch(seed):
-    """One seeded batch of 16 synthetic 512² events (image, label,
-    weight), as the loader assembles it."""
+def _train_batch(seed, hw=HW, classes=3):
+    """One seeded batch of 16 synthetic events of ``hw`` (image, label,
+    weight), as the loader assembles it; with 4 classes every other
+    track pixel (in raster order) is labelled 3."""
     import numpy as np
 
     from ubresnet_tpu_torch.data.synthetic import synth_event
 
     rng = np.random.RandomState(seed)
-    evs = [synth_event(rng, HW) for _ in range(BATCH_MAIN)]
+    evs = [synth_event(rng, hw) for _ in range(BATCH_MAIN)]
+    label = np.stack([e["segment"] for e in evs]).astype(np.int32)
+    if classes == 4:
+        odd = (np.arange(label.size) % 2).reshape(label.shape) == 1
+        label[(label == 1) & odd] = 3
     return {"image": np.stack([e["wire"] for e in evs])[..., None],
-            "label": np.stack([e["segment"] for e in evs]).astype(np.int32),
-            "weight": np.stack([e["weight"] for e in evs])}
+            "label": label, "weight": np.stack([e["weight"] for e in evs])}
 
 
 ZONE_KERNELS = ("conv_stats_kernel", "conv_dw_kernel", "conv_bn_act_kernel",
@@ -2149,12 +2289,14 @@ def _vs_f32(loss, grads, ref):
             "grad_err_median_vs_f32": float(np.median(list(per.values())))}
 
 
-def train_parity(dev, card, arch="uresnet", phase="train_parity"):
+def train_parity(dev, card, arch="uresnet", phase="train_parity", sd=None,
+                 batch=None, want_step=LAUNCHES_PER_TRAIN_STEP):
     """Loss and gradients of the train kernel path of ``arch`` (seeded
-    random weights) against the plain bf16 and f32 paths on one batch,
-    then 5 Adam steps whose launches must be exactly the step table's.
-    Returns what ``train_deconv`` holds its path against: the plain
-    paths' results and gates, this path's step ms and the Adam steps'
+    random weights, or ``sd``) against the plain bf16 and f32 paths on
+    one batch (default: seeded 512² crops), then 5 Adam steps whose
+    launches must be exactly the step table's (``want_step``). Returns
+    what ``train_deconv`` holds its path against: the plain paths'
+    results and gates, this path's step ms and the Adam steps'
     launches."""
     import dataclasses
 
@@ -2171,9 +2313,12 @@ def train_parity(dev, card, arch="uresnet", phase="train_parity"):
         make_optimizer,
     )
 
-    sd = random_state_dict(seed=0, arch=arch)
-    batch = _train_batch(7)
+    if sd is None:
+        sd = random_state_dict(seed=0, arch=arch)
+    if batch is None:
+        batch = _train_batch(7)
     b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    hw = list(batch["image"].shape[1:3])
     kernel_pol = Policy()
     paths = {"kernel_bf16": kernel_pol,
              "plain_bf16": dataclasses.replace(kernel_pol, fused_train=False),
@@ -2191,7 +2336,7 @@ def train_parity(dev, card, arch="uresnet", phase="train_parity"):
     loss_gate = max(2 * plain["loss_rel_vs_f32"], 1e-3)
     grad_gate = max(2 * plain["grad_err_vs_f32"], 1e-2)
     result = {"phase": phase, "card": card, "batch": BATCH_MAIN,
-              "hw": list(HW), "loss_f32": l32, "grad_scale_f32": gsc,
+              "hw": hw, "loss_f32": l32, "grad_scale_f32": gsc,
               "kernel_bf16": kern, "plain_bf16": plain,
               "kernel_vs_plain_bf16": {
                   "loss_rel": abs(lk - lp) / abs(lp), "grad_err": kp},
@@ -2210,7 +2355,7 @@ def train_parity(dev, card, arch="uresnet", phase="train_parity"):
     ops.reset_launch_counts()
     state, losses, times = _adam_steps(step, state, b)
     launches = ops.launch_counts()
-    want = {k: 5 * LAUNCHES_PER_TRAIN_STEP.get(k, 0) for k in launches}
+    want = {k: 5 * want_step.get(k, 0) for k in launches}
     step_ms = sum(times[1:]) / len(times[1:])
     result.update({"launches": launches, "launches_want": want,
                    "adam_losses": losses, "adam_step_ms": times,
@@ -3297,6 +3442,190 @@ def golden_path(dev, card, work):
     return launches
 
 
+def _deploy_cli(src, out, tar, extra=()):
+    """infer_precropped -b 16 --device cuda (``extra`` added): (wall s,
+    launches, the timing line)."""
+    import torch
+
+    from ubresnet_tpu_torch import ops
+    from ubresnet_tpu_torch.cli.infer_precropped import main as cli
+
+    printed = io.StringIO()
+    ops.reset_launch_counts()
+    t0 = time.time()
+    with contextlib.redirect_stdout(printed):
+        rc = cli(["-i", src, "-o", out, "-c", tar, "-b", str(BATCH_MAIN),
+                  "--device", "cuda", *extra])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    require(rc == 0, f"CLI {' '.join(extra)} returned {rc}")
+    lines = printed.getvalue().strip().splitlines()
+    return wall, ops.launch_counts(), json.loads(lines[-1])
+
+
+def _widths_deploy(dev, card, work, sd, name, classes, table, table_int8,
+                   flagship_ms):
+    """The main phase's 64 crops through infer_precropped on ``sd`` (a
+    reference .tar), bf16 and --int8: score images, exact launches a
+    batch, the b16 forward against f32 and the int8 kernel path against
+    the int8 plain path (argmax ≥ 0.99 each). Returns both paths'
+    launches."""
+    import numpy as np
+    import torch
+
+    from ubresnet_tpu_torch.core.precision import Policy
+    from ubresnet_tpu_torch.data.uevt import EventFileReader
+    from ubresnet_tpu_torch.deploy import PrecroppedRunner
+    from ubresnet_tpu_torch.deploy.weights import save_reference_checkpoint
+    from ubresnet_tpu_torch.models import get_model
+
+    src = os.path.join(work, "crops.uevt")
+    tar = save_reference_checkpoint(sd, os.path.join(work, f"{name}.tar"))
+    out, out8 = (os.path.join(work, f"{name}{t}.uevt") for t in ("", "_int8"))
+    batches = -(-EVENTS // BATCH_MAIN)
+    wall, launches, timing = _deploy_cli(src, out, tar)
+    want = {k: table.get(k, 0) * batches for k in launches}
+    require(launches == want, f"{name} launch counts {launches} != {want}")
+    worst = _check_scores(out, EVENTS, "uburn_plane2", HW, classes=classes)
+    wall8, launches8, timing8 = _deploy_cli(
+        src, out8, tar, ("--int8", "--int8-calib", str(INT8_CALIB)))
+    want8 = {k: table_int8.get(k, 0) * batches for k in launches8}
+    require(launches8 == want8,
+            f"{name} int8 launch counts {launches8} != {want8}")
+    worst8 = _check_scores(out8, EVENTS, "uburn_plane2", HW, classes=classes)
+
+    inp = EventFileReader(src)
+    x = torch.from_numpy(np.stack(
+        [inp.read_entry(i, producers=["wire"])["wire"][0].pixels
+         for i in range(BATCH_MAIN)])[..., None]).to(dev)
+    model = get_model("uresnet", sd, device=dev)
+    int8 = get_model("uresnet", sd, policy=Policy.int8(), device=dev)
+    PrecroppedRunner(int8, batch_size=BATCH_MAIN).calibrate_from(
+        src, n_images=INT8_CALIB)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        fwd_ms = time_ms(lambda: model(x), budget_ms=1000.0)
+        int8_ms = time_ms(lambda: int8(x), budget_ms=1000.0)
+        agree = float((model(x).argmax(-1) == get_model(
+            "uresnet", sd, policy=Policy.f32(), device=dev)(x).argmax(-1))
+            .float().mean())
+        lp8 = int8(x)
+        with plain_kernels():
+            lp8_plain = int8(x)
+    agree8 = float((lp8.argmax(-1) == lp8_plain.argmax(-1)).float().mean())
+    emit({"phase": "widths", "path": name, "card": card,
+          "classes": classes, "events": EVENTS, "batch": BATCH_MAIN,
+          "hw": list(HW), "cli_wall_s": wall,
+          "crops_per_s_file_to_file": EVENTS / wall, "timing": timing,
+          "launches": launches, "classifier": list(model.conv11.shape),
+          "score_sum_max_dev": worst, "forward_ms_b16": fwd_ms,
+          "crops_per_s_forward_b16": BATCH_MAIN / fwd_ms * 1e3,
+          "flagship_forward_ms_b16": flagship_ms,
+          "argmax_agreement_b16_vs_f32": agree,
+          "int8": {"cli_wall_s": wall8, "timing": timing8,
+                   "launches": launches8, "score_sum_max_dev": worst8,
+                   "forward_ms_b16": int8_ms,
+                   "argmax_agreement_kernel_vs_plain": agree8},
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30})
+    require(agree >= 0.99, f"{name}: kernel path vs f32 argmax {agree}")
+    require(agree8 >= 0.99, f"{name}: int8 kernel vs plain argmax {agree8}")
+    # the K1 launches of the run include the classifier's at its shape
+    require(model.conv11.kernel and model.conv11.shape == (16, classes, 7),
+            f"{name}: the classifier {model.conv11.shape} is off K1")
+    return launches, launches8
+
+
+def _widths_train_cli(dev, card, work):
+    """The train CLI with --set model.inplanes=32 on 64 synthetic 256²
+    events: 4 iterations, one validation; finite losses, exact
+    launches."""
+    import numpy as np
+    import torch
+
+    from ubresnet_tpu_torch import ops
+    from ubresnet_tpu_torch.cli.train import main as train_cli
+    from ubresnet_tpu_torch.data.synthetic import make_synthetic_file
+
+    data = os.path.join(work, "train_256.uevt")
+    ckpt = os.path.join(work, "train_32_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    make_synthetic_file(data, n_events=EVENTS, hw=TRAIN_HW_32, seed=2)
+    cfg = {"model": {"precision": "bf16", "inplanes": 32},
+           "optim": {"name": "adam", "lr": 1e-3},
+           "train_data": {"files": [data], "batch_size": BATCH_MAIN},
+           "valid_data": {"files": [data], "batch_size": BATCH_MAIN},
+           "num_iters": WIDTHS_ITERS, "print_every": 1,
+           "valid_every": WIDTHS_ITERS, "valid_batches": 1,
+           "checkpoint_every": WIDTHS_ITERS, "checkpoint_dir": ckpt,
+           "seed": 0}
+    cfg_path = os.path.join(work, "train_32.json")
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f)
+    printed = io.StringIO()
+    ops.reset_launch_counts()
+    t0 = time.time()
+    with contextlib.redirect_stdout(printed):
+        rc = train_cli(["--config", cfg_path, "--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = ops.launch_counts()
+    out = printed.getvalue()
+    summary = json.loads(out[out.rfind("\n{\n") + 1:])
+    losses = [float(line.split()[3]) for line in out.splitlines()
+              if line.startswith("iter ")]
+    want = {k: (LAUNCHES_PER_TRAIN_STEP_32.get(k, 0) * WIDTHS_ITERS
+                + LAUNCHES_PER_BATCH_32.get(k, 0)) for k in launches}
+    emit({"phase": "widths", "path": "train_cli_inplanes32", "card": card,
+          "events": EVENTS, "batch": BATCH_MAIN, "hw": list(TRAIN_HW_32),
+          "iters": WIDTHS_ITERS, "rc": rc, "cli_wall_s": wall,
+          "losses": losses, "final_iter": summary.get("final_iter"),
+          "launches": launches, "launches_want": want,
+          "meters": summary.get("meters")})
+    require(rc == 0 and "error" not in summary, f"train CLI failed:\n{out}")
+    require(summary["final_iter"] == WIDTHS_ITERS,
+            f"final_iter {summary['final_iter']}")
+    require(len(losses) == WIDTHS_ITERS and np.isfinite(losses).all(),
+            f"losses {losses}")
+    require(launches == want, f"inplanes-32 train CLI launch counts "
+                              f"{launches} != {want}")
+    return launches
+
+
+def widths_path(dev, card, work, flagship_ms):
+    """The reference's other two UResNets on the card's kernels: the
+    trainer's (inplanes 32) and the deploy's (4 classes), each deployed
+    bf16 and int8 and trained, every layer routed as the JAX package
+    routes it. Returns the launches of each path."""
+    import torch
+
+    from ubresnet_tpu_torch.deploy.weights import random_state_dict
+
+    t_phase = time.time()
+    launches = {}
+    sd32 = random_state_dict(seed=0, inplanes=32)
+    launches["widths_32"], launches["widths_32_int8"] = _widths_deploy(
+        dev, card, work, sd32, "inplanes32", 3, LAUNCHES_PER_BATCH_32,
+        LAUNCHES_PER_BATCH_INT8_32, flagship_ms)
+    torch.cuda.empty_cache()
+    ref = train_parity(dev, card, phase="widths_train_inplanes32", sd=sd32,
+                       batch=_train_batch(7, TRAIN_HW_32),
+                       want_step=LAUNCHES_PER_TRAIN_STEP_32)
+    torch.cuda.empty_cache()
+    launches["widths_32_train"] = _merge(
+        ref["launches"], _widths_train_cli(dev, card, work))
+    torch.cuda.empty_cache()
+    sd4 = random_state_dict(seed=0, num_classes=4)
+    launches["widths_4"], launches["widths_4_int8"] = _widths_deploy(
+        dev, card, work, sd4, "classes4", 4, LAUNCHES_PER_BATCH,
+        LAUNCHES_PER_BATCH_INT8, flagship_ms)
+    torch.cuda.empty_cache()
+    ref = train_parity(dev, card, phase="widths_train_classes4", sd=sd4,
+                       batch=_train_batch(7, classes=4))
+    launches["widths_4_train"] = ref["launches"]
+    emit({"phase": "widths", "seconds": time.time() - t_phase})
+    return launches
+
+
 def main():
     import torch
 
@@ -3330,6 +3659,12 @@ def main():
     dev = torch.device("cuda", 0)
     work = os.path.join(HERE, "build", "chip_smoke")
     os.makedirs(work, exist_ok=True)
+    seconds, mark = {}, [time.time()]
+
+    def lap(phase):  # the seconds each phase took
+        seconds[phase] = time.time() - mark[0]
+        mark[0] = time.time()
+
     rows = check_kernels(kernel_rows(dev))
     rows += check_kernels(int8_kernel_rows(dev, rows))
     for B, hw in WV_SHAPES:  # the zone at the wholeview paths' shapes
@@ -3338,34 +3673,71 @@ def main():
         torch.cuda.empty_cache()
     rows += check_kernels(train_kernel_rows(dev))
     rows += check_kernels(deconv_ad_rows(dev))
+    # the reference's other two UResNets (widths phase): the inplanes-32
+    # zone at the main cell, bf16 and int8, its streamed K2 / K2-s8
+    # blocks also at the wholeview cells, its train zone on 256² crops;
+    # the 4-class classifier and its train legs
+    w32 = check_kernels(kernel_rows(dev, inplanes=32))
+    rows += w32 + check_kernels(int8_kernel_rows(dev, w32, inplanes=32))
+    rows += check_kernels(kernel_rows(dev, classes=4,
+                                      only={"classifier conv11"}))
+    for B, hw in WV_SHAPES:
+        wv = check_kernels(kernel_rows(dev, B, hw, inplanes=32,
+                                       only=STREAMED))
+        rows += wv + check_kernels(int8_kernel_rows(
+            dev, wv, B, hw, inplanes=32, only=STREAMED_S8))
+        torch.cuda.empty_cache()
+    rows += check_kernels(train_kernel_rows(
+        dev, TRAIN_ZONE_32, CLASSIFIER_32, model="inplanes 32",
+        cell_hw=TRAIN_HW_32, loss_rows=False))
+    rows += check_kernels(train_kernel_rows(
+        dev, [], CLASSIFIER_4, classes=4, model="4 classes"))
+    lap("kernels")
     emit(train_zone_per_step(rows))
     emit(train_zone_per_step(rows, "per_step_ad", LAUNCHES_PER_DECONV_STEP,
                              "train_deconv_per_step"))
     torch.cuda.empty_cache()
-    launches = {"precropped": main_path(dev, card, work)}
+    launches = {}
+    launches["precropped"], flagship_ms = main_path(dev, card, work)
+    lap("main")
     ref = train_parity(dev, card)
+    lap("train_parity")
     torch.cuda.empty_cache()
     launches["train_deconv"] = train_deconv(dev, card, ref, rows)
+    lap("train_deconv")
     gates = ref["gates"]
     del ref
     torch.cuda.empty_cache()
     launches["train"] = train_path(dev, card, work)
+    lap("train")
     torch.cuda.empty_cache()
     launches["qat"] = qat_path(dev, card, work)
+    lap("qat")
     torch.cuda.empty_cache()
     launches["int8"] = int8_path(dev, card, work)
+    lap("int8")
     torch.cuda.empty_cache()
     launches["wholeview"] = wholeview_path(dev, card, work)
+    lap("wholeview")
     torch.cuda.empty_cache()
     launches["serve"] = serve_path(dev, card, work)
+    lap("serve")
     torch.cuda.empty_cache()
     launches["root"] = root_path(dev, card, work, gates, host_build)
+    lap("root")
     torch.cuda.empty_cache()
     launches.update(aspp_path(dev, card, work))
+    lap("aspp")
     torch.cuda.empty_cache()
     launches["distributed"] = distributed_path(dev, card, work, gates)
+    lap("distributed")
     torch.cuda.empty_cache()
     launches["golden"] = golden_path(dev, card, work)
+    lap("golden")
+    torch.cuda.empty_cache()
+    launches.update(widths_path(dev, card, work, flagship_ms))
+    lap("widths")
+    emit({"phase": "phase_seconds", "seconds": seconds})
     line = kernels_line(rows, launches)
     for k in line["kernels"]:
         paths = SOURCES[k["name"]][3]

@@ -232,9 +232,10 @@ def test_bf16_zone_at_the_flagship_width(monkeypatch):
 @pytest.mark.parametrize("p", [16, 4])
 def test_no_dilated_conv_reaches_k1_or_k5(p):
     """Every dilated branch is off the kernels in eval (K1) and train
-    (K5); at inplanes 4 their (ci, co, k) is in both tables, so the gate
-    that keeps them off is the dilation, while the undilated 3x3 branch
-    of the same shape runs the kernel path."""
+    (K5); at inplanes 4 their (ci, co, k) is in both tables, and the
+    undilated 3x3 branch of the same shape is off them too: ASPP is
+    outside the JAX package's packed zone, where JAX runs every conv as
+    XLA (models/blocks.py routes)."""
     sd = random_state_dict(seed=0, inplanes=p, arch="aspp_resnet")
     ev = ASPPResNet(sd, policy=F32_FUSED, device="cpu")
     tr = TrainASPPResNet(sd, policy=F32_ZONE, device="cpu")
@@ -250,8 +251,9 @@ def test_no_dilated_conv_reaches_k1_or_k5(p):
         shape = tuple(sd["ASPP_layer_enc3.B3_conv.weight"].shape)
         assert shape == (16, 32, 3, 3)
         assert conv_ops.supports(32, 16, 3) and train_ops.supports(32, 16, 3)
-        assert ev.aspp[0].branches[1].kernel  # B2: (32, 16, 3), dilation 1
-        assert tr.ASPP_layer_enc3.B2_conv.zone
+        # B2: (32, 16, 3), dilation 1, outside the zone
+        assert not ev.aspp[0].branches[1].kernel
+        assert not tr.ASPP_layer_enc3.B2_conv.zone
 
 
 def test_aspp_zone_count_in_train_mode():

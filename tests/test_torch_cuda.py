@@ -454,10 +454,11 @@ def test_conv_dw_kernel(dev, hw, shape):
 
 
 @pytest.mark.parametrize("hw", HW)
-@pytest.mark.parametrize("shape", sorted(train_conv.SHAPES) + [(16, 3, 7)])
+@pytest.mark.parametrize("shape", sorted(train_conv.SHAPES)
+                         + [(16, 3, 7), (16, 4, 7)])
 def test_conv_input_grad_kernel(dev, hw, shape):
     """K1 at the transposed shapes: dx of each train-zone conv and of
-    the classifier (3 channels zero-padded to 4)."""
+    the classifiers (3 channels zero-padded to 4, or 4)."""
     ci, co, k = shape
     dy = _rand(dev, 2, *hw, co, scale=0.1)
     w = _rand(dev, k, k, ci, co, scale=0.05)
@@ -467,11 +468,12 @@ def test_conv_input_grad_kernel(dev, hw, shape):
     _close(conv.conv_input_grad(dy, w), want)
 
 
+@pytest.mark.parametrize("classes", [3, 4])
 @pytest.mark.parametrize("n", [(2, 20, 37), (3, 33, 16)])
-def test_weighted_nll_kernels(dev, n):
+def test_weighted_nll_kernels(dev, n, classes):
     g = torch.Generator().manual_seed(sum(n))
-    logits = (torch.randn(*n, 3, generator=g) * 3).to(dev)
-    labels = torch.randint(0, 3, n, generator=g).to(dev, torch.int32)
+    logits = (torch.randn(*n, classes, generator=g) * 3).to(dev)
+    labels = torch.randint(0, classes, n, generator=g).to(dev, torch.int32)
     weights = (torch.rand(*n, generator=g) * 2).to(dev)
     _close_f32(loss.weighted_nll_fwd(logits, labels, weights),
                loss.weighted_nll_fwd_plain(logits, labels, weights), 1e-5)
@@ -874,17 +876,19 @@ def test_aspp_int8_forward_on_the_card(dev):
     assert float((got.argmax(-1) == want.argmax(-1)).float().mean()) >= 0.99
 
 
-@pytest.mark.parametrize("inplanes", [8, 4])
+@pytest.mark.parametrize("inplanes", [32, 8, 4])
 def test_int8_off_the_kernels_on_the_card(dev, inplanes):
-    """int8 at widths the kernels hold few shapes of. Each int8 layer,
-    fed on the card the input it got in a CPU forward, takes JAX's
-    route (models/blocks.py ``_fused_form``): where JAX fuses, the
-    layer launches its kernel once and gives the CPU's bits when the
-    shape is compiled, and raises naming the kernel when it is not (no
-    plain stand-in on the card); where JAX leaves its fused kernel (the
+    """int8 at widths other than the flagship's. Each int8 layer, fed on
+    the card the input it got in a CPU forward, takes JAX's route
+    (models/blocks.py ``_fused_form``): where JAX fuses, the layer
+    launches its kernel once and gives the CPU's bits when the shape is
+    compiled, and raises naming the kernel when it is not (no plain
+    stand-in on the card); where JAX leaves its fused kernel (the
     per-conv XLA route), it gives the CPU's bits and launches nothing.
-    The whole forward raises at both widths: each holds a layer that
-    JAX fuses at 8 channels (ROADMAP item 8)."""
+    At 32 every layer JAX fuses launches a kernel (enc1's, dec2's and
+    dec1's blocks, dec1's upsample) and the whole forward runs; at 8
+    and 4 it raises: each holds a layer that JAX fuses at 8 channels
+    (ROADMAP item 8b)."""
     from ubresnet_tpu_torch.core.precision import Policy
     from ubresnet_tpu_torch.data.synthetic import synth_event
     from ubresnet_tpu_torch.deploy.weights import random_state_dict
@@ -921,14 +925,12 @@ def test_int8_off_the_kernels_on_the_card(dev, inplanes):
     def route(m, args):
         if isinstance(m, BasicBlock):
             dual = args[1] if len(args) > 1 else None
-            return ("kernel" if m.kernel or m._fused_form(args[0], dual)
-                    else "per_conv")
+            return "kernel" if m._fused_form(args[0], dual) else "per_conv"
         if isinstance(m, ConvBN):
             return "kernel" if m._fused_form(args[0].shape[2]) else "xla"
         h, w = args[0].shape[1:3]
         exact = len(args) < 2 or tuple(args[1]) == (2 * h, 2 * w)
-        return ("kernel" if exact and (m.kernel or m._fused_form(w))
-                else "xla")
+        return "kernel" if exact and m._fused_form(w) else "xla"
 
     card_mods = dict(card.named_modules())
     got_routes = {}
@@ -957,9 +959,54 @@ def test_int8_off_the_kernels_on_the_card(dev, inplanes):
             launched = sum(ops.launch_counts().values())
             assert launched == (1 if r == "kernel" else 0), (n, r)
             assert torch.equal(y.cpu(), m(*args, **kwargs)), n
-        with pytest.raises(ValueError, match="kernel has no"):
-            card(torch.from_numpy(x).to(dev))
+        if inplanes == 32:
+            ops.reset_launch_counts()
+            y = card(torch.from_numpy(x).to(dev))
+            torch.cuda.synchronize()
+            assert torch.isfinite(y).all()
+            assert ops.launch_counts() == {
+                **{k: 0 for k in ops.launch_counts()},
+                "maxpool3x3s2": 1, "basic_block_s8": 6, "deconv2x_s8": 1,
+                "conv_bn_act": 1}
+        else:
+            with pytest.raises(ValueError, match="kernel has no"):
+                card(torch.from_numpy(x).to(dev))
     counts = {r: sum(v == r for v in got_routes.values())
               for r in ("kernel", "raise", "xla")}
-    assert counts == ({"kernel": 4, "raise": 5, "xla": 1} if inplanes == 8
-                      else {"kernel": 0, "raise": 8, "xla": 7}), got_routes
+    assert counts == {32: {"kernel": 7, "raise": 0, "xla": 3},
+                      8: {"kernel": 4, "raise": 5, "xla": 1},
+                      4: {"kernel": 0, "raise": 8, "xla": 7}}[inplanes], \
+        got_routes
+
+
+def test_bf16_fused_layer_off_shapes_raises(dev):
+    """A bf16 layer whose route says JAX fuses it but whose shape no
+    kernel was compiled for (and that is not in ITEM_8B) raises on the
+    card naming its kernel, and launches nothing: a ConvBN (32, 8, 3)
+    at the lane pack 4 and a BasicBlock (16, 0, 64, proj) at 8."""
+    from ubresnet_tpu_torch.models.blocks import BasicBlock, ConvBN
+
+    g = torch.Generator().manual_seed(0)
+
+    def bn(sd, key, c):
+        sd[f"{key}.weight"] = torch.rand(c, generator=g) + 0.5
+        sd[f"{key}.bias"] = torch.randn(c, generator=g) * 0.1
+        sd[f"{key}.running_mean"] = torch.zeros(c)
+        sd[f"{key}.running_var"] = torch.ones(c)
+
+    sd = {"c.weight": torch.randn(8, 32, 3, 3, generator=g) * 0.1}
+    bn(sd, "bn", 8)
+    conv = ConvBN(sd, "c", "bn", qpack=4, device=dev)
+    for cin, co, k, key in ((16, 64, 3, "b.conv1"), (64, 64, 3, "b.conv2"),
+                            (16, 64, 1, "b.bypass")):
+        sd[f"{key}.weight"] = torch.randn(co, cin, k, k, generator=g) * 0.1
+    for key in ("b.bn1", "b.bn2", "b.bnpass"):
+        bn(sd, key, 64)
+    blk = BasicBlock(sd, "b", qpack=8, device=dev)
+    assert conv._fused_form(16) and (32, 8, 3) not in ops.conv.SHAPES
+    ops.reset_launch_counts()
+    for layer, c in ((conv, 32), (blk, 16)):
+        x = torch.rand(2, 16, 16, c, generator=g).to(dev, torch.bfloat16)
+        with pytest.raises(ValueError, match="kernel has no"):
+            layer(x)
+    assert set(ops.launch_counts().values()) == {0}

@@ -10,10 +10,10 @@ JAX's within 2e-6, handed to JAX as its 'quant' collection).
 At these widths JAX runs its int8 zone per conv where its fused-kernel
 gates fail and its fused int8 kernels where they pass (in interpret
 mode here), on its lane geometry, not on the port's compiled shapes;
-the port's blocks off K2-s8 decide by the same gates: where JAX fuses,
-the kernel's wrapper (its plain version on the CPU; on the card the
-kernel, raising at an uncompiled shape, tests/test_torch_cuda.py), else
-per conv, each conv's epilogue in JAX's form. Both are exact integer
+the port's blocks decide by the same gates, compiled or not: where JAX
+fuses, the kernel's wrapper (its plain version on the CPU; on the card
+the kernel, raising at an uncompiled shape, tests/test_torch_cuda.py),
+else per conv, each conv's epilogue in JAX's form. Both are exact integer
 sums with float32 epilogues, so the port
 must agree with JAX at test_torch_int8_model.py's tolerance: every
 log-probability within 1e-4·max, argmax >= 0.999. Both widths run both
@@ -92,8 +92,10 @@ def test_per_conv_int8_matches_jax(inplanes, monkeypatch):
     fused_form = BasicBlock._fused_form
 
     def record(block, x, dual):
-        routes[block.qname] = fused_form(block, x, dual)
-        return routes[block.qname]
+        fused = fused_form(block, x, dual)
+        if block.quant:  # the int8 zone's blocks
+            routes[block.qname] = fused
+        return fused
 
     monkeypatch.setattr(BasicBlock, "_fused_form", record)
     # where JAX fuses, the kernel's wrapper runs (never its plain
@@ -107,16 +109,17 @@ def test_per_conv_int8_matches_jax(inplanes, monkeypatch):
 
     monkeypatch.setattr(block_ops, "basic_block_s8", counted)
     # at 8, enc1.res2 and dec2's blocks have the flagship dec1's
-    # (16, 0, 16) and (16, 16, 16) and keep K2-s8, dec2.deconv the
+    # (16, 0, 16) and (16, 16, 16) and have K2-s8, dec2.deconv the
     # flagship dec1's (32, 16) on K3-s8; JAX fuses every block there, so
     # the other three take K2-s8's wrapper too. At 4 nothing is
     # compiled; JAX fuses enc1.res2 and dec2's blocks (8 channels fill
-    # 128 lanes at pack 16) and runs the rest per conv.
+    # 128 lanes at pack 16) and runs the rest per conv. Every block
+    # takes JAX's route, compiled or not.
     assert per_conv == (["enc1.res1", "dec1.res.res1", "dec1.res.res2"]
                         if inplanes == 8 else [b.qname for b in blocks])
     assert [d.kernel for d in (m.dec[-2].deconv, m.dec[-1].deconv)] == [
         inplanes == 8, False]
-    expect_fused = (per_conv if inplanes == 8 else
+    expect_fused = ([b.qname for b in blocks] if inplanes == 8 else
                     ["enc1.res2", "dec2.res.res1", "dec2.res.res2"])
     m.set_quant_scales(scales)
     # each ConvBN of a per-conv block reads its own JAX name
@@ -126,9 +129,9 @@ def test_per_conv_int8_matches_jax(inplanes, monkeypatch):
         got = m(torch.from_numpy(x)).numpy()
     print(f"inplanes {inplanes}: off K2-s8 {per_conv}; JAX's fused form "
           f"{routes}")
-    assert sorted(routes) == sorted(per_conv)
+    assert sorted(routes) == sorted(b.qname for b in blocks)
     assert [k for k, v in routes.items() if v] == expect_fused
-    assert len(calls) == len(blocks) - len(per_conv) + len(expect_fused)
+    assert len(calls) == len(expect_fused)
     assert got.shape == want.shape == (2, HW, HW, 3)
     d = np.abs(got - want)
     within = float((d <= 1e-4 * np.abs(want).max()).mean())

@@ -53,6 +53,7 @@ from ubresnet_tpu_torch.models.blocks import (
     TrainDoubleResNet,
     conv_bn,
     stem_pool,
+    zone_active,
 )
 from ubresnet_tpu_torch.models.uresnet import (
     PACK_MAX,
@@ -154,7 +155,7 @@ class ASPPResNet(ZoneModel):
                             qat=True, **kw)
         self.enc = nn.ModuleList(
             DoubleResNet(sd, f"enc_layer{i}", stride=1 if i == 1 else 2,
-                         quant=q and i == 1, qat=i == 1,
+                         quant=q and i == 1, qat=i == 1, zone=i == 1,
                          qpack=PACK_MAX if i == 1 else 1, **kw)
             for i in range(1, DEPTH + 1))
         self.aspp = nn.ModuleList(ASPP(sd, f"ASPP_layer_enc{i}", **kw)
@@ -165,11 +166,12 @@ class ASPPResNet(ZoneModel):
         # dec[0] is dec_layer5, the deepest, which runs first
         self.dec = nn.ModuleList(
             DecoderBlock(sd, f"dec_layer{i}", quant=q and i <= 2, qat=i <= 2,
-                         qpack=PACK_MAX if i <= 2 else 1, **kw)
+                         zone=i <= 2, qpack=PACK_MAX if i <= 2 else 1, **kw)
             for i in range(DEPTH, 0, -1))
         self.conv10 = ConvBN(sd, "conv10", "bn10", quant=q, qpack=PACK_MAX,
                              qat=True, **kw)
-        self.conv11 = ConvBN(sd, "conv11", None, act=False, qat=True, **kw)
+        self.conv11 = ConvBN(sd, "conv11", None, act=False, qat=True,
+                             qpack=PACK_MAX, **kw)
 
     def packed_zone(self, width: int) -> bool:
         return packed_zone(width)
@@ -177,22 +179,23 @@ class ASPPResNet(ZoneModel):
     def forward(self, x: torch.Tensor, logits: bool = False) -> torch.Tensor:
         pol = self.policy
         check_zone(pol, x.shape[2])
-        x0 = self.conv1(x.to(pol.compute_dtype).contiguous())
-        y = stem_pool(x0, fused=pol.fused_eval)
-        encs = []
-        for enc in self.enc:
-            y = enc(y)
-            encs.append(y)
-        e3, e4, e5 = (_widen(encs[i - 1], aspp, combine)
-                      for i, aspp, combine in zip(ASPP_STAGES, self.aspp,
-                                                  self.combine))
-        dec5, dec4, dec3, dec2, dec1 = self.dec
-        y = dec5(e5, e4)
-        y = dec4(y, e3)
-        y = dec3(y, encs[1])
-        y = dec2(y, encs[0])
-        y = dec1(y, x0)
-        y = self.conv11(self.conv10(y)).to(pol.output_dtype)
+        with zone_active(x.shape[2] % ZONE_STEP == 0):
+            x0 = self.conv1(x.to(pol.compute_dtype).contiguous())
+            y = stem_pool(x0, fused=pol.fused_eval, pack=PACK_MAX)
+            encs = []
+            for enc in self.enc:
+                y = enc(y)
+                encs.append(y)
+            e3, e4, e5 = (_widen(encs[i - 1], aspp, combine)
+                          for i, aspp, combine in zip(ASPP_STAGES, self.aspp,
+                                                      self.combine))
+            dec5, dec4, dec3, dec2, dec1 = self.dec
+            y = dec5(e5, e4)
+            y = dec4(y, e3)
+            y = dec3(y, encs[1])
+            y = dec2(y, encs[0])
+            y = dec1(y, x0)
+            y = self.conv11(self.conv10(y)).to(pol.output_dtype)
         if logits:
             return y
         return torch.log_softmax(y, dim=-1)
@@ -224,7 +227,7 @@ class TrainASPPResNet(nn.Module):
         for i in range(1, DEPTH + 1):
             self.add_module(f"enc_layer{i}", TrainDoubleResNet(
                 sd, f"enc_layer{i}", stride=1 if i == 1 else 2, qat=i == 1,
-                qpack=PACK_MAX if i == 1 else 1, **kw))
+                zone=i == 1, qpack=PACK_MAX if i == 1 else 1, **kw))
         for i in ASPP_STAGES:
             self.add_module(f"ASPP_layer_enc{i}",
                             TrainASPP(sd, f"ASPP_layer_enc{i}", **kw))
@@ -232,18 +235,27 @@ class TrainASPPResNet(nn.Module):
                             TrainASPPCombine(sd, f"ASPP_combine_enc{i}", **kw))
         for i in range(DEPTH, 0, -1):
             self.add_module(f"dec_layer{i}", TrainDecoderBlock(
-                sd, f"dec_layer{i}", qat=i <= 2,
+                sd, f"dec_layer{i}", qat=i <= 2, zone=i <= 2,
                 qpack=PACK_MAX if i <= 2 else 1, **kw))
         self.conv10 = Conv(sd, "conv10", qat=True, qpack=PACK_MAX, **kw)
         self.bn10 = BatchNorm(sd, "bn10", **kw)
-        self.conv11 = Conv(sd, "conv11", bn=False, qat=True, **kw)
+        self.conv11 = Conv(sd, "conv11", bn=False, qat=True, qpack=PACK_MAX,
+                           **kw)
 
     def forward(self, x: torch.Tensor, logits: bool = False) -> torch.Tensor:
+        check_zone(self.policy, x.shape[2])
+        with zone_active(x.shape[2] % ZONE_STEP == 0):
+            y = self._forward(x)
+        if logits:
+            return y
+        return torch.log_softmax(y, dim=-1)
+
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
+        """The logits in ``policy.output_dtype``."""
         pol = self.policy
-        check_zone(pol, x.shape[2])
         x0 = conv_bn(self.conv1, self.bn1,
                      x.to(pol.compute_dtype).contiguous(), act=True)
-        y = stem_pool(x0, fused=pol.fused_train, train=True)
+        y = stem_pool(x0, fused=pol.fused_train, pack=PACK_MAX, train=True)
         # Policy.remat: each stage, ASPP and recompression recomputed in
         # backward (JAX's stage_call, aspp_resnet.py:83-117)
         stage = stage_call(pol, self.training)
@@ -260,7 +272,4 @@ class TrainASPPResNet(nn.Module):
         y = stage(self.dec_layer2, y, encs[0])
         y = stage(self.dec_layer1, y, x0)
         y = conv_bn(self.conv10, self.bn10, y, act=True)
-        y = self.conv11(y).to(pol.output_dtype)
-        if logits:
-            return y
-        return torch.log_softmax(y, dim=-1)
+        return self.conv11(y).to(pol.output_dtype)

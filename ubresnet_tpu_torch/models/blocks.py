@@ -14,12 +14,14 @@ no card and no explicit cpu raises, utils/platform.py):
     JAX layout (HWIO), cast to the compute dtype, and the folded BN as
     an f32 affine (g, b) for the kernel's epilogue.
 
-Which of the two a layer is follows from its shape, as in the JAX
-package: the kernel zone is every stride-1 layer whose channel shape
-the kernel library was compiled for (ops/_build.py:SHAPES) — at the
-flagship width exactly the stem pool, enc1, dec2, dec1, the head and
-the classifier — plus the per-call spatial gates (exact 2x deconv,
-even pool input). Nothing routes by catching a failure.
+Which of the two runs is the JAX package's choice, per call ("routes"
+below): a layer of the JAX package's packed zone keeps both forms and
+takes its kernel exactly where JAX calls a Pallas kernel — at the
+flagship width the stem pool, enc1, dec2, dec1, the head and the
+classifier; at inplanes 32 the same but dec2's upsample and the head —
+whether or not an instance was compiled (ops/_build.py:SHAPES: on the
+card the wrapper raises where none was). Nothing routes by catching a
+failure.
 
 Reference semantics kept (common_layers.py via the JAX package):
 BasicBlock applies ReLU to the residual branch before the add and again
@@ -53,6 +55,7 @@ W-packing factor its input has there).
 from __future__ import annotations
 
 import contextlib
+import contextvars
 import dataclasses
 import re
 from typing import Dict, Optional, Tuple
@@ -130,13 +133,150 @@ def _affine(sd: StateDict, conv_key: str, bn_key: Optional[str]):
                    cbias)
 
 
-def _lane_pack(c: int, width: int, pack: int) -> int:
-    """The JAX package's lane-filling pack for a fused int8 kernel over
-    ``c`` channels of an input ``width`` wide (blocks.py:_p_eff): 128/c
-    when that is at most 16 and divides the width, else the stage's
-    ``pack``. Its fused-kernel gates test c·pack >= 128."""
-    pe = 128 // c if 128 % c == 0 else 0
-    return pe if pe and pe <= 16 and width % pe == 0 else pack
+# ---------------------------------------------------------------- routes
+#
+# Where a layer runs its kernel: exactly where the JAX package, under
+# its fused policy, calls a Pallas kernel, and nowhere else; where JAX
+# leaves a layer to XLA, the layer is an F.conv2d / F.conv_transpose2d /
+# F.max_pool2d (cuDNN on the card), even where an instance happens to be
+# compiled. The gates are JAX's own (ubresnet_tpu/models/blocks.py at
+# the lines named), on its lane geometry (a packed tensor's channels
+# fill 128 lanes), for both dtypes:
+#   conv_fuses      ConvBN use_fused / use_fused_q (blocks.py:357-369,
+#                   457-465)
+#   block_fuses     BasicBlock use_block / use_dual (blocks.py:567-614)
+#   deconv_fuses    Deconv2x, bf16 and int8 (blocks.py:853-858, 883-887)
+#   classifier_fuses  classifier_apply (blocks.py:1090-1099)
+#   pool_fuses      stem_pool_packed (blocks.py:1053-1076)
+#   conv_ad_fuses   the train zone, use_fused_train and PackedConv's
+#                   fused_train branch (blocks.py:143-155, 416-422,
+#                   through pallas_conv.py:conv_ad_supported)
+# JAX's VMEM fit test (_block_fits, blocks.py:581-591: a whole-plane
+# spatial input can overflow the TPU's scoped VMEM) has no counterpart:
+# the card's kernels tile the plane, and their shared memory does not
+# grow with it. JAX packs (and so fuses) only inside its packed zone —
+# the stem, enc1, dec2, dec1 and the head of a depth-5 model, at input
+# widths it can pack (uresnet.py:68-70): a module built with
+# ``zone=True`` is in it, and a model's forward says per call whether
+# the zone runs (``zone_active``). Each module's ``_fused_form`` is this
+# predicate at its shape, input width and pack, whatever the dtype;
+# where it holds, the layer calls its kernel's wrapper, which on the
+# card launches the kernel or raises at a shape none was compiled for
+# (ops/_build.py:SHAPES). The one exception is ITEM_8B.
+
+LANES = 128  # the TPU's lane width, which JAX's gates fill
+_ZONE = contextvars.ContextVar("ubresnet_packed_zone", default=True)
+
+# bf16 layers that JAX fuses at 8-channel streams (inplanes 8 and 4;
+# tests/test_torch_routes.py pins this set to the JAX trace) and that
+# keep the F.conv2d / cuDNN route until K1, K2, K3 and K5 get an
+# 8-channel k-step (ROADMAP item 8b), as (kernel, shape): conv_bn_act
+# (ci, co, k), basic_block (ca, cb, co, proj), deconv2x (ci, co), and
+# for the train zone conv_stats (ci, co, k), whose dx (K1) and dW (K6)
+# legs go with it. Under int8 these layers raise on the card, as before.
+ITEM_8B = frozenset({
+    # eval, inplanes 8
+    ("basic_block", (8, 0, 16, True)),     # enc1.res1
+    ("deconv2x", (16, 8)),                 # dec1.deconv (dec2's at 4)
+    ("basic_block", (8, 8, 8, True)),      # dec1.res.res1 (dec2's at 4)
+    ("basic_block", (8, 0, 8, False)),     # dec1.res.res2 (enc1.res2 and
+                                           # dec2.res.res2 at 4)
+    ("conv_bn_act", (8, 16, 7)),           # head conv10
+    # eval, inplanes 4: JAX runs enc1.res1 and dec1.res.res1 per conv
+    # and fuses their 8-channel convs
+    ("conv_bn_act", (8, 8, 3)),            # enc1.res1 cb2
+    ("deconv2x", (8, 4)),                  # dec1.deconv
+    ("conv_bn_act", (8, 4, 3)),            # dec1.res.res1 cb1
+    ("conv_bn_act", (8, 4, 1)),            # dec1.res.res1 bypass
+    # the train zone at 8 and 4
+    ("conv_stats", (8, 16, 3)), ("conv_stats", (8, 16, 1)),
+    ("conv_stats", (8, 8, 3)), ("conv_stats", (16, 8, 3)),
+    ("conv_stats", (16, 8, 1)), ("conv_stats", (8, 16, 7)),
+    ("conv_stats", (8, 4, 3)), ("conv_stats", (8, 4, 1)),
+})
+
+
+@contextlib.contextmanager
+def zone_active(active: bool):
+    """Within the block, whether the JAX package runs its packed zone
+    for the forward in progress (a model's ``packed_zone(width)``): off,
+    no layer fuses."""
+    token = _ZONE.set(bool(active))
+    try:
+        yield
+    finally:
+        _ZONE.reset(token)
+
+
+def lane_pack(c: int, width: Optional[int], pack: int) -> int:
+    """The JAX package's lane-filling pack for a fused kernel over ``c``
+    channels of an input ``width`` wide (blocks.py:_p_eff): 128/c when
+    that is at most 16 and divides the width, else the stage's ``pack``.
+    ``width`` None: a width it divides (every width the zone runs)."""
+    pe = LANES // c if LANES % c == 0 else 0
+    return (pe if pe and pe <= 16 and (width is None or width % pe == 0)
+            else pack)
+
+
+def conv_fuses(ci: int, k: int, width: Optional[int], pack: int) -> bool:
+    """A stride-1 eval ConvBN's lane tests (bf16 and int8)."""
+    return (_ZONE.get() and ci * lane_pack(ci, width, pack) >= LANES
+            and 2 * (k // 2) * ci <= LANES)
+
+
+def block_fuses(c_x: int, c_d: int, co: int, proj: bool,
+                width: Optional[int], pack: int) -> bool:
+    """A stride-1 eval BasicBlock over ``c_x`` channels (and a second
+    stream of ``c_d``, the dual block, which needs the projection and
+    equal streams), at the first stream's lane pack."""
+    pe = lane_pack(c_x, width, pack)
+    if not (_ZONE.get() and 2 * co <= LANES and co * pe >= LANES):
+        return False
+    if c_d:
+        return proj and c_x == c_d and c_x * pe >= LANES and 2 * c_x <= LANES
+    return c_x * pe >= LANES and 2 * c_x <= LANES
+
+
+def deconv_fuses(ci: int, width: Optional[int], pack: int) -> bool:
+    """An eval Deconv2x at an exact 2x target (bf16 and int8)."""
+    return (_ZONE.get() and ci * lane_pack(ci, width, pack) >= LANES
+            and 2 * ci <= LANES)
+
+
+def classifier_fuses(ci: int, pack: int) -> bool:
+    """The 7x7 classifier in eval: the head's pack ``pack`` (no lane
+    re-view) fills the lanes and its halo fits them."""
+    return _ZONE.get() and ci * pack >= LANES and 2 * 3 * ci <= LANES
+
+
+def pool_fuses(c: int, h: int, w: int, pack: int) -> bool:
+    """The stem pool (eval, and the train forward): the stem's pack
+    fills exactly one lane tile and the packed plane has even sides."""
+    return (_ZONE.get() and c * pack == LANES and h % 2 == 0
+            and (w // pack) % 2 == 0)
+
+
+def _pad_channels(co: int) -> int:
+    """pallas_conv.py:_pad_channels: co, or the next power of two."""
+    return co if LANES % co == 0 else 1 << (co - 1).bit_length()
+
+
+def conv_ad_fuses(ci: int, co: int, k: int, width: Optional[int],
+                  pack: int) -> bool:
+    """A stride-1 train-zone conv, BN-fed or the classifier: every leg
+    of JAX's differentiable conv fits its kernel (conv_ad_supported at
+    the lane pack)."""
+    if k % 2 == 0 or not _ZONE.get():
+        return False
+    p, r, cod = lane_pack(ci, width, pack), k // 2, _pad_channels(co)
+    return (p * ci >= LANES and 2 * r * ci <= LANES and 2 * r * co <= LANES
+            and (p * co >= LANES or (cod <= LANES and 2 * r * cod <= LANES)))
+
+
+def on_kernel(fused: bool, kernel: str, shape) -> bool:
+    """A bf16 layer's route: its kernel where JAX fuses, except the
+    8-channel layers of ITEM_8B."""
+    return fused and (kernel, tuple(shape)) not in ITEM_8B
 
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
@@ -150,27 +290,27 @@ def _nhwc(y: torch.Tensor) -> torch.Tensor:
 
 class ConvBN(nn.Module):
     """'same' conv (+bias) → eval BN → [ReLU]; ``bn_key=None`` drops the
-    BN (the classifier). Runs on K1 (ops/conv.py) when the policy fuses,
-    (ci, co, k) is compiled and ``dilation`` and ``stride`` are 1, else as
-    one F.conv2d with BN folded into its weight and bias (a dilated
-    conv, ASPP's branches, pads dilation·(k // 2); K1 has no dilation,
-    and at inplanes 4 a d3 or d5 branch has a compiled (ci, co, k)).
-    In the int8 zone: K1-s8 with the
-    dequant and BN folded into its gain when the policy fuses and the
-    shape is compiled, else the exact integer conv, ``acc·(sx·sw) +
-    bias`` in f32, cast to the compute dtype, BN in the compute dtype
-    (JAX's PackedBN), ReLU — the XLA route of blocks.py:400-414 (a
-    ``stride`` other than 1 only there: a per-conv int8 block's first
-    conv or projection at stride 2). Which of the two is JAX's choice
-    per call (``_fused_form``, use_fused_q): where JAX fuses, K1-s8's
-    wrapper runs, which on the card raises at a shape it was not
-    compiled for; the XLA route runs only where JAX leaves its fused
-    kernel."""
+    BN (the classifier). Runs on K1 (ops/conv.py) where the JAX package
+    fuses it (``_fused_form``: in the packed zone, ``zone``, a stride-1,
+    undilated conv whose lanes pass conv_fuses, or classifier_fuses for
+    the classifier), else as one F.conv2d with BN folded into its weight
+    and bias (a dilated conv, ASPP's branches, pads dilation·(k // 2)).
+    A layer in the zone keeps both forms of its weights: which one runs
+    is decided per call, from the input width.
+    In the int8 zone: K1-s8 with the dequant and BN folded into its gain
+    where JAX fuses (the same predicate), else the exact integer conv,
+    ``acc·(sx·sw) + bias`` in f32, cast to the compute dtype, BN in the
+    compute dtype (JAX's PackedBN), ReLU — the XLA route of
+    blocks.py:400-414 (a ``stride`` other than 1 only there: a per-conv
+    int8 block's first conv or projection at stride 2). Where JAX fuses,
+    K1-s8's wrapper runs, which on the card raises at a shape it was not
+    compiled for; ``kernel`` says whether one was (int8) or whether the
+    layer takes K1 at the zone's widths (bf16)."""
 
     def __init__(self, sd: StateDict, conv_key: str, bn_key: Optional[str],
                  *, act: bool = True, policy: Policy = Policy(), device=None,
                  quant: bool = False, qpack: int = 1, qat: bool = False,
-                 dilation: int = 1, stride: int = 1):
+                 dilation: int = 1, stride: int = 1, zone: bool = True):
         super().__init__()
         device = resolve_device(device)
         w = sd[f"{conv_key}.weight"].float()  # OIHW
@@ -179,8 +319,13 @@ class ConvBN(nn.Module):
         cdt = policy.compute_dtype
         self.pad, self.act, self.cdt = dilation * (k // 2), act, cdt
         self.dilation, self.stride = dilation, stride
+        self.shape = (ci, co, k)
+        self.classifier = bn_key is None
         self.qname, self.qpack, self.observer = jax_name(conv_key), qpack, None
         self.quant = quant and policy.quant_eval
+        # JAX's gate but for its lanes (``_fused_form``)
+        self.fuse_ok = (policy.fused_eval and zone and stride == 1
+                        and dilation == 1)
         # QAT: the input is fake-quantized where a BN follows (a ConvBN),
         # the kernel always
         self.qat = qat and policy.quant_train and not self.quant
@@ -190,12 +335,8 @@ class ConvBN(nn.Module):
             if bn_key is None or dilation != 1:
                 raise ValueError(f"{conv_key}: an int8 ConvBN needs its BN "
                                  "and dilation 1")
-            # JAX's use_fused_q (blocks.py:364-369) but for the lane
-            # test, which depends on the width (``_fused_form``)
-            self.fused_q = (policy.fused_eval and stride == 1
-                            and 2 * (k // 2) * ci <= 128)
-            self.kernel = self.fused_q and conv_ops.s8_supports(ci, co, k)
-            self._ci, self._device = ci, device
+            self.kernel = self.fuse_ok and conv_ops.s8_supports(ci, co, k)
+            self._device = device
             # the raw HWIO kernel; for the fused epilogue (K1-s8's) the
             # BN folded with the conv bias, for JAX's XLA route the conv
             # bias and the BN apart (JAX's PackedBN)
@@ -208,26 +349,20 @@ class ConvBN(nn.Module):
                                         sd[f"{bn_key}.running_mean"],
                                         sd[f"{bn_key}.running_var"])}
             return
-        self.kernel = (policy.fused_eval and dilation == 1 and stride == 1
-                       and conv_ops.supports(ci, co, k))
+        self.kernel = on_kernel(self._fused_form(None), "conv_bn_act",
+                                self.shape)
+        wk = w.permute(2, 3, 1, 0)  # HWIO
         if self.qat:
-            wq = quant_ops.fake_quant_weight(w.permute(2, 3, 1, 0))
-            if self.kernel:
-                self.register_buffer("w", wq.to(device, cdt).contiguous())
-                self.register_buffer("g", g.to(device))
-                self.register_buffer("b", b.to(device))
-            else:
-                self._qat_plain(sd, conv_key, bn_key, wq, device, cdt)
-            return
-        if self.kernel:
-            self.register_buffer(
-                "w", w.permute(2, 3, 1, 0).to(device, cdt).contiguous())
-            self.register_buffer("g", g.to(device))
-            self.register_buffer("b", b.to(device))
+            wk = quant_ops.fake_quant_weight(wk)
+            self._qat_plain(sd, conv_key, bn_key, wk, device, cdt)
         else:
             self.register_buffer("w", (w * g.view(-1, 1, 1, 1)).to(
                 device, cdt).contiguous(memory_format=torch.channels_last))
             self.register_buffer("b", b.to(device, cdt))
+        if self.fuse_ok:  # K1's form: HWIO kernel, f32 affine
+            self.register_buffer("wk", wk.to(device, cdt).contiguous())
+            self.register_buffer("gk", g.to(device))
+            self.register_buffer("bk", b.to(device))
 
     def _qat_plain(self, sd, conv_key, bn_key, wq, device, cdt) -> None:
         """The F.conv2d route under QAT: the fake-quantized kernel and
@@ -265,11 +400,15 @@ class ConvBN(nn.Module):
         self.register_buffer("gbn", g.to(dev, self.cdt))
         self.register_buffer("bbn", b.to(dev, self.cdt))
 
-    def _fused_form(self, width: int) -> bool:
-        """Whether JAX computes this int8 conv in its fused kernel's
-        epilogue form at this input width (use_fused_q's lane test)."""
-        ci = self._ci
-        return self.fused_q and ci * _lane_pack(ci, width, self.qpack) >= 128
+    def _fused_form(self, width: Optional[int]) -> bool:
+        """Whether JAX runs this conv in its fused kernel at this input
+        width (None: at the zone's widths), either dtype."""
+        if not self.fuse_ok:
+            return False
+        ci, _, k = self.shape
+        if self.classifier:
+            return classifier_fuses(ci, self.qpack)
+        return conv_fuses(ci, k, width, self.qpack)
 
     def _forward_int8(self, x: torch.Tensor,
                       residual: Optional[torch.Tensor] = None
@@ -309,9 +448,14 @@ class ConvBN(nn.Module):
             return self._forward_int8(x, residual)
         if self.qat_input:
             x = quant_ops.fake_quant_act(x, self.pct, self.qpack)
-        if self.kernel:
-            return conv_ops.conv_bn_act(x, self.w, self.g, self.b,
+        if on_kernel(self._fused_form(x.shape[2]), "conv_bn_act",
+                     self.shape):
+            return conv_ops.conv_bn_act(x, self.wk, self.gk, self.bk,
                                         act=self.act)
+        return self.plain(x)
+
+    def plain(self, x: torch.Tensor) -> torch.Tensor:
+        """The F.conv2d route (bf16 or f32, with or without QAT)."""
         if self.qat:
             y = F.conv2d(_nchw(x), self.w, self.cbias, padding=self.pad,
                          dilation=self.dilation, stride=self.stride)
@@ -332,28 +476,27 @@ class BasicBlock(nn.Module):
     ``dual_split``: the block's input is the channel concat of two
     streams and the first ``dual_split`` channels come from the first
     (the decoder's [up, skip] join); ``forward(x, dual=skip)``. On K2
-    the concat never materialises; the F.conv2d path concatenates.
+    the concat never materialises; the per-conv routes concatenate.
 
-    In the int8 zone the block runs on K2-s8 (JAX's fused int8 block,
-    blocks.py:643-704): both streams quantized with cb1's scale sx1, m
-    requantized on chip on cb2's grid s_mid, the identity bypass
-    dequantized as sx1·xq. Where K2-s8 does not apply — a (ca, cb, co,
-    projection) it was never compiled for, stride 2, or fused_eval off
-    (``per_conv``) — the block computes what JAX's computes at those
-    widths, deciding per call by JAX's own gates (``_fused_form``:
-    use_block / use_dual, blocks.py:571-628, on its lane geometry; its
-    VMEM fit test has no counterpart here). Where JAX takes its fused
-    int8 block, the block calls K2-s8's wrapper: on the CPU its plain
-    version, on the card the kernel, which raises at a shape it was not
-    compiled for (no kernel for 8- or 4-channel streams yet, ROADMAP
-    item 8). Only where JAX itself leaves its fused kernel
-    (blocks.py:737-750) does the block run per conv: int8 ConvBNs cb1,
-    bypass and cb2 over the explicit concat, each quantizing its input
-    with its own calibrated scale (JAX's 'quant' names
+    Where the JAX package runs its whole-block kernel (``_fused_form``:
+    in the packed zone, ``zone``, stride 1, block_fuses on the first
+    stream's lane geometry), the block calls K2's wrapper (bf16) or
+    K2-s8's (int8); on the card the wrapper launches the kernel or
+    raises at a (ca, cb, co, projection) none was compiled for. Where
+    JAX leaves the whole block, a block in the zone runs per conv as
+    JAX's does: ConvBNs cb1, bypass and cb2 (each taking K1 or K1-s8
+    where JAX fuses that conv, by the same rule, else its XLA route),
+    cb2 carrying the block's tail. Outside the zone (enc2-5, dec3-5) the
+    block is three F.conv2d with the BN folded into their weights.
+
+    int8 (blocks.py:643-704, 737-750): both streams quantized with cb1's
+    scale sx1, m requantized on chip on cb2's grid s_mid, the identity
+    bypass dequantized as sx1·xq; per conv, each int8 ConvBN quantizes
+    its input with its own calibrated scale (JAX's 'quant' names
     ``<block>.cb1`` / ``.bypass`` / ``.cb2``), an exact integer conv,
-    ``sx·sw`` folded into its affine, cb2 carrying the block's tail —
-    JAX's XLA route, not a stand-in for a kernel; each ConvBN takes
-    K1-s8 where JAX fuses that conv, by the same rule.
+    ``sx·sw`` folded into its affine — JAX's XLA route, not a stand-in
+    for a kernel. ``per_conv``: no K2-s8 instance was compiled for the
+    block's shape (ROADMAP item 8b at 8- and 4-channel streams).
 
     Under QAT (``qat``) the block runs per conv: ConvBNs cb1, bypass and
     cb2, each fake-quantizing its own input, never K2."""
@@ -361,7 +504,7 @@ class BasicBlock(nn.Module):
     def __init__(self, sd: StateDict, pref: str, *, stride: int = 1,
                  dual_split: int = 0, policy: Policy = Policy(),
                  device=None, quant: bool = False, qpack: int = 1,
-                 qat: bool = False):
+                 qat: bool = False, zone: bool = True):
         super().__init__()
         device = resolve_device(device)
         w1 = sd[f"{pref}.conv1.weight"].float()
@@ -370,6 +513,7 @@ class BasicBlock(nn.Module):
         self.stride = stride
         ca = dual_split or cin
         cb = cin - ca
+        self.shape = (ca, cb, co, self.proj)
         self.qname, self.qpack, self.observer = jax_name(pref), qpack, None
         self.quant = quant and policy.quant_eval
         cdt = policy.compute_dtype
@@ -377,20 +521,29 @@ class BasicBlock(nn.Module):
         if self.proj:
             convs.append(("b", "bypass", "bnpass"))
         self.qat = qat and policy.quant_train and not self.quant
+        # JAX's fused_ok (blocks.py:567-578) but for the lane tests
+        self.fuse_ok = (policy.fused_eval and zone and stride == 1
+                        and not policy.quant_train)
         self.per_conv = self.quant and not (
             policy.fused_eval and stride == 1
             and block_ops.s8_supports(ca, cb, co, self.proj))
-        if self.qat:
-            self.kernel = False
-            pol = dataclasses.replace(policy, fused_eval=False)
+        self.cb = None
+
+        def build_per_conv(pol, **kw):  # cb1, cb2 and bypass as ConvBNs
             self.cb = nn.ModuleDict({
                 tag: ConvBN(sd, f"{pref}.{ck}", f"{pref}.{bk}",
                             act=tag != "b", policy=pol, device=device,
-                            qpack=qpack, qat=True)
+                            qpack=qpack, zone=zone,
+                            stride=1 if tag == "2" else stride, **kw)
                 for tag, ck, bk in convs})
             for tag, name in (("1", "cb1"), ("2", "cb2"), ("b", "bypass")):
-                if tag in self.cb:  # calibration names, as JAX's
+                if tag in self.cb:  # JAX's 'quant' collection names
                     self.cb[tag].qname = f"{self.qname}.{name}"
+
+        if self.qat:
+            self.kernel = False
+            build_per_conv(dataclasses.replace(policy, fused_eval=False),
+                           qat=True)
             return
         if self.quant:
             self.kernel = not self.per_conv
@@ -400,35 +553,23 @@ class BasicBlock(nn.Module):
                       .contiguous(),
                       *_affine(sd, f"{pref}.{ck}", f"{pref}.{bk}"))
                 for tag, ck, bk in convs}
-            if self.kernel:
-                return
-            # JAX's fused_ok, less its lane test (``_fused_form``)
-            self._fused_ok = (policy.fused_eval and stride == 1
-                              and 2 * co <= 128)
-            self._co = co
-            self.cb = nn.ModuleDict({
-                tag: ConvBN(sd, f"{pref}.{ck}", f"{pref}.{bk}",
-                            act=tag != "b", policy=policy, device=device,
-                            quant=True, qpack=qpack,
-                            stride=1 if tag == "2" else stride)
-                for tag, ck, bk in convs})
-            for tag, name in (("1", "cb1"), ("2", "cb2"), ("b", "bypass")):
-                if tag in self.cb:  # JAX's 'quant' collection names
-                    self.cb[tag].qname = f"{self.qname}.{name}"
+            build_per_conv(policy, quant=True)
             return
-        self.kernel = (policy.fused_eval and stride == 1
-                       and block_ops.supports(ca, cb, co, self.proj))
+        self.kernel = on_kernel(self._fuses(ca, cb, None), "basic_block",
+                                self.shape)
+        if zone:
+            build_per_conv(policy)
         for tag, ck, bk in convs:
             w = sd[f"{pref}.{ck}.weight"].float()
             g, b = _affine(sd, f"{pref}.{ck}", f"{pref}.{bk}")
-            if self.kernel:
+            if self.fuse_ok:  # K2's form: JAX layouts, f32 affines
                 wk = w.permute(2, 3, 1, 0)
                 if tag == "b":
                     wk = wk[0, 0]  # (cin, co)
                 self.register_buffer(f"w{tag}", wk.to(device, cdt).contiguous())
                 self.register_buffer(f"g{tag}", g.to(device))
                 self.register_buffer(f"b{tag}", b.to(device))
-            else:
+            elif not zone:  # three folded F.conv2d
                 self.register_buffer(f"w{tag}", (w * g.view(-1, 1, 1, 1)).to(
                     device, cdt).contiguous(memory_format=torch.channels_last))
                 self.register_buffer(f"b{tag}", b.to(device, cdt))
@@ -437,9 +578,8 @@ class BasicBlock(nn.Module):
         """int8 weights and folded gains from cb1's and cb2's calibrated
         input scales (JAX's fold_q, f32, in its order); per conv, each
         ConvBN's from its own as well."""
-        if self.per_conv:
-            for cb in self.cb.values():
-                cb.set_scales(scales)
+        for cb in self.cb.values():
+            cb.set_scales(scales)
         sx1 = scales[f"{self.qname}.cb1"].float()
         s_mid = scales[f"{self.qname}.cb2"].float()
 
@@ -464,53 +604,59 @@ class BasicBlock(nn.Module):
         for name, t in params.items():
             self.register_buffer(name, t.to(self._device))
 
-    def _fused_form(self, x, dual) -> bool:
-        """Whether JAX runs this int8 block in its fused kernel at these
-        inputs: use_block / use_dual's lane tests, at the lane-filling
-        pack of the first stream."""
-        c_x = x.shape[-1]
-        c_d = 0 if dual is None else dual.shape[-1]
-        pe = _lane_pack(c_x, x.shape[2], self.qpack)
-        lanes = self._co * pe >= 128
-        if dual is not None:
-            return (self._fused_ok and lanes and self.proj and c_x == c_d
-                    and c_x * pe >= 128 and 2 * c_x <= 128)
-        return (self._fused_ok and lanes and c_x * pe >= 128
-                and 2 * c_x <= 128)
+    def _fuses(self, c_x: int, c_d: int, width: Optional[int]) -> bool:
+        return self.fuse_ok and block_fuses(c_x, c_d, self.shape[2],
+                                            self.proj, width, self.qpack)
 
-    def _forward_int8(self, x, dual):
-        if not hasattr(self, "sx"):
-            raise ValueError(NO_SCALES)
-        if self.per_conv and not self._fused_form(x, dual):
-            if dual is not None:
-                x = torch.cat([x, dual], dim=-1)
-            r = self.cb["b"](x) if self.proj else x
+    def _fused_form(self, x, dual) -> bool:
+        """Whether JAX runs this block in its whole-block kernel at these
+        inputs (either dtype)."""
+        return self._fuses(x.shape[-1], 0 if dual is None else dual.shape[-1],
+                           x.shape[2])
+
+    def _per_conv(self, x, dual, tail: bool = False, plain: bool = False):
+        """cb2(cb1(x)) with the bypass: JAX's per-ConvBN route; ``tail``:
+        cb2 adds it in its epilogue (int8), else relu(cb2 + bypass);
+        ``plain``: each conv's F.conv2d route, whatever its gate."""
+        if dual is not None:
+            x = torch.cat([x, dual], dim=-1)
+
+        def conv(tag, t):
+            return self.cb[tag].plain(t) if plain else self.cb[tag](t)
+
+        r = conv("b", x) if self.proj else x
+        if tail:
             return self.cb["2"](self.cb["1"](x), residual=r)
-        # K2-s8; where JAX fuses a block it was not compiled for, its
-        # wrapper raises on the card
-        return block_ops.basic_block_s8(
-            quant_ops.quantize_act(x, self.sx),
-            None if dual is None else quant_ops.quantize_act(dual, self.sx),
-            self.w1, self.g1, self.b1, self.w2, self.g2, self.b2,
-            self.wb if self.proj else None, self.gb, self.bb,
-            out_dtype=self.cdt)
+        return torch.relu(conv("2", conv("1", x)) + r)
 
     def forward(self, x: torch.Tensor,
                 dual: Optional[torch.Tensor] = None) -> torch.Tensor:
-        if self.quant:
-            return self._forward_int8(x, dual)
         if self.qat:
-            if dual is not None:
-                x = torch.cat([x, dual], dim=-1)
-            r = self.cb["b"](x) if self.proj else x
-            return torch.relu(self.cb["2"](self.cb["1"](x)) + r)
-        if self.kernel:
+            return self._per_conv(x, dual)
+        fused = self._fused_form(x, dual)
+        if self.quant:
+            if not hasattr(self, "sx"):
+                raise ValueError(NO_SCALES)
+            if not fused:
+                return self._per_conv(x, dual, tail=True)
+            # K2-s8; where JAX fuses a block it was not compiled for, its
+            # wrapper raises on the card
+            return block_ops.basic_block_s8(
+                quant_ops.quantize_act(x, self.sx),
+                None if dual is None else quant_ops.quantize_act(dual,
+                                                                 self.sx),
+                self.w1, self.g1, self.b1, self.w2, self.g2, self.b2,
+                self.wb if self.proj else None, self.gb, self.bb,
+                out_dtype=self.cdt)
+        if on_kernel(fused, "basic_block", self.shape):
             if self.proj:
                 return block_ops.basic_block(
                     x, dual, self.w1, self.g1, self.b1, self.w2, self.g2,
                     self.b2, self.wb, self.gb, self.bb)
             return block_ops.basic_block(x, dual, self.w1, self.g1, self.b1,
                                          self.w2, self.g2, self.b2)
+        if self.cb is not None:  # an ITEM_8B block (fused) is all cuDNN
+            return self._per_conv(x, dual, plain=fused)
         if dual is not None:
             x = torch.cat([x, dual], dim=-1)
         observe = self.observer
@@ -536,10 +682,10 @@ class DoubleResNet(nn.Module):
     def __init__(self, sd: StateDict, pref: str, *, stride: int = 1,
                  dual_split: int = 0, policy: Policy = Policy(),
                  device=None, quant: bool = False, qpack: int = 1,
-                 qat: bool = False):
+                 qat: bool = False, zone: bool = True):
         super().__init__()
         kw = dict(policy=policy, device=device, quant=quant, qpack=qpack,
-                  qat=qat)
+                  qat=qat, zone=zone)
         self.res1 = BasicBlock(sd, f"{pref}.res1", stride=stride,
                                dual_split=dual_split, **kw)
         self.res2 = BasicBlock(sd, f"{pref}.res2", **kw)
@@ -550,46 +696,48 @@ class DoubleResNet(nn.Module):
 
 class Deconv2x(nn.Module):
     """torch ConvTranspose2d(k=4, s=2, p=1, bias=False) to a target
-    size. Exact 2x runs on K3 when (ci, co) is compiled; other targets
-    (the reference's ``output_size=skip.size()`` for odd shapes) run
-    F.conv_transpose2d with output_padding and a high-side crop, which
-    reproduces the JAX package's static padding for every target in
-    [2d - 2, 2d + 1] (blocks.py Deconv2x). In the int8 zone: K3-s8 with
-    the dequant sx·sw at an exact 2x target where the (ci, co) is
-    compiled or JAX runs its fused int8 deconv (``_fused_form``,
-    blocks.py:855-866; on the card the wrapper raises at a shape it was
-    not compiled for); elsewhere, as JAX leaves its fused kernel, the
-    exact integer deconv (ops/quant.py:int_conv_transpose2d) to any
-    target, as ``deconv_to`` reaches it, times sx·sw in f32, cast to
-    the compute dtype — JAX's packed_deconv2x route
-    (blocks.py:867-873). Under QAT the input and the kernel are
-    fake-quantized before either route."""
+    size. An exact 2x target runs on K3 where the JAX package fuses it
+    (``_fused_form``: in the packed zone, ``zone``, deconv_fuses on its
+    input's lane geometry); other targets (the reference's
+    ``output_size=skip.size()`` for odd shapes), and layers JAX leaves to
+    XLA, run F.conv_transpose2d with output_padding and a high-side
+    crop, which reproduces the JAX package's static padding for every
+    target in [2d - 2, 2d + 1] (blocks.py Deconv2x). In the int8 zone:
+    K3-s8 with the dequant sx·sw where JAX runs its fused int8 deconv
+    (the same predicate, blocks.py:855-866; on the card the wrapper
+    raises at a shape it was not compiled for, ``kernel`` says whether
+    one was); elsewhere, as JAX leaves its fused kernel, the exact
+    integer deconv (ops/quant.py:int_conv_transpose2d) to any target, as
+    ``deconv_to`` reaches it, times sx·sw in f32, cast to the compute
+    dtype — JAX's packed_deconv2x route (blocks.py:867-873). Under QAT
+    the input and the kernel are fake-quantized before either route."""
 
     def __init__(self, sd: StateDict, key: str, *, policy: Policy = Policy(),
                  device=None, quant: bool = False, qpack: int = 1,
-                 qat: bool = False):
+                 qat: bool = False, zone: bool = True):
         super().__init__()
         device = resolve_device(device)
         w = sd[f"{key}.weight"].float()  # IOHW
         ci, co = w.shape[:2]
+        self.shape = (ci, co)
         cdt = policy.compute_dtype
         self.qname, self.qpack, self.observer = jax_name(key), qpack, None
         self.quant = quant and policy.quant_eval
         self.qat = qat and policy.quant_train and not self.quant
         self.pct = policy.quant_percentile
+        self.fuse_ok = policy.fused_eval and zone
         if self.quant:
-            self.kernel = policy.fused_eval and deconv_ops.s8_supports(ci, co)
-            # JAX's fused-deconv gate but for the lane test (_fused_form)
-            self.fused_q = policy.fused_eval and 2 * ci <= 128
-            self._ci, self.cdt, self._device = ci, cdt, device
+            self.kernel = self.fuse_ok and deconv_ops.s8_supports(ci, co)
+            self.cdt, self._device = cdt, device
             self._qsrc = w.permute(2, 3, 0, 1).contiguous()  # (4, 4, ci, co)
             return
-        self.kernel = policy.fused_eval and deconv_ops.supports(ci, co)
+        self.kernel = on_kernel(self._fused_form(None), "deconv2x",
+                                self.shape)
         if self.qat:
             w = quant_ops.fake_quant_weight(w.permute(2, 3, 0, 1)).permute(
                 2, 3, 0, 1)
         self.register_buffer("w", w.to(device, cdt).contiguous())
-        if self.kernel:
+        if self.fuse_ok:
             self.register_buffer(
                 "wk", w.permute(2, 3, 0, 1).to(device, cdt).contiguous())
 
@@ -602,11 +750,12 @@ class Deconv2x(nn.Module):
                              .to(self._device))
         self.register_buffer("g", (sw * sx).to(self._device))
 
-    def _fused_form(self, width: int) -> bool:
-        """Whether JAX runs this int8 deconv in its fused kernel at this
-        input width (at an exact 2x target)."""
-        ci = self._ci
-        return self.fused_q and ci * _lane_pack(ci, width, self.qpack) >= 128
+    def _fused_form(self, width: Optional[int]) -> bool:
+        """Whether JAX runs this deconv in its fused kernel at this input
+        width (at an exact 2x target; None: at the zone's widths), either
+        dtype."""
+        return self.fuse_ok and deconv_fuses(self.shape[0], width,
+                                             self.qpack)
 
     def forward(self, x: torch.Tensor,
                 target_hw: Optional[Tuple[int, int]] = None) -> torch.Tensor:
@@ -616,17 +765,17 @@ class Deconv2x(nn.Module):
             x = quant_ops.fake_quant_act(x, self.pct, self.qpack)
         h, w = x.shape[1], x.shape[2]
         th, tw = target_hw if target_hw is not None else (2 * h, 2 * w)
+        fused = (th, tw) == (2 * h, 2 * w) and self._fused_form(w)
         if self.quant:
             if not hasattr(self, "sx"):
                 raise ValueError(NO_SCALES)
             xq = quant_ops.quantize_act(x, self.sx)
-            if (th, tw) == (2 * h, 2 * w) and (self.kernel
-                                               or self._fused_form(w)):
+            if fused:
                 return deconv_ops.deconv2x_s8(xq, self.wq, self.g,
                                               out_dtype=self.cdt)
             acc = quant_ops.int_conv_transpose2d(xq, self.wq, (th, tw))
             return (acc * self.g).to(self.cdt)
-        if self.kernel and (th, tw) == (2 * h, 2 * w):
+        if on_kernel(fused, "deconv2x", self.shape):
             return deconv_ops.deconv2x(x, self.wk)
         return deconv_to(x, self.w, (th, tw))
 
@@ -654,10 +803,10 @@ class DecoderBlock(nn.Module):
 
     def __init__(self, sd: StateDict, pref: str, *, policy: Policy = Policy(),
                  device=None, quant: bool = False, qpack: int = 1,
-                 qat: bool = False):
+                 qat: bool = False, zone: bool = True):
         super().__init__()
         kw = dict(policy=policy, device=device, quant=quant, qpack=qpack,
-                  qat=qat)
+                  qat=qat, zone=zone)
         self.deconv = Deconv2x(sd, f"{pref}.deconv", **kw)
         c_up = sd[f"{pref}.deconv.weight"].shape[1]
         self.res = DoubleResNet(sd, f"{pref}.res", dual_split=c_up, **kw)
@@ -691,7 +840,7 @@ class ASPP(nn.Module):
         super().__init__()
         self.branches = nn.ModuleList(
             ConvBN(sd, f"{pref}.{b}_conv", f"{pref}.{b}_bn", dilation=d,
-                   policy=policy, device=device)
+                   policy=policy, device=device, zone=False)
             for b, d in ASPP_BRANCHES)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -706,15 +855,15 @@ class ASPPCombine(ConvBN):
     def __init__(self, sd: StateDict, pref: str, *, policy: Policy = Policy(),
                  device=None):
         super().__init__(sd, f"{pref}.ASPP_conv", f"{pref}.ASPP_bn",
-                         policy=policy, device=device)
+                         policy=policy, device=device, zone=False)
 
 
-def stem_pool(x: torch.Tensor, fused: bool, train: bool = False
-              ) -> torch.Tensor:
-    """MaxPool2d(3, 2, 1) on NHWC; K4 when ``fused`` and the shape
-    qualifies (ops/pool.py:supports) — under autograd with the dense
-    first-match backward when ``train``."""
-    if fused and pool_ops.supports(x.shape[3], x.shape[1], x.shape[2]):
+def stem_pool(x: torch.Tensor, fused: bool, pack: int,
+              train: bool = False) -> torch.Tensor:
+    """MaxPool2d(3, 2, 1) on NHWC; K4 where the JAX package runs its
+    Pallas pool (``fused`` and pool_fuses at the stem's ``pack``) —
+    under autograd with the dense first-match backward when ``train``."""
+    if fused and pool_fuses(x.shape[3], x.shape[1], x.shape[2], pack):
         if train:
             return pool_ops.maxpool3x3s2_ad(x)
         return pool_ops.maxpool3x3s2(x)
@@ -729,11 +878,15 @@ def stem_pool(x: torch.Tensor, fused: bool, train: bool = False
 # folding the BN at construction; these fold it per call (fold_bn) from
 # the batch statistics (train) or the running ones (eval).
 #
-# Kernel routing, by shape as in the eval model: a conv feeding a BN is
-# in the train zone when the policy fuses, its stride is 1 and every
-# leg of ops/train_conv.py has a kernel for its (ci, co, k); the
-# classifier when ops/conv.py:ad_supports(ci, co, k). At the flagship
-# width that is enc1, dec2, dec1, conv10 and conv11. A decoder upsample
+# Kernel routing, as in the eval model, where the JAX package fuses
+# (conv_ad_fuses, per call): a conv of the packed zone (``zone``),
+# stride 1, whose every leg fits JAX's differentiable conv, runs
+# ops/train_conv.py (K5, with K1 for dx and K6 for dW) when it feeds a
+# BN, ops/conv.py:conv_ad (K1, K1, K6) when not (the classifier); their
+# wrappers raise on the card at a shape none was compiled for. At
+# inplanes 16 that is enc1, dec2, dec1, conv10 and conv11; at 32 the
+# same but dec2's first conv and conv10, whose halos overflow the
+# lanes. A decoder upsample
 # runs ops/deconv.py:deconv2x_ad (K3 forward, K8 dx, K9 dW) when
 # ``policy.fused_train_deconv`` is set, its target is exactly 2x and
 # deconv.ad_supports(ci, co): dec2 and dec1 at the flagship width.
@@ -762,13 +915,15 @@ class Conv(nn.Module):
     optional ``bias``, f32 — and its train-mode forward. ``bn``: the
     conv feeds a BatchNorm, so the zone form is K5 with its statistics
     (``with_stats``, which also fake-quantizes the input under QAT);
-    otherwise it is conv_ad + bias (``forward``). A ``dilation`` other
-    than 1 (ASPP's branches) is never in the zone: the kernels have
-    none."""
+    otherwise it is conv_ad + bias (``forward``). Which form runs is the
+    JAX package's choice per call (``_fused_form``); ``zone`` says
+    whether the conv is in the train zone at the zone's widths. A
+    ``dilation`` other than 1 (ASPP's branches) is never in the zone."""
 
     def __init__(self, sd: StateDict, key: str, *, stride: int = 1,
                  bn: bool = True, policy: Policy = Policy(), device=None,
-                 qat: bool = False, qpack: int = 1, dilation: int = 1):
+                 qat: bool = False, qpack: int = 1, dilation: int = 1,
+                 zone: bool = True):
         super().__init__()
         device = resolve_device(device)
         w = sd[f"{key}.weight"].float()
@@ -782,10 +937,20 @@ class Conv(nn.Module):
         self.cdt = policy.compute_dtype
         self.qat = qat and policy.quant_train
         self.qpack, self.pct = qpack, policy.quant_percentile
-        fits = (train_ops.supports(ci, co, k) if bn
-                else conv_ops.ad_supports(ci, co, k))
-        self.zone = (policy.fused_train and stride == 1 and dilation == 1
-                     and fits)
+        self.shape = (ci, co, k)
+        self.route = "conv_stats" if bn else "conv_ad"
+        self.fuse_ok = (policy.fused_train and zone and stride == 1
+                        and dilation == 1)
+        self.zone = on_kernel(self._fused_form(None), self.route, self.shape)
+
+    def _fused_form(self, width: Optional[int]) -> bool:
+        """Whether JAX runs this conv on its train-zone kernels at this
+        input width (None: at the zone's widths)."""
+        return self.fuse_ok and conv_ad_fuses(*self.shape, width, self.qpack)
+
+    def _on_kernel(self, x: torch.Tensor) -> bool:
+        return on_kernel(self._fused_form(x.shape[2]), self.route,
+                         self.shape)
 
     def _kernel_weight(self) -> torch.Tensor:
         """(k, k, ci, co) in the compute dtype, under autograd
@@ -796,7 +961,7 @@ class Conv(nn.Module):
         return w.to(self.cdt)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.zone:
+        if self.route == "conv_ad" and self._on_kernel(x):
             y = conv_ops.conv_ad(x, self._kernel_weight())
             return y if self.bias is None else y + self.bias.to(y.dtype)
         b = None if self.bias is None else self.bias.to(self.cdt)
@@ -809,7 +974,7 @@ class Conv(nn.Module):
         """(y, (Σy, Σy²)) from K5 in the zone, else (y, None)."""
         if self.qat:
             x = quant_ops.fake_quant_act(x, self.pct, self.qpack)
-        if self.zone:
+        if self.route == "conv_stats" and self._on_kernel(x):
             y, s1, s2 = train_ops.train_conv_stats(x, self._kernel_weight(),
                                                    self.bias)
             return y, (s1, s2)
@@ -898,14 +1063,23 @@ def frozen_stats(module: nn.Module):
             m.update_stats = s
 
 
+@contextlib.contextmanager
+def _both(a, b):
+    with a, b:
+        yield
+
+
 def remat(module: nn.Module, *args, **kwargs):
     """``module(*args, **kwargs)`` with its activations recomputed in
     backward (torch.utils.checkpoint, non-reentrant) and its BatchNorms'
     running stats frozen during the recompute. The recompute runs the
     whole forward (no early stop), so its kernels launch again, each
     once."""
+    active = _ZONE.get()  # the recompute routes as this forward does
+
     def contexts():
-        return contextlib.nullcontext(), frozen_stats(module)
+        return contextlib.nullcontext(), _both(frozen_stats(module),
+                                               zone_active(active))
 
     with checkpoint_lib.set_checkpoint_early_stop(False):
         return checkpoint_lib.checkpoint(module, *args, use_reentrant=False,
@@ -927,10 +1101,10 @@ class TrainBasicBlock(nn.Module):
 
     def __init__(self, sd: StateDict, pref: str, *, stride: int = 1,
                  policy: Policy = Policy(), device=None, qat: bool = False,
-                 qpack: int = 1):
+                 qpack: int = 1, zone: bool = True):
         super().__init__()
         kw = dict(policy=policy, device=device)
-        ckw = dict(kw, qat=qat, qpack=qpack)
+        ckw = dict(kw, qat=qat, qpack=qpack, zone=zone)
         self.conv1 = Conv(sd, f"{pref}.conv1", stride=stride, **ckw)
         self.bn1 = BatchNorm(sd, f"{pref}.bn1", **kw)
         self.conv2 = Conv(sd, f"{pref}.conv2", **ckw)
@@ -957,9 +1131,10 @@ class TrainDoubleResNet(nn.Module):
 
     def __init__(self, sd: StateDict, pref: str, *, stride: int = 1,
                  policy: Policy = Policy(), device=None, qat: bool = False,
-                 qpack: int = 1):
+                 qpack: int = 1, zone: bool = True):
         super().__init__()
-        kw = dict(policy=policy, device=device, qat=qat, qpack=qpack)
+        kw = dict(policy=policy, device=device, qat=qat, qpack=qpack,
+                  zone=zone)
         self.res1 = TrainBasicBlock(sd, f"{pref}.res1", stride=stride, **kw)
         self.res2 = TrainBasicBlock(sd, f"{pref}.res2", **kw)
 
@@ -1005,11 +1180,12 @@ class TrainDecoderBlock(nn.Module):
     """Train-mode decoder stage: deconv 2x → [up, skip] → DoubleResNet."""
 
     def __init__(self, sd: StateDict, pref: str, *, policy: Policy = Policy(),
-                 device=None, qat: bool = False, qpack: int = 1):
+                 device=None, qat: bool = False, qpack: int = 1,
+                 zone: bool = True):
         super().__init__()
         kw = dict(policy=policy, device=device, qat=qat, qpack=qpack)
         self.deconv = TrainDeconv2x(sd, f"{pref}.deconv", **kw)
-        self.res = TrainDoubleResNet(sd, f"{pref}.res", **kw)
+        self.res = TrainDoubleResNet(sd, f"{pref}.res", zone=zone, **kw)
 
     def forward(self, x, skip):
         up = self.deconv(x, (skip.shape[1], skip.shape[2]))
@@ -1027,7 +1203,7 @@ class TrainASPP(nn.Module):
         kw = dict(policy=policy, device=device)
         for b, d in ASPP_BRANCHES:
             self.add_module(f"{b}_conv", Conv(sd, f"{pref}.{b}_conv",
-                                              dilation=d, **kw))
+                                              dilation=d, zone=False, **kw))
             self.add_module(f"{b}_bn", BatchNorm(sd, f"{pref}.{b}_bn", **kw))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -1044,7 +1220,7 @@ class TrainASPPCombine(nn.Module):
                  device=None):
         super().__init__()
         kw = dict(policy=policy, device=device)
-        self.ASPP_conv = Conv(sd, f"{pref}.ASPP_conv", **kw)
+        self.ASPP_conv = Conv(sd, f"{pref}.ASPP_conv", zone=False, **kw)
         self.ASPP_bn = BatchNorm(sd, f"{pref}.ASPP_bn", **kw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -10,10 +10,12 @@ ubresnet_tpu/models/uresnet.py): ``UResNet`` in eval mode and
 
 Built from a reference-format state_dict (``enc_layer{i}``,
 ``dec_layer{i}``, ``conv10``, ``conv11`` ... names), which also fixes
-its geometry. With the default policy the stem pool, enc1, dec2, dec1,
-the head and the classifier run on the Hopper kernels of ops/ (11
-launches per forward at the flagship width); the rest are
-torch.nn.functional ops. Under ``Policy.int8()`` nine of those eleven
+its geometry. With the default policy the layers the JAX package runs
+in Pallas run on the Hopper kernels of ops/ (models/blocks.py routes):
+the stem pool, enc1, dec2, dec1, the head and the classifier at the
+flagship width (11 launches per forward), the same but dec2's upsample
+and the head at inplanes 32 (9); the rest are torch.nn.functional
+ops. Under ``Policy.int8()`` nine of those eleven
 launches are the int8 kernels (``UResNet`` docstring). Under
 ``Policy.quant_train`` (QAT) both models fake-quantize the JAX
 package's packed zone (``zone_packs``). It is built on the card unless
@@ -40,6 +42,7 @@ from ubresnet_tpu_torch.models.blocks import (
     conv_bn,
     remat,
     stem_pool,
+    zone_active,
 )
 from ubresnet_tpu_torch.utils.platform import resolve_device
 
@@ -90,6 +93,15 @@ def check_zone(cfg: UResNetConfig, policy: Policy, width: int = None
             f"{what}: input width {width} is not a multiple of {step}; "
             f"the JAX package runs such inputs unpacked, without its "
             f"{what} zone")
+
+
+def packed_zone(cfg: UResNetConfig, width: int) -> bool:
+    """Whether the JAX package runs its packed (and int8, QAT) zone for
+    inputs of this width (uresnet.py:68-70): depth 5 and a width that is
+    a multiple of 2·p_stem. Outside it JAX calls no Pallas kernel, and
+    the port's layers take their plain routes (models/blocks.py
+    ``zone_active``)."""
+    return cfg.depth == 5 and width % (2 * zone_packs(cfg)["stem"]) == 0
 
 
 def zone_packs(cfg: UResNetConfig) -> Dict[str, int]:
@@ -177,36 +189,39 @@ class UResNet(ZoneModel):
                             qat=True, **kw)
         self.enc = nn.ModuleList(
             DoubleResNet(sd, f"enc_layer{i}", stride=1 if i == 1 else 2,
-                         quant=q and i == 1, qat=i == 1,
+                         quant=q and i == 1, qat=i == 1, zone=i == 1,
                          qpack=packs["enc1"] if i == 1 else 1, **kw)
             for i in range(1, cfg.depth + 1))
         # dec[0] is dec_layer{depth}, the deepest, which runs first
         self.dec = nn.ModuleList(
             DecoderBlock(sd, f"dec_layer{i}", quant=q and i <= 2,
-                         qat=i <= 2, qpack=packs.get(f"dec{i}", 1), **kw)
+                         qat=i <= 2, zone=i <= 2,
+                         qpack=packs.get(f"dec{i}", 1), **kw)
             for i in range(cfg.depth, 0, -1))
         self.conv10 = ConvBN(sd, "conv10", "bn10", quant=q,
                              qpack=packs["head"], qat=True, **kw)
-        self.conv11 = ConvBN(sd, "conv11", None, act=False, qat=True, **kw)
+        self.conv11 = ConvBN(sd, "conv11", None, act=False, qat=True,
+                             qpack=packs["head"], **kw)
 
     def packed_zone(self, width: int) -> bool:
         """Whether the JAX package runs its packed (and int8) zone for
         inputs of this width (uresnet.py:68-70)."""
-        return (self.config.depth == 5
-                and width % (2 * zone_packs(self.config)["stem"]) == 0)
+        return packed_zone(self.config, width)
 
     def forward(self, x: torch.Tensor, logits: bool = False) -> torch.Tensor:
         pol = self.policy
         check_zone(self.config, pol, x.shape[2])
-        x0 = self.conv1(x.to(pol.compute_dtype).contiguous())
-        y = stem_pool(x0, fused=pol.fused_eval)
-        skips = [x0]
-        for enc in self.enc:
-            y = enc(y)
-            skips.append(y)
-        for dec, skip in zip(self.dec, reversed(skips[:-1])):
-            y = dec(y, skip)
-        y = self.conv11(self.conv10(y)).to(pol.output_dtype)
+        with zone_active(self.packed_zone(x.shape[2])):
+            x0 = self.conv1(x.to(pol.compute_dtype).contiguous())
+            y = stem_pool(x0, fused=pol.fused_eval,
+                          pack=zone_packs(self.config)["stem"])
+            skips = [x0]
+            for enc in self.enc:
+                y = enc(y)
+                skips.append(y)
+            for dec, skip in zip(self.dec, reversed(skips[:-1])):
+                y = dec(y, skip)
+            y = self.conv11(self.conv10(y)).to(pol.output_dtype)
         if logits:
             return y
         return torch.log_softmax(y, dim=-1)
@@ -234,7 +249,8 @@ class TrainUResNet(nn.Module):
     With ``policy.fused_train`` the train zone — the stem pool, enc1,
     dec2, dec1, conv10 and conv11 at the flagship width — runs on the
     Hopper kernels forward and backward (per step: K5 x16, K1 x18, K6
-    x17, K4 x1); with ``policy.fused_train_deconv`` the dec2 and dec1
+    x17, K4 x1; at inplanes 32, without dec2's first conv and conv10,
+    K5 x14, K1 x16, K6 x15, K4 x1); with ``policy.fused_train_deconv`` the dec2 and dec1
     upsamples too (K3 x2 forward, K8 x2 dx, K9 x2 dW); the rest are
     torch.nn.functional ops under autograd. With ``policy.quant_train``
     (QAT) the JAX package's packed zone — stem, enc1, dec2, dec1, head,
@@ -261,22 +277,32 @@ class TrainUResNet(nn.Module):
         for i in range(1, depth + 1):
             self.add_module(f"enc_layer{i}", TrainDoubleResNet(
                 sd, f"enc_layer{i}", stride=1 if i == 1 else 2, qat=i == 1,
-                qpack=packs["enc1"] if i == 1 else 1, **kw))
+                zone=i == 1, qpack=packs["enc1"] if i == 1 else 1, **kw))
         for i in range(depth, 0, -1):
             self.add_module(f"dec_layer{i}", TrainDecoderBlock(
-                sd, f"dec_layer{i}", qat=i <= 2,
+                sd, f"dec_layer{i}", qat=i <= 2, zone=i <= 2,
                 qpack=packs.get(f"dec{i}", 1), **kw))
         self.conv10 = Conv(sd, "conv10", qat=True, qpack=packs["head"], **kw)
         self.bn10 = BatchNorm(sd, "bn10", **kw)
-        self.conv11 = Conv(sd, "conv11", bn=False, qat=True, **kw)
+        self.conv11 = Conv(sd, "conv11", bn=False, qat=True,
+                           qpack=packs["head"], **kw)
 
     def forward(self, x: torch.Tensor, logits: bool = False) -> torch.Tensor:
+        check_zone(self.config, self.policy, x.shape[2])
+        with zone_active(packed_zone(self.config, x.shape[2])):
+            y = self._forward(x)
+        if logits:
+            return y
+        return torch.log_softmax(y, dim=-1)
+
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
+        """The logits in ``policy.output_dtype``."""
         pol = self.policy
         depth = self.config.depth
-        check_zone(self.config, pol, x.shape[2])
         x0 = conv_bn(self.conv1, self.bn1,
                      x.to(pol.compute_dtype).contiguous(), act=True)
-        y = stem_pool(x0, fused=pol.fused_train, train=True)
+        y = stem_pool(x0, fused=pol.fused_train,
+                      pack=zone_packs(self.config)["stem"], train=True)
         # Policy.remat: each encoder and decoder stage is recomputed in
         # backward (JAX's nn.remat per stage, uresnet.py:92-104)
         stage = stage_call(pol, self.training)
@@ -287,7 +313,4 @@ class TrainUResNet(nn.Module):
         for i in range(depth, 0, -1):
             y = stage(getattr(self, f"dec_layer{i}"), y, skips[i - 1])
         y = conv_bn(self.conv10, self.bn10, y, act=True)
-        y = self.conv11(y).to(pol.output_dtype)
-        if logits:
-            return y
-        return torch.log_softmax(y, dim=-1)
+        return self.conv11(y).to(pol.output_dtype)

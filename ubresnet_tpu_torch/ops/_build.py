@@ -65,8 +65,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     # x, w, g, b, residual, out | B, H, W, ci, co, k, pre_act, act | stream
     "ubr_conv_bn_act": [_P] * 6 + [_I] * 8 + [_P],
-    # a, b, w1, g1, b1, w2, g2, b2, wb, gb, bb, out | B, H, W, ca, cb, co
-    "ubr_basic_block": [_P] * 12 + [_I] * 6 + [_P],
+    # a, b, w1, g1, b1, w2, g2, b2, wb, gb, bb, wf, out | B, H, W, ca,
+    # cb, co (wf: the streamed form's weight-fragment scratch)
+    "ubr_basic_block": [_P] * 13 + [_I] * 6 + [_P],
     # x, w, out | B, H, W, ci, co
     "ubr_deconv2x": [_P] * 3 + [_I] * 5 + [_P],
     # x, out | B, H, W, C
@@ -83,9 +84,9 @@ SIGNATURES = {
     # xq, wq, g, b, residual, out | B, H, W, ci, co, k, pre_act, act,
     # out_f32
     "ubr_conv_bn_act_s8": [_P] * 6 + [_I] * 9 + [_P],
-    # aq, bq, w1q, g1, b1, w2q, g2, b2, wbq, gb, bb, out | B, H, W, ca,
-    # cb, co, out_f32
-    "ubr_basic_block_s8": [_P] * 12 + [_I] * 7 + [_P],
+    # aq, bq, w1q, g1, b1, w2q, g2, b2, wbq, gb, bb, wf, out | B, H, W,
+    # ca, cb, co, out_f32
+    "ubr_basic_block_s8": [_P] * 13 + [_I] * 7 + [_P],
     # xq, wq, g, out | B, H, W, ci, co, out_f32
     "ubr_deconv2x_s8": [_P] * 4 + [_I] * 6 + [_P],
     # the deconv's backward (H, W: the deconv's input side)
@@ -95,50 +96,64 @@ SIGNATURES = {
     "ubr_deconv_dw": [_P] * 4 + [_I] * 6 + [_P],
 }
 
-# The train zone's convolutions (stride 1, flagship width), as
-# (ci, co, k): enc1, dec2 and dec1 BasicBlocks (3x3 convs and 1x1
-# projections) and the head conv10. K5 runs their forward and K6 their
-# weight gradient; K1 runs their input gradient at the transposed
-# shape (co, ci, k).
-_TRAIN_ZONE = {(16, 32, 3), (16, 32, 1), (32, 32, 3), (64, 32, 3),
-               (64, 32, 1), (32, 16, 3), (32, 16, 1), (16, 16, 3),
-               (16, 16, 7)}
-_CLASSIFIER = (16, 3, 7)
+# The train zone's convolutions (stride 1), as (ci, co, k): the enc1,
+# dec2 and dec1 BasicBlocks (3x3 convs and 1x1 projections) and the
+# head conv10 where the JAX package fuses them (models/blocks.py:
+# conv_ad_fuses). K5 runs their forward and K6 their weight gradient;
+# K1 runs their input gradient at the transposed shape (co, ci, k).
+# Inplanes 16 (the flagship):
+_TRAIN_ZONE_16 = {(16, 32, 3), (16, 32, 1), (32, 32, 3), (64, 32, 3),
+                  (64, 32, 1), (32, 16, 3), (32, 16, 1), (16, 16, 3),
+                  (16, 16, 7)}
+# inplanes 32 (the reference trainer's UResNet): enc1 (32 -> 64), dec2
+# over its 128-channel concat (the first conv stays off: 2·128 > 128),
+# dec1; the head conv10 (32, 16, 7) stays off (2·3·32 > 128)
+_TRAIN_ZONE_32 = {(32, 64, 3), (32, 64, 1), (64, 64, 3), (128, 64, 1),
+                  (64, 32, 3), (64, 32, 1), (32, 32, 3)}
+_TRAIN_ZONE = _TRAIN_ZONE_16 | _TRAIN_ZONE_32
+# the classifier conv11, 3 classes and the 4-class deploy model's
+_CLASSIFIERS = {(16, 3, 7), (16, 4, 7)}
 # (ca, cb, co, projection) of the eval model's BasicBlocks in the zone
 _BLOCKS = frozenset({
     (16, 0, 32, True),    # enc1.res1
-    (32, 0, 32, False),   # enc1.res2, dec2.res.res2
-    (32, 32, 32, True),   # dec2.res.res1
+    (32, 0, 32, False),   # enc1.res2, dec2.res.res2; dec1.res.res2 at 32
+    (32, 32, 32, True),   # dec2.res.res1; dec1.res.res1 at 32
     (16, 16, 16, True),   # dec1.res.res1
     (16, 0, 16, False),   # dec1.res.res2
+    # inplanes 32
+    (32, 0, 64, True),    # enc1.res1
+    (64, 0, 64, False),   # enc1.res2, dec2.res.res2 (streamed weights)
+    (64, 64, 64, True),   # dec2.res.res1 (streamed weights)
 })
-# (ci, co): dec2 and dec1 upsamples
+# (ci, co): dec2 and dec1 upsamples (dec1's at inplanes 32 is (64, 32);
+# dec2's there, (128, 64), stays off: 2·128 > 128)
 _DECONVS = frozenset({(64, 32), (32, 16)})
 
 # kernel → the template arguments instantiated in its .cu entry point,
-# the kernel-zone layers of the flagship UResNet
+# the kernel-zone layers of the UResNets the port runs (inplanes 16 and
+# 32, 3 or 4 classes)
 SHAPES = {
-    # (ci, co, k): head conv10 and classifier conv11 (eval, and the
+    # (ci, co, k): head conv10 and the classifiers (eval, and the
     # classifier's train forward); the input gradients of the train
-    # zone and of the classifier, whose 3 channels K1 reads zero-padded
-    # to 4
-    "conv_bn_act": frozenset({(16, 16, 7), _CLASSIFIER, (4, 16, 7)}
+    # zone and of the classifiers, whose 3 or 4 channels K1 reads
+    # zero-padded to 4
+    "conv_bn_act": frozenset({(16, 16, 7), (4, 16, 7)} | _CLASSIFIERS
                              | {(co, ci, k) for ci, co, k in _TRAIN_ZONE}),
     # (ci, co, k): the train zone's forward
     "conv_stats": frozenset(_TRAIN_ZONE),
-    # (ci, co, k): the train zone's and the classifier's weight gradient
-    "conv_dw": frozenset(_TRAIN_ZONE | {_CLASSIFIER}),
+    # (ci, co, k): the train zone's and the classifiers' weight gradient
+    "conv_dw": frozenset(_TRAIN_ZONE | _CLASSIFIERS),
     # (ca, cb, co, projection); cb == 0 is the single-stream block
     "basic_block": _BLOCKS,
     "deconv2x": _DECONVS,
     # (ci, co) of the deconv: its input gradient (K8) and weight
-    # gradient (K9) under Policy.fused_train_deconv
+    # gradient (K9) under Policy.fused_train_deconv (the flagship's)
     "conv_s2k4": _DECONVS,
     "deconv_dw": _DECONVS,
-    # int8 deploy (Policy.int8): the head conv10 on K1-s8 (the 1-channel
-    # stem is an exact plain-torch integer conv, as XLA in JAX; the
-    # classifier stays bf16 K1), the same blocks on K2-s8, the same
-    # upsamples on K3-s8
+    # int8 deploy (Policy.int8): the head conv10 on K1-s8 where JAX
+    # fuses it (the 1-channel stem is an exact plain-torch integer
+    # conv, as XLA in JAX; the classifier stays bf16 K1), the same
+    # blocks on K2-s8, the same upsamples on K3-s8
     "conv_bn_act_s8": frozenset({(16, 16, 7)}),
     "basic_block_s8": _BLOCKS,
     "deconv2x_s8": _DECONVS,

@@ -15,7 +15,12 @@ over 16x16 output tiles in a persistent grid whose blocks hold the
 weights in shared memory and stream x tiles in with double-buffered
 cp.async; m for the output tile plus a one-pixel halo is recomputed per
 tile and stays in shared memory; at the image border m is zero (conv2's
-own padding), inside it the halo is real conv1 output.
+own padding), inside it the halo is real conv1 output. Where the
+weights, two x tiles and m do not fit one block's shared memory (the
+inplanes-32 UResNet's 64-channel blocks), the kernel streams the weights
+a tap at a time through a cp.async ring instead (its streamed form,
+chosen per shape at compile time); the wrapper passes scratch for the
+fragments either way.
 
 Weights: w1 (3, 3, ca+cb, co), w2 (3, 3, co, co), wb (ca+cb, co) —
 JAX kernel layouts; the first ``ca`` input channels read stream a.
@@ -50,6 +55,14 @@ def supports(ca: int, cb: int, co: int, proj: bool) -> bool:
 
 def s8_supports(ca: int, cb: int, co: int, proj: bool) -> bool:
     return (ca, cb, co, bool(proj)) in S8_SHAPES
+
+
+def _fragments(w1, w2, wb):
+    """Scratch for the streamed form's weight fragments: the weights'
+    own bytes (the resident form leaves it unread)."""
+    n = w1.numel() + w2.numel() + (0 if wb is None else wb.numel())
+    return torch.empty(n * w1.element_size(), dtype=torch.uint8,
+                       device=w1.device)
 
 
 def _conv(x, w, pad):
@@ -116,7 +129,8 @@ def basic_block(a: torch.Tensor, b: Optional[torch.Tensor],
     _build.launch(
         "ubr_basic_block",
         [a, b, w1, g1, b1, w2, g2, b2, wb if proj else None,
-         gb if proj else None, bb if proj else None, out],
+         gb if proj else None, bb if proj else None,
+         _fragments(w1, w2, wb if proj else None), out],
         [bsz, h, wd, ca, cb, co], dev)
     basic_block.launches += 1
     return out
@@ -183,7 +197,8 @@ def basic_block_s8(aq: torch.Tensor, bq: Optional[torch.Tensor],
         _build.check(wbq, "wbq", s8, (ca + cb, co), dev)
     out = torch.empty((bsz, h, wd, co), dtype=out_dtype, device=dev)
     _build.launch("ubr_basic_block_s8",
-                  [aq, bq, w1q, g1, b1, w2q, g2, b2, wbq, gb, bb, out],
+                  [aq, bq, w1q, g1, b1, w2q, g2, b2, wbq, gb, bb,
+                   _fragments(w1q, w2q, wbq), out],
                   [bsz, h, wd, ca, cb, co, flag], dev)
     basic_block_s8.launches += 1
     return out

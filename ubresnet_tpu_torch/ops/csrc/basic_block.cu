@@ -52,6 +52,27 @@
 // enc1.res1 28 + 25 + 20.3 KB = 74 KB; enc1.res2 / dec2.res2 36 + 50 +
 // 20.3 = 107 KB; dec2.res1 58 + 100 + 20.3 = 179 KB; dec1.res1 14.5 + 50
 // + 10.1 = 75 KB; dec1.res2 9 + 25 + 10.1 = 44.5 KB.
+//
+// Streamed form, for the blocks whose weights, two x tiles and m do not
+// fit one block's 227 KB (chosen per shape at compile time,
+// BlockShape::STREAM): enc1.res2 / dec2.res2 (64, 0, 64) and dec2.res1
+// (64, 64, 64, proj) of the inplanes-32 UResNet, 286 and 474 KB in the
+// resident form above (the dual block's w1 + w2 are 216 KB alone). The
+// block stays one kernel with m on chip; only the weights move:
+// - a prepack kernel lays w1, w2 and wb out once per call as the same B
+//   fragments (stage_b) in the wrapper's scratch, tap by tap contiguous;
+// - the main kernel streams them a tap at a time through a two-slot
+//   cp.async ring in shared memory (w1's 9 taps, w2's 9, then wb: 19
+//   stages a tile), the next stage's copy in flight while this one runs;
+// - one x tile (102 KB at 128 channels), loaded at the top of each tile:
+//   cp.async groups land in order, so a prefetched x tile would have to
+//   land by the first weight stage anyway;
+// - conv1 over the 18x18 m tile, BN1 + ReLU into m, conv2, the bypass
+//   and the epilogue as the resident form, tap by tap.
+// Shared memory: (64, 0, 64) 16 + 1.5 + 51 + 41 = 110 KB; (64, 64, 64)
+// 33 + 1.5 + 102 + 41 = 178 KB. A two-block cluster that splits co and
+// trades m through distributed shared memory would keep the weights
+// resident; not built.
 #include "tensor_core.cuh"
 #include "ubr_shapes.h"  // UBR_BASIC_BLOCK_SHAPES (ops/_build.py:SHAPES)
 
@@ -75,10 +96,21 @@ struct BlockShape {
   static constexpr int WB_UNITS = PROJ ? CIN * CO / 8 : 0;
   static constexpr int PRM = 6 * CO;  // g1 b1 g2 b2 gb bb (f32)
   static constexpr int X_ELEMS = XH * XW * CIN, M_ELEMS = MH * MW * CO;
-  static constexpr int SMEM = (W1_UNITS + W2_UNITS + WB_UNITS) * 16 +
-                              PRM * 4 + (2 * X_ELEMS + M_ELEMS) * 2;
+  static constexpr int RESIDENT = (W1_UNITS + W2_UNITS + WB_UNITS) * 16 +
+                                  PRM * 4 + (2 * X_ELEMS + M_ELEMS) * 2;
+  // streamed form: the weights a tap at a time through a two-slot ring
+  static constexpr bool STREAM = RESIDENT > tc::SMEM_MAX;
+  static constexpr int W1_TAP = CIN * CO / 8, W2_TAP = CO * CO / 8;
+  static constexpr int SLOT = W1_TAP > W2_TAP ? W1_TAP : W2_TAP;
+  static constexpr int NSTAGE = 18 + (PROJ ? 1 : 0);  // w1, w2 taps, wb
+  static constexpr int STREAMED = 2 * SLOT * 16 + PRM * 4 +
+                                  (X_ELEMS + M_ELEMS) * 2;
+  static constexpr int SMEM = STREAM ? STREAMED : RESIDENT;
+  // 64 output channels: the accumulators want the registers of one block
+  static constexpr int CAP = CO >= 64 ? 1 : 2;
   static_assert(TH * TW * CO <= M_ELEMS, "output staging fits the m tile");
   static_assert(PROJ || CIN == CO, "identity bypass needs ci == co");
+  static_assert(SMEM <= tc::SMEM_MAX, "one block's shared memory");
 };
 
 template <int NQ, int J>
@@ -91,46 +123,219 @@ __device__ __forceinline__ void zero(float (&acc)[J][2 * NQ][4]) {
       for (int i = 0; i < 4; ++i) acc[j][nt][i] = 0.f;
 }
 
-// acc[j] += A_j · B over TAPS x KC k-steps: lane's A row of M-tile j
-// is tile pixel pix[j] shifted by the tap (dy, dx) = (tap / 3, tap % 3)
-// in a tile of row pitch PW, chunk 2 kc + half; B fragments wf
-// (stage_b layout). M-tiles with on[j] false are skipped.
-template <int NC, int KC, int TAPS, int NQ, int J, int PW>
-__device__ __forceinline__ void gemm(float (&acc)[J][2 * NQ][4],
-                                     uint32_t tile, const uint4* wf,
-                                     const int (&pix)[J], const bool (&on)[J],
-                                     int lane) {
+// acc[j] += A_j · B over one tap's KC k-steps: lane's A row of M-tile j
+// is tile pixel pix[j] + shift, chunk 2 kc + half; B fragments wf
+// (stage_b layout, the tap's k-steps). M-tiles with on[j] false are
+// skipped.
+template <int NC, int KC, int NQ, int J>
+__device__ __forceinline__ void gemm_tap(float (&acc)[J][2 * NQ][4],
+                                         uint32_t tile, const uint4* wf,
+                                         const int (&pix)[J],
+                                         const bool (&on)[J], int lane,
+                                         int shift) {
   const int ah = tc::a_half(lane);
+  uint32_t off[J];
 #pragma unroll
-  for (int tap = 0; tap < TAPS; ++tap) {
-    const int shift = TAPS == 1 ? 0 : (tap / 3) * PW + tap % 3;
-    uint32_t off[J];
+  for (int j = 0; j < J; ++j) off[j] = tc::a_off<NC>(pix[j] + shift, ah);
 #pragma unroll
-    for (int j = 0; j < J; ++j) off[j] = tc::a_off<NC>(pix[j] + shift, ah);
+  for (int kc = 0; kc < KC; ++kc) {
+    uint4 bq[NQ];
 #pragma unroll
-    for (int kc = 0; kc < KC; ++kc) {
-      uint4 bq[NQ];
+    for (int q = 0; q < NQ; ++q) bq[q] = wf[(kc * NQ + q) * 32 + lane];
 #pragma unroll
-      for (int q = 0; q < NQ; ++q)
-        bq[q] = wf[((tap * KC + kc) * NQ + q) * 32 + lane];
+    for (int j = 0; j < J; ++j) {
+      if (!on[j]) continue;
+      uint32_t a[4];
+      tc::ldsm_x4(tile + (off[j] ^ (kc << 5)), a);
 #pragma unroll
-      for (int j = 0; j < J; ++j) {
-        if (!on[j]) continue;
-        uint32_t a[4];
-        tc::ldsm_x4(tile + (off[j] ^ (kc << 5)), a);
-#pragma unroll
-        for (int q = 0; q < NQ; ++q) {
-          tc::mma(acc[j][2 * q], a, bq[q].x, bq[q].y);
-          tc::mma(acc[j][2 * q + 1], a, bq[q].z, bq[q].w);
-        }
+      for (int q = 0; q < NQ; ++q) {
+        tc::mma(acc[j][2 * q], a, bq[q].x, bq[q].y);
+        tc::mma(acc[j][2 * q + 1], a, bq[q].z, bq[q].w);
       }
     }
   }
 }
 
+// The tap (dy, dx) = (tap / 3, tap % 3) as a pixel shift in a tile of row
+// pitch PW (a 1x1 conv: no shift).
+template <int TAPS, int PW>
+__device__ __forceinline__ int tap_shift(int tap) {
+  return TAPS == 1 ? 0 : (tap / 3) * PW + tap % 3;
+}
+
+// acc[j] += A_j · B over TAPS x KC k-steps (gemm_tap per tap) in a tile
+// of row pitch PW; B fragments wf (stage_b layout, K tap-major).
+template <int NC, int KC, int TAPS, int NQ, int J, int PW>
+__device__ __forceinline__ void gemm(float (&acc)[J][2 * NQ][4],
+                                     uint32_t tile, const uint4* wf,
+                                     const int (&pix)[J], const bool (&on)[J],
+                                     int lane) {
+#pragma unroll
+  for (int tap = 0; tap < TAPS; ++tap)
+    gemm_tap<NC, KC, NQ, J>(acc, tile, wf + tap * KC * NQ * 32, pix, on, lane,
+                            tap_shift<TAPS, PW>(tap));
+}
+
+
+// Start the copy of the x tile [a | b] of tile t with a two-pixel halo
+// (zero outside the image) into dst, as one cp.async group.
+template <class S, int CA, int CB>
+__device__ __forceinline__ void load_x(bf16* dst, const bf16* __restrict__ a,
+                                       const bf16* __restrict__ bsrc, int t,
+                                       int tiles_x, int per_img, int H, int W,
+                                       int tid) {
+  constexpr int NCI = S::NCI;
+  const int n = t / per_img, r = t % per_img;
+  const int y0 = (r / tiles_x) * TH - 2, x0 = (r % tiles_x) * TW - 2;
+  for (int e = tid; e < XH * XW * NCI; e += NT) {
+    const int p = e / NCI, c = e % NCI;
+    const int ih = y0 + p / XW, iw = x0 + p % XW;
+    const bool in = ih >= 0 && ih < H && iw >= 0 && iw < W;
+    const long pix = ((long)n * H + ih) * W + iw;
+    const bf16* src = a;
+    if (in)
+      src = c < CA / 8 ? a + pix * CA + c * 8 : bsrc + pix * CB + c * 8 - CA;
+    tc::cp_async16(tc::smem_u32(dst + tc::chunk_at<NCI>(p, c) * 8), src, in);
+  }
+  tc::cp_async_commit();
+}
+
+// Lane's A pixels: conv1 M-tile j covers m pixels 16 (warp + 8j) ..,
+// conv2 / bypass M-tile j is output row warp * J2 + j.
+struct Pixels {
+  int pix1[J1], pix2[J2], pixb[J2];
+  bool on1[J1], on2[J2];
+  __device__ __forceinline__ Pixels(int warp, int ar) {
+#pragma unroll
+    for (int j = 0; j < J1; ++j) {
+      const int mt = warp + NWARP * j;
+      const int mi = min(mt * 16 + ar, MH * MW - 1);
+      pix1[j] = (mi / MW) * XW + mi % MW;
+      on1[j] = mt < MT1;
+    }
+#pragma unroll
+    for (int j = 0; j < J2; ++j) {
+      pix2[j] = (warp * J2 + j) * MW + ar;
+      pixb[j] = (warp * J2 + j + 2) * XW + ar + 2;
+      on2[j] = true;
+    }
+  }
+};
+
+// conv1's accumulators through BN1 + ReLU, rounded to bf16, into the m
+// tile (zero outside the image).
+template <class S>
+__device__ __forceinline__ void conv1_to_m(
+    const float (&acc)[J1][2 * S::NQ][4], bf16* ms, const float* prm,
+    const bool (&on1)[J1], int oh0, int ow0, int H, int W, int warp,
+    int lane) {
+  constexpr int CO = S::NCO * 8, NCO = S::NCO;
+  const int g = lane >> 2, q4 = lane & 3;
+#pragma unroll
+  for (int nt = 0; nt < 2 * S::NQ; ++nt) {
+    const int ch = nt * 8 + 2 * q4;
+    const float2 gg = *reinterpret_cast<const float2*>(prm + ch);
+    const float2 be = *reinterpret_cast<const float2*>(prm + CO + ch);
+#pragma unroll
+    for (int j = 0; j < J1; ++j) {
+      if (!on1[j]) continue;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int mi = (warp + NWARP * j) * 16 + g + 8 * h;
+        if (mi >= MH * MW) continue;
+        const int ih = oh0 - 1 + mi / MW, iw = ow0 - 1 + mi % MW;
+        const bool in = ih >= 0 && ih < H && iw >= 0 && iw < W;
+        const float y0 =
+            in ? fmaxf(acc[j][nt][2 * h] * gg.x + be.x, 0.f) : 0.f;
+        const float y1 =
+            in ? fmaxf(acc[j][nt][2 * h + 1] * gg.y + be.y, 0.f) : 0.f;
+        *reinterpret_cast<bf162*>(ms + tc::elem_at<NCO>(mi, ch)) =
+            __floats2bfloat162_rn(y0, y1);
+      }
+    }
+  }
+}
+
+// BN2 + pre-add ReLU, bypass (accb, or the identity from the x tile xt),
+// add, ReLU -> staging in the m tile (pixel py*TW+px, once every warp is
+// done reading m), then this warp's output rows as 16-byte chunks.
+template <class S, bool PROJ>
+__device__ __forceinline__ void epilogue(
+    const float (&acc)[J2][2 * S::NQ][4],
+    const float (&accb)[J2][2 * S::NQ][4], const bf16* xt, bf16* ms,
+    const float* prm, bf16* __restrict__ out, int n, int oh0, int ow0,
+    int H, int W, int warp, int lane) {
+  constexpr int CO = S::NCO * 8, NCO = S::NCO, NCI = S::NCI;
+  const int g = lane >> 2, q4 = lane & 3;
+#pragma unroll
+  for (int nt = 0; nt < 2 * S::NQ; ++nt) {
+    const int ch = nt * 8 + 2 * q4;
+    const float2 gg = *reinterpret_cast<const float2*>(prm + 2 * CO + ch);
+    const float2 be = *reinterpret_cast<const float2*>(prm + 3 * CO + ch);
+    float2 gr = make_float2(0.f, 0.f), br = gr;
+    if constexpr (PROJ) {
+      gr = *reinterpret_cast<const float2*>(prm + 4 * CO + ch);
+      br = *reinterpret_cast<const float2*>(prm + 5 * CO + ch);
+    }
+#pragma unroll
+    for (int j = 0; j < J2; ++j) {
+      const int py = warp * J2 + j;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int px = g + 8 * h;
+        float r0, r1;
+        if constexpr (PROJ) {
+          r0 = accb[j][nt][2 * h] * gr.x + br.x;
+          r1 = accb[j][nt][2 * h + 1] * gr.y + br.y;
+        } else {
+          const float2 xv =
+              ld_bf16x2(xt + tc::elem_at<NCI>((py + 2) * XW + px + 2, ch));
+          r0 = xv.x;
+          r1 = xv.y;
+        }
+        const float y0 =
+            fmaxf(fmaxf(acc[j][nt][2 * h] * gg.x + be.x, 0.f) + r0, 0.f);
+        const float y1 =
+            fmaxf(fmaxf(acc[j][nt][2 * h + 1] * gg.y + be.y, 0.f) + r1, 0.f);
+        *reinterpret_cast<bf162*>(ms + tc::elem_at<NCO>(py * TW + px, ch)) =
+            __floats2bfloat162_rn(y0, y1);
+      }
+    }
+  }
+  __syncwarp();
+  // this warp's output rows, whole 16-byte chunks
+  for (int e = lane; e < J2 * TW * NCO; e += 32) {
+    const int sp = warp * J2 * TW + e / NCO, c = e % NCO;
+    const int oh = oh0 + sp / TW, ow = ow0 + sp % TW;
+    if (oh < H && ow < W)
+      *reinterpret_cast<uint4*>(out + (((long)n * H + oh) * W + ow) * CO +
+                                c * 8) =
+          *reinterpret_cast<const uint4*>(ms + tc::chunk_at<NCO>(sp, c) * 8);
+  }
+}
+
+// The folded affines g1 b1 g2 b2 gb bb (f32) into shared memory.
+template <int CO, bool PROJ>
+__device__ __forceinline__ void stage_prm(float* prm, const float* g1,
+                                          const float* b1, const float* g2,
+                                          const float* b2, const float* gb,
+                                          const float* bb, int tid) {
+  for (int e = tid; e < CO; e += NT) {
+    prm[e] = g1[e];
+    prm[CO + e] = b1[e];
+    prm[2 * CO + e] = g2[e];
+    prm[3 * CO + e] = b2[e];
+    prm[4 * CO + e] = PROJ ? gb[e] : 0.f;
+    prm[5 * CO + e] = PROJ ? bb[e] : 0.f;
+  }
+}
+
+// The resident form: every weight in shared memory for the whole grid
+// walk, x tiles double-buffered.
 template <int CA, int CB, int CO, bool PROJ>
 __global__ void __launch_bounds__(
-    NT, (tc::blocks_per_sm<BlockShape<CA, CB, CO, PROJ>::SMEM, 2>()))
+    NT, (tc::blocks_per_sm<BlockShape<CA, CB, CO, PROJ>::SMEM,
+                           BlockShape<CA, CB, CO, PROJ>::CAP>()))
 basic_block_kernel(const bf16* __restrict__ a, const bf16* __restrict__ bsrc,
                    const bf16* __restrict__ w1, const float* __restrict__ g1,
                    const float* __restrict__ b1, const bf16* __restrict__ w2,
@@ -149,7 +354,6 @@ basic_block_kernel(const bf16* __restrict__ a, const bf16* __restrict__ bsrc,
   bf16* ms = xs + 2 * S::X_ELEMS;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, q4 = lane & 3, ar = tc::a_row(lane);
   const int tiles_x = (W + TW - 1) / TW, tiles_y = (H + TH - 1) / TH;
   const int per_img = tiles_x * tiles_y, ntiles = B * per_img;
 
@@ -157,60 +361,20 @@ basic_block_kernel(const bf16* __restrict__ a, const bf16* __restrict__ bsrc,
   tc::stage_b<9 * CO, CO>(w2f, [&](int k) { return w2 + k * CO; }, tid, NT);
   if constexpr (PROJ)
     tc::stage_b<CIN, CO>(wbf, [&](int k) { return wb + k * CO; }, tid, NT);
-  for (int e = tid; e < CO; e += NT) {
-    prm[e] = g1[e];
-    prm[CO + e] = b1[e];
-    prm[2 * CO + e] = g2[e];
-    prm[3 * CO + e] = b2[e];
-    prm[4 * CO + e] = PROJ ? gb[e] : 0.f;
-    prm[5 * CO + e] = PROJ ? bb[e] : 0.f;
-  }
+  stage_prm<CO, PROJ>(prm, g1, b1, g2, b2, gb, bb, tid);
 
-  // x tile [a | b] with a two-pixel halo, zero outside the image
-  auto load = [=](int t, bf16* dst) {
-    const int n = t / per_img, r = t % per_img;
-    const int y0 = (r / tiles_x) * TH - 2, x0 = (r % tiles_x) * TW - 2;
-    for (int e = tid; e < XH * XW * NCI; e += NT) {
-      const int p = e / NCI, c = e % NCI;
-      const int ih = y0 + p / XW, iw = x0 + p % XW;
-      const bool in = ih >= 0 && ih < H && iw >= 0 && iw < W;
-      const long pix = ((long)n * H + ih) * W + iw;
-      const bf16* src = a;
-      if (in)
-        src = c < CA / 8 ? a + pix * CA + c * 8 : bsrc + pix * CB + c * 8 - CA;
-      tc::cp_async16(tc::smem_u32(dst + tc::chunk_at<NCI>(p, c) * 8), src,
-                     in);
-    }
-    tc::cp_async_commit();
-  };
-
-  // lane's A pixels: conv1 M-tile j covers m pixels 16 (warp + 8j) ..,
-  // conv2 / bypass M-tile j is output row warp * J2 + j
-  int pix1[J1], pix2[J2], pixb[J2];
-  bool on1[J1], on2[J2];
-#pragma unroll
-  for (int j = 0; j < J1; ++j) {
-    const int mt = warp + NWARP * j;
-    const int mi = min(mt * 16 + ar, MH * MW - 1);
-    pix1[j] = (mi / MW) * XW + mi % MW;
-    on1[j] = mt < MT1;
-  }
-#pragma unroll
-  for (int j = 0; j < J2; ++j) {
-    pix2[j] = (warp * J2 + j) * MW + ar;
-    pixb[j] = (warp * J2 + j + 2) * XW + ar + 2;
-    on2[j] = true;
-  }
-
+  const Pixels px(warp, tc::a_row(lane));
   const uint32_t ms_u = tc::smem_u32(ms);
   int buf = 0;
-  if ((int)blockIdx.x < ntiles) load(blockIdx.x, xs);
+  if ((int)blockIdx.x < ntiles)
+    load_x<S, CA, CB>(xs, a, bsrc, blockIdx.x, tiles_x, per_img, H, W, tid);
 #pragma unroll 1
   for (int t = blockIdx.x; t < ntiles; t += gridDim.x, buf ^= 1) {
     tc::cp_async_wait_all();
     __syncthreads();  // x of tile t landed; the last tile's reads are done
     if (t + (int)gridDim.x < ntiles)
-      load(t + gridDim.x, xs + (buf ^ 1) * S::X_ELEMS);
+      load_x<S, CA, CB>(xs + (buf ^ 1) * S::X_ELEMS, a, bsrc, t + gridDim.x,
+                        tiles_x, per_img, H, W, tid);
     const bf16* xt = xs + buf * S::X_ELEMS;
     const uint32_t xt_u = tc::smem_u32(xt);
     const int n = t / per_img, r = t % per_img;
@@ -219,115 +383,190 @@ basic_block_kernel(const bf16* __restrict__ a, const bf16* __restrict__ bsrc,
     {  // conv1 + BN1 + ReLU over the tile and its halo -> m (bf16)
       float acc[J1][2 * NQ][4];
       zero<NQ>(acc);
-      gemm<NCI, CIN / 16, 9, NQ, J1, XW>(acc, xt_u, w1f, pix1, on1, lane);
-#pragma unroll
-      for (int nt = 0; nt < 2 * NQ; ++nt) {
-        const int ch = nt * 8 + 2 * q4;
-        const float2 gg = *reinterpret_cast<const float2*>(prm + ch);
-        const float2 be = *reinterpret_cast<const float2*>(prm + CO + ch);
-#pragma unroll
-        for (int j = 0; j < J1; ++j) {
-          if (!on1[j]) continue;
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int mi = (warp + NWARP * j) * 16 + g + 8 * h;
-            if (mi >= MH * MW) continue;
-            const int ih = oh0 - 1 + mi / MW, iw = ow0 - 1 + mi % MW;
-            const bool in = ih >= 0 && ih < H && iw >= 0 && iw < W;
-            const float y0 =
-                in ? fmaxf(acc[j][nt][2 * h] * gg.x + be.x, 0.f) : 0.f;
-            const float y1 =
-                in ? fmaxf(acc[j][nt][2 * h + 1] * gg.y + be.y, 0.f) : 0.f;
-            *reinterpret_cast<bf162*>(ms + tc::elem_at<NCO>(mi, ch)) =
-                __floats2bfloat162_rn(y0, y1);
-          }
-        }
-      }
+      gemm<NCI, CIN / 16, 9, NQ, J1, XW>(acc, xt_u, w1f, px.pix1, px.on1,
+                                         lane);
+      conv1_to_m<S>(acc, ms, prm, px.on1, oh0, ow0, H, W, warp, lane);
     }
     __syncthreads();  // m complete
 
     float acc[J2][2 * NQ][4], accb[J2][2 * NQ][4];
     zero<NQ>(acc);
-    gemm<NCO, CO / 16, 9, NQ, J2, MW>(acc, ms_u, w2f, pix2, on2, lane);
+    gemm<NCO, CO / 16, 9, NQ, J2, MW>(acc, ms_u, w2f, px.pix2, px.on2, lane);
     if constexpr (PROJ) {
       zero<NQ>(accb);
-      gemm<NCI, CIN / 16, 1, NQ, J2, XW>(accb, xt_u, wbf, pixb, on2, lane);
+      gemm<NCI, CIN / 16, 1, NQ, J2, XW>(accb, xt_u, wbf, px.pixb, px.on2,
+                                         lane);
     }
     __syncthreads();  // every warp is done reading m: it becomes staging
-
-    // BN2 + pre-add ReLU, bypass, add, ReLU -> staging (pixel py*TW+px)
-#pragma unroll
-    for (int nt = 0; nt < 2 * NQ; ++nt) {
-      const int ch = nt * 8 + 2 * q4;
-      const float2 gg = *reinterpret_cast<const float2*>(prm + 2 * CO + ch);
-      const float2 be = *reinterpret_cast<const float2*>(prm + 3 * CO + ch);
-      float2 gr = make_float2(0.f, 0.f), br = gr;
-      if constexpr (PROJ) {
-        gr = *reinterpret_cast<const float2*>(prm + 4 * CO + ch);
-        br = *reinterpret_cast<const float2*>(prm + 5 * CO + ch);
-      }
-#pragma unroll
-      for (int j = 0; j < J2; ++j) {
-        const int py = warp * J2 + j;
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int px = g + 8 * h;
-          float r0, r1;
-          if constexpr (PROJ) {
-            r0 = accb[j][nt][2 * h] * gr.x + br.x;
-            r1 = accb[j][nt][2 * h + 1] * gr.y + br.y;
-          } else {
-            const float2 xv = ld_bf16x2(
-                xt + tc::elem_at<NCI>((py + 2) * XW + px + 2, ch));
-            r0 = xv.x;
-            r1 = xv.y;
-          }
-          const float y0 =
-              fmaxf(fmaxf(acc[j][nt][2 * h] * gg.x + be.x, 0.f) + r0, 0.f);
-          const float y1 =
-              fmaxf(fmaxf(acc[j][nt][2 * h + 1] * gg.y + be.y, 0.f) + r1, 0.f);
-          *reinterpret_cast<bf162*>(ms + tc::elem_at<NCO>(py * TW + px, ch)) =
-              __floats2bfloat162_rn(y0, y1);
-        }
-      }
-    }
-    __syncwarp();
-    // this warp's output rows, whole 16-byte chunks
-    for (int e = lane; e < J2 * TW * NCO; e += 32) {
-      const int sp = warp * J2 * TW + e / NCO, c = e % NCO;
-      const int oh = oh0 + sp / TW, ow = ow0 + sp % TW;
-      if (oh < H && ow < W)
-        *reinterpret_cast<uint4*>(out + (((long)n * H + oh) * W + ow) * CO +
-                                  c * 8) =
-            *reinterpret_cast<const uint4*>(ms + tc::chunk_at<NCO>(sp, c) * 8);
-    }
+    epilogue<S, PROJ>(acc, accb, xt, ms, prm, out, n, oh0, ow0, H, W, warp,
+                      lane);
   }
+}
+
+// The streamed form's weights, once per call: w1, w2 and wb as B
+// fragments (stage_b layout) in the wrapper's scratch wf — [w1 | w2 |
+// wb], each tap's k-steps contiguous — over a grid of any size.
+template <int CA, int CB, int CO, bool PROJ>
+__global__ void __launch_bounds__(NT)
+prepack_kernel(const bf16* __restrict__ w1, const bf16* __restrict__ w2,
+               const bf16* __restrict__ wb, uint4* __restrict__ wf) {
+  using S = BlockShape<CA, CB, CO, PROJ>;
+  const int tid = blockIdx.x * NT + threadIdx.x, n = gridDim.x * NT;
+  tc::stage_b<9 * S::CIN, CO>(wf, [&](int k) { return w1 + k * CO; }, tid, n);
+  tc::stage_b<9 * CO, CO>(wf + S::W1_UNITS,
+                          [&](int k) { return w2 + k * CO; }, tid, n);
+  if constexpr (PROJ)
+    tc::stage_b<S::CIN, CO>(wf + S::W1_UNITS + S::W2_UNITS,
+                            [&](int k) { return wb + k * CO; }, tid, n);
+}
+
+// The streamed form (see the top of the file): per tile, NSTAGE weight
+// stages through a two-slot ring, stage k's slot k & 1 (k counts stages
+// over the whole grid walk), one x tile.
+template <int CA, int CB, int CO, bool PROJ>
+__global__ void __launch_bounds__(
+    NT, (tc::blocks_per_sm<BlockShape<CA, CB, CO, PROJ>::SMEM,
+                           BlockShape<CA, CB, CO, PROJ>::CAP>()))
+basic_block_streamed_kernel(
+    const bf16* __restrict__ a, const bf16* __restrict__ bsrc,
+    const uint4* __restrict__ wf, const float* __restrict__ g1,
+    const float* __restrict__ b1, const float* __restrict__ g2,
+    const float* __restrict__ b2, const float* __restrict__ gb,
+    const float* __restrict__ bb, bf16* __restrict__ out, int B, int H,
+    int W) {
+  using S = BlockShape<CA, CB, CO, PROJ>;
+  constexpr int CIN = S::CIN, NCI = S::NCI, NCO = S::NCO, NQ = S::NQ;
+  constexpr int NSTAGE = S::NSTAGE, SLOT = S::SLOT;
+  extern __shared__ uint4 smem[];
+  uint4* ring = smem;
+  float* prm = reinterpret_cast<float*>(ring + 2 * SLOT);
+  bf16* xs = reinterpret_cast<bf16*>(prm + S::PRM);
+  bf16* ms = xs + S::X_ELEMS;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tiles_x = (W + TW - 1) / TW, tiles_y = (H + TH - 1) / TH;
+  const int per_img = tiles_x * tiles_y, ntiles = B * per_img;
+  stage_prm<CO, PROJ>(prm, g1, b1, g2, b2, gb, bb, tid);
+
+  // stage s of a tile: w1 tap s (s < 9), w2 tap s - 9 (s < 18), wb
+  auto fetch = [&](int s, int slot) {
+    const uint4* src = s < 9    ? wf + s * S::W1_TAP
+                       : s < 18 ? wf + S::W1_UNITS + (s - 9) * S::W2_TAP
+                                : wf + S::W1_UNITS + S::W2_UNITS;
+    const int units = s < 9 || s >= 18 ? S::W1_TAP : S::W2_TAP;
+    uint4* dst = ring + slot * SLOT;
+    for (int e = tid; e < units; e += NT)
+      tc::cp_async16(tc::smem_u32(dst + e), src + e, true);
+  };
+  int k = 0;  // stages so far; the next tile's stage 0 follows stage
+              // NSTAGE - 1, if this block has a next tile
+  // Before stage k runs: its weights (and the x tile) landed, every warp
+  // is done with stage k - 1, whose slot takes stage k + 1's copy.
+  auto advance = [&](int s, int t) {
+    __syncthreads();
+    if (s + 1 < NSTAGE)
+      fetch(s + 1, (k + 1) & 1);
+    else if (t + (int)gridDim.x < ntiles)
+      fetch(0, (k + 1) & 1);
+    tc::cp_async_commit();  // (maybe empty)
+    tc::cp_async_wait_group<1>();
+    __syncthreads();
+  };
+
+  const Pixels px(warp, tc::a_row(lane));
+  const uint32_t ms_u = tc::smem_u32(ms), xs_u = tc::smem_u32(xs);
+  if ((int)blockIdx.x < ntiles) {
+    fetch(0, 0);
+    tc::cp_async_commit();
+  }
+#pragma unroll 1
+  for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
+    __syncthreads();  // the last tile's reads of x and m are done
+    load_x<S, CA, CB>(xs, a, bsrc, t, tiles_x, per_img, H, W, tid);
+    const int n = t / per_img, r = t % per_img;
+    const int oh0 = (r / tiles_x) * TH, ow0 = (r % tiles_x) * TW;
+
+    {  // conv1 + BN1 + ReLU over the tile and its halo -> m (bf16)
+      float acc[J1][2 * NQ][4];
+      zero<NQ>(acc);
+#pragma unroll
+      for (int tap = 0; tap < 9; ++tap, ++k) {
+        advance(tap, t);
+        gemm_tap<NCI, CIN / 16, NQ, J1>(acc, xs_u, ring + (k & 1) * SLOT,
+                                        px.pix1, px.on1, lane,
+                                        tap_shift<9, XW>(tap));
+      }
+      conv1_to_m<S>(acc, ms, prm, px.on1, oh0, ow0, H, W, warp, lane);
+    }
+    // m is complete once every warp is past conv2's first advance
+
+    float acc[J2][2 * NQ][4], accb[J2][2 * NQ][4];
+    zero<NQ>(acc);
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap, ++k) {
+      advance(9 + tap, t);
+      gemm_tap<NCO, CO / 16, NQ, J2>(acc, ms_u, ring + (k & 1) * SLOT,
+                                     px.pix2, px.on2, lane,
+                                     tap_shift<9, MW>(tap));
+    }
+    if constexpr (PROJ) {
+      zero<NQ>(accb);
+      advance(18, t);
+      gemm_tap<NCI, CIN / 16, NQ, J2>(accb, xs_u, ring + (k & 1) * SLOT,
+                                      px.pixb, px.on2, lane, 0);
+      ++k;
+    }
+    __syncthreads();  // every warp is done reading m: it becomes staging
+    epilogue<S, PROJ>(acc, accb, xs, ms, prm, out, n, oh0, ow0, H, W, warp,
+                      lane);
+  }
+  tc::cp_async_wait_all();
 }
 
 template <int CA, int CB, int CO, bool PROJ>
 int launch(const void* a, const void* b, const void* w1, const void* g1,
            const void* b1, const void* w2, const void* g2, const void* b2,
-           const void* wb, const void* gb, const void* bb, void* out, int B,
-           int H, int W, cudaStream_t stream) {
+           const void* wb, const void* gb, const void* bb, void* wf,
+           void* out, int B, int H, int W, cudaStream_t stream) {
   using S = BlockShape<CA, CB, CO, PROJ>;
   static bool smem_set = false;
   static int most = 0;
-  cudaError_t e =
-      allow_smem(basic_block_kernel<CA, CB, CO, PROJ>, S::SMEM, &smem_set);
-  if (e == cudaSuccess)
-    e = tc::resident_blocks(basic_block_kernel<CA, CB, CO, PROJ>, NT, S::SMEM,
-                            &most);
-  if (e != cudaSuccess) return (int)e;
   const long tiles = (long)B * ((H + TH - 1) / TH) * ((W + TW - 1) / TW);
-  if (tiles == 0) return 0;
-  const int grid = (int)(tiles < most ? tiles : most);
-  basic_block_kernel<CA, CB, CO, PROJ><<<grid, NT, S::SMEM, stream>>>(
-      static_cast<const bf16*>(a), static_cast<const bf16*>(b),
-      static_cast<const bf16*>(w1), static_cast<const float*>(g1),
-      static_cast<const float*>(b1), static_cast<const bf16*>(w2),
-      static_cast<const float*>(g2), static_cast<const float*>(b2),
-      static_cast<const bf16*>(wb), static_cast<const float*>(gb),
-      static_cast<const float*>(bb), static_cast<bf16*>(out), B, H, W);
+  if constexpr (S::STREAM) {
+    auto kernel = basic_block_streamed_kernel<CA, CB, CO, PROJ>;
+    cudaError_t e = allow_smem(kernel, S::SMEM, &smem_set);
+    if (e == cudaSuccess) e = tc::resident_blocks(kernel, NT, S::SMEM, &most);
+    if (e != cudaSuccess) return (int)e;
+    if (wf == nullptr) return (int)cudaErrorInvalidValue;
+    if (tiles == 0) return 0;
+    constexpr int UNITS = S::W1_UNITS + S::W2_UNITS + S::WB_UNITS;
+    prepack_kernel<CA, CB, CO, PROJ><<<(UNITS + NT - 1) / NT, NT, 0, stream>>>(
+        static_cast<const bf16*>(w1), static_cast<const bf16*>(w2),
+        static_cast<const bf16*>(wb), static_cast<uint4*>(wf));
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    const int grid = (int)(tiles < most ? tiles : most);
+    kernel<<<grid, NT, S::SMEM, stream>>>(
+        static_cast<const bf16*>(a), static_cast<const bf16*>(b),
+        static_cast<const uint4*>(wf), static_cast<const float*>(g1),
+        static_cast<const float*>(b1), static_cast<const float*>(g2),
+        static_cast<const float*>(b2), static_cast<const float*>(gb),
+        static_cast<const float*>(bb), static_cast<bf16*>(out), B, H, W);
+  } else {
+    auto kernel = basic_block_kernel<CA, CB, CO, PROJ>;
+    cudaError_t e = allow_smem(kernel, S::SMEM, &smem_set);
+    if (e == cudaSuccess) e = tc::resident_blocks(kernel, NT, S::SMEM, &most);
+    if (e != cudaSuccess) return (int)e;
+    if (tiles == 0) return 0;
+    const int grid = (int)(tiles < most ? tiles : most);
+    kernel<<<grid, NT, S::SMEM, stream>>>(
+        static_cast<const bf16*>(a), static_cast<const bf16*>(b),
+        static_cast<const bf16*>(w1), static_cast<const float*>(g1),
+        static_cast<const float*>(b1), static_cast<const bf16*>(w2),
+        static_cast<const float*>(g2), static_cast<const float*>(b2),
+        static_cast<const bf16*>(wb), static_cast<const float*>(gb),
+        static_cast<const float*>(bb), static_cast<bf16*>(out), B, H, W);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -335,19 +574,21 @@ int launch(const void* a, const void* b, const void* w1, const void* g1,
 
 // (ca, cb, co, projection) instantiated: UBR_BASIC_BLOCK_SHAPES, from
 // the one table in ops/_build.py:SHAPES. cb = 0 is the single-stream
-// block; wb == NULL selects the identity bypass.
+// block; wb == NULL selects the identity bypass. wf is the wrapper's
+// scratch for the streamed form's weight fragments (the weights' own
+// size in bytes: w1, w2 and wb); the resident form does not read it.
 UBR_EXPORT int ubr_basic_block(const void* a, const void* b, const void* w1,
                                const void* g1, const void* b1, const void* w2,
                                const void* g2, const void* b2, const void* wb,
-                               const void* gb, const void* bb, void* out,
-                               int B, int H, int W, int ca, int cb, int co,
-                               void* stream) {
+                               const void* gb, const void* bb, void* wf,
+                               void* out, int B, int H, int W, int ca, int cb,
+                               int co, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool proj = wb != nullptr;
 #define UBR_BLOCK(CA, CB, CO, P)                                            \
   if (ca == CA && cb == CB && co == CO && proj == P)                        \
     return launch<CA, CB, CO, P>(a, b, w1, g1, b1, w2, g2, b2, wb, gb, bb, \
-                                 out, B, H, W, s);
+                                 wf, out, B, H, W, s);
   UBR_BASIC_BLOCK_SHAPES(UBR_BLOCK)
 #undef UBR_BLOCK
   return (int)cudaErrorInvalidValue;

@@ -56,8 +56,9 @@ struct StatsShape : cg::Shape<CI, CO, K> {
   static constexpr int ST = J * cg::TW * CO;  // staging bf16 a warp
   static constexpr int SMEM = G::B_UNITS * 8 + CO * 4 +
                               (2 * G::X_ELEMS + NWARP * ST) * 2;
-  // registers: J x co / 2 accumulators and co / 2 sums a thread
-  static constexpr int CAP = CO <= 16 ? 3 : 2;
+  // registers: J x co / 2 accumulators and co / 2 sums a thread (at
+  // co = 64, 96 of them: one block an SM)
+  static constexpr int CAP = CO <= 16 ? 3 : (CO <= 32 ? 2 : 1);
   static_assert(CO % 8 == 0, "co: a multiple of 8 (N is not padded)");
   static_assert(NWARP * 2 * CO * 4 <= 2 * G::X_ELEMS * 2,
                 "block sums fit the x tiles");

@@ -16,8 +16,8 @@
 // with a pixel stride of 32, 64 or 128 bytes those land in 2, 4 or 8
 // pixels per 128-byte bank line and collide. chunk_at XORs the chunk
 // index with the pixel's line bits so any 8 consecutive pixels hit 8
-// distinct 16-byte bank groups (NC = 2, 4 or 8; NC = 1 needs no swizzle:
-// 8 consecutive pixels fill one bank line).
+// distinct 16-byte bank groups (NC = 2, 4, 8 or 16; NC = 1 needs no
+// swizzle: 8 consecutive pixels fill one bank line).
 #pragma once
 
 #include "common.cuh"
@@ -32,9 +32,11 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 // per pixel (multiply by 8 for a bf16 offset).
 template <int NC>
 __host__ __device__ constexpr int chunk_at(int p, int c) {
-  static_assert(NC == 1 || NC == 2 || NC == 4 || NC == 8,
+  static_assert(NC == 1 || NC == 2 || NC == 4 || NC == 8 || NC == 16,
                 "tile chunks per pixel");
-  return p * NC + (c ^ ((p * NC >> 3) & (NC - 1)));
+  // NC = 16 (a 256-byte pixel: bf16 128 channels, or 64 floats): the
+  // same eight bank groups as NC = 8, in each 128-byte half
+  return p * NC + (c ^ (NC >= 8 ? (p & 7) : ((p * NC >> 3) & (NC - 1))));
 }
 
 // Element offset of channel ch (even) of pixel p in such a tile of E
@@ -269,6 +271,15 @@ __device__ __forceinline__ void cp_async_commit() {
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
+// Wait until at most N of this thread's newest cp.async groups are
+// still in flight (every older group has landed).
+template <int N>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The dynamic shared memory one block may use on the H100 (227 KB).
+constexpr int SMEM_MAX = 232448;
 
 // Blocks of SMEM dynamic shared bytes that fit on one SM (228 KB, 1 KB
 // of it reserved per block), at most CAP: the kernel's minimum blocks

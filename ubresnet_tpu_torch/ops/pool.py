@@ -18,12 +18,6 @@ import torch.nn.functional as F
 from ubresnet_tpu_torch.ops import _build
 
 
-def supports(c: int, h: int, w: int) -> bool:
-    """Shapes the kernel zone routes here: even spatial dims (as the
-    JAX stem-pool gate) and channels in 16-byte groups."""
-    return c % 8 == 0 and h % 2 == 0 and w % 2 == 0
-
-
 def maxpool3x3s2_plain(x: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version: NHWC in, NHWC (contiguous) out."""
     y = F.max_pool2d(x.float().permute(0, 3, 1, 2), 3, 2, 1)

@@ -67,8 +67,17 @@ Phases, each printing JSON lines; any failure exits non-zero:
              and int8 at b16 512², the streamed blocks again at the
              wholeview cells, its train zone (K5, K1 dx, K6 at its seven
              shapes) on b16 256² crops; the 4-class classifier (16, 4,
-             7), its dx and dW legs and K7 at C = 4. Their rows name
-             their cell ("inplanes 32", "4 classes"); K2 rows give their
+             7), its dx and dW legs and K7 at C = 4; the inplanes-32
+             trainer's dec1 (64, 32) deconv-AD rows (K8, K9,
+             deconv2x_ad) and its classifier at 256². The 8-channel
+             streams (the widths_8 phase): the zones of inplanes 8 and
+             4 bf16 and int8 at b16 512² (K2 at (8, 0, 16), (8, 8, 8),
+             (8, 0, 8); K3 at (16, 8), (8, 4); K1 at the head (8, 16, 7)
+             and the per-conv blocks' (8, 8, 3), (8, 4, 3), (8, 4, 1);
+             the same on K2-s8, K3-s8, K1-s8), their train zones (K5,
+             K1 dx, K6) and deconv-AD rows (K8, K9 at (32, 16), (16, 8),
+             (8, 4)). Their rows name their cell ("inplanes 32", "4
+             classes", "inplanes 8", "inplanes 4"); K2 rows give their
              form (resident or streamed) beside their ptxas figures.
 4. main    — 64 synthetic 512x512 crops scored file → file through the
              port's CLI (-b 16, cuda) with seeded random weights in a
@@ -255,10 +264,24 @@ Phases, each printing JSON lines; any failure exits non-zero:
              64 crops bf16 and --int8 (4 score images an event, the
              flagship's tables, K1 at (16, 4, 7)), train_parity with
              4-class labels under its gates. The phase's seconds.
-15. summary — the kernels line (K1-K9, K1-s8, K2-s8, K3-s8) with the
+15. widths_8 — the UResNets at 8-channel streams (inplanes 8 and 4,
+             seeded random weights), every layer JAX fuses on its
+             kernel's 8-channel instance: the 64 crops through
+             infer_precropped -b 16 (launches exactly K2 6, K3 2, K1 2
+             a batch at 8; K2 3, K3 2, K1 4 at 4; no stem pool), and
+             --int8 (the same on K2-s8, K3-s8, K1-s8, the classifier on
+             K1), each under the widths phase's gates and timings;
+             train_parity's gates and 5 Adam steps on the b16 512²
+             batch (K5 16 or 10, K1 18 or 12, K6 17 or 11, K7 1 + 1 a
+             step), then the same with fused_train_deconv (+ K3 2, K8
+             2, K9 2: dec2 and dec1, JAX's deconv-AD gate). ASPP-ResNet
+             at inplanes 32 through infer_precropped bf16 (K2 6, K3 1,
+             K1 1 a batch) and --int8 (K2-s8 6, K3-s8 1, K1 1). The
+             phase's seconds.
+16. summary — the kernels line (K1-K9, K1-s8, K2-s8, K3-s8) with the
              launches of every path (wholeview, serve, root, the aspp
-             paths, distributed, golden and the widths paths among
-             them), the times at the main cell and, under at_shapes, at
+             paths, distributed, golden, the widths and widths_8 paths
+             among them), the times at the main cell and, under at_shapes, at
              the other cells; before it the seconds of each phase; the
              card line, the result line.
 
@@ -330,20 +353,26 @@ SOURCES = {
                      "wholeview", "serve", "root", "aspp", "aspp_int8",
                      "aspp_train", "distributed", "golden", "widths_32",
                      "widths_32_int8", "widths_32_train", "widths_4",
-                     "widths_4_int8", "widths_4_train")),
+                     "widths_4_int8", "widths_4_train", "widths_ip8",
+                     "widths_ip4", "widths_ip8_int8", "widths_ip4_int8",
+                     "widths_ip8_train", "widths_ip4_train",
+                     "widths_ip8_train_deconv", "widths_ip4_train_deconv",
+                     "aspp_32", "aspp_32_int8")),
     "basic_block": ("ubresnet_tpu_torch/ops/csrc/basic_block.cu",
                     f"{PALLAS}:1483 fused_basic_block"
                     " + :699 fused_dual_block", ("basic_block",),
                     ("precropped", "train", "wholeview", "serve", "root",
                      "aspp", "golden", "widths_32", "widths_32_train",
-                     "widths_4")),
+                     "widths_4", "widths_ip8", "widths_ip4", "aspp_32")),
     "deconv2x": ("ubresnet_tpu_torch/ops/csrc/deconv2x.cu",
                  f"{PALLAS}:898 fused_packed_deconv2x"
                  " + :1341 pallas_deconv2x_ad (forward)",
                  ("deconv2x",), ("precropped", "train", "train_deconv",
                                  "qat", "wholeview", "serve", "root", "aspp",
                                  "aspp_train", "golden", "widths_32",
-                                 "widths_4")),
+                                 "widths_4", "widths_ip8", "widths_ip4",
+                                 "widths_ip8_train_deconv",
+                                 "widths_ip4_train_deconv", "aspp_32")),
     "maxpool3x3s2": ("ubresnet_tpu_torch/ops/csrc/maxpool3x3s2.cu",
                      f"{PALLAS}:525 fused_pool3x3s2"
                      " + ubresnet_tpu/ops/pool_ad.py:133 packed_pool_ad "
@@ -357,38 +386,52 @@ SOURCES = {
                    "ubresnet_tpu/ops/pallas_train.py:206 train_conv_stats",
                    ("conv_stats",), ("train", "train_deconv", "qat", "root",
                                      "aspp_train", "distributed",
-                                     "widths_32_train", "widths_4_train")),
+                                     "widths_32_train", "widths_4_train",
+                                     "widths_ip8_train", "widths_ip4_train",
+                                     "widths_ip8_train_deconv",
+                                     "widths_ip4_train_deconv")),
     "conv_dw": ("ubresnet_tpu_torch/ops/csrc/conv_dw.cu",
                 f"{PALLAS}:1677 pallas_conv_dw", ("conv_dw",),
                 ("train", "train_deconv", "qat", "root", "aspp_train",
-                 "distributed", "widths_32_train", "widths_4_train")),
+                 "distributed", "widths_32_train", "widths_4_train",
+                 "widths_ip8_train", "widths_ip4_train",
+                 "widths_ip8_train_deconv", "widths_ip4_train_deconv")),
     "weighted_nll": ("ubresnet_tpu_torch/ops/csrc/weighted_nll.cu",
                      "ubresnet_tpu/ops/pallas_loss.py:100 "
                      "pallas_weighted_nll", ("weighted_nll",
                                              "weighted_nll_bwd"),
                      ("train", "train_deconv", "qat", "root", "aspp_train",
-                      "distributed", "widths_32_train", "widths_4_train")),
+                      "distributed", "widths_32_train", "widths_4_train",
+                      "widths_ip8_train", "widths_ip4_train",
+                      "widths_ip8_train_deconv", "widths_ip4_train_deconv")),
     "conv_s2k4": ("ubresnet_tpu_torch/ops/csrc/conv_s2k4.cu",
                   f"{PALLAS}:1148 fused_conv_s2k4 (the dx leg of :1341 "
-                  "pallas_deconv2x_ad)", ("conv_s2k4",), ("train_deconv",)),
+                  "pallas_deconv2x_ad)", ("conv_s2k4",),
+                  ("train_deconv", "widths_ip8_train_deconv",
+                   "widths_ip4_train_deconv")),
     "deconv_dw": ("ubresnet_tpu_torch/ops/csrc/deconv_dw.cu",
                   f"{PALLAS}:1265 pallas_deconv_dw (the dW leg of :1341 "
-                  "pallas_deconv2x_ad)", ("deconv_dw",), ("train_deconv",)),
+                  "pallas_deconv2x_ad)", ("deconv_dw",),
+                  ("train_deconv", "widths_ip8_train_deconv",
+                   "widths_ip4_train_deconv")),
     "conv_bn_act_s8": ("ubresnet_tpu_torch/ops/csrc/conv_bn_act_s8.cu",
                        f"{PALLAS}:315 fused_packed_conv (_conv_kernel :251,"
                        " quantized :282-300)", ("conv_bn_act_s8",),
-                       ("int8", "wholeview", "aspp_int8", "widths_4_int8")),
+                       ("int8", "wholeview", "aspp_int8", "widths_4_int8",
+                        "widths_ip8_int8", "widths_ip4_int8")),
     "basic_block_s8": ("ubresnet_tpu_torch/ops/csrc/basic_block_s8.cu",
                        f"{PALLAS}:1483 fused_basic_block (_block_kernel "
                        ":1372) + :699 fused_dual_block (_dual_block_kernel"
                        " :587), quantized", ("basic_block_s8",),
                        ("int8", "wholeview", "aspp_int8", "widths_32_int8",
-                        "widths_4_int8")),
+                        "widths_4_int8", "widths_ip8_int8", "widths_ip4_int8",
+                        "aspp_32_int8")),
     "deconv2x_s8": ("ubresnet_tpu_torch/ops/csrc/deconv2x_s8.cu",
                     f"{PALLAS}:898 fused_packed_deconv2x (_deconv_kernel "
                     ":847), quantized", ("deconv2x_s8",),
                     ("int8", "wholeview", "aspp_int8", "widths_32_int8",
-                     "widths_4_int8")),
+                     "widths_4_int8", "widths_ip8_int8", "widths_ip4_int8",
+                     "aspp_32_int8")),
 }
 # the train zone at batch 16: (ci, co, k) of each distinct conv, the
 # resolution it runs at and how many of the step's 16 BN-fed zone convs
@@ -425,6 +468,47 @@ CLASSIFIER_4 = ((16, 4, 7), 512, 1)
 STREAMED = {"enc1.res2", "dec2.res.res1", "dec2.res.res2"}
 STREAMED_S8 = {"dec2.res.res1"}
 WIDTHS_ITERS = 4            # train CLI iterations at inplanes 32
+# the UResNets at 8-channel streams (widths_8 phase): inplanes 8 and 4,
+# 3 classes, on the flagship's 512² crops. No stem pool (8 or 4
+# channels at pack 8 fill no lane tile). Per batch at 8: K2 6 (enc1.res1
+# (8, 0, 16), dec1's (8, 8, 8) and (8, 0, 8) among them), K3 2, K1 2 (the
+# head conv10 (8, 16, 7), the classifier); at 4: K2 3 (enc1.res2, dec2's
+# blocks at 8 channels), K3 2, K1 4 (the per-conv blocks' (8, 8, 3),
+# (8, 4, 3), (8, 4, 1) and the classifier). int8 the same with K2-s8,
+# K3-s8 and K1-s8 (the classifier stays bf16 K1). Per train step: K5 16
+# or 10, K1 18 or 12, K6 17 or 11, K7 1 + 1; with fused_train_deconv
+# also K3 2, K8 2, K9 2 (dec2 and dec1).
+LAUNCHES_PER_BATCH_8 = {
+    8: {"basic_block": 6, "deconv2x": 2, "conv_bn_act": 2},
+    4: {"basic_block": 3, "deconv2x": 2, "conv_bn_act": 4}}
+LAUNCHES_PER_BATCH_INT8_8 = {
+    8: {"basic_block_s8": 6, "deconv2x_s8": 2, "conv_bn_act_s8": 1,
+        "conv_bn_act": 1},
+    4: {"basic_block_s8": 3, "deconv2x_s8": 2, "conv_bn_act_s8": 3,
+        "conv_bn_act": 1}}
+LAUNCHES_PER_TRAIN_STEP_8 = {
+    ip: {"conv_stats": n, "conv_bn_act": n + 2, "conv_dw": n + 1,
+         "weighted_nll": 1, "weighted_nll_bwd": 1}
+    for ip, n in ((8, 16), (4, 10))}
+LAUNCHES_PER_DECONV_STEP_8 = {
+    ip: {**t, "deconv2x": 2, "conv_s2k4": 2, "deconv_dw": 2}
+    for ip, t in LAUNCHES_PER_TRAIN_STEP_8.items()}
+# their train zones at batch 16 on 512² crops, as TRAIN_ZONE, and their
+# deconv-AD upsamples (name, input side, ci, co)
+TRAIN_ZONE_8 = {
+    8: [((8, 16, 3), 256, 1), ((8, 16, 1), 256, 1), ((16, 16, 3), 256, 6),
+        ((32, 16, 3), 256, 1), ((32, 16, 1), 256, 1), ((16, 8, 3), 512, 1),
+        ((16, 8, 1), 512, 1), ((8, 8, 3), 512, 3), ((8, 16, 7), 512, 1)],
+    4: [((8, 8, 3), 256, 6), ((16, 8, 3), 256, 1), ((16, 8, 1), 256, 1),
+        ((8, 4, 3), 512, 1), ((8, 4, 1), 512, 1)]}
+DECONV_AD_8 = {8: (("dec2", 128, 32, 16), ("dec1", 256, 16, 8)),
+               4: (("dec2", 128, 16, 8), ("dec1", 256, 8, 4))}
+# ASPP-ResNet at inplanes 32 (zone pack 8): per batch K2 6, K3 1 (dec1),
+# K1 1 (the classifier); int8 K2-s8 6, K3-s8 1, K1 1
+LAUNCHES_PER_BATCH_ASPP_32 = {"basic_block": 6, "deconv2x": 1,
+                              "conv_bn_act": 1}
+LAUNCHES_PER_BATCH_INT8_ASPP_32 = {"basic_block_s8": 6, "deconv2x_s8": 1,
+                                   "conv_bn_act": 1}
 
 
 def emit(obj):
@@ -581,7 +665,9 @@ def zone_layers(inplanes=16, classes=3):
     package fuses them (models/blocks.py routes, at the zone's widths):
     [(layer, kind, shape, resolution divisor)], kind "pool" (C),
     "block" (ca, cb, co, proj), "deconv" (ci, co) at its input's
-    divisor, "conv" (ci, co, k)."""
+    divisor, "conv" (ci, co, k). A block JAX runs per conv (at
+    inplanes 4: enc1.res1, dec1's) gives the convs it fuses there
+    ("<block> cb1", "<block> bypass", "<block> cb2")."""
     from ubresnet_tpu_torch.models import blocks
     from ubresnet_tpu_torch.models.uresnet import UResNetConfig, zone_packs
 
@@ -594,6 +680,13 @@ def zone_layers(inplanes=16, classes=3):
     def block(name, ca, cb, co, proj, div, pack):
         if blocks.block_fuses(ca, cb, co, proj, None, pack):
             out.append((name, "block", (ca, cb, co, proj), div))
+            return
+        cin = ca + cb
+        for tag, ci, k in (("cb1", cin, 3), ("bypass", cin, 1),
+                           ("cb2", co, 3)):
+            if (tag != "bypass" or proj) and blocks.conv_fuses(ci, k, None,
+                                                               pack):
+                out.append((f"{name} {tag}", "conv", (ci, co, k), div))
 
     def deconv(name, ci, co, div, pack):
         if blocks.deconv_fuses(ci, None, pack):
@@ -717,29 +810,33 @@ def kernel_rows(dev, B=BATCH_MAIN, hw=HW, inplanes=16, classes=3,
                          2 * out_pix * 4 * ci * co, BF16_TENSOR_FLOPS,
                          library="F.conv_transpose2d", per_step_ad=1))
 
-    # K1 head conv10 (BN + ReLU) and classifier conv11 (bias only)
-    def conv_row(name, ci, co, act_on):
-        x = act(B, H, W, ci)
-        w = weight(7, 7, ci, co, fan=49 * co)
+    # K1: the head conv10 (BN + ReLU), the classifier conv11 (bias only:
+    # g = 1, no ReLU), a per-conv block's fused convs (the bypass: BN,
+    # no ReLU)
+    def conv_row(name, hw, ci, co, k):
+        classifier = name == "classifier conv11"
+        act_on = not classifier and not name.endswith("bypass")
+        x = act(B, *hw, ci)
+        w = weight(k, k, ci, co, fan=k * k * co)
         g, b = affine(co)
-        if not act_on:
+        if classifier:
             g = torch.ones(co, device=dev)
         lw, lb = folded(w, g), b.to(bf)
 
         def library():
-            y = F.conv2d(cl(x), lw, lb, padding=3)
+            y = F.conv2d(cl(x), lw, lb, padding=k // 2)
             return torch.relu_(y) if act_on else y
 
-        pix = B * H * W
+        pix = B * hw[0] * hw[1]
         rows.append(_row(name, "conv_bn_act",
                          lambda: conv.conv_bn_act(x, w, g, b, act=act_on),
                          lambda: conv.conv_bn_act_plain(x, w, g, b,
                                                         act=act_on),
                          library, n2(x) + pix * co * 2 + n2(w),
-                         2 * pix * 49 * ci * co, BF16_TENSOR_FLOPS,
+                         2 * pix * k * k * ci * co, BF16_TENSOR_FLOPS,
                          library="F.conv2d + folded affine",
-                         per_step=int(not act_on),  # conv_ad's forward
-                         instance=(ci, co, 7)))
+                         per_step=int(classifier),  # conv_ad's forward
+                         instance=(ci, co, k)))
 
     for name, kind, shape, div in zone_layers(inplanes, classes):
         if only is not None and name not in only:
@@ -752,7 +849,7 @@ def kernel_rows(dev, B=BATCH_MAIN, hw=HW, inplanes=16, classes=3,
         elif kind == "deconv":
             deconv_row(name, at, *shape)
         else:
-            conv_row(name, shape[0], shape[1], name == "head conv10")
+            conv_row(name, at, *shape)
     return _tagged(rows, B, hw, _model_tag(inplanes, classes))
 
 
@@ -927,13 +1024,19 @@ def dw_check(x, dy):
     return check
 
 
-def deconv_ad_rows(dev):
+# the deconv-AD upsamples of the flagship (name, input side, ci, co)
+DECONV_AD = (("dec2", 128, 64, 32), ("dec1", 256, 32, 16))
+
+
+def deconv_ad_rows(dev, layers=DECONV_AD, model="", cell_hw=HW):
     """The decoder upsamples' backward at batch 16 and their own
-    resolution (dec2: x 128² x 64 → 256² x 32, dec1: 256² x 32 → 512² x
-    16): K8 dx and K9 dW, one launch each per deconv-AD step, and
-    deconv2x_ad forward + backward (K3, K8, K9) against
-    F.conv_transpose2d's autograd — its plain version in f32, its
-    library call in bf16 (cuDNN)."""
+    resolution (default: the flagship's, dec2: x 128² x 64 → 256² x 32,
+    dec1: 256² x 32 → 512² x 16): K8 dx and K9 dW, one launch each per
+    deconv-AD step, and deconv2x_ad forward + backward (K3, K8, K9)
+    against F.conv_transpose2d's autograd — its plain version in f32,
+    its library call in bf16 (cuDNN). ``model``: the cell suffix of
+    another UResNet (its rows count in no flagship step), whose crops
+    are ``cell_hw``."""
     import torch
     import torch.nn.functional as F
 
@@ -945,7 +1048,7 @@ def deconv_ad_rows(dev):
     rows = []
     n2 = lambda t: t.numel() * t.element_size()  # noqa: E731
 
-    for name, hw, ci, co in (("dec2", 128, 64, 32), ("dec1", 256, 32, 16)):
+    for name, hw, ci, co in layers:
         x = torch.relu(torch.randn(B, hw, hw, ci, generator=gen,
                                    device=dev)).to(bf)
         dy = (0.01 * torch.randn(B, 2 * hw, 2 * hw, co, generator=gen,
@@ -996,7 +1099,7 @@ def deconv_ad_rows(dev):
             3 * (n2(x) + n2(dy)) + 2 * n2(w) + 16 * ci * co * 4,
             3 * 2 * macs, BF16_TENSOR_FLOPS, check=ad_check,
             library="F.conv_transpose2d + autograd (cuDNN bf16)"))
-    return rows
+    return _tagged(rows, B, cell_hw, model) if model else rows
 
 
 def s8_check(exact):
@@ -1023,7 +1126,8 @@ def int8_kernel_rows(dev, eval_rows, B=BATCH_MAIN, hw=HW, inplanes=16,
     """One row per int8-zone layer of the int8 forward at batch ``B``
     and input ``hw`` (default: the main path's) of the UResNet at
     ``inplanes`` (``zone_layers``; the flagship's: K1-s8 head conv10,
-    K2-s8 the six blocks, two dual, K3-s8 the dec2 and dec1 upsamples).
+    K2-s8 the six blocks, two dual, K3-s8 the dec2 and dec1 upsamples;
+    at inplanes 4 also K1-s8 at the per-conv blocks' fused convs).
     Inputs are int8 on the grid a
     calibrated model gives (post-ReLU activations, 0..127), weights
     int8, gains as the model folds them. No single PyTorch call computes
@@ -1062,12 +1166,13 @@ def int8_kernel_rows(dev, eval_rows, B=BATCH_MAIN, hw=HW, inplanes=16,
         r["bf16"] = bf16_rows[layer + tag]
         rows.append(r)
 
-    # K1-s8 head conv10: full resolution, 7x7
-    def conv_row(name, ci, co):
-        x, w = act(B, H, W, ci), weight(7, 7, ci, co)
-        g, b = gain(co, 2e-5)
+    # K1-s8: the head conv10 (7x7, full resolution) and a per-conv
+    # block's fused convs
+    def conv_row(name, hw, ci, co, k):
+        x, w = act(B, *hw, ci), weight(k, k, ci, co)
+        g, b = gain(co, 2e-5 * (49 * 16 / (k * k * ci)) ** 0.5)
         one, zero = torch.ones(co, device=dev), torch.zeros(co, device=dev)
-        pix = B * H * W
+        pix = B * hw[0] * hw[1]
         add(name, "conv_bn_act_s8",
             lambda: conv.conv_bn_act_s8(x, w, g, b),
             lambda: conv.conv_bn_act_s8_plain(x, w, g, b),
@@ -1075,8 +1180,8 @@ def int8_kernel_rows(dev, eval_rows, B=BATCH_MAIN, hw=HW, inplanes=16,
                                          out_dtype=f32),
                      conv.conv_bn_act_s8_plain(x, w, one, zero, act=False,
                                                out_dtype=f32)),
-            n2(x) + pix * co * 2 + n2(w), pix * 49 * ci * co,
-            instance=(ci, co, 7, "__nv_bfloat16"))
+            n2(x) + pix * co * 2 + n2(w), pix * k * k * ci * co,
+            instance=(ci, co, k, "__nv_bfloat16"))
 
     def block_row(name, hw, ca, cb, co, proj):
         a = act(B, *hw, ca)
@@ -1120,8 +1225,8 @@ def int8_kernel_rows(dev, eval_rows, B=BATCH_MAIN, hw=HW, inplanes=16,
     layers = [lay for lay in zone_layers(inplanes)
               if only is None or lay[0] in only]
     for name, kind, shape, div in layers:
-        if name == "head conv10":  # the classifier stays bf16
-            conv_row(name, *shape[:2])
+        if kind == "conv" and name != "classifier conv11":  # it stays bf16
+            conv_row(name, (H // div, W // div), *shape)
     for name, kind, shape, div in layers:
         at = (H // div, W // div)
         if kind == "block":
@@ -2381,14 +2486,17 @@ def train_parity(dev, card, arch="uresnet", phase="train_parity", sd=None,
 DECONV_KERNELS = ("deconv2x_kernel", "conv_s2k4_kernel", "deconv_dw_kernel")
 
 
-def train_deconv(dev, card, ref, rows):
-    """train_parity's batch and weights through the train step with
+def train_deconv(dev, card, ref, rows, phase="train_deconv", sd=None,
+                 want_step=LAUNCHES_PER_DECONV_STEP, cell=MAIN_CELL):
+    """train_parity's batch and weights (default: the flagship's seeded
+    ones, or ``sd``) through the train step with
     Policy.fused_train_deconv: loss and gradients against the plain
     paths ``ref`` holds, under train_parity's gates; then 5 Adam steps
-    with exact launch counts (the main path of this configuration,
-    counted from 0 just before them). Also reported: deconv2x_ad's
-    forward + backward against cuDNN's (F.conv_transpose2d + autograd,
-    bf16) from this run's kernel ``rows``. Returns the launches."""
+    with exact launch counts (``want_step`` a step; the main path of
+    this configuration, counted from 0 just before them). Also reported:
+    deconv2x_ad's forward + backward against cuDNN's (F.conv_transpose2d
+    + autograd, bf16) from this run's kernel ``rows`` at ``cell``.
+    Returns the launches."""
     import dataclasses
 
     import numpy as np
@@ -2404,7 +2512,8 @@ def train_deconv(dev, card, ref, rows):
         make_optimizer,
     )
 
-    sd = random_state_dict(seed=0)
+    if sd is None:
+        sd = random_state_dict(seed=0)
     b = {k: torch.from_numpy(v).to(dev)
          for k, v in _train_batch(7).items()}
     pol = dataclasses.replace(Policy(), fused_train_deconv=True)
@@ -2419,13 +2528,14 @@ def train_deconv(dev, card, ref, rows):
     ops.reset_launch_counts()
     state, losses, times = _adam_steps(step, state, b)
     launches = ops.launch_counts()
-    want = {k: 5 * LAUNCHES_PER_DECONV_STEP.get(k, 0) for k in launches}
+    want = {k: 5 * want_step.get(k, 0) for k in launches}
     step_ms = sum(times[1:]) / len(times[1:])
     gates = ref["gates"]
-    ad = [r for r in rows if r["kernel"] == "deconv2x_ad"]
+    ad = [r for r in rows
+          if r["kernel"] == "deconv2x_ad" and r.get("cell", MAIN_CELL) == cell]
     ad_ms = sum(r["ms"] for r in ad)
     cudnn_ms = sum(r["library_ms"] for r in ad)
-    result = {"phase": "train_deconv", "card": card, "batch": BATCH_MAIN,
+    result = {"phase": phase, "card": card, "batch": BATCH_MAIN,
               "hw": list(HW), "kernel_bf16_deconv_ad": kern,
               "plain_bf16": ref["plain_bf16"], "gates": gates,
               "launches": launches, "launches_want": want,
@@ -3464,12 +3574,12 @@ def _deploy_cli(src, out, tar, extra=()):
 
 
 def _widths_deploy(dev, card, work, sd, name, classes, table, table_int8,
-                   flagship_ms):
+                   flagship_ms, arch="uresnet"):
     """The main phase's 64 crops through infer_precropped on ``sd`` (a
-    reference .tar), bf16 and --int8: score images, exact launches a
-    batch, the b16 forward against f32 and the int8 kernel path against
-    the int8 plain path (argmax ≥ 0.99 each). Returns both paths'
-    launches."""
+    reference .tar of an ``arch`` model), bf16 and --int8: score images,
+    exact launches a batch, the b16 forward against f32 and the int8
+    kernel path against the int8 plain path (argmax ≥ 0.99 each).
+    Returns both paths' launches."""
     import numpy as np
     import torch
 
@@ -3498,29 +3608,30 @@ def _widths_deploy(dev, card, work, sd, name, classes, table, table_int8,
     x = torch.from_numpy(np.stack(
         [inp.read_entry(i, producers=["wire"])["wire"][0].pixels
          for i in range(BATCH_MAIN)])[..., None]).to(dev)
-    model = get_model("uresnet", sd, device=dev)
-    int8 = get_model("uresnet", sd, policy=Policy.int8(), device=dev)
+    model = get_model(arch, sd, device=dev)
+    int8 = get_model(arch, sd, policy=Policy.int8(), device=dev)
     PrecroppedRunner(int8, batch_size=BATCH_MAIN).calibrate_from(
         src, n_images=INT8_CALIB)
     torch.cuda.reset_peak_memory_stats()
     with torch.inference_mode():
         fwd_ms = time_ms(lambda: model(x), budget_ms=1000.0)
         int8_ms = time_ms(lambda: int8(x), budget_ms=1000.0)
+        stages = stage_breakdown(model, x)
         agree = float((model(x).argmax(-1) == get_model(
-            "uresnet", sd, policy=Policy.f32(), device=dev)(x).argmax(-1))
+            arch, sd, policy=Policy.f32(), device=dev)(x).argmax(-1))
             .float().mean())
         lp8 = int8(x)
         with plain_kernels():
             lp8_plain = int8(x)
     agree8 = float((lp8.argmax(-1) == lp8_plain.argmax(-1)).float().mean())
-    emit({"phase": "widths", "path": name, "card": card,
+    emit({"phase": "widths", "path": name, "card": card, "arch": arch,
           "classes": classes, "events": EVENTS, "batch": BATCH_MAIN,
           "hw": list(HW), "cli_wall_s": wall,
           "crops_per_s_file_to_file": EVENTS / wall, "timing": timing,
           "launches": launches, "classifier": list(model.conv11.shape),
           "score_sum_max_dev": worst, "forward_ms_b16": fwd_ms,
           "crops_per_s_forward_b16": BATCH_MAIN / fwd_ms * 1e3,
-          "flagship_forward_ms_b16": flagship_ms,
+          "stage_ms_b16": stages, "flagship_forward_ms_b16": flagship_ms,
           "argmax_agreement_b16_vs_f32": agree,
           "int8": {"cli_wall_s": wall8, "timing": timing8,
                    "launches": launches8, "score_sum_max_dev": worst8,
@@ -3626,6 +3737,48 @@ def widths_path(dev, card, work, flagship_ms):
     return launches
 
 
+def widths8_path(dev, card, work, flagship_ms, rows):
+    """The UResNets at 8-channel streams (inplanes 8 and 4, seeded
+    random weights) on the card's kernels, every layer routed as the JAX
+    package routes it: the 64 crops through infer_precropped in bf16 and
+    --int8, launches exact a batch; train_parity's gates and 5 Adam
+    steps on its b16 batch in the default zone and with
+    fused_train_deconv, launches exact a step. Then ASPP-ResNet at
+    inplanes 32 through infer_precropped, bf16 and --int8. Returns the
+    launches of each path."""
+    import torch
+
+    from ubresnet_tpu_torch.deploy.weights import random_state_dict
+
+    t_phase = time.time()
+    launches = {}
+    for ip in (8, 4):
+        sd = random_state_dict(seed=0, inplanes=ip)
+        launches[f"widths_ip{ip}"], launches[f"widths_ip{ip}_int8"] = (
+            _widths_deploy(dev, card, work, sd, f"inplanes{ip}", 3,
+                           LAUNCHES_PER_BATCH_8[ip],
+                           LAUNCHES_PER_BATCH_INT8_8[ip], flagship_ms))
+        torch.cuda.empty_cache()
+        ref = train_parity(dev, card, phase=f"widths_train_inplanes{ip}",
+                           sd=sd, batch=_train_batch(7),
+                           want_step=LAUNCHES_PER_TRAIN_STEP_8[ip])
+        launches[f"widths_ip{ip}_train"] = ref["launches"]
+        torch.cuda.empty_cache()
+        launches[f"widths_ip{ip}_train_deconv"] = train_deconv(
+            dev, card, ref, rows, phase=f"widths_train_deconv_inplanes{ip}",
+            sd=sd, want_step=LAUNCHES_PER_DECONV_STEP_8[ip],
+            cell=f"{MAIN_CELL} inplanes {ip}")
+        del ref
+        torch.cuda.empty_cache()
+    sd = random_state_dict(seed=0, inplanes=32, arch="aspp_resnet")
+    launches["aspp_32"], launches["aspp_32_int8"] = _widths_deploy(
+        dev, card, work, sd, "aspp_inplanes32", 3, LAUNCHES_PER_BATCH_ASPP_32,
+        LAUNCHES_PER_BATCH_INT8_ASPP_32, flagship_ms, arch="aspp_resnet")
+    torch.cuda.empty_cache()
+    emit({"phase": "widths_8", "seconds": time.time() - t_phase})
+    return launches
+
+
 def main():
     import torch
 
@@ -3692,6 +3845,24 @@ def main():
         cell_hw=TRAIN_HW_32, loss_rows=False))
     rows += check_kernels(train_kernel_rows(
         dev, [], CLASSIFIER_4, classes=4, model="4 classes"))
+    # the inplanes-32 trainer's deconv-AD upsample (dec1 (64, 32) on its
+    # 256² crops) and its classifier's train forward at 256²
+    rows += check_kernels(deconv_ad_rows(
+        dev, (("dec1", 128, 64, 32),), model="inplanes 32",
+        cell_hw=TRAIN_HW_32))
+    rows += check_kernels(kernel_rows(dev, hw=TRAIN_HW_32, inplanes=32,
+                                      only={"classifier conv11"}))
+    # the 8-channel streams (widths_8 phase): the eval and int8 zones,
+    # the train zones and the deconv-AD upsamples at inplanes 8 and 4
+    for ip in (8, 4):
+        w8 = check_kernels(kernel_rows(dev, inplanes=ip))
+        rows += w8 + check_kernels(int8_kernel_rows(dev, w8, inplanes=ip))
+        rows += check_kernels(train_kernel_rows(
+            dev, TRAIN_ZONE_8[ip], CLASSIFIER, model=f"inplanes {ip}",
+            loss_rows=False))
+        rows += check_kernels(deconv_ad_rows(dev, DECONV_AD_8[ip],
+                                             model=f"inplanes {ip}"))
+        torch.cuda.empty_cache()
     lap("kernels")
     emit(train_zone_per_step(rows))
     emit(train_zone_per_step(rows, "per_step_ad", LAUNCHES_PER_DECONV_STEP,
@@ -3737,6 +3908,9 @@ def main():
     torch.cuda.empty_cache()
     launches.update(widths_path(dev, card, work, flagship_ms))
     lap("widths")
+    torch.cuda.empty_cache()
+    launches.update(widths8_path(dev, card, work, flagship_ms, rows))
+    lap("widths_8")
     emit({"phase": "phase_seconds", "seconds": seconds})
     line = kernels_line(rows, launches)
     for k in line["kernels"]:

@@ -88,7 +88,8 @@ def jax_variables(inplanes, seed=0):
         fill, {"params": v["params"], "batch_stats": v["batch_stats"]})
 
 
-@pytest.fixture(scope="module", params=[16, 4], ids=["p16", "p4"])
+@pytest.fixture(scope="module", params=[16, 4, 32],
+                ids=["p16", "p4", "p32"])
 def case(request):
     return request.param, jax_variables(request.param)
 
@@ -114,8 +115,9 @@ def _close(got, want):
 @pytest.mark.parametrize("hw", [(64, 64), (64, 96)], ids=["64x64", "64x96"])
 def test_aspp_matches_jax(case, policy, hw):
     """Eval logits ≡ JAX ASPPResNet under Policy.f32(), unfused and with
-    the kernel zone's plain versions, at the flagship width and at
-    inplanes 4 (the dilation gate)."""
+    the kernel zone's plain versions, at the flagship width, at
+    inplanes 4 (the dilation gate) and at the reference trainer's
+    inplanes 32."""
     p, variables = case
     x = _input(1, *hw)
     want = np.asarray(jax.jit(lambda v, x: jax_aspp(p).apply(

@@ -3,8 +3,9 @@ K8 conv_s2k4, K9 deconv_dw and deconv2x_ad, as their wrappers run them
 on CPU tensors) against the JAX Pallas kernels they replace, which run
 in interpret mode on W-packed tensors as tests/test_pallas_conv.py runs
 them, at the flagship (ci, co) pairs: (64, 32) with p = 4 (dec2) and
-(32, 16) with p = 8 (dec1). Same numpy inputs to both, float32, the JAX
-tests' tolerances:
+(32, 16) with p = 8 (dec1), and at the 8-channel streams' (16, 8) with
+p = 8 and (8, 4) with p = 16. Same numpy inputs to both, float32, the
+JAX tests' tolerances:
 
   * conv_s2k4 vs fused_conv_s2k4 (the dx leg, fed the in/out-transposed
     kernel as _deconv_ad_bwd feeds it): atol 2e-5;
@@ -59,9 +60,13 @@ from ubresnet_tpu_torch.train.step import build_train_step, create_train_state
 
 torch.set_num_threads(1)
 
-# (ci, co, p, H, W): the deconv's input side, unpacked
+# (ci, co, p, H, W): the deconv's input side, unpacked; the flagship's
+# and, under the 8-channel streams, dec1 at inplanes 8 (dec2 at 4) and
+# dec1 at 4, at their lane packs
 FLAGSHIP = [(64, 32, 4, 8, 64), (32, 16, 8, 16, 128)]
 IDS = ["dec2", "dec1"]
+EIGHT = [(16, 8, 8, 16, 128), (8, 4, 16, 16, 256)]
+EIGHT_IDS = ["c16-8", "c8-4"]
 
 
 def _t(a, grad=False):
@@ -80,7 +85,8 @@ def _data(rng, ci, co, h, w):
     return x, wk, dy
 
 
-@pytest.mark.parametrize("ci,co,p,h,w", FLAGSHIP, ids=IDS)
+@pytest.mark.parametrize("ci,co,p,h,w", FLAGSHIP + EIGHT,
+                         ids=IDS + EIGHT_IDS)
 def test_conv_s2k4_matches_pallas(rng, ci, co, p, h, w):
     _, wk, dy = _data(rng, ci, co, h, w)
     want = fused_conv_s2k4(pack(jnp.asarray(dy), 2 * p),
@@ -91,7 +97,8 @@ def test_conv_s2k4_matches_pallas(rng, ci, co, p, h, w):
     _close(got, unpack(want, p), 0.0, 2e-5)
 
 
-@pytest.mark.parametrize("ci,co,p,h,w", FLAGSHIP, ids=IDS)
+@pytest.mark.parametrize("ci,co,p,h,w", FLAGSHIP + EIGHT,
+                         ids=IDS + EIGHT_IDS)
 def test_deconv_dw_matches_pallas(rng, ci, co, p, h, w):
     x, _, dy = _data(rng, ci, co, h, w)
     want = pallas_deconv_dw(pack(jnp.asarray(x), p),
@@ -102,9 +109,13 @@ def test_deconv_dw_matches_pallas(rng, ci, co, p, h, w):
     _close(got, want, 1e-4, 1e-3)
 
 
-@pytest.mark.parametrize("ci,co,p,h,w", FLAGSHIP, ids=IDS)
+@pytest.mark.parametrize("ci,co,p,h,w", FLAGSHIP + EIGHT,
+                         ids=IDS + EIGHT_IDS)
 def test_deconv2x_ad_matches_pallas(rng, ci, co, p, h, w):
-    assert deconv_ad_supported(p, ci, co) and deconv_ops.ad_supports(ci, co)
+    assert deconv_ad_supported(p, ci, co)
+    assert all((ci, co) in t for t in (deconv_ops.SHAPES,
+                                        deconv_ops.S2K4_SHAPES,
+                                        deconv_ops.DW_SHAPES))
     x, wk, r = _data(rng, ci, co, h, w)
     r_p = pack(jnp.asarray(r), p)
     want, (dx_j, dw_j) = jax.value_and_grad(

@@ -238,13 +238,14 @@ def test_kernel_shapes_have_one_table():
         src = (_build.CSRC / f"{name}.cu").read_text()
         assert f"{macro}(" in src and "return launch<" in src
         assert not re.search(r"launch<\d", src)
-    # the train zones at inplanes 16 (9 shapes) and 32 (7, 3 shared);
-    # K6 also the 3- and 4-class classifiers
-    assert len(train_conv.SHAPES) == 13 and len(conv.DW_SHAPES) == 15
+    # the train zones at inplanes 16 (9 shapes), 32 (7, 3 shared) and at
+    # 8-channel streams (8); K6 also the 3- and 4-class classifiers
+    assert len(train_conv.SHAPES) == 21 and len(conv.DW_SHAPES) == 23
     assert all(train_conv.supports(*s) for s in train_conv.SHAPES)
     assert conv.ad_supports(16, 3, 7) and (4, 16, 7) in conv.SHAPES
-    assert all(deconv.ad_supports(*s) for s in deconv.SHAPES)
-    assert deconv.S2K4_SHAPES == deconv.DW_SHAPES == {(64, 32), (32, 16)}
+    # every compiled upsample has its deconv-AD legs (K8, K9) too
+    assert deconv.SHAPES == deconv.S2K4_SHAPES == deconv.DW_SHAPES == {
+        (64, 32), (32, 16), (16, 8), (8, 4)}
 
 
 @pytest.mark.parametrize("entry", ["Trainer", "build_train_step",

@@ -1,7 +1,7 @@
-"""The int8 per-conv path of the port (models/blocks.py: BasicBlock's
-``per_conv`` and Deconv2x's integer route) against the JAX package's
-int8 UResNet, where no K2-s8 or K3-s8 shape was compiled: a UResNet at
-inplanes 8 and at 4 (the kernels hold the flagship's 16), depth 5,
+"""The int8 per-conv path of the port (models/blocks.py: a BasicBlock
+off its kernel and Deconv2x's integer route) beside the fused int8 layers,
+against the JAX package's int8 UResNet at 8-channel streams: a UResNet
+at inplanes 8 and at 4, depth 5,
 32x32 synthetic events, seeded reference-init weights both packages
 load, float32 compute on the CPU, the same calibrated scales (the
 port's ``calibrate``, which tests/test_torch_int8_model.py holds to
@@ -10,10 +10,10 @@ JAX's within 2e-6, handed to JAX as its 'quant' collection).
 At these widths JAX runs its int8 zone per conv where its fused-kernel
 gates fail and its fused int8 kernels where they pass (in interpret
 mode here), on its lane geometry, not on the port's compiled shapes;
-the port's blocks decide by the same gates, compiled or not: where JAX
-fuses, the kernel's wrapper (its plain version on the CPU; on the card
-the kernel, raising at an uncompiled shape, tests/test_torch_cuda.py),
-else per conv, each conv's epilogue in JAX's form. Both are exact integer
+the port's blocks decide by the same gates: where JAX fuses, the
+kernel's wrapper (its plain version on the CPU; on the card the kernel,
+its 8-channel instance at these widths, tests/test_torch_cuda.py), else
+per conv, each conv's epilogue in JAX's form. Both are exact integer
 sums with float32 epilogues, so the port
 must agree with JAX at test_torch_int8_model.py's tolerance: every
 log-probability within 1e-4·max, argmax >= 0.999. Both widths run both
@@ -87,7 +87,7 @@ def test_per_conv_int8_matches_jax(inplanes, monkeypatch):
     for dec in m.dec[-2:]:
         blocks += [dec.res.res1, dec.res.res2]
     assert all(b.quant for b in blocks)
-    per_conv = [b.qname for b in blocks if b.per_conv]
+    per_conv = [b.qname for b in blocks if not b.kernel]
     routes = {}
     fused_form = BasicBlock._fused_form
 
@@ -108,19 +108,18 @@ def test_per_conv_int8_matches_jax(inplanes, monkeypatch):
         return wrapper(*a, **kw)
 
     monkeypatch.setattr(block_ops, "basic_block_s8", counted)
-    # at 8, enc1.res2 and dec2's blocks have the flagship dec1's
-    # (16, 0, 16) and (16, 16, 16) and have K2-s8, dec2.deconv the
-    # flagship dec1's (32, 16) on K3-s8; JAX fuses every block there, so
-    # the other three take K2-s8's wrapper too. At 4 nothing is
-    # compiled; JAX fuses enc1.res2 and dec2's blocks (8 channels fill
-    # 128 lanes at pack 16) and runs the rest per conv. Every block
-    # takes JAX's route, compiled or not.
-    assert per_conv == (["enc1.res1", "dec1.res.res1", "dec1.res.res2"]
-                        if inplanes == 8 else [b.qname for b in blocks])
-    assert [d.kernel for d in (m.dec[-2].deconv, m.dec[-1].deconv)] == [
-        inplanes == 8, False]
+    # at 8 JAX fuses every block (enc1.res2 and dec2's at the flagship
+    # dec1's (16, 0, 16) and (16, 16, 16), the other three at 8
+    # channels) and both upsamples; at 4 it fuses enc1.res2 and dec2's
+    # blocks (8 channels fill 128 lanes at pack 16) and both upsamples
+    # and runs the rest per conv. ``kernel`` says so at the zone's
+    # widths, and every block takes JAX's route.
     expect_fused = ([b.qname for b in blocks] if inplanes == 8 else
                     ["enc1.res2", "dec2.res.res1", "dec2.res.res2"])
+    assert per_conv == [b.qname for b in blocks
+                        if b.qname not in expect_fused]
+    assert [d.kernel for d in (m.dec[-2].deconv, m.dec[-1].deconv)] == [
+        True, True]
     m.set_quant_scales(scales)
     # each ConvBN of a per-conv block reads its own JAX name
     assert m.enc[0].res1.cb["1"].qname == "enc1.res1.cb1"
@@ -143,13 +142,14 @@ def test_per_conv_int8_matches_jax(inplanes, monkeypatch):
 
 def test_int8_deconv_to_any_target():
     """An int8 deconv whose target is not 2x (the reference's odd skip
-    sizes) takes the exact integer route: its accumulator times sx·sw
-    equals the float deconv_to of the same integers, cropped the same
-    way; the flagship width's deconvs keep K3-s8 at an exact 2x."""
+    sizes) takes the exact integer route, though JAX fuses it at an
+    exact 2x (``kernel``): its accumulator times sx·sw equals the float
+    deconv_to of the same integers, cropped the same way; the flagship
+    width's deconvs keep K3-s8 at an exact 2x."""
     sd = random_state_dict(seed=0, inplanes=4)
     dc = Deconv2x(sd, "dec_layer2.deconv", policy=INT8_F32, device="cpu",
                   quant=True)
-    assert dc.quant and not dc.kernel
+    assert dc.quant and dc.kernel
     dc.set_scales({"dec2.deconv": torch.tensor(0.05)})
     rng = np.random.RandomState(0)
     x = torch.from_numpy(rng.uniform(0, 6, (1, 5, 7, 16)).astype(np.float32))

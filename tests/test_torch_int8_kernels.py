@@ -39,8 +39,9 @@ def _affine(rng, co, scale):
 
 @pytest.mark.parametrize("mode", ["act", "pre_act_residual", "no_act"])
 def test_conv_s8_matches_pallas(mode):
-    """K1-s8 at the head's compiled shape (16 → 16, 7x7)."""
-    (ci, co, k), = sorted(conv.S8_SHAPES)
+    """K1-s8 at the flagship head's compiled shape (16 → 16, 7x7)."""
+    ci, co, k = 16, 16, 7
+    assert (ci, co, k) in conv.S8_SHAPES
     p = 128 // ci
     rng = np.random.RandomState(3)
     x = _s8(rng, (2, 16, 4 * p, ci))
@@ -163,7 +164,10 @@ def test_s8_shapes_have_one_table():
         assert f"ubr_{name}" in _build.SIGNATURES
     assert block.S8_SHAPES == block.SHAPES
     assert deconv.S8_SHAPES == deconv.SHAPES
-    assert conv.S8_SHAPES == {(16, 16, 7)}
+    # the flagship head, and the 8-channel streams' head (inplanes 8)
+    # and per-conv blocks' convs (inplanes 4)
+    assert conv.S8_SHAPES == {(16, 16, 7), (8, 16, 7), (8, 8, 3), (8, 4, 3),
+                              (8, 4, 1)}
 
 
 def test_s8_wrappers_refuse_what_the_kernels_do_not_take():

@@ -149,15 +149,16 @@ def test_maxpool3x3s2_matches_pallas(rng, p, ci, H, W):
 
 def test_wrappers_refuse_what_the_kernels_do_not_take():
     """On a non-CPU tensor a wrapper launches its kernel or raises; an
-    uncompiled shape raises before any build or launch."""
-    meta = torch.empty((1, 8, 8, 8), device="meta")
+    uncompiled shape (24 channels, which no UResNet of the port runs)
+    raises before any build or launch."""
+    meta = torch.empty((1, 8, 8, 24), device="meta")
     with pytest.raises(ValueError, match="conv_bn_act kernel has no"):
-        conv_bn_act(meta, torch.empty((3, 3, 8, 8), device="meta"),
-                    torch.empty(8, device="meta"),
-                    torch.empty(8, device="meta"))
+        conv_bn_act(meta, torch.empty((3, 3, 24, 24), device="meta"),
+                    torch.empty(24, device="meta"),
+                    torch.empty(24, device="meta"))
     with pytest.raises(ValueError, match="deconv2x kernel has no"):
-        deconv2x(meta, torch.empty((4, 4, 8, 8), device="meta"))
+        deconv2x(meta, torch.empty((4, 4, 24, 24), device="meta"))
     with pytest.raises(ValueError, match="basic_block kernel has no"):
-        w = torch.empty((3, 3, 8, 8), device="meta")
-        v = torch.empty(8, device="meta")
+        w = torch.empty((3, 3, 24, 24), device="meta")
+        v = torch.empty(24, device="meta")
         basic_block(meta, None, w, v, v, w, v, v)

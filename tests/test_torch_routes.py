@@ -1,26 +1,31 @@
 """The port's kernel routes against the JAX package's Pallas calls, on
 the CPU: for UResNets at inplanes 16, 32, 8 and 4 with 3 classes and at
-16 with 4 classes, in eval bf16, eval int8 (calibrated) and one
-fused-train gradient, every kernel call of a forward (and backward)
-with its kernel and shape.
+16 with 4 classes, and for ASPP-ResNet at inplanes 16 and 32, in eval
+bf16, eval int8 (calibrated), one fused-train gradient, the same with
+the deconv-AD upsamples (``fused_train_deconv``) and one QAT gradient
+(``quant_train``), every kernel call of a forward (and backward) with
+its kernel and shape.
 
 JAX side: the model traced with ``jax.make_jaxpr`` under its fused
-policy (``pack_width`` 8 with ``fused_eval``, ``quant_eval`` or
-``fused_train``), its Pallas entry points wrapped with ``monkeypatch``
-so each call is counted by name and shape (the blocks import them at
-call time; pallas_conv_dw's recursion onto a lane-padded cotangent
-counts once). Port side: the same model on the CPU, its kernel wrappers
-(whose plain versions run there) counted the same way — every wrapper
-call is a launch on the card (models/blocks.py routes).
+policy (``pack_width`` 8 with ``fused_eval``, ``quant_eval``,
+``fused_train``, ``fused_train`` and ``fused_train_deconv``, or
+``fused_train`` and ``quant_train``), its Pallas entry points wrapped
+with ``monkeypatch`` so each call is counted by name and shape (the
+blocks import them at call time; pallas_conv_dw's recursion onto a
+lane-padded cotangent counts once; pallas_deconv2x_ad counts beside the
+three legs it calls). Port side: the same model on the CPU, its kernel
+wrappers (whose plain versions run there) counted the same way — every
+wrapper call is a launch on the card (models/blocks.py routes).
 
-At 16 and 32 the two lists are equal in every mode. At 8 and 4 the
-port leaves exactly the JAX calls whose (kernel, shape) is in
-models/blocks.py:ITEM_8B to cuDNN, and the constant is exactly those.
+In every mode and at every width the two lists are equal, and every
+shape the port calls a wrapper with is compiled (ops/_build.py:SHAPES),
+so none raises on the card.
 
 Spatial size: 32x32, the smallest whose routes equal 512x512's (the
 lane re-views need the enc1 and dec1 widths to divide by the lane
-pack, 16 at 8-channel streams, and depth 5 halves 32 down to 1); the
-inplanes-32 eval trace is checked at 512x512 too. Batch 1."""
+pack, 16 at 8-channel streams, and depth 5 halves 32 down to 1; ASPP's
+zone needs widths that are a multiple of 32); the inplanes-32 eval
+trace is checked at 512x512 too. Batch 1."""
 import collections
 import contextlib
 import functools
@@ -34,12 +39,19 @@ import torch
 import ubresnet_tpu.ops.pallas_conv as jpc
 import ubresnet_tpu.ops.pallas_train as jpt
 from ubresnet_tpu.core.precision import Policy as JaxPolicy
-from ubresnet_tpu.deploy.importers import import_uresnet_state_dict
+from ubresnet_tpu.deploy.importers import (
+    import_aspp_state_dict,
+    import_uresnet_state_dict,
+)
 from ubresnet_tpu.models import get_model as jax_get_model
 from ubresnet_tpu_torch.core.precision import Policy
 from ubresnet_tpu_torch.deploy.weights import random_state_dict
-from ubresnet_tpu_torch.models import TrainUResNet, UResNet
-from ubresnet_tpu_torch.models.blocks import ITEM_8B
+from ubresnet_tpu_torch.models import (
+    ASPPResNet,
+    TrainASPPResNet,
+    TrainUResNet,
+    UResNet,
+)
 from ubresnet_tpu_torch.ops import block as block_ops
 from ubresnet_tpu_torch.ops import conv as conv_ops
 from ubresnet_tpu_torch.ops import deconv as deconv_ops
@@ -51,12 +63,26 @@ from ubresnet_tpu_torch.ops.quant import calibrate
 torch.set_num_threads(1)
 
 HW = 32
-CONFIGS = [(16, 3), (32, 3), (16, 4), (8, 3), (4, 3)]
-MODES = ["eval", "int8", "train"]
+UR = "uresnet"
+AS = "aspp_resnet"
+# (arch, inplanes, classes)
+CONFIGS = [(UR, 16, 3), (UR, 32, 3), (UR, 16, 4), (UR, 8, 3), (UR, 4, 3),
+           (AS, 16, 3), (AS, 32, 3)]
+IDS = ["16", "32", "16-4cls", "8", "4", "aspp16", "aspp32"]
+MODES = ["eval", "int8", "train", "train_deconv", "qat"]
 JAX_POLICY = {
     "eval": JaxPolicy(pack_width=8, fused_eval=True),
     "int8": JaxPolicy(pack_width=8, fused_eval=True, quant_eval=True),
     "train": JaxPolicy(pack_width=8, fused_train=True),
+    "train_deconv": JaxPolicy(pack_width=8, fused_train=True,
+                              fused_train_deconv=True),
+    "qat": JaxPolicy(pack_width=8, fused_train=True, quant_train=True),
+}
+# the port's policy of each train mode (fused_train is its default)
+PORT_TRAIN_POLICY = {
+    "train": Policy(),
+    "train_deconv": Policy(fused_train_deconv=True),
+    "qat": Policy(quant_train=True),
 }
 S8 = "_s8"
 
@@ -94,11 +120,21 @@ def _jax_keys():
     def dw(x, dy, *, p, kw, **k):
         return "conv_dw", (_chan(x, p), _chan(dy, p), kw)
 
+    def s2k4(y, w, **k):  # w is the deconv's kernel, (co, ci) transposed
+        return "conv_s2k4", (w.shape[3], w.shape[2])
+
+    def deconv_dw(x, dy, *, p, **k):
+        return "deconv_dw", (_chan(x, p), _chan(dy, 2 * p))
+
+    def deconv_ad(x, w, *a, **k):
+        return "deconv2x_ad", (w.shape[2], w.shape[3])
+
     return {
         "fused_packed_conv": conv, "fused_basic_block": block,
         "fused_dual_block": dual, "fused_packed_deconv2x": deconv,
         "fused_pool3x3s2": pool, "train_conv_stats": stats,
-        "pallas_conv_dw": dw,
+        "pallas_conv_dw": dw, "fused_conv_s2k4": s2k4,
+        "pallas_deconv_dw": deconv_dw, "pallas_deconv2x_ad": deconv_ad,
     }
 
 
@@ -131,14 +167,17 @@ def _input(hw):
 
 
 @functools.lru_cache(maxsize=None)
-def _weights(inplanes, classes):
+def _weights(arch, inplanes, classes):
     """Seeded reference weights, the JAX variables imported from them,
     and the int8 scales the port calibrates on them (JAX's 'quant'
     names), 32x32."""
-    sd = random_state_dict(seed=1, inplanes=inplanes, num_classes=classes)
-    variables = import_uresnet_state_dict(
-        {k: v.numpy() for k, v in sd.items()})
-    model = UResNet(sd, policy=Policy.int8(), device="cpu")
+    sd = random_state_dict(seed=1, inplanes=inplanes, num_classes=classes,
+                           arch=arch)
+    imported = import_uresnet_state_dict if arch == UR else \
+        import_aspp_state_dict
+    variables = imported({k: v.numpy() for k, v in sd.items()})
+    model = (UResNet if arch == UR else ASPPResNet)(
+        sd, policy=Policy.int8(), device="cpu")
     return sd, variables, calibrate(model, [_input(HW)])
 
 
@@ -155,14 +194,15 @@ def _quant_tree(scales):
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_routes(inplanes, classes, mode, hw):
+def _jax_routes(arch, inplanes, classes, mode, hw):
     pol = JAX_POLICY[mode]
-    model = jax_get_model("uresnet", policy=pol, input_channels=1,
-                          inplanes=inplanes, num_classes=classes)
+    kw = {} if arch == UR else {"aspp_branch_features": 16}
+    model = jax_get_model(arch, policy=pol, input_channels=1,
+                          inplanes=inplanes, num_classes=classes, **kw)
     x = jax.ShapeDtypeStruct((1, hw, hw, 1), jnp.float32)
-    _, variables, scales = _weights(inplanes, classes)
+    _, variables, scales = _weights(arch, inplanes, classes)
     calls = collections.Counter()
-    if mode == "train":
+    if mode in PORT_TRAIN_POLICY:
         def loss(params, stats, x):
             y, _ = model.apply({"params": params, "batch_stats": stats},
                                x, train=True, logits=True,
@@ -181,8 +221,9 @@ def _jax_routes(inplanes, classes, mode, hw):
     return calls
 
 
-def jax_routes(inplanes, classes, mode, monkeypatch, hw=HW):
-    return collections.Counter(_jax_routes(inplanes, classes, mode, hw))
+def jax_routes(arch, inplanes, classes, mode, hw=HW):
+    return collections.Counter(_jax_routes(arch, inplanes, classes, mode,
+                                           hw))
 
 
 # the port's wrappers -> shape from the call
@@ -206,11 +247,15 @@ def _port_keys():
         (pool_ops, "maxpool3x3s2", lambda x: (x.shape[-1],)),
         (train_ops, "conv_stats", conv),
         (conv_ops, "conv_dw", lambda x, dy, k: (x.shape[-1], dy.shape[-1], k)),
+        (deconv_ops, "conv_s2k4", deconv),
+        (deconv_ops, "deconv_dw",
+         lambda x, dy: (x.shape[-1], dy.shape[-1])),
+        (deconv_ops, "deconv2x_ad", deconv),
     ]
 
 
-def port_routes(inplanes, classes, mode, monkeypatch, hw=HW):
-    sd, _, scales = _weights(inplanes, classes)
+def port_routes(arch, inplanes, classes, mode, monkeypatch, hw=HW):
+    sd, _, scales = _weights(arch, inplanes, classes)
     x = torch.from_numpy(_input(hw))
     calls = collections.Counter()
     with monkeypatch.context() as mp:
@@ -222,13 +267,15 @@ def port_routes(inplanes, classes, mode, monkeypatch, hw=HW):
                 return _fn(*a, **kw)
 
             mp.setattr(mod, name, counted)
-        if mode == "train":
-            model = TrainUResNet(sd, policy=Policy(), device="cpu").train()
+        if mode in PORT_TRAIN_POLICY:
+            model = (TrainUResNet if arch == UR else TrainASPPResNet)(
+                sd, policy=PORT_TRAIN_POLICY[mode], device="cpu").train()
             y = model(x, logits=True)
             (y.float() ** 2).sum().backward()
         else:
             pol = Policy.int8() if mode == "int8" else Policy()
-            model = UResNet(sd, policy=pol, device="cpu")
+            model = (UResNet if arch == UR else ASPPResNet)(
+                sd, policy=pol, device="cpu")
             if mode == "int8":
                 model.set_quant_scales(scales)
             with torch.inference_mode():
@@ -236,63 +283,65 @@ def port_routes(inplanes, classes, mode, monkeypatch, hw=HW):
     return calls
 
 
-def _diff(jax_calls, port_calls):
-    assert not port_calls - jax_calls, "the port launches where JAX does not"
-    return jax_calls - port_calls
+def _uncompiled(calls):
+    """The calls at a (kernel, shape) no instance was compiled for (K4
+    takes any C % 8 == 0; deconv2x_ad is K3's with K8's and K9's)."""
+    return sorted((k, s) for k, s in calls if k != "maxpool3x3s2"
+                  and s not in SHAPES[{"deconv2x_ad": "deconv2x"}.get(k, k)])
+
+
+# the upsamples on K3 + K8 + K9 under fused_train_deconv (JAX's
+# pallas_deconv2x_ad), per inplanes of the UResNet: dec2 and dec1 where
+# their lanes fit, never dec3 or deeper (outside the packed zone)
+DECONV_AD = {16: {(64, 32), (32, 16)}, 32: {(64, 32)},
+             8: {(32, 16), (16, 8)}, 4: {(16, 8), (8, 4)}}
 
 
 @pytest.mark.parametrize("mode", MODES)
-@pytest.mark.parametrize("inplanes,classes", CONFIGS[:3],
-                         ids=["16", "32", "16-4cls"])
-def test_routes_equal_jax(inplanes, classes, mode, monkeypatch):
-    want = jax_routes(inplanes, classes, mode, monkeypatch)
-    got = port_routes(inplanes, classes, mode, monkeypatch)
-    print(f"inplanes {inplanes}, {classes} classes, {mode}: "
+@pytest.mark.parametrize("arch,inplanes,classes", CONFIGS, ids=IDS)
+def test_routes_equal_jax(arch, inplanes, classes, mode, monkeypatch):
+    """The port's wrapper calls equal JAX's Pallas calls, kernel, shape
+    and count, and every one is compiled (none raises on the card)."""
+    want = jax_routes(arch, inplanes, classes, mode)
+    got = port_routes(arch, inplanes, classes, mode, monkeypatch)
+    print(f"{arch} inplanes {inplanes}, {classes} classes, {mode}: "
           f"{sorted(want.items())}")
     assert got == want
-    if mode == "eval":
-        assert sum(want.values()) == (9 if inplanes == 32 else 11)
+    assert not _uncompiled(got)
+    if mode == "eval" and arch == UR:  # no stem pool at 8-channel streams
+        assert sum(want.values()) == {16: 11, 32: 9, 8: 10, 4: 9}[inplanes]
+    if mode == "train_deconv" and arch == UR:
+        assert {s for k, s in got if k == "deconv2x_ad"} == \
+            DECONV_AD[inplanes]
 
 
-def _legs(item):
-    """An ITEM_8B entry with the launches it stands for: a train-zone
-    conv (K5) with its dx (K1, co read in groups of 4) and dW (K6)."""
-    kernel, shape = item
-    if kernel != "conv_stats":
-        return {item}
-    ci, co, k = shape
-    return {item, ("conv_bn_act", (-(-co // 4) * 4, ci, k)),
-            ("conv_dw", shape)}
-
-
-def test_item_8b_is_the_jax_difference(monkeypatch):
-    """At inplanes 8 and 4, bf16 eval and train: the port runs every JAX
-    call but the ITEM_8B ones (with their train legs), ITEM_8B holds
-    nothing else, and every call the port makes has a compiled kernel
-    (none raises on the card)."""
-    off = set()
-    for inplanes in (8, 4):
-        for mode in ("eval", "train"):
-            got = port_routes(inplanes, 3, mode, monkeypatch)
-            diff = _diff(jax_routes(inplanes, 3, mode, monkeypatch), got)
-            print(f"inplanes {inplanes} {mode}: off the kernels "
-                  f"{sorted(diff)}")
-            off |= set(diff)
-            assert all(shape in SHAPES[kernel] for kernel, shape in got)
-    assert off == set().union(*map(_legs, ITEM_8B))
+@pytest.mark.parametrize("mode", ["eval", "int8", "train"])
+@pytest.mark.parametrize("inplanes", [8, 4])
+def test_item_8b_is_the_jax_difference(inplanes, mode, monkeypatch):
+    """At 8-channel streams (inplanes 8 and 4) the port runs every JAX
+    Pallas call on its kernel, the 8-channel ones among them: in eval,
+    int8 and train the lists are equal and at least one call per mode
+    has an 8- or 4-channel side, which the flagship never calls."""
+    want = jax_routes(UR, inplanes, 3, mode)
+    got = port_routes(UR, inplanes, 3, mode, monkeypatch)
+    eight = {(k, s) for k, s in got if min(s[:3] if k.startswith(
+        "basic_block") else s[:2]) in (4, 8)}
+    print(f"inplanes {inplanes} {mode}: 8-channel calls {sorted(eight)}")
+    assert got == want and eight
+    assert not _uncompiled(got)
 
 
 @pytest.mark.parametrize("inplanes", [8, 4])
 def test_int8_at_8_channel_streams(inplanes, monkeypatch):
     """int8 keeps no cuDNN exception: every JAX int8 call at 8 and 4 is
-    a wrapper call of the port (which raises on the card where no
-    instance was compiled, tests/test_torch_cuda.py)."""
-    assert (port_routes(inplanes, 3, "int8", monkeypatch)
-            == jax_routes(inplanes, 3, "int8", monkeypatch))
+    a wrapper call of the port, at a compiled shape."""
+    got = port_routes(UR, inplanes, 3, "int8", monkeypatch)
+    assert got == jax_routes(UR, inplanes, 3, "int8")
+    assert not _uncompiled(got)
 
 
-def test_routes_at_512_equal_32(monkeypatch):
+def test_routes_at_512_equal_32():
     """The traced size stands for 512x512: JAX's eval routes of the
     inplanes-32 model there are the same."""
-    assert (jax_routes(32, 3, "eval", monkeypatch, hw=512)
-            == jax_routes(32, 3, "eval", monkeypatch))
+    assert (jax_routes(UR, 32, 3, "eval", hw=512)
+            == jax_routes(UR, 32, 3, "eval"))

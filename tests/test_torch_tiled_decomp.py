@@ -57,6 +57,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from ubresnet_tpu.ops.packed import pack, tile_channel_vector, unpack
 from ubresnet_tpu.ops.pallas_conv import (
@@ -893,6 +894,21 @@ def _s8_gemm(cols, kmat):
     return acc.float()
 
 
+def _pad16(c):
+    """tc::pad16: the channels of a kernel's tile that holds c."""
+    return -(-c // 16) * 16
+
+
+def _zpad(t, *sizes):
+    """t zero-padded at the high end of its last len(sizes) axes to
+    ``sizes``."""
+    pads = []
+    for d, n in zip(reversed(range(t.dim() - len(sizes), t.dim())),
+                    reversed(sizes)):
+        pads += [0, n - t.shape[d]]
+    return F.pad(t, pads)
+
+
 def block_s8_tiled(aq, bq, w1q, g1, b1, w2q, g2, b2, wbq, gb, bb,
                    out_dtype=torch.float32, tile=(16, 16)):
     """K2-s8's decomposition: per 16x16 output tile, conv1 as the k32
@@ -900,11 +916,24 @@ def block_s8_tiled(aq, bq, w1q, g1, b1, w2q, g2, b2, wbq, gb, bb,
     image), its epilogue requantized to int8 and zero outside the image,
     conv2 and the 1x1 bypass as k32 GEMMs over the tile, the f32
     epilogue in the plain version's steps (quant.fma, relu, add, relu).
-    Returns the output and the tiles' m at the image's pixels."""
+    8-channel streams run as the kernel runs them: x, m, the weights and
+    the affines zero-padded to 16 channels (basic_block_s8.cu), the
+    padded channels dropped at the end. Returns the output and the
+    tiles' m at the image's pixels."""
     th, tw = tile
     x = (aq if bq is None else torch.cat([aq, bq], -1)).long()
-    bsz, h, w, cin = x.shape
-    co = w1q.shape[-1]
+    co_real = w1q.shape[-1]
+    cin, co = _pad16(x.shape[-1]), _pad16(co_real)
+    if (cin, co) != (x.shape[-1], co_real):
+        x = _zpad(x, cin)
+        w1q, w2q = _zpad(w1q, cin, co), _zpad(w2q, co, co)
+        wbq = None if wbq is None else _zpad(wbq, cin, co)
+        g1, b1, g2, b2, gb, bb = (_zpad(v, co)
+                                  for v in (g1, b1, g2, b2, gb, bb))
+        out, mid = block_s8_tiled(x.to(torch.int8), None, w1q, g1, b1, w2q,
+                                  g2, b2, wbq, gb, bb, out_dtype, tile)
+        return out[..., :co_real], mid[..., :co_real]
+    bsz, h, w, _ = x.shape
     k1, k2 = _s8_kmat(w1q, 9, cin), _s8_kmat(w2q, 9, co)
     kb = None if wbq is None else _s8_kmat(wbq, 1, cin)
     fma = quant.fma
@@ -1038,6 +1067,17 @@ def conv_s8_tiled(xq, wq, g, b, residual=None, pre_act=False, act=True,
     plain version's steps (quant.fma, relu, add, relu)."""
     th, tw = tile
     k, _, ci, co = wq.shape
+    if ci == 8 or co % 8:
+        # an 8-byte pixel in a 16-byte tile pixel, N padded to 8: zeros
+        # (conv_bn_act_s8.cu)
+        cop = -(-co // 8) * 8
+        out = conv_s8_tiled(
+            _zpad(xq, 16 if ci == 8 else ci),
+            _zpad(wq, 16 if ci == 8 else ci, cop), _zpad(g, cop),
+            _zpad(b, cop),
+            None if residual is None else _zpad(residual, cop), pre_act,
+            act, out_dtype, tile)
+        return out[..., :co].contiguous()
     r = k // 2
     taps = [(dy, dx) for dy in range(k) for dx in range(k)]
     kmat = _s8_kmat(wq, k * k, ci)
@@ -1077,10 +1117,11 @@ TAPS7 = [(dy, dx) for dy in range(7) for dx in range(7)]
 @pytest.mark.parametrize("out_dtype", S8_OUT, ids=["f32", "bf16"])
 @pytest.mark.parametrize("mode", CONV_MODES, ids=CONV_IDS)
 def test_conv_s8_decomposition_matches_plain(rng, mode, out_dtype):
-    """The compiled (16, 16, 7) at 2 x 20 x 37 (16x16 tiles cut at the
+    """The flagship's (16, 16, 7) at 2 x 20 x 37 (16x16 tiles cut at the
     border), each epilogue and output dtype: bit for bit the plain
     version's — exact s32 sums, the same f32 epilogue steps."""
-    (ci, co, k), = sorted(conv.S8_SHAPES)
+    ci, co, k = 16, 16, 7
+    assert (ci, co, k) in conv.S8_SHAPES
     res, pre, act = mode
     x, w, g, b, r = _s8_conv_inputs(rng, 2, 20, 37, ci, co, k)
     r = r.to(out_dtype) if res else None
@@ -1130,7 +1171,7 @@ def test_conv_s8_decomposition_matches_pallas(mode):
     """float32 against fused_packed_conv with quantized int8 inputs in
     interpret mode, fed as tests/test_torch_int8_kernels.py feeds it
     (rtol 1e-6, atol 1e-5)."""
-    (ci, co, k), = sorted(conv.S8_SHAPES)
+    ci, co, k = 16, 16, 7
     p = 128 // ci
     rng = np.random.RandomState(3)
     x, w = _s8(rng, (2, 16, 4 * p, ci)), _s8(rng, (k, k, ci, co))
@@ -1148,6 +1189,32 @@ def test_conv_s8_decomposition_matches_pallas(mode):
                         pre_act, act)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
                                atol=1e-5)
+
+
+S8_CONVS_8 = sorted(s for s in conv.S8_SHAPES if s[0] == 8)
+
+
+@pytest.mark.parametrize("out_dtype", S8_OUT, ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", S8_CONVS_8, ids=map(str, S8_CONVS_8))
+def test_conv_s8_decomposition_8_channels(rng, shape, out_dtype):
+    """The 8-channel K1-s8 instances (the inplanes-8 head, the inplanes-4
+    per-conv blocks' convs) as the kernel pads them — 8-byte pixels in
+    16-byte tile pixels, two taps and a zero phantom a k-step, co = 4 in
+    a zero-padded n-tile — at 2 x 20 x 37 with a residual: bit for bit
+    the plain version's. A nonzero padded channel would change them."""
+    ci, co, k = shape
+    x, w, g, b, r = _s8_conv_inputs(rng, 2, 20, 37, ci, co, k)
+    r = r.to(out_dtype)
+    got = conv_s8_tiled(x, w, g, b, r, True, True, out_dtype)
+    want = conv.conv_bn_act_s8_plain(x, w, g, b, r, pre_act=True, act=True,
+                                     out_dtype=out_dtype)
+    assert got.shape == want.shape == (2, 20, 37, co)
+    assert torch.equal(got, want)
+    bad = torch.cat([x, torch.ones_like(x)], -1)
+    wp = _zpad(w, 16, co)
+    wp[:, :, 8:] = 1
+    assert not torch.equal(
+        conv_s8_tiled(bad, wp, g, b, r, True, True, out_dtype), want)
 
 
 # ---- K3-s8: K3's four parity GEMMs on m16n8k32

@@ -151,6 +151,9 @@ def _affine(sd: StateDict, conv_key: str, bn_key: Optional[str]):
 #   conv_ad_fuses   the train zone, use_fused_train and PackedConv's
 #                   fused_train branch (blocks.py:143-155, 416-422,
 #                   through pallas_conv.py:conv_ad_supported)
+#   deconv_ad_fuses the train-mode Deconv2x under fused_train_deconv
+#                   (blocks.py:883-912, through
+#                   pallas_conv.py:deconv_ad_supported)
 # JAX's VMEM fit test (_block_fits, blocks.py:581-591: a whole-plane
 # spatial input can overflow the TPU's scoped VMEM) has no counterpart:
 # the card's kernels tile the plane, and their shared memory does not
@@ -162,39 +165,11 @@ def _affine(sd: StateDict, conv_key: str, bn_key: Optional[str]):
 # predicate at its shape, input width and pack, whatever the dtype;
 # where it holds, the layer calls its kernel's wrapper, which on the
 # card launches the kernel or raises at a shape none was compiled for
-# (ops/_build.py:SHAPES). The one exception is ITEM_8B.
+# (ops/_build.py:SHAPES). There is no exception: the 8-channel streams
+# of inplanes 8 and 4 take their kernels as the flagship's do.
 
 LANES = 128  # the TPU's lane width, which JAX's gates fill
 _ZONE = contextvars.ContextVar("ubresnet_packed_zone", default=True)
-
-# bf16 layers that JAX fuses at 8-channel streams (inplanes 8 and 4;
-# tests/test_torch_routes.py pins this set to the JAX trace) and that
-# keep the F.conv2d / cuDNN route until K1, K2, K3 and K5 get an
-# 8-channel k-step (ROADMAP item 8b), as (kernel, shape): conv_bn_act
-# (ci, co, k), basic_block (ca, cb, co, proj), deconv2x (ci, co), and
-# for the train zone conv_stats (ci, co, k), whose dx (K1) and dW (K6)
-# legs go with it. Under int8 these layers raise on the card, as before.
-ITEM_8B = frozenset({
-    # eval, inplanes 8
-    ("basic_block", (8, 0, 16, True)),     # enc1.res1
-    ("deconv2x", (16, 8)),                 # dec1.deconv (dec2's at 4)
-    ("basic_block", (8, 8, 8, True)),      # dec1.res.res1 (dec2's at 4)
-    ("basic_block", (8, 0, 8, False)),     # dec1.res.res2 (enc1.res2 and
-                                           # dec2.res.res2 at 4)
-    ("conv_bn_act", (8, 16, 7)),           # head conv10
-    # eval, inplanes 4: JAX runs enc1.res1 and dec1.res.res1 per conv
-    # and fuses their 8-channel convs
-    ("conv_bn_act", (8, 8, 3)),            # enc1.res1 cb2
-    ("deconv2x", (8, 4)),                  # dec1.deconv
-    ("conv_bn_act", (8, 4, 3)),            # dec1.res.res1 cb1
-    ("conv_bn_act", (8, 4, 1)),            # dec1.res.res1 bypass
-    # the train zone at 8 and 4
-    ("conv_stats", (8, 16, 3)), ("conv_stats", (8, 16, 1)),
-    ("conv_stats", (8, 8, 3)), ("conv_stats", (16, 8, 3)),
-    ("conv_stats", (16, 8, 1)), ("conv_stats", (8, 16, 7)),
-    ("conv_stats", (8, 4, 3)), ("conv_stats", (8, 4, 1)),
-})
-
 
 @contextlib.contextmanager
 def zone_active(active: bool):
@@ -273,10 +248,16 @@ def conv_ad_fuses(ci: int, co: int, k: int, width: Optional[int],
             and (p * co >= LANES or (cod <= LANES and 2 * r * cod <= LANES)))
 
 
-def on_kernel(fused: bool, kernel: str, shape) -> bool:
-    """A bf16 layer's route: its kernel where JAX fuses, except the
-    8-channel layers of ITEM_8B."""
-    return fused and (kernel, tuple(shape)) not in ITEM_8B
+def deconv_ad_fuses(ci: int, co: int, width: Optional[int],
+                    pack: int) -> bool:
+    """A train-mode Deconv2x at an exact 2x target under
+    fused_train_deconv: the input's lanes and halo pass as in eval, and
+    every leg of JAX's differentiable deconv fits its kernel
+    (deconv_ad_supported at the lane pack: dy's lanes in the 2p view and
+    its halo)."""
+    pe = lane_pack(ci, width, pack)
+    return (_ZONE.get() and pe * ci >= LANES and 2 * ci <= LANES
+            and 2 * pe * co >= LANES and 2 * co <= LANES)
 
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
@@ -304,8 +285,8 @@ class ConvBN(nn.Module):
     blocks.py:400-414 (a ``stride`` other than 1 only there: a per-conv
     int8 block's first conv or projection at stride 2). Where JAX fuses,
     K1-s8's wrapper runs, which on the card raises at a shape it was not
-    compiled for; ``kernel`` says whether one was (int8) or whether the
-    layer takes K1 at the zone's widths (bf16)."""
+    compiled for; ``kernel`` says whether the layer takes K1 or K1-s8 at
+    the zone's widths."""
 
     def __init__(self, sd: StateDict, conv_key: str, bn_key: Optional[str],
                  *, act: bool = True, policy: Policy = Policy(), device=None,
@@ -335,7 +316,7 @@ class ConvBN(nn.Module):
             if bn_key is None or dilation != 1:
                 raise ValueError(f"{conv_key}: an int8 ConvBN needs its BN "
                                  "and dilation 1")
-            self.kernel = self.fuse_ok and conv_ops.s8_supports(ci, co, k)
+            self.kernel = self._fused_form(None)
             self._device = device
             # the raw HWIO kernel; for the fused epilogue (K1-s8's) the
             # BN folded with the conv bias, for JAX's XLA route the conv
@@ -349,8 +330,7 @@ class ConvBN(nn.Module):
                                         sd[f"{bn_key}.running_mean"],
                                         sd[f"{bn_key}.running_var"])}
             return
-        self.kernel = on_kernel(self._fused_form(None), "conv_bn_act",
-                                self.shape)
+        self.kernel = self._fused_form(None)
         wk = w.permute(2, 3, 1, 0)  # HWIO
         if self.qat:
             wk = quant_ops.fake_quant_weight(wk)
@@ -448,8 +428,7 @@ class ConvBN(nn.Module):
             return self._forward_int8(x, residual)
         if self.qat_input:
             x = quant_ops.fake_quant_act(x, self.pct, self.qpack)
-        if on_kernel(self._fused_form(x.shape[2]), "conv_bn_act",
-                     self.shape):
+        if self._fused_form(x.shape[2]):
             return conv_ops.conv_bn_act(x, self.wk, self.gk, self.bk,
                                         act=self.act)
         return self.plain(x)
@@ -495,8 +474,9 @@ class BasicBlock(nn.Module):
     its input with its own calibrated scale (JAX's 'quant' names
     ``<block>.cb1`` / ``.bypass`` / ``.cb2``), an exact integer conv,
     ``sx·sw`` folded into its affine — JAX's XLA route, not a stand-in
-    for a kernel. ``per_conv``: no K2-s8 instance was compiled for the
-    block's shape (ROADMAP item 8b at 8- and 4-channel streams).
+    for a kernel. ``kernel``: the block takes K2 or K2-s8 at the zone's
+    widths (at inplanes 4 JAX runs enc1.res1 and dec1's blocks per
+    conv).
 
     Under QAT (``qat``) the block runs per conv: ConvBNs cb1, bypass and
     cb2, each fake-quantizing its own input, never K2."""
@@ -524,9 +504,7 @@ class BasicBlock(nn.Module):
         # JAX's fused_ok (blocks.py:567-578) but for the lane tests
         self.fuse_ok = (policy.fused_eval and zone and stride == 1
                         and not policy.quant_train)
-        self.per_conv = self.quant and not (
-            policy.fused_eval and stride == 1
-            and block_ops.s8_supports(ca, cb, co, self.proj))
+        self.kernel = self._fuses(ca, cb, None)
         self.cb = None
 
         def build_per_conv(pol, **kw):  # cb1, cb2 and bypass as ConvBNs
@@ -541,12 +519,10 @@ class BasicBlock(nn.Module):
                     self.cb[tag].qname = f"{self.qname}.{name}"
 
         if self.qat:
-            self.kernel = False
             build_per_conv(dataclasses.replace(policy, fused_eval=False),
                            qat=True)
             return
         if self.quant:
-            self.kernel = not self.per_conv
             self.cdt, self._device = cdt, device
             self._qsrc = {
                 tag: (sd[f"{pref}.{ck}.weight"].float().permute(2, 3, 1, 0)
@@ -555,8 +531,6 @@ class BasicBlock(nn.Module):
                 for tag, ck, bk in convs}
             build_per_conv(policy, quant=True)
             return
-        self.kernel = on_kernel(self._fuses(ca, cb, None), "basic_block",
-                                self.shape)
         if zone:
             build_per_conv(policy)
         for tag, ck, bk in convs:
@@ -614,20 +588,15 @@ class BasicBlock(nn.Module):
         return self._fuses(x.shape[-1], 0 if dual is None else dual.shape[-1],
                            x.shape[2])
 
-    def _per_conv(self, x, dual, tail: bool = False, plain: bool = False):
+    def _per_conv(self, x, dual, tail: bool = False):
         """cb2(cb1(x)) with the bypass: JAX's per-ConvBN route; ``tail``:
-        cb2 adds it in its epilogue (int8), else relu(cb2 + bypass);
-        ``plain``: each conv's F.conv2d route, whatever its gate."""
+        cb2 adds it in its epilogue (int8), else relu(cb2 + bypass)."""
         if dual is not None:
             x = torch.cat([x, dual], dim=-1)
-
-        def conv(tag, t):
-            return self.cb[tag].plain(t) if plain else self.cb[tag](t)
-
-        r = conv("b", x) if self.proj else x
+        r = self.cb["b"](x) if self.proj else x
         if tail:
             return self.cb["2"](self.cb["1"](x), residual=r)
-        return torch.relu(conv("2", conv("1", x)) + r)
+        return torch.relu(self.cb["2"](self.cb["1"](x)) + r)
 
     def forward(self, x: torch.Tensor,
                 dual: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -648,15 +617,15 @@ class BasicBlock(nn.Module):
                 self.w1, self.g1, self.b1, self.w2, self.g2, self.b2,
                 self.wb if self.proj else None, self.gb, self.bb,
                 out_dtype=self.cdt)
-        if on_kernel(fused, "basic_block", self.shape):
+        if fused:
             if self.proj:
                 return block_ops.basic_block(
                     x, dual, self.w1, self.g1, self.b1, self.w2, self.g2,
                     self.b2, self.wb, self.gb, self.bb)
             return block_ops.basic_block(x, dual, self.w1, self.g1, self.b1,
                                          self.w2, self.g2, self.b2)
-        if self.cb is not None:  # an ITEM_8B block (fused) is all cuDNN
-            return self._per_conv(x, dual, plain=fused)
+        if self.cb is not None:
+            return self._per_conv(x, dual)
         if dual is not None:
             x = torch.cat([x, dual], dim=-1)
         observe = self.observer
@@ -705,8 +674,8 @@ class Deconv2x(nn.Module):
     target in [2d - 2, 2d + 1] (blocks.py Deconv2x). In the int8 zone:
     K3-s8 with the dequant sx·sw where JAX runs its fused int8 deconv
     (the same predicate, blocks.py:855-866; on the card the wrapper
-    raises at a shape it was not compiled for, ``kernel`` says whether
-    one was); elsewhere, as JAX leaves its fused kernel, the exact
+    raises at a shape it was not compiled for; ``kernel`` says whether
+    the layer takes K3 or K3-s8 at the zone's widths); elsewhere, as JAX leaves its fused kernel, the exact
     integer deconv (ops/quant.py:int_conv_transpose2d) to any target, as
     ``deconv_to`` reaches it, times sx·sw in f32, cast to the compute
     dtype — JAX's packed_deconv2x route (blocks.py:867-873). Under QAT
@@ -727,12 +696,11 @@ class Deconv2x(nn.Module):
         self.pct = policy.quant_percentile
         self.fuse_ok = policy.fused_eval and zone
         if self.quant:
-            self.kernel = self.fuse_ok and deconv_ops.s8_supports(ci, co)
+            self.kernel = self._fused_form(None)
             self.cdt, self._device = cdt, device
             self._qsrc = w.permute(2, 3, 0, 1).contiguous()  # (4, 4, ci, co)
             return
-        self.kernel = on_kernel(self._fused_form(None), "deconv2x",
-                                self.shape)
+        self.kernel = self._fused_form(None)
         if self.qat:
             w = quant_ops.fake_quant_weight(w.permute(2, 3, 0, 1)).permute(
                 2, 3, 0, 1)
@@ -775,7 +743,7 @@ class Deconv2x(nn.Module):
                                               out_dtype=self.cdt)
             acc = quant_ops.int_conv_transpose2d(xq, self.wq, (th, tw))
             return (acc * self.g).to(self.cdt)
-        if on_kernel(fused, "deconv2x", self.shape):
+        if fused:
             return deconv_ops.deconv2x(x, self.wk)
         return deconv_to(x, self.w, (th, tw))
 
@@ -884,14 +852,19 @@ def stem_pool(x: torch.Tensor, fused: bool, pack: int,
 # ops/train_conv.py (K5, with K1 for dx and K6 for dW) when it feeds a
 # BN, ops/conv.py:conv_ad (K1, K1, K6) when not (the classifier); their
 # wrappers raise on the card at a shape none was compiled for. At
-# inplanes 16 that is enc1, dec2, dec1, conv10 and conv11; at 32 the
-# same but dec2's first conv and conv10, whose halos overflow the
-# lanes. A decoder upsample
-# runs ops/deconv.py:deconv2x_ad (K3 forward, K8 dx, K9 dW) when
-# ``policy.fused_train_deconv`` is set, its target is exactly 2x and
-# deconv.ad_supports(ci, co): dec2 and dec1 at the flagship width.
-# Other layers are torch.nn.functional ops under autograd, as they are
-# XLA in JAX.
+# inplanes 16 (and 8 and 4) that is enc1, dec2, dec1, conv10 and
+# conv11; at 32 the same but dec2's first conv and conv10, whose halos
+# overflow the lanes. A decoder upsample of the packed zone (``zone``:
+# dec2 and dec1) runs ops/deconv.py:deconv2x_ad (K3 forward, K8 dx, K9
+# dW) where JAX runs pallas_deconv2x_ad: ``policy.fused_train_deconv``
+# is set, its target is exactly 2x and deconv_ad_fuses holds on its
+# lane geometry (per call). That is dec2 (64, 32) and dec1 (32, 16) at
+# inplanes 16, dec1 (64, 32) at 32 (dec2's 128 input channels overflow
+# the halo), dec2 (32, 16) and dec1 (16, 8) at 8, dec2 (16, 8) and
+# dec1 (8, 4) at 4 — never a layer outside the zone, whatever was
+# compiled; deconv2x_ad's wrappers raise on the card at a shape none
+# was. Other layers are torch.nn.functional ops under autograd, as they
+# are XLA in JAX.
 #
 # QAT (``policy.quant_train``): a module built with ``qat=True`` is in
 # the JAX package's packed zone (stem, enc1, dec2, dec1, head and the
@@ -941,16 +914,12 @@ class Conv(nn.Module):
         self.route = "conv_stats" if bn else "conv_ad"
         self.fuse_ok = (policy.fused_train and zone and stride == 1
                         and dilation == 1)
-        self.zone = on_kernel(self._fused_form(None), self.route, self.shape)
+        self.zone = self._fused_form(None)
 
     def _fused_form(self, width: Optional[int]) -> bool:
         """Whether JAX runs this conv on its train-zone kernels at this
         input width (None: at the zone's widths)."""
         return self.fuse_ok and conv_ad_fuses(*self.shape, width, self.qpack)
-
-    def _on_kernel(self, x: torch.Tensor) -> bool:
-        return on_kernel(self._fused_form(x.shape[2]), self.route,
-                         self.shape)
 
     def _kernel_weight(self) -> torch.Tensor:
         """(k, k, ci, co) in the compute dtype, under autograd
@@ -961,7 +930,7 @@ class Conv(nn.Module):
         return w.to(self.cdt)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.route == "conv_ad" and self._on_kernel(x):
+        if self.route == "conv_ad" and self._fused_form(x.shape[2]):
             y = conv_ops.conv_ad(x, self._kernel_weight())
             return y if self.bias is None else y + self.bias.to(y.dtype)
         b = None if self.bias is None else self.bias.to(self.cdt)
@@ -974,7 +943,7 @@ class Conv(nn.Module):
         """(y, (Σy, Σy²)) from K5 in the zone, else (y, None)."""
         if self.qat:
             x = quant_ops.fake_quant_act(x, self.pct, self.qpack)
-        if self.route == "conv_stats" and self._on_kernel(x):
+        if self.route == "conv_stats" and self._fused_form(x.shape[2]):
             y, s1, s2 = train_ops.train_conv_stats(x, self._kernel_weight(),
                                                    self.bias)
             return y, (s1, s2)
@@ -1144,24 +1113,34 @@ class TrainDoubleResNet(nn.Module):
 
 class TrainDeconv2x(nn.Module):
     """Train-mode ConvTranspose2d(k=4, s=2, p=1, no bias): ``weight``
-    (ci, co, 4, 4) f32. ``ad`` (policy.fused_train_deconv and every leg
-    compiled for (ci, co)): an exact 2x target runs deconv2x_ad (K3, K8,
-    K9, dW rounded to the compute dtype as in JAX); otherwise
-    F.conv_transpose2d under autograd (XLA in JAX). Under QAT the input
-    and the kernel are fake-quantized first, as JAX's packed Deconv2x
-    does before it routes."""
+    (ci, co, 4, 4) f32. Where JAX runs pallas_deconv2x_ad
+    (``_fused_form``: policy.fused_train_deconv, in the packed zone,
+    ``zone``, deconv_ad_fuses at its input's lane geometry) an exact 2x
+    target runs deconv2x_ad (K3, K8, K9, dW rounded to the compute dtype
+    as in JAX), whose wrappers raise on the card at a shape none was
+    compiled for; otherwise F.conv_transpose2d under autograd (XLA in
+    JAX). Under QAT the input and the kernel are fake-quantized first,
+    as JAX's packed Deconv2x does before it routes."""
 
     def __init__(self, sd: StateDict, key: str, *, policy: Policy = Policy(),
-                 device=None, qat: bool = False, qpack: int = 1):
+                 device=None, qat: bool = False, qpack: int = 1,
+                 zone: bool = True):
         super().__init__()
         device = resolve_device(device)
         self.weight = nn.Parameter(sd[f"{key}.weight"].float().to(device)
                                    .clone())
-        ci, co = self.weight.shape[:2]
+        self.shape = tuple(self.weight.shape[:2])  # (ci, co)
         self.cdt = policy.compute_dtype
-        self.ad = policy.fused_train_deconv and deconv_ops.ad_supports(ci, co)
         self.qat = qat and policy.quant_train
         self.qpack, self.pct = qpack, policy.quant_percentile
+        self.fuse_ok = policy.fused_train_deconv and zone
+        self.ad = self._fused_form(None)  # at the zone's widths
+
+    def _fused_form(self, width: Optional[int]) -> bool:
+        """Whether JAX runs this upsample on pallas_deconv2x_ad at this
+        input width (at an exact 2x target)."""
+        return self.fuse_ok and deconv_ad_fuses(*self.shape, width,
+                                                self.qpack)
 
     def forward(self, x: torch.Tensor,
                 target_hw: Tuple[int, int]) -> torch.Tensor:
@@ -1170,7 +1149,8 @@ class TrainDeconv2x(nn.Module):
             x = quant_ops.fake_quant_act(x, self.pct, self.qpack)
             w = quant_ops.fake_quant_weight(w.permute(2, 3, 0, 1)).permute(
                 2, 3, 0, 1)
-        if self.ad and tuple(target_hw) == (2 * x.shape[1], 2 * x.shape[2]):
+        if (tuple(target_hw) == (2 * x.shape[1], 2 * x.shape[2])
+                and self._fused_form(x.shape[2])):
             return deconv_ops.deconv2x_ad(x, w.permute(2, 3, 0, 1)
                                           .to(self.cdt))
         return deconv_to(x, w.to(self.cdt), target_hw)
@@ -1183,9 +1163,10 @@ class TrainDecoderBlock(nn.Module):
                  device=None, qat: bool = False, qpack: int = 1,
                  zone: bool = True):
         super().__init__()
-        kw = dict(policy=policy, device=device, qat=qat, qpack=qpack)
+        kw = dict(policy=policy, device=device, qat=qat, qpack=qpack,
+                  zone=zone)
         self.deconv = TrainDeconv2x(sd, f"{pref}.deconv", **kw)
-        self.res = TrainDoubleResNet(sd, f"{pref}.res", zone=zone, **kw)
+        self.res = TrainDoubleResNet(sd, f"{pref}.res", **kw)
 
     def forward(self, x, skip):
         up = self.deconv(x, (skip.shape[1], skip.shape[2]))

@@ -110,7 +110,13 @@ _TRAIN_ZONE_16 = {(16, 32, 3), (16, 32, 1), (32, 32, 3), (64, 32, 3),
 # dec1; the head conv10 (32, 16, 7) stays off (2·3·32 > 128)
 _TRAIN_ZONE_32 = {(32, 64, 3), (32, 64, 1), (64, 64, 3), (128, 64, 1),
                   (64, 32, 3), (64, 32, 1), (32, 32, 3)}
-_TRAIN_ZONE = _TRAIN_ZONE_16 | _TRAIN_ZONE_32
+# 8-channel streams (inplanes 8 and 4): the enc1, dec2 and dec1 convs
+# and the head conv10 whose lanes JAX's gate passes (at 4, enc1.res1's
+# conv1 (4, 8, 3) and its projection fail it: 4 channels at pack 16
+# fill 64 lanes)
+_TRAIN_ZONE_8 = {(8, 16, 3), (8, 16, 1), (8, 16, 7), (16, 8, 3),
+                 (16, 8, 1), (8, 8, 3), (8, 4, 3), (8, 4, 1)}
+_TRAIN_ZONE = _TRAIN_ZONE_16 | _TRAIN_ZONE_32 | _TRAIN_ZONE_8
 # the classifier conv11, 3 classes and the 4-class deploy model's
 _CLASSIFIERS = {(16, 3, 7), (16, 4, 7)}
 # (ca, cb, co, projection) of the eval model's BasicBlocks in the zone
@@ -124,21 +130,33 @@ _BLOCKS = frozenset({
     (32, 0, 64, True),    # enc1.res1
     (64, 0, 64, False),   # enc1.res2, dec2.res.res2 (streamed weights)
     (64, 64, 64, True),   # dec2.res.res1 (streamed weights)
+    # 8-channel streams: inplanes 8 (at 4, enc1.res1 and dec1's blocks
+    # run per conv; enc1.res2 and dec2's take the last two)
+    (8, 0, 16, True),     # enc1.res1
+    (8, 8, 8, True),      # dec1.res.res1; dec2.res.res1 at 4
+    (8, 0, 8, False),     # dec1.res.res2; enc1.res2, dec2.res.res2 at 4
 })
 # (ci, co): dec2 and dec1 upsamples (dec1's at inplanes 32 is (64, 32);
-# dec2's there, (128, 64), stays off: 2·128 > 128)
-_DECONVS = frozenset({(64, 32), (32, 16)})
+# dec2's there, (128, 64), stays off: 2·128 > 128); at inplanes 8 dec2
+# (32, 16) and dec1 (16, 8), at 4 dec2 (16, 8) and dec1 (8, 4)
+_DECONVS = frozenset({(64, 32), (32, 16), (16, 8), (8, 4)})
+# the convs JAX fuses at 8-channel streams outside the blocks: the head
+# conv10 at inplanes 8; at 4 the per-conv blocks' convs whose lanes pass,
+# enc1.res1's cb2 and dec1.res.res1's cb1 and projection
+_CONVS_8 = {(8, 16, 7), (8, 8, 3), (8, 4, 3), (8, 4, 1)}
 
 # kernel → the template arguments instantiated in its .cu entry point,
-# the kernel-zone layers of the UResNets the port runs (inplanes 16 and
-# 32, 3 or 4 classes)
+# the kernel-zone layers of the UResNets the port runs (inplanes 16, 32,
+# 8 and 4, 3 or 4 classes; ASPP-ResNet's are among them)
 SHAPES = {
     # (ci, co, k): head conv10 and the classifiers (eval, and the
     # classifier's train forward); the input gradients of the train
     # zone and of the classifiers, whose 3 or 4 channels K1 reads
     # zero-padded to 4
     "conv_bn_act": frozenset({(16, 16, 7), (4, 16, 7)} | _CLASSIFIERS
-                             | {(co, ci, k) for ci, co, k in _TRAIN_ZONE}),
+                             | _CONVS_8
+                             | {(-(-co // 4) * 4, ci, k)
+                                for ci, co, k in _TRAIN_ZONE}),
     # (ci, co, k): the train zone's forward
     "conv_stats": frozenset(_TRAIN_ZONE),
     # (ci, co, k): the train zone's and the classifiers' weight gradient
@@ -147,14 +165,15 @@ SHAPES = {
     "basic_block": _BLOCKS,
     "deconv2x": _DECONVS,
     # (ci, co) of the deconv: its input gradient (K8) and weight
-    # gradient (K9) under Policy.fused_train_deconv (the flagship's)
+    # gradient (K9) under Policy.fused_train_deconv
     "conv_s2k4": _DECONVS,
     "deconv_dw": _DECONVS,
-    # int8 deploy (Policy.int8): the head conv10 on K1-s8 where JAX
-    # fuses it (the 1-channel stem is an exact plain-torch integer
-    # conv, as XLA in JAX; the classifier stays bf16 K1), the same
-    # blocks on K2-s8, the same upsamples on K3-s8
-    "conv_bn_act_s8": frozenset({(16, 16, 7)}),
+    # int8 deploy (Policy.int8): the head conv10 and the 8-channel
+    # convs on K1-s8 where JAX fuses them (the 1-channel stem is an
+    # exact plain-torch integer conv, as XLA in JAX; the classifier
+    # stays bf16 K1), the same blocks on K2-s8, the same upsamples on
+    # K3-s8
+    "conv_bn_act_s8": frozenset({(16, 16, 7)} | _CONVS_8),
     "basic_block_s8": _BLOCKS,
     "deconv2x_s8": _DECONVS,
 }

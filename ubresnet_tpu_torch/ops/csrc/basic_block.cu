@@ -60,7 +60,7 @@
 // resident form above (the dual block's w1 + w2 are 216 KB alone). The
 // block stays one kernel with m on chip; only the weights move:
 // - a prepack kernel lays w1, w2 and wb out once per call as the same B
-//   fragments (stage_b) in the wrapper's scratch, tap by tap contiguous;
+//   fragments (stage_bv) in the wrapper's scratch, tap by tap contiguous;
 // - the main kernel streams them a tap at a time through a two-slot
 //   cp.async ring in shared memory (w1's 9 taps, w2's 9, then wb: 19
 //   stages a tile), the next stage's copy in flight while this one runs;
@@ -73,6 +73,17 @@
 // 33 + 1.5 + 102 + 41 = 178 KB. A two-block cluster that splits co and
 // trades m through distributed shared memory would keep the weights
 // resident; not built.
+//
+// 8-channel streams (the inplanes-8 UResNet's enc1.res1 (8, 0, 16),
+// dec1.res.res1 (8, 8, 8) and .res2 (8, 0, 8); at inplanes 4 the last
+// two as dec2's blocks and enc1.res2): the tiles are zero-padded to the
+// 16-channel k-step (tc::pad16). An 8-channel x stream is one 16-byte
+// chunk a pixel; a chunk past the streams' channels is zero-filled by
+// its copy; the weights' B rows and columns past the real channels and
+// the affines past co are zero, so conv1 writes zeros into m's padded
+// channels and conv2 reads them against zero rows. co = 8 computes 16
+// columns and stores 8. 2x (co 16) to 4x (8 -> 8) the real MACs, each
+// block still bound by bytes; the same function as unpadded.
 #include "tensor_core.cuh"
 #include "ubr_shapes.h"  // UBR_BASIC_BLOCK_SHAPES (ops/_build.py:SHAPES)
 
@@ -88,19 +99,21 @@ constexpr int J2 = TH / NWARP;                 // output rows a warp
 
 template <int CA, int CB, int CO, bool PROJ>
 struct BlockShape {
-  static constexpr int CIN = CA + CB;
-  static constexpr int NCI = CIN / 8, NCO = CO / 8;  // 16-byte chunks/pixel
-  static constexpr int NQ = CO / 16;                 // n-tile pairs
-  static constexpr int W1_UNITS = 9 * CIN * CO / 8;  // uint4 of B fragments
-  static constexpr int W2_UNITS = 9 * CO * CO / 8;
-  static constexpr int WB_UNITS = PROJ ? CIN * CO / 8 : 0;
-  static constexpr int PRM = 6 * CO;  // g1 b1 g2 b2 gb bb (f32)
-  static constexpr int X_ELEMS = XH * XW * CIN, M_ELEMS = MH * MW * CO;
+  static constexpr int CIN = CA + CB, COUT = CO;     // real channels
+  // channels of the x and m tiles and of the GEMMs' K and N
+  static constexpr int CIP = tc::pad16(CIN), COP = tc::pad16(CO);
+  static constexpr int NCI = CIP / 8, NCO = COP / 8;  // 16-byte chunks/pixel
+  static constexpr int NQ = COP / 16;                 // n-tile pairs
+  static constexpr int W1_UNITS = 9 * CIP * COP / 8;  // uint4 of B fragments
+  static constexpr int W2_UNITS = 9 * COP * COP / 8;
+  static constexpr int WB_UNITS = PROJ ? CIP * COP / 8 : 0;
+  static constexpr int PRM = 6 * COP;  // g1 b1 g2 b2 gb bb (f32)
+  static constexpr int X_ELEMS = XH * XW * CIP, M_ELEMS = MH * MW * COP;
   static constexpr int RESIDENT = (W1_UNITS + W2_UNITS + WB_UNITS) * 16 +
                                   PRM * 4 + (2 * X_ELEMS + M_ELEMS) * 2;
   // streamed form: the weights a tap at a time through a two-slot ring
   static constexpr bool STREAM = RESIDENT > tc::SMEM_MAX;
-  static constexpr int W1_TAP = CIN * CO / 8, W2_TAP = CO * CO / 8;
+  static constexpr int W1_TAP = CIP * COP / 8, W2_TAP = COP * COP / 8;
   static constexpr int SLOT = W1_TAP > W2_TAP ? W1_TAP : W2_TAP;
   static constexpr int NSTAGE = 18 + (PROJ ? 1 : 0);  // w1, w2 taps, wb
   static constexpr int STREAMED = 2 * SLOT * 16 + PRM * 4 +
@@ -108,7 +121,9 @@ struct BlockShape {
   static constexpr int SMEM = STREAM ? STREAMED : RESIDENT;
   // 64 output channels: the accumulators want the registers of one block
   static constexpr int CAP = CO >= 64 ? 1 : 2;
-  static_assert(TH * TW * CO <= M_ELEMS, "output staging fits the m tile");
+  static_assert(CA % 8 == 0 && CB % 8 == 0 && CO % 8 == 0,
+                "streams of whole 16-byte chunks");
+  static_assert(TH * TW * COP <= M_ELEMS, "output staging fits the m tile");
   static_assert(PROJ || CIN == CO, "identity bypass needs ci == co");
   static_assert(SMEM <= tc::SMEM_MAX, "one block's shared memory");
 };
@@ -125,7 +140,7 @@ __device__ __forceinline__ void zero(float (&acc)[J][2 * NQ][4]) {
 
 // acc[j] += A_j · B over one tap's KC k-steps: lane's A row of M-tile j
 // is tile pixel pix[j] + shift, chunk 2 kc + half; B fragments wf
-// (stage_b layout, the tap's k-steps). M-tiles with on[j] false are
+// (stage_bv layout, the tap's k-steps). M-tiles with on[j] false are
 // skipped.
 template <int NC, int KC, int NQ, int J>
 __device__ __forceinline__ void gemm_tap(float (&acc)[J][2 * NQ][4],
@@ -164,7 +179,7 @@ __device__ __forceinline__ int tap_shift(int tap) {
 }
 
 // acc[j] += A_j · B over TAPS x KC k-steps (gemm_tap per tap) in a tile
-// of row pitch PW; B fragments wf (stage_b layout, K tap-major).
+// of row pitch PW; B fragments wf (stage_bv layout, K tap-major).
 template <int NC, int KC, int TAPS, int NQ, int J, int PW>
 __device__ __forceinline__ void gemm(float (&acc)[J][2 * NQ][4],
                                      uint32_t tile, const uint4* wf,
@@ -190,7 +205,9 @@ __device__ __forceinline__ void load_x(bf16* dst, const bf16* __restrict__ a,
   for (int e = tid; e < XH * XW * NCI; e += NT) {
     const int p = e / NCI, c = e % NCI;
     const int ih = y0 + p / XW, iw = x0 + p % XW;
-    const bool in = ih >= 0 && ih < H && iw >= 0 && iw < W;
+    // a chunk past the streams' channels is padding: zero-filled
+    const bool in = ih >= 0 && ih < H && iw >= 0 && iw < W &&
+                    (S::CIP == CA + CB || c < (CA + CB) / 8);
     const long pix = ((long)n * H + ih) * W + iw;
     const bf16* src = a;
     if (in)
@@ -303,31 +320,69 @@ __device__ __forceinline__ void epilogue(
     }
   }
   __syncwarp();
-  // this warp's output rows, whole 16-byte chunks
-  for (int e = lane; e < J2 * TW * NCO; e += 32) {
-    const int sp = warp * J2 * TW + e / NCO, c = e % NCO;
+  // this warp's output rows, whole 16-byte chunks of the real channels
+  constexpr int COUT = S::COUT, NCR = COUT / 8;
+  for (int e = lane; e < J2 * TW * NCR; e += 32) {
+    const int sp = warp * J2 * TW + e / NCR, c = e % NCR;
     const int oh = oh0 + sp / TW, ow = ow0 + sp % TW;
     if (oh < H && ow < W)
-      *reinterpret_cast<uint4*>(out + (((long)n * H + oh) * W + ow) * CO +
+      *reinterpret_cast<uint4*>(out + (((long)n * H + oh) * W + ow) * COUT +
                                 c * 8) =
           *reinterpret_cast<const uint4*>(ms + tc::chunk_at<NCO>(sp, c) * 8);
   }
 }
 
-// The folded affines g1 b1 g2 b2 gb bb (f32) into shared memory.
-template <int CO, bool PROJ>
+// The folded affines g1 b1 g2 b2 gb bb (f32) into shared memory, each
+// COP long (zero past co).
+template <class S, bool PROJ>
 __device__ __forceinline__ void stage_prm(float* prm, const float* g1,
                                           const float* b1, const float* g2,
                                           const float* b2, const float* gb,
                                           const float* bb, int tid) {
-  for (int e = tid; e < CO; e += NT) {
-    prm[e] = g1[e];
-    prm[CO + e] = b1[e];
-    prm[2 * CO + e] = g2[e];
-    prm[3 * CO + e] = b2[e];
-    prm[4 * CO + e] = PROJ ? gb[e] : 0.f;
-    prm[5 * CO + e] = PROJ ? bb[e] : 0.f;
+  constexpr int CO = S::COUT, COP = S::COP;
+  for (int e = tid; e < COP; e += NT) {
+    const bool on = e < CO;
+    prm[e] = on ? g1[e] : 0.f;
+    prm[COP + e] = on ? b1[e] : 0.f;
+    prm[2 * COP + e] = on ? g2[e] : 0.f;
+    prm[3 * COP + e] = on ? b2[e] : 0.f;
+    prm[4 * COP + e] = PROJ && on ? gb[e] : 0.f;
+    prm[5 * COP + e] = PROJ && on ? bb[e] : 0.f;
   }
+}
+
+// w1 (3, 3, cin, co), w2 (3, 3, co, co) and wb (cin, co) as B fragments
+// (stage_bv) over the tiles' padded channels: K row tap * CIP + c, zero
+// past the real channels (rows) and past co (columns); in [w1 | w2 | wb]
+// order at w1f, w2f, wbf.
+template <class S, bool PROJ>
+__device__ __forceinline__ void stage_weights(uint4* w1f, uint4* w2f,
+                                              uint4* wbf,
+                                              const bf16* __restrict__ w1,
+                                              const bf16* __restrict__ w2,
+                                              const bf16* __restrict__ wb,
+                                              int tid, int n) {
+  constexpr int CIN = S::CIN, CIP = S::CIP, CO = S::COUT, COP = S::COP;
+  const bf16 z = __float2bfloat16(0.f);
+  tc::stage_bv<9 * CIP, COP>(
+      w1f,
+      [&](int k, int c) {
+        const int t = k / CIP, ch = k % CIP;
+        return ch < CIN && c < CO ? w1[(t * CIN + ch) * CO + c] : z;
+      },
+      tid, n);
+  tc::stage_bv<9 * COP, COP>(
+      w2f,
+      [&](int k, int c) {
+        const int t = k / COP, ch = k % COP;
+        return ch < CO && c < CO ? w2[(t * CO + ch) * CO + c] : z;
+      },
+      tid, n);
+  if constexpr (PROJ)
+    tc::stage_bv<CIP, COP>(
+        wbf,
+        [&](int k, int c) { return k < CIN && c < CO ? wb[k * CO + c] : z; },
+        tid, n);
 }
 
 // The resident form: every weight in shared memory for the whole grid
@@ -344,7 +399,8 @@ basic_block_kernel(const bf16* __restrict__ a, const bf16* __restrict__ bsrc,
                    const float* __restrict__ bb, bf16* __restrict__ out,
                    int B, int H, int W) {
   using S = BlockShape<CA, CB, CO, PROJ>;
-  constexpr int CIN = S::CIN, NCI = S::NCI, NCO = S::NCO, NQ = S::NQ;
+  constexpr int CIP = S::CIP, COP = S::COP, NCI = S::NCI, NCO = S::NCO;
+  constexpr int NQ = S::NQ;
   extern __shared__ uint4 smem[];
   uint4* w1f = smem;
   uint4* w2f = w1f + S::W1_UNITS;
@@ -357,11 +413,8 @@ basic_block_kernel(const bf16* __restrict__ a, const bf16* __restrict__ bsrc,
   const int tiles_x = (W + TW - 1) / TW, tiles_y = (H + TH - 1) / TH;
   const int per_img = tiles_x * tiles_y, ntiles = B * per_img;
 
-  tc::stage_b<9 * CIN, CO>(w1f, [&](int k) { return w1 + k * CO; }, tid, NT);
-  tc::stage_b<9 * CO, CO>(w2f, [&](int k) { return w2 + k * CO; }, tid, NT);
-  if constexpr (PROJ)
-    tc::stage_b<CIN, CO>(wbf, [&](int k) { return wb + k * CO; }, tid, NT);
-  stage_prm<CO, PROJ>(prm, g1, b1, g2, b2, gb, bb, tid);
+  stage_weights<S, PROJ>(w1f, w2f, wbf, w1, w2, wb, tid, NT);
+  stage_prm<S, PROJ>(prm, g1, b1, g2, b2, gb, bb, tid);
 
   const Pixels px(warp, tc::a_row(lane));
   const uint32_t ms_u = tc::smem_u32(ms);
@@ -383,7 +436,7 @@ basic_block_kernel(const bf16* __restrict__ a, const bf16* __restrict__ bsrc,
     {  // conv1 + BN1 + ReLU over the tile and its halo -> m (bf16)
       float acc[J1][2 * NQ][4];
       zero<NQ>(acc);
-      gemm<NCI, CIN / 16, 9, NQ, J1, XW>(acc, xt_u, w1f, px.pix1, px.on1,
+      gemm<NCI, CIP / 16, 9, NQ, J1, XW>(acc, xt_u, w1f, px.pix1, px.on1,
                                          lane);
       conv1_to_m<S>(acc, ms, prm, px.on1, oh0, ow0, H, W, warp, lane);
     }
@@ -391,10 +444,10 @@ basic_block_kernel(const bf16* __restrict__ a, const bf16* __restrict__ bsrc,
 
     float acc[J2][2 * NQ][4], accb[J2][2 * NQ][4];
     zero<NQ>(acc);
-    gemm<NCO, CO / 16, 9, NQ, J2, MW>(acc, ms_u, w2f, px.pix2, px.on2, lane);
+    gemm<NCO, COP / 16, 9, NQ, J2, MW>(acc, ms_u, w2f, px.pix2, px.on2, lane);
     if constexpr (PROJ) {
       zero<NQ>(accb);
-      gemm<NCI, CIN / 16, 1, NQ, J2, XW>(accb, xt_u, wbf, px.pixb, px.on2,
+      gemm<NCI, CIP / 16, 1, NQ, J2, XW>(accb, xt_u, wbf, px.pixb, px.on2,
                                          lane);
     }
     __syncthreads();  // every warp is done reading m: it becomes staging
@@ -404,20 +457,16 @@ basic_block_kernel(const bf16* __restrict__ a, const bf16* __restrict__ bsrc,
 }
 
 // The streamed form's weights, once per call: w1, w2 and wb as B
-// fragments (stage_b layout) in the wrapper's scratch wf — [w1 | w2 |
+// fragments (stage_bv layout) in the wrapper's scratch wf — [w1 | w2 |
 // wb], each tap's k-steps contiguous — over a grid of any size.
 template <int CA, int CB, int CO, bool PROJ>
 __global__ void __launch_bounds__(NT)
 prepack_kernel(const bf16* __restrict__ w1, const bf16* __restrict__ w2,
                const bf16* __restrict__ wb, uint4* __restrict__ wf) {
   using S = BlockShape<CA, CB, CO, PROJ>;
-  const int tid = blockIdx.x * NT + threadIdx.x, n = gridDim.x * NT;
-  tc::stage_b<9 * S::CIN, CO>(wf, [&](int k) { return w1 + k * CO; }, tid, n);
-  tc::stage_b<9 * CO, CO>(wf + S::W1_UNITS,
-                          [&](int k) { return w2 + k * CO; }, tid, n);
-  if constexpr (PROJ)
-    tc::stage_b<S::CIN, CO>(wf + S::W1_UNITS + S::W2_UNITS,
-                            [&](int k) { return wb + k * CO; }, tid, n);
+  stage_weights<S, PROJ>(wf, wf + S::W1_UNITS, wf + S::W1_UNITS + S::W2_UNITS,
+                         w1, w2, wb, blockIdx.x * NT + threadIdx.x,
+                         gridDim.x * NT);
 }
 
 // The streamed form (see the top of the file): per tile, NSTAGE weight
@@ -435,8 +484,8 @@ basic_block_streamed_kernel(
     const float* __restrict__ bb, bf16* __restrict__ out, int B, int H,
     int W) {
   using S = BlockShape<CA, CB, CO, PROJ>;
-  constexpr int CIN = S::CIN, NCI = S::NCI, NCO = S::NCO, NQ = S::NQ;
-  constexpr int NSTAGE = S::NSTAGE, SLOT = S::SLOT;
+  constexpr int CIP = S::CIP, COP = S::COP, NCI = S::NCI, NCO = S::NCO;
+  constexpr int NQ = S::NQ, NSTAGE = S::NSTAGE, SLOT = S::SLOT;
   extern __shared__ uint4 smem[];
   uint4* ring = smem;
   float* prm = reinterpret_cast<float*>(ring + 2 * SLOT);
@@ -446,7 +495,7 @@ basic_block_streamed_kernel(
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int tiles_x = (W + TW - 1) / TW, tiles_y = (H + TH - 1) / TH;
   const int per_img = tiles_x * tiles_y, ntiles = B * per_img;
-  stage_prm<CO, PROJ>(prm, g1, b1, g2, b2, gb, bb, tid);
+  stage_prm<S, PROJ>(prm, g1, b1, g2, b2, gb, bb, tid);
 
   // stage s of a tile: w1 tap s (s < 9), w2 tap s - 9 (s < 18), wb
   auto fetch = [&](int s, int slot) {
@@ -492,7 +541,7 @@ basic_block_streamed_kernel(
 #pragma unroll
       for (int tap = 0; tap < 9; ++tap, ++k) {
         advance(tap, t);
-        gemm_tap<NCI, CIN / 16, NQ, J1>(acc, xs_u, ring + (k & 1) * SLOT,
+        gemm_tap<NCI, CIP / 16, NQ, J1>(acc, xs_u, ring + (k & 1) * SLOT,
                                         px.pix1, px.on1, lane,
                                         tap_shift<9, XW>(tap));
       }
@@ -505,14 +554,14 @@ basic_block_streamed_kernel(
 #pragma unroll
     for (int tap = 0; tap < 9; ++tap, ++k) {
       advance(9 + tap, t);
-      gemm_tap<NCO, CO / 16, NQ, J2>(acc, ms_u, ring + (k & 1) * SLOT,
+      gemm_tap<NCO, COP / 16, NQ, J2>(acc, ms_u, ring + (k & 1) * SLOT,
                                      px.pix2, px.on2, lane,
                                      tap_shift<9, MW>(tap));
     }
     if constexpr (PROJ) {
       zero<NQ>(accb);
       advance(18, t);
-      gemm_tap<NCI, CIN / 16, NQ, J2>(accb, xs_u, ring + (k & 1) * SLOT,
+      gemm_tap<NCI, CIP / 16, NQ, J2>(accb, xs_u, ring + (k & 1) * SLOT,
                                       px.pixb, px.on2, lane, 0);
       ++k;
     }

@@ -71,6 +71,17 @@
 // arithmetic are the resident form's, so the float32 output stays
 // bit-identical to basic_block_s8_plain's. Shared memory: 16.4 + 1.5 +
 // 51.2 + 20.7 + 32.8 / 65.5 = 123 / 155 KB.
+//
+// 8-channel streams (K2's 8-channel blocks, basic_block.cu): an int8
+// stream of 8 channels is 8 bytes a pixel, so the x tile is copied in
+// 8-byte units ([a | b] of the dual block fill one 16-byte chunk;
+// enc1.res1's and .res2's single stream fills half of one, the other
+// half zero-filled by its copy) and the tiles hold 16 channels (the
+// 16-channel two-taps-a-k-step mode above); m, the B columns, the
+// affines and the staged outputs are padded to 16 channels with zeros,
+// co = 8 stores 8. 4x (2x at co 16) the real MACs; the s32 sums of the
+// real channels are the unpadded ones, so the float32 output stays
+// bit-identical to basic_block_s8_plain's.
 #include "tensor_core.cuh"
 #include "ubr_shapes.h"  // UBR_BASIC_BLOCK_S8_SHAPES (ops/_build.py:SHAPES)
 
@@ -92,35 +103,39 @@ constexpr int ksteps(int taps, int c) {
 
 template <int CA, int CB, int CO, bool PROJ, typename OT>
 struct BlockS8Shape {
-  static constexpr int CIN = CA + CB;
-  static constexpr int NCI = CIN / 16, NCO = CO / 16;  // int8 chunks/pixel
-  static constexpr int NQ = CO / 16;                   // n-tile pairs
-  static constexpr int NCS = CO * (int)sizeof(OT) / 16;  // staged chunks
-  static constexpr int KS1 = ksteps(9, CIN), KS2 = ksteps(9, CO);
-  static constexpr int KSB = ksteps(1, CIN);
+  static constexpr int CIN = CA + CB, COUT = CO;  // real channels
+  // channels of the x and m tiles and of the GEMMs' K and N
+  static constexpr int CIP = tc::pad16(CIN), COP = tc::pad16(CO);
+  static constexpr int NCI = CIP / 16, NCO = COP / 16;  // int8 chunks/pixel
+  static constexpr int NQ = COP / 16;                   // n-tile pairs
+  static constexpr int NCS = COP * (int)sizeof(OT) / 16;  // staged chunks
+  static constexpr int KS1 = ksteps(9, CIP), KS2 = ksteps(9, COP);
+  static constexpr int KSB = ksteps(1, CIP);
   static constexpr int W1_UNITS = KS1 * NQ * 32;  // uint4 of B fragments
   static constexpr int W2_UNITS = KS2 * NQ * 32;
   static constexpr int WB_UNITS = PROJ ? KSB * NQ * 32 : 0;
-  static constexpr int PRM = 6 * CO;  // g1 b1 g2 b2 gb bb (f32)
-  static constexpr int X_BYTES = XH * XW * CIN, M_BYTES = MH * MW * CO;
-  static constexpr int ST = J2 * TW * CO;  // staged outputs a warp
+  static constexpr int PRM = 6 * COP;  // g1 b1 g2 b2 gb bb (f32)
+  static constexpr int X_BYTES = XH * XW * CIP, M_BYTES = MH * MW * COP;
+  static constexpr int ST = J2 * TW * COP;  // staged outputs a warp
   static constexpr int STAGING = NWARP * ST * (int)sizeof(OT);
   static constexpr int RESIDENT = (W1_UNITS + W2_UNITS + WB_UNITS) * 16 +
                                   PRM * 4 + 2 * X_BYTES + M_BYTES + STAGING;
   // streamed form: the weights a tap at a time through a two-slot ring
   // (at 32 channels or more a tap is whole k-steps)
   static constexpr bool STREAM = RESIDENT > tc::SMEM_MAX;
-  static constexpr int W1_TAP = CIN * CO / 16, W2_TAP = CO * CO / 16;
+  static constexpr int W1_TAP = CIP * COP / 16, W2_TAP = COP * COP / 16;
   static constexpr int SLOT = W1_TAP > W2_TAP ? W1_TAP : W2_TAP;
   static constexpr int NSTAGE = 18 + (PROJ ? 1 : 0);  // w1, w2 taps, wb
   static constexpr int STREAMED = 2 * SLOT * 16 + PRM * 4 + X_BYTES +
                                   M_BYTES + STAGING;
   static constexpr int SMEM = STREAM ? STREAMED : RESIDENT;
   static constexpr int CAP = CO >= 64 ? 1 : 2;  // blocks an SM (registers)
-  static_assert(CA % 16 == 0 && CB % 16 == 0 && CO % 16 == 0,
-                "int8 channels in 16-byte chunks");
+  static_assert(CA % 8 == 0 && CB % 8 == 0 && CO % 8 == 0,
+                "int8 channels in 8-byte units");
+  // 8-byte copies where a stream is no whole number of 16-byte chunks
+  static constexpr bool UNITS8 = CA % 16 != 0 || CB % 16 != 0;
   static_assert(PROJ || CIN == CO, "identity bypass needs ci == co");
-  static_assert(!STREAM || (CIN >= 32 && CO >= 32),
+  static_assert(!STREAM || (CIP >= 32 && COP >= 32),
                 "the streamed form moves whole k-steps a tap");
   static_assert(SMEM <= tc::SMEM_MAX, "one block's shared memory");
 };
@@ -228,17 +243,35 @@ __device__ __forceinline__ void load_x(int8_t* dst,
   constexpr int NCI = S::NCI;
   const int n = t / per_img, r = t % per_img;
   const int y0 = (r / tiles_x) * TH - 2, x0 = (r % tiles_x) * TW - 2;
-  for (int e = tid; e < XH * XW * NCI; e += NT) {
-    const int p = e / NCI, c = e % NCI;
-    const int ih = y0 + p / XW, iw = x0 + p % XW;
-    const bool in = ih >= 0 && ih < H && iw >= 0 && iw < W;
-    const long pix = ((long)n * H + ih) * W + iw;
-    const int8_t* src = a;
-    if (in)
-      src = c < CA / 16 ? a + pix * CA + c * 16
-                        : bsrc + pix * CB + (c - CA / 16) * 16;
-    tc::cp_async16(tc::smem_u32(dst + tc::chunk_at<NCI>(p, c) * 16), src,
-                   in);
+  if constexpr (S::UNITS8) {
+    // 8-byte unit u of a tile pixel: a's, then b's, then zeros
+    for (int e = tid; e < XH * XW * 2 * NCI; e += NT) {
+      const int p = e / (2 * NCI), u = e % (2 * NCI);
+      const int ih = y0 + p / XW, iw = x0 + p % XW;
+      const bool in = ih >= 0 && ih < H && iw >= 0 && iw < W &&
+                      u < (CA + CB) / 8;
+      const long pix = ((long)n * H + ih) * W + iw;
+      const int8_t* src = a;
+      if (in)
+        src = u < CA / 8 ? a + pix * CA + u * 8
+                         : bsrc + pix * CB + (u - CA / 8) * 8;
+      tc::cp_async8(
+          tc::smem_u32(dst + tc::chunk_at<NCI>(p, u >> 1) * 16 + (u & 1) * 8),
+          src, in);
+    }
+  } else {
+    for (int e = tid; e < XH * XW * NCI; e += NT) {
+      const int p = e / NCI, c = e % NCI;
+      const int ih = y0 + p / XW, iw = x0 + p % XW;
+      const bool in = ih >= 0 && ih < H && iw >= 0 && iw < W;
+      const long pix = ((long)n * H + ih) * W + iw;
+      const int8_t* src = a;
+      if (in)
+        src = c < CA / 16 ? a + pix * CA + c * 16
+                          : bsrc + pix * CB + (c - CA / 16) * 16;
+      tc::cp_async16(tc::smem_u32(dst + tc::chunk_at<NCI>(p, c) * 16), src,
+                     in);
+    }
   }
   tc::cp_async_commit();
 }
@@ -349,44 +382,60 @@ __device__ __forceinline__ void epilogue(const int (&acc)[J2][2 * S::NQ][4],
     }
   }
   __syncwarp();
-  tc::store_rows<NCS, J2>(out, wst, n, oh0 + warp * J2, ow0, H, W, lane);
+  tc::store_rows<NCS, J2, S::COUT>(out, wst, n, oh0 + warp * J2, ow0, H, W,
+                                   lane);
   __syncwarp();  // staging read before the next tile's epilogue
 }
 
-// The folded affines g1 b1 g2 b2 gb bb (f32) into shared memory.
-template <int CO>
+// The folded affines g1 b1 g2 b2 gb bb (f32) into shared memory, each
+// COP long (zero past co).
+template <class S>
 __device__ __forceinline__ void stage_prm(float* prm, const float* g1,
                                           const float* b1, const float* g2,
                                           const float* b2, const float* gb,
                                           const float* bb, int tid) {
-  for (int e = tid; e < CO; e += NT) {
-    prm[e] = g1[e];
-    prm[CO + e] = b1[e];
-    prm[2 * CO + e] = g2[e];
-    prm[3 * CO + e] = b2[e];
-    prm[4 * CO + e] = gb[e];
-    prm[5 * CO + e] = bb[e];
+  constexpr int CO = S::COUT, COP = S::COP;
+  for (int e = tid; e < COP; e += NT) {
+    const bool on = e < CO;
+    prm[e] = on ? g1[e] : 0.f;
+    prm[COP + e] = on ? b1[e] : 0.f;
+    prm[2 * COP + e] = on ? g2[e] : 0.f;
+    prm[3 * COP + e] = on ? b2[e] : 0.f;
+    prm[4 * COP + e] = on ? gb[e] : 0.f;
+    prm[5 * COP + e] = on ? bb[e] : 0.f;
   }
 }
 
-// B row k of a (taps, c, co) int8 kernel is tap k / c, channel k % c —
-// the layout itself read as a K x co matrix; zero past the last tap.
-template <int CIN, int CO, bool PROJ, int KS1, int KS2, int KSB>
+// B row k of a (taps, c, co) int8 kernel over the tile's padded
+// channels cp: tap k / cp, channel k % cp — the layout itself read as a
+// K x co matrix where cp == c; zero past the last tap, the real
+// channels (rows) and co (columns).
+template <class S, bool PROJ>
 __device__ __forceinline__ void stage_weights(uint4* w1f, uint4* w2f,
                                               uint4* wbf,
                                               const int8_t* __restrict__ w1,
                                               const int8_t* __restrict__ w2,
                                               const int8_t* __restrict__ wb,
                                               int tid, int n) {
-  tc::stage_b_s8<KS1, CO>(
-      w1f, [&](int k, int c) { return k < 9 * CIN ? w1[k * CO + c] : 0; },
+  constexpr int CIN = S::CIN, CIP = S::CIP, CO = S::COUT, COP = S::COP;
+  tc::stage_b_s8<S::KS1, COP>(
+      w1f,
+      [&](int k, int c) {
+        const int t = k / CIP, ch = k % CIP;
+        return t < 9 && ch < CIN && c < CO ? w1[(t * CIN + ch) * CO + c] : 0;
+      },
       tid, n);
-  tc::stage_b_s8<KS2, CO>(
-      w2f, [&](int k, int c) { return k < 9 * CO ? w2[k * CO + c] : 0; },
+  tc::stage_b_s8<S::KS2, COP>(
+      w2f,
+      [&](int k, int c) {
+        const int t = k / COP, ch = k % COP;
+        return t < 9 && ch < CO && c < CO ? w2[(t * CO + ch) * CO + c] : 0;
+      },
       tid, n);
   if constexpr (PROJ)
-    tc::stage_b_s8<KSB, CO>(
-        wbf, [&](int k, int c) { return k < CIN ? wb[k * CO + c] : 0; },
+    tc::stage_b_s8<S::KSB, COP>(
+        wbf,
+        [&](int k, int c) { return k < CIN && c < CO ? wb[k * CO + c] : 0; },
         tid, n);
 }
 
@@ -404,7 +453,7 @@ basic_block_s8_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b
                 const float* __restrict__ bb, OT* __restrict__ out, int B,
                 int H, int W) {
   using S = BlockS8Shape<CA, CB, CO, PROJ, OT>;
-  constexpr int CIN = S::CIN, NQ = S::NQ;
+  constexpr int CIP = S::CIP, COP = S::COP, NQ = S::NQ;
   extern __shared__ uint4 smem[];
   uint4* w1f = smem;
   uint4* w2f = w1f + S::W1_UNITS;
@@ -418,9 +467,8 @@ basic_block_s8_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b
   const int per_img = tiles_x * tiles_y, ntiles = B * per_img;
   OT* wst = reinterpret_cast<OT*>(ms + S::M_BYTES) + warp * S::ST;
 
-  stage_weights<CIN, CO, PROJ, S::KS1, S::KS2, S::KSB>(w1f, w2f, wbf, w1, w2,
-                                                       wb, tid, NT);
-  stage_prm<CO>(prm, g1, b1, g2, b2, gb, bb, tid);
+  stage_weights<S, PROJ>(w1f, w2f, wbf, w1, w2, wb, tid, NT);
+  stage_prm<S>(prm, g1, b1, g2, b2, gb, bb, tid);
 
   const Pixels px(warp, tc::a_row(lane));
   const uint32_t ms_u = tc::smem_u32(ms);
@@ -443,17 +491,17 @@ basic_block_s8_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b
        // halo -> m (int8, zero outside the image)
       int acc[J1][2 * NQ][4];
       zero<NQ>(acc);
-      gemm<CIN, 9, NQ, J1, XW>(acc, xt_u, w1f, px.pix1, px.on1, lane);
+      gemm<CIP, 9, NQ, J1, XW>(acc, xt_u, w1f, px.pix1, px.on1, lane);
       conv1_to_m<S>(acc, ms, prm, px.on1, oh0, ow0, H, W, warp, lane);
     }
     __syncthreads();  // m complete
 
     int acc[J2][2 * NQ][4], accb[J2][2 * NQ][4];
     zero<NQ>(acc);
-    gemm<CO, 9, NQ, J2, MW>(acc, ms_u, w2f, px.pix2, px.on2, lane);
+    gemm<COP, 9, NQ, J2, MW>(acc, ms_u, w2f, px.pix2, px.on2, lane);
     if constexpr (PROJ) {
       zero<NQ>(accb);
-      gemm<CIN, 1, NQ, J2, XW>(accb, xt_u, wbf, px.pixb, px.on2, lane);
+      gemm<CIP, 1, NQ, J2, XW>(accb, xt_u, wbf, px.pixb, px.on2, lane);
     }
     epilogue<S, PROJ, OT>(acc, accb, xt, wst, prm, out, n, oh0, ow0, H, W,
                           warp, lane);
@@ -469,9 +517,9 @@ prepack_s8_kernel(const int8_t* __restrict__ w1,
                   const int8_t* __restrict__ w2,
                   const int8_t* __restrict__ wb, uint4* __restrict__ wf) {
   using S = BlockS8Shape<CA, CB, CO, PROJ, OT>;
-  stage_weights<S::CIN, CO, PROJ, S::KS1, S::KS2, S::KSB>(
-      wf, wf + S::W1_UNITS, wf + S::W1_UNITS + S::W2_UNITS, w1, w2, wb,
-      blockIdx.x * NT + threadIdx.x, gridDim.x * NT);
+  stage_weights<S, PROJ>(wf, wf + S::W1_UNITS, wf + S::W1_UNITS + S::W2_UNITS,
+                         w1, w2, wb, blockIdx.x * NT + threadIdx.x,
+                         gridDim.x * NT);
 }
 
 // The streamed form (see the top of the file): per tile, NSTAGE weight
@@ -489,7 +537,7 @@ basic_block_s8_streamed_kernel(
     const float* __restrict__ bb, OT* __restrict__ out, int B, int H,
     int W) {
   using S = BlockS8Shape<CA, CB, CO, PROJ, OT>;
-  constexpr int CIN = S::CIN, NQ = S::NQ;
+  constexpr int CIP = S::CIP, COP = S::COP, NQ = S::NQ;
   constexpr int NSTAGE = S::NSTAGE, SLOT = S::SLOT;
   extern __shared__ uint4 smem[];
   uint4* ring = smem;
@@ -501,7 +549,7 @@ basic_block_s8_streamed_kernel(
   const int tiles_x = (W + TW - 1) / TW, tiles_y = (H + TH - 1) / TH;
   const int per_img = tiles_x * tiles_y, ntiles = B * per_img;
   OT* wst = reinterpret_cast<OT*>(ms + S::M_BYTES) + warp * S::ST;
-  stage_prm<CO>(prm, g1, b1, g2, b2, gb, bb, tid);
+  stage_prm<S>(prm, g1, b1, g2, b2, gb, bb, tid);
 
   // stage s of a tile: w1 tap s (s < 9), w2 tap s - 9 (s < 18), wb
   auto fetch = [&](int s, int slot) {
@@ -546,7 +594,7 @@ basic_block_s8_streamed_kernel(
 #pragma unroll
       for (int tap = 0; tap < 9; ++tap, ++k) {
         advance(tap, t);
-        gemm_tap<CIN, NQ, J1>(acc, xs_u, ring + (k & 1) * SLOT, px.pix1,
+        gemm_tap<CIP, NQ, J1>(acc, xs_u, ring + (k & 1) * SLOT, px.pix1,
                               px.on1, lane, (tap / 3) * XW + tap % 3);
       }
       conv1_to_m<S>(acc, ms, prm, px.on1, oh0, ow0, H, W, warp, lane);
@@ -558,13 +606,13 @@ basic_block_s8_streamed_kernel(
 #pragma unroll
     for (int tap = 0; tap < 9; ++tap, ++k) {
       advance(9 + tap, t);
-      gemm_tap<CO, NQ, J2>(acc, ms_u, ring + (k & 1) * SLOT, px.pix2, px.on2,
+      gemm_tap<COP, NQ, J2>(acc, ms_u, ring + (k & 1) * SLOT, px.pix2, px.on2,
                            lane, (tap / 3) * MW + tap % 3);
     }
     if constexpr (PROJ) {
       zero<NQ>(accb);
       advance(18, t);
-      gemm_tap<CIN, NQ, J2>(accb, xs_u, ring + (k & 1) * SLOT, px.pixb,
+      gemm_tap<CIP, NQ, J2>(accb, xs_u, ring + (k & 1) * SLOT, px.pixb,
                             px.on2, lane, 0);
       ++k;
     }

@@ -27,9 +27,11 @@
 //   shared by both;
 // - the epilogue runs on the accumulators; the output goes through a
 //   per-warp staging area in shared memory to 16-byte coalesced stores
-//   (co = 3: coalesced 2-byte stores of the packed pixels).
-// co = 3 pads N to 8 (B columns 3-7 zero, never stored); ci = 4 puts two
-// taps in a k-step (conv_gemm.cuh).
+//   (co = 3 or 4: coalesced 2-byte stores of the packed pixels).
+// co = 3 or 4 pads N to 8 (B columns past co zero, never stored); ci = 4
+// and 8 put two taps in a k-step (conv_gemm.cuh) — the 8-channel streams
+// of the inplanes-8 and -4 UResNets (their head conv10, the per-conv
+// blocks' convs at 4 and the train zone's input gradients).
 #include "conv_gemm.cuh"
 #include "ubr_shapes.h"  // UBR_CONV_BN_ACT_SHAPES (ops/_build.py:SHAPES)
 
@@ -150,8 +152,8 @@ conv_bn_act_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
       }
     }
     __syncwarp();
-    // this warp's output rows: whole 16-byte chunks, or (co = 3) the
-    // packed pixels element by element
+    // this warp's output rows: whole 16-byte chunks, or (co = 3 or 4)
+    // the packed pixels element by element
     if constexpr (CO % 8 == 0) {
       tc::store_rows<NCO, J>(out, wst, n, oh0 + warp * J, ow0, H, W, lane);
     } else {

@@ -38,6 +38,14 @@
 // Shared memory: 12.8 KB weights + 2 x 7.7 KB x + 8 KB staging = 36 KB
 // with bf16 output (44 KB with float); __launch_bounds__ asks for four
 // blocks an SM (64 registers a thread).
+//
+// 8-channel streams (the inplanes-8 head conv10 (8, 16, 7); at inplanes
+// 4 the per-conv blocks' (8, 8, 3), (8, 4, 3) and (8, 4, 1)): an 8-byte
+// int8 pixel lands in a 16-byte tile pixel whose second half is zero
+// (written once, conv_gemm.cuh:zero_pad; its B rows zero), so a k-step
+// still covers two taps: 2x the real MACs, exact all the same. co = 4
+// pads N to 8 with zero B columns, gains and biases; the staged tile
+// holds 8 channels and only the real 4 are stored.
 #include "conv_gemm.cuh"
 #include "ubr_shapes.h"  // UBR_CONV_BN_ACT_S8_SHAPES (ops/_build.py:SHAPES)
 
@@ -49,11 +57,10 @@ constexpr int J = cg::TH / NWARP;  // output rows a warp
 template <int CI, int CO, int K, typename OT>
 struct ConvS8Shape : cg::Shape<CI, CO, K, int8_t> {
   using G = cg::Shape<CI, CO, K, int8_t>;
-  static_assert(CO % 8 == 0, "int8 conv: co in n-tiles of 8");
   static constexpr int ES = 16 / (int)sizeof(OT);  // outputs a chunk
-  static constexpr int NCS = CO / ES;              // staged chunks a pixel
-  static constexpr int ST = J * cg::TW * CO;       // staged outputs a warp
-  static constexpr int SMEM = G::B_UNITS * 8 + 2 * CO * 4 +
+  static constexpr int NCS = G::COP / ES;          // staged chunks a pixel
+  static constexpr int ST = J * cg::TW * G::COP;   // staged outputs a warp
+  static constexpr int SMEM = G::B_UNITS * 8 + 2 * G::COP * 4 +
                               2 * G::X_ELEMS + NWARP * ST * (int)sizeof(OT);
 };
 
@@ -67,11 +74,11 @@ conv_bn_act_s8_kernel(const int8_t* __restrict__ x,
                       const OT* __restrict__ res, OT* __restrict__ out, int B,
                       int H, int W, int pre_act, int act) {
   using S = ConvS8Shape<CI, CO, K, OT>;
-  constexpr int NT8 = S::NT8, NCS = S::NCS, ES = S::ES;
+  constexpr int NT8 = S::NT8, NCS = S::NCS, ES = S::ES, COP = S::COP;
   extern __shared__ uint4 smem[];
   uint2* wf = reinterpret_cast<uint2*>(smem);
   float* prm = reinterpret_cast<float*>(wf + S::B_UNITS);  // g | b
-  int8_t* xs = reinterpret_cast<int8_t*>(prm + 2 * CO);
+  int8_t* xs = reinterpret_cast<int8_t*>(prm + 2 * COP);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gq = lane >> 2, q4 = lane & 3;
@@ -81,10 +88,11 @@ conv_bn_act_s8_kernel(const int8_t* __restrict__ x,
   OT* wst = reinterpret_cast<OT*>(xs + 2 * S::X_ELEMS) + warp * S::ST;
 
   cg::stage_w<S>(wf, w, CI, CO, tid, NT);
-  for (int e = tid; e < CO; e += NT) {
-    prm[e] = g[e];
-    prm[CO + e] = bias[e];
+  for (int e = tid; e < COP; e += NT) {
+    prm[e] = e < CO ? g[e] : 0.f;
+    prm[COP + e] = e < CO ? bias[e] : 0.f;
   }
+  cg::zero_pad<S>(xs, 2, tid, NT);
 
   auto load = [&](int t, int8_t* dst) {
     const int n = t / per_img, r = t % per_img;
@@ -128,9 +136,9 @@ conv_bn_act_s8_kernel(const int8_t* __restrict__ x,
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             float y = affine_fma(acc[j][tt][2 * h + e], prm[ch + e],
-                                 prm[CO + ch + e]);
+                                 prm[COP + ch + e]);
             if (pre_act) y = fmaxf(y, 0.f);
-            if (res != nullptr && in)
+            if (res != nullptr && in && ch + e < CO)
               y = __fadd_rn(y, to_f32(res[pix * CO + ch + e]));
             if (act) y = fmaxf(y, 0.f);
             v[e] = y;
@@ -140,7 +148,8 @@ conv_bn_act_s8_kernel(const int8_t* __restrict__ x,
       }
     }
     __syncwarp();
-    tc::store_rows<NCS, J>(out, wst, n, oh0 + warp * J, ow0, H, W, lane);
+    tc::store_rows<NCS, J, CO>(out, wst, n, oh0 + warp * J, ow0, H, W,
+                               lane);
     __syncwarp();  // staging read before the next tile's epilogue
   }
 }

@@ -33,6 +33,13 @@
 // tiles, and G such groups split a tile's rows (the small shapes, whose
 // dW is a few M-tiles), their sums meeting in shared memory in group
 // order at the end.
+//
+// 8-channel streams (inplanes 8 and 4: ci = 8 at 3x3, 1x1 and the 7x7
+// head, co = 16, 8 or 4): the x tile is zero-padded to 16 channels
+// (tc::pad16; its second chunk zero-filled by the copy), so an M-tile is
+// still 16 channels of one tap, half of them zero rows whose sums are
+// never written; co = 4 takes the co = 3 path (dy zero-padded to 8
+// columns). 2x the real MACs.
 #include "partials.cuh"
 #include "tensor_core.cuh"
 #include "ubr_shapes.h"  // UBR_CONV_DW_SHAPES (ops/_build.py:SHAPES)
@@ -54,21 +61,22 @@ template <int CI, int CO, int K>
 struct DwShape {
   static constexpr int R = K / 2, TAPS = K * K;
   static constexpr int XH = TH + K - 1, XW = TW + K - 1;
-  static constexpr int NCX = CI / 8;                 // x chunks a pixel
+  static constexpr int CIP = tc::pad16(CI);         // channels of x's tile
+  static constexpr int NCX = CIP / 8;                // x chunks a pixel
   static constexpr int COP = (CO + 7) / 8 * 8;       // padded N
   static constexpr int NCD = COP / 8, NT8 = COP / 8;  // dy chunks, n-tiles
-  static constexpr int MT = TAPS * CI / 16;          // M-tiles
+  static constexpr int MT = TAPS * CIP / 16;         // M-tiles
   static constexpr int WM = pick_wm(MT, NT8);        // M-tiles a warp
   static constexpr int WG = MT / WM;                 // warps a group
   static constexpr int G = WG >= 8 ? 1 : 8 / WG;     // row groups
   static constexpr int NT = 32 * WG * G;
-  static constexpr int X_ELEMS = XH * XW * CI, D_ELEMS = TP * COP;
+  static constexpr int X_ELEMS = XH * XW * CIP, D_ELEMS = TP * COP;
   static constexpr int T = TAPS * CI * CO;           // dW elements
   static constexpr int TILES = 2 * (X_ELEMS + D_ELEMS) * 2;
   static constexpr int RED = G > 1 ? T * 4 : 0;
   static constexpr int SMEM = TILES > RED ? TILES : RED;
   static constexpr int CAP = WM * NT8 > 8 ? 2 : 3;   // blocks an SM
-  static_assert(CI % 16 == 0, "ci: a multiple of 16");
+  static_assert(CI % 8 == 0, "ci: whole 16-byte chunks");
 };
 
 template <int CI, int CO, int K>
@@ -97,10 +105,13 @@ conv_dw_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
     for (int e = tid; e < S::XH * S::XW * S::NCX; e += NT) {
       const int p = e / S::NCX, c = e % S::NCX;
       const int ih = oh0 - S::R + p / S::XW, iw = ow0 - S::R + p % S::XW;
-      const bool in = ih >= 0 && ih < H && iw >= 0 && iw < W;
+      // a chunk past ci is the tile's padding: zero-filled
+      const bool in =
+          ih >= 0 && ih < H && iw >= 0 && iw < W &&
+          (S::CIP == CI || c < CI / 8);
       const long pix = in ? ((long)n * H + ih) * W + iw : 0;
       tc::cp_async16(tc::smem_u32(xd + tc::chunk_at<S::NCX>(p, c) * 8),
-                     x + pix * CI + c * 8, in);
+                     in ? x + pix * CI + c * 8 : x, in);
     }
     bf16* dd = ds + buf * S::D_ELEMS;
     if constexpr (CO % 8 == 0) {
@@ -112,7 +123,8 @@ conv_dw_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
         tc::cp_async16(tc::smem_u32(dd + tc::chunk_at<S::NCD>(p, c) * 8),
                        dy + pix * CO + c * 8, in);
       }
-    } else {  // co = 3: pixels are 6 bytes, no cp.async; zero-pad to 8
+    } else {  // co = 3 or 4: pixels of 6 or 8 bytes, no cp.async;
+              // zero-pad to 8
       for (int p = tid; p < TP; p += NT) {
         const int oh = oh0 + p / TW, ow = ow0 + p % TW;
         const bool in = oh < H && ow < W;
@@ -136,9 +148,9 @@ conv_dw_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
   int xoff[WM], achunk[WM];
 #pragma unroll
   for (int j = 0; j < WM; ++j) {
-    const int m0 = (wg * WM + j) * 16, tap = m0 / CI;
+    const int m0 = (wg * WM + j) * 16, tap = m0 / S::CIP;
     xoff[j] = (tap / K) * S::XW + tap % K + r8 + 8 * (mi >> 1);
-    achunk[j] = (m0 % CI) / 8 + (mi & 1);
+    achunk[j] = (m0 % S::CIP) / 8 + (mi & 1);
   }
   const int bpix = r8 + 8 * (mi & 1), bchunk = mi >> 1;
 
@@ -190,7 +202,9 @@ conv_dw_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
   }
 
   // this block's dW: C fragment (j, t): rows m0 + gq (+ 8), columns
-  // 8 t + 2 q4 (+ 1); a row of the (k, k, ci, co) layout is m = tap ci.
+  // 8 t + 2 q4 (+ 1); row m is tap m / CIP, channel m % CIP, and a row
+  // of the (k, k, ci, co) layout is tap ci + channel (padded channels
+  // have no row).
   auto each = [&](auto&& f) {
 #pragma unroll
     for (int j = 0; j < WM; ++j)
@@ -200,7 +214,12 @@ conv_dw_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
         for (int i = 0; i < 4; ++i) {
           const int m = (wg * WM + j) * 16 + gq + 8 * (i >> 1);
           const int c = t * 8 + 2 * q4 + (i & 1);
-          if (c < CO) f(m * CO + c, acc[j][t][i]);
+          if constexpr (S::CIP == CI) {
+            if (c < CO) f(m * CO + c, acc[j][t][i]);
+          } else {
+            const int tap = m / S::CIP, ch = m % S::CIP;
+            if (c < CO && ch < CI) f((tap * CI + ch) * CO + c, acc[j][t][i]);
+          }
         }
   };
   float* row = part + (long)blockIdx.x * S::T;

@@ -20,11 +20,15 @@
 // address the first tap's pixel, lanes 16-31 the second's (the A
 // fragment's first and second 16 bytes of K), and the B rows of the
 // phantom 50th tap are zero; the phantom's lanes read the last real
-// tap's pixel, so every ldmatrix address stays inside the tile. At bf16 ci = 4 the tile
-// holds 8 channels a pixel (channels 4-7 zero, written once, their B
-// rows zero): two times the real MACs, against four with the tile
-// zero-padded to 16 channels; its 8-byte pixels are copied with 8-byte
-// cp.async.
+// tap's pixel, so every ldmatrix address stays inside the tile. bf16
+// ci = 8 is such a pixel as it stands. A pixel of 8 bytes (bf16 ci = 4,
+// int8 ci = 8) is zero-padded to one chunk (channels 4-7, or 8-15,
+// zero, written once, their B rows zero): two times the real MACs,
+// against four with the tile zero-padded to a whole k-step; its 8-byte
+// pixels are copied with 8-byte cp.async.
+//
+// co that is no multiple of 8 (3 or 4) pads N to 8: the B columns past
+// co are zero and the epilogues store only the real channels.
 #pragma once
 
 #include <type_traits>
@@ -38,13 +42,15 @@ constexpr int TH = 16, TW = 16;
 template <int CI, int CO, int K, typename T = bf16>
 struct Shape {
   using Elem = T;                                  // bf16 or int8_t
+  static constexpr int CI_ = CI;                   // real channels of x
   static constexpr bool S8 = sizeof(T) == 1;
   using Acc = typename std::conditional<S8, int, float>::type;
-  static constexpr bool PAD4 = !S8 && CI == 4;     // bf16 ci = 4
+  // 8-byte pixels (bf16 ci = 4, int8 ci = 8) in 16-byte tile pixels
+  static constexpr bool PAD8 = CI * (int)sizeof(T) == 8;
   static constexpr int KSIZE = K, R = K / 2, TAPS = K * K;
   static constexpr int XH = TH + K - 1, XW = TW + K - 1;
   static constexpr int E = 16 / (int)sizeof(T);  // channels a 16-byte chunk
-  static constexpr int CT = PAD4 ? 8 : CI;       // channels a tile pixel
+  static constexpr int CT = PAD8 ? E : CI;       // channels a tile pixel
   static constexpr int NC = CT / E;              // 16-byte chunks a pixel
   static constexpr int KC = CT / (2 * E);        // k-steps a tap (NC >= 2)
   static constexpr int KSTEPS = NC >= 2 ? TAPS * KC : (TAPS + 1) / 2;
@@ -52,8 +58,10 @@ struct Shape {
   static constexpr int NT8 = COP / 8;           // n-tiles of 8
   static constexpr int B_UNITS = KSTEPS * NT8 * 32;  // uint2 of B fragments
   static constexpr int X_ELEMS = XH * XW * CT;       // T of one x tile
-  static_assert(S8 ? CI % 16 == 0 : (CI == 4 || CI % 16 == 0),
-                "ci: bf16 4 or a multiple of 16; int8 a multiple of 16");
+  static_assert(CI * (int)sizeof(T) == 8 || CI * (int)sizeof(T) == 16 ||
+                    CI % (2 * E) == 0,
+                "ci: bf16 4, 8 or a multiple of 16; int8 8, 16 or a "
+                "multiple of 32");
 };
 
 // The (k, k, ci, co) weight as B fragments (S::B_UNITS uint2). Padded
@@ -86,14 +94,15 @@ __device__ __forceinline__ void stage_w(uint2* dst,
   }
 }
 
-// Zero the padded channels 4-7 of every pixel of nbuf x tiles (ci = 4
-// only; the copies never touch them).
+// Zero the padded second half of every pixel of nbuf x tiles (8-byte
+// pixels only; the copies never touch it).
 template <class S>
-__device__ __forceinline__ void zero_pad(bf16* xs, int nbuf, int tid,
-                                         int nthreads) {
-  if constexpr (S::PAD4) {
+__device__ __forceinline__ void zero_pad(typename S::Elem* xs, int nbuf,
+                                         int tid, int nthreads) {
+  if constexpr (S::PAD8) {
     for (int p = tid; p < nbuf * S::XH * S::XW; p += nthreads)
-      *reinterpret_cast<uint2*>(xs + p * 8 + 4) = make_uint2(0u, 0u);
+      *reinterpret_cast<uint2*>(xs + p * S::E + S::E / 2) =
+          make_uint2(0u, 0u);
   }
 }
 
@@ -105,12 +114,12 @@ __device__ __forceinline__ void load_x(typename S::Elem* dst,
                                        int n, int oh0, int ow0, int H, int W,
                                        int tid, int nthreads) {
   const int y0 = oh0 - S::R, x0 = ow0 - S::R;
-  if constexpr (S::PAD4) {  // ci = 4: 8 bytes into a 16-byte pixel
+  if constexpr (S::PAD8) {  // 8 bytes into a 16-byte pixel
     for (int p = tid; p < S::XH * S::XW; p += nthreads) {
       const int ih = y0 + p / S::XW, iw = x0 + p % S::XW;
       const bool in = ih >= 0 && ih < H && iw >= 0 && iw < W;
       const long pix = in ? ((long)n * H + ih) * W + iw : 0;
-      tc::cp_async8(tc::smem_u32(dst + p * 8), x + pix * 4, in);
+      tc::cp_async8(tc::smem_u32(dst + p * S::E), x + pix * S::CI_, in);
     }
   } else {
     for (int e = tid; e < S::XH * S::XW * S::NC; e += nthreads) {

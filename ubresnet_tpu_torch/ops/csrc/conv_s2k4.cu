@@ -42,6 +42,13 @@
 // would not fit beside B and the staging. dec2 takes 8x16 dx tiles (J = 1:
 // 38 KB of planes a buffer, 157 KB in all, one block per SM), dec1 16x16
 // (J = 2: B 16 KB, planes 36 KB a buffer, 104 KB, two blocks per SM).
+//
+// 8-channel streams (dec1 (16, 8) at inplanes 8; dec2 (16, 8) and dec1
+// (8, 4) at 4, under fused_train_deconv): the dy planes are zero-padded
+// to one 16-channel k-step a tap (tc::pad16; co = 8 copies one chunk a
+// pixel and zero-fills the second, co = 4 half of one, tc::cp_chunk),
+// with zero B rows past co; N = ci = 8 is one n-tile. 2x (co 8) and 4x
+// (co 4) the real MACs, still bound by bytes.
 #include "conv_gemm.cuh"  // zero_acc
 #include "ubr_shapes.h"  // UBR_CONV_S2K4_SHAPES (ops/_build.py:SHAPES)
 
@@ -56,16 +63,18 @@ struct S2k4Shape {
   static constexpr int QH = NWARP * J;             // dx rows of a tile
   static constexpr int PH = QH + 1, PW = QW + 1;   // a plane's pixels
   static constexpr int YH = 2 * PH, YW = 2 * PW;   // the haloed dy tile
-  static constexpr int NC = CO / 8;                // dy chunks a pixel
-  static constexpr int KC = CO / 16;               // k-steps a tap
+  static constexpr int COP = tc::pad16(CO);       // channels of a plane
+  static constexpr int NC = COP / 8;               // dy chunks a pixel
+  static constexpr int KC = COP / 16;              // k-steps a tap
   static constexpr int KSTEPS = 16 * KC;
   static constexpr int NT8 = CI / 8, NCI = CI / 8;  // n-tiles; dx chunks
   static constexpr int B_UNITS = KSTEPS * NT8 * 32;  // uint2 of B fragments
-  static constexpr int PLANE = PH * PW * CO;         // bf16 of a plane
+  static constexpr int PLANE = PH * PW * COP;        // bf16 of a plane
   static constexpr int Y_ELEMS = 4 * PLANE;          // bf16 of a buffer
   static constexpr int ST = J * QW * CI;             // staging bf16 a warp
   static constexpr int SMEM = B_UNITS * 8 + (2 * Y_ELEMS + NWARP * ST) * 2;
-  static_assert(CI % 16 == 0 && CO % 16 == 0, "16-channel k-steps");
+  static_assert(CI % 8 == 0 && CO % 4 == 0,
+                "dx in n-tiles of 8; dy pixels of whole 8-byte units");
   // the k-step XOR (bit 5 of a byte offset) must not reach the plane base
   static_assert(KC == 1 || PLANE * 2 % 64 == 0, "plane base alignment");
 };
@@ -88,10 +97,14 @@ conv_s2k4_kernel(const bf16* __restrict__ dy, const bf16* __restrict__ w,
   const int tiles_x = (W + QW - 1) / QW, tiles_y = (H + S::QH - 1) / S::QH;
   const int per_img = tiles_x * tiles_y, ntiles = B * per_img;
 
-  // B row kp = tap co + c (tap-major), column n: w[tap, n, c]
+  // B row kp = tap COP + c (tap-major), column n: w[tap, n, c] (zero
+  // past co)
   tc::stage_b8<S::KSTEPS, CI>(
       wf,
-      [=](int kp, int n) { return w[((kp / CO) * CI + n) * CO + kp % CO]; },
+      [=](int kp, int n) {
+        const int tap = kp / S::COP, c = kp % S::COP;
+        return c < CO ? w[(tap * CI + n) * CO + c] : __float2bfloat16(0.f);
+      },
       tid, NT);
 
   // haloed dy pixel (ry, rx) of tile t → plane (ry & 1, rx & 1), pixel
@@ -107,10 +120,13 @@ conv_s2k4_kernel(const bf16* __restrict__ dy, const bf16* __restrict__ w,
       const bool in = iy >= 0 && iy < H2 && ix >= 0 && ix < W2;
       const long pix = in ? ((long)n * H2 + iy) * W2 + ix : 0;
       const int pp = (ry >> 1) * S::PW + (rx >> 1);
-      tc::cp_async16(
+      const uint32_t d =
           tc::smem_u32(dst + ((ry & 1) * 2 + (rx & 1)) * S::PLANE +
-                       tc::chunk_at<NC>(pp, c) * 8),
-          dy + pix * CO + c * 8, in);
+                       tc::chunk_at<NC>(pp, c) * 8);
+      if constexpr (S::COP == CO)
+        tc::cp_async16(d, dy + pix * CO + c * 8, in);
+      else  // 8-channel streams: the plane's padding zero-filled
+        tc::cp_chunk<CO * 2>(d, dy, dy + pix * CO, c, in);
     }
     tc::cp_async_commit();
   };

@@ -40,6 +40,9 @@
 //   fixed order), then over the 8 warps in order, into the block's own
 //   row of the scratch; sum_rows (partials.cuh) adds the rows in order.
 //   Same inputs and grid, same bits in y, s1 and s2 on every launch.
+// 8-channel streams (inplanes 8 and 4): ci = 8 takes two taps a k-step
+// (conv_gemm.cuh); co = 4 pads N to 8 with zero B columns and biases,
+// whose y stays zero and is never stored nor summed.
 #include "conv_gemm.cuh"
 #include "partials.cuh"
 #include "ubr_shapes.h"  // UBR_CONV_STATS_SHAPES (ops/_build.py:SHAPES)
@@ -52,14 +55,13 @@ constexpr int J = cg::TH / NWARP;  // output rows a warp
 template <int CI, int CO, int K>
 struct StatsShape : cg::Shape<CI, CO, K> {
   using G = cg::Shape<CI, CO, K>;
-  static constexpr int NCO = CO / 8;          // staging chunks a pixel
-  static constexpr int ST = J * cg::TW * CO;  // staging bf16 a warp
-  static constexpr int SMEM = G::B_UNITS * 8 + CO * 4 +
+  static constexpr int NCO = G::COP / 8;          // staging chunks a pixel
+  static constexpr int ST = J * cg::TW * G::COP;  // staging bf16 a warp
+  static constexpr int SMEM = G::B_UNITS * 8 + G::COP * 4 +
                               (2 * G::X_ELEMS + NWARP * ST) * 2;
   // registers: J x co / 2 accumulators and co / 2 sums a thread (at
   // co = 64, 96 of them: one block an SM)
   static constexpr int CAP = CO <= 16 ? 3 : (CO <= 32 ? 2 : 1);
-  static_assert(CO % 8 == 0, "co: a multiple of 8 (N is not padded)");
   static_assert(NWARP * 2 * CO * 4 <= 2 * G::X_ELEMS * 2,
                 "block sums fit the x tiles");
 };
@@ -76,7 +78,7 @@ conv_stats_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
   extern __shared__ uint4 smem[];
   uint2* wf = reinterpret_cast<uint2*>(smem);
   float* bs = reinterpret_cast<float*>(wf + S::B_UNITS);  // bias
-  bf16* xs = reinterpret_cast<bf16*>(bs + CO);
+  bf16* xs = reinterpret_cast<bf16*>(bs + S::COP);
   bf16* st = xs + 2 * S::X_ELEMS;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -86,8 +88,8 @@ conv_stats_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
   const int per_img = tiles_x * tiles_y, ntiles = B * per_img;
 
   cg::stage_w<S>(wf, w, CI, CO, tid, NT);
-  for (int e = tid; e < CO; e += NT)
-    bs[e] = bias != nullptr ? bias[e] : 0.f;
+  for (int e = tid; e < S::COP; e += NT)
+    bs[e] = bias != nullptr && e < CO ? bias[e] : 0.f;
 
   auto load = [&](int t, bf16* dst) {
     const int n = t / per_img, r = t % per_img;
@@ -149,7 +151,7 @@ conv_stats_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
       }
     }
     __syncwarp();
-    tc::store_rows<NCO, J>(y, wst, n, oh0 + warp * J, ow0, H, W, lane);
+    tc::store_rows<NCO, J, CO>(y, wst, n, oh0 + warp * J, ow0, H, W, lane);
     __syncwarp();  // staging read before the next tile's epilogue
   }
 
@@ -168,8 +170,8 @@ conv_stats_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
         a += __shfl_xor_sync(0xffffffffu, a, off);
         q += __shfl_xor_sync(0xffffffffu, q, off);
       }
-      if (gq == 0) {
-        const int ch = tt * 8 + 2 * q4 + e;
+      const int ch = tt * 8 + 2 * q4 + e;
+      if (gq == 0 && ch < CO) {
         red[warp * 2 * CO + ch] = a;
         red[warp * 2 * CO + CO + ch] = q;
       }

@@ -40,6 +40,14 @@
 // Shared memory: dec2 64 KB weights + 2 x 40.5 KB x + 32 KB staging =
 // 177 KB (one block of 256 threads per SM); dec1 16 + 2 x 20.25 + 16 =
 // 72.5 KB (three per SM).
+//
+// 8-channel streams (dec1 (16, 8) at inplanes 8; dec2 (16, 8) and dec1
+// (8, 4) at 4): the tiles are zero-padded to the 16-channel k-step and
+// n-tile pair (tc::pad16): ci = 8 reads 8 bf16 (one chunk) a pixel and
+// zero-fills the tile's second chunk; the B rows past ci and the columns
+// past co are zero; the staged output holds 16 channels and only co are
+// stored (co = 4: element by element). 2x (4x at (8, 4)) the real MACs,
+// still bound by bytes.
 #include "tensor_core.cuh"
 #include "ubr_shapes.h"  // UBR_DECONV2X_SHAPES (ops/_build.py:SHAPES)
 
@@ -59,12 +67,15 @@ __device__ __forceinline__ int tap_di(int parity, int s) {
 
 template <int CI, int CO>
 struct DeconvShape {
-  static constexpr int NCI = CI / 8, NCO = CO / 8;  // 16-byte chunks/pixel
-  static constexpr int KC = CI / 16;                // k-steps of one tap
-  static constexpr int NQ = CO / 16;                // n-tile pairs
-  static constexpr int W_UNITS = 4 * 4 * CI * CO / 8;  // uint4 of B
-  static constexpr int X_ELEMS = XH * XW * CI;
-  static constexpr int ST_ELEMS = RPW * 2 * QW * CO;  // a warp's staging
+  // channels of the x tile and the GEMMs' K, and of N
+  static constexpr int CIP = tc::pad16(CI), COP = tc::pad16(CO);
+  static constexpr int NCI = CIP / 8, NCO = COP / 8;  // 16-byte chunks/pixel
+  static constexpr int KC = CIP / 16;                 // k-steps of one tap
+  static constexpr int NQ = COP / 16;                 // n-tile pairs
+  static constexpr int W_UNITS = 4 * 4 * CIP * COP / 8;  // uint4 of B
+  static constexpr int X_ELEMS = XH * XW * CIP;
+  static constexpr int ST_ELEMS = RPW * 2 * QW * COP;  // a warp's staging
+  static_assert(CI % 8 == 0, "ci: whole 16-byte chunks");
   static constexpr int SMEM =
       W_UNITS * 16 + 2 * X_ELEMS * 2 + NWARP * ST_ELEMS * 2;
 };
@@ -87,15 +98,18 @@ deconv2x_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
   const int Ho = 2 * H, Wo = 2 * W;
   bf16* wst = st + warp * S::ST_ELEMS;
 
-  // class c = 2 pa + pb: B row s * CI + ci is tap s = 2 sr + sc
+  // class c = 2 pa + pb: B row s * CIP + ci is tap s = 2 sr + sc
+  constexpr int CIP = S::CIP;
+  const bf16 z = __float2bfloat16(0.f);
 #pragma unroll 1
   for (int c = 0; c < 4; ++c)
-    tc::stage_b<4 * CI, CO>(
+    tc::stage_bv<4 * CIP, S::COP>(
         wf + c * (S::W_UNITS / 4),
-        [&](int k) {
-          const int s = k / CI, ci = k % CI;
+        [&](int k, int n) {
+          const int s = k / CIP, ci = k % CIP;
           const int kh = tap_k(c >> 1, s >> 1), kw = tap_k(c & 1, s & 1);
-          return w + ((kh * 4 + kw) * CI + ci) * CO;
+          return ci < CI && n < CO ? w[((kh * 4 + kw) * CI + ci) * CO + n]
+                                   : z;
         },
         tid, NT);
 
@@ -105,7 +119,10 @@ deconv2x_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
     for (int e = tid; e < XH * XW * S::NCI; e += NT) {
       const int p = e / S::NCI, c = e % S::NCI;
       const int ih = iy0 + p / XW, iw = ix0 + p % XW;
-      const bool in = ih >= 0 && ih < H && iw >= 0 && iw < W;
+      // a chunk past ci is the tile's padding: zero-filled
+      const bool in =
+          ih >= 0 && ih < H && iw >= 0 && iw < W &&
+          (S::CIP == CI || c < CI / 8);
       const bf16* src = in ? x + (((long)n * H + ih) * W + iw) * CI + c * 8 : x;
       tc::cp_async16(tc::smem_u32(dst + tc::chunk_at<S::NCI>(p, c) * 8), src,
                      in);
@@ -182,16 +199,14 @@ deconv2x_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
       }
       __syncwarp();
       // output rows 2 (qy0 + ty) + pa of this warp's tile rows ty
-      for (int e = lane; e < RPW * 2 * QW * S::NCO; e += 32) {
-        const int sp = e / S::NCO, c = e % S::NCO;
-        const int oh = 2 * (qy0 + warp * RPW + sp / (2 * QW)) + pa;
-        const int ow = 2 * qx0 + sp % (2 * QW);
-        if (oh < Ho && ow < Wo)
-          *reinterpret_cast<uint4*>(out + (((long)n * Ho + oh) * Wo + ow) * CO +
-                                    c * 8) =
-              *reinterpret_cast<const uint4*>(
-                  wst + tc::chunk_at<S::NCO>(sp, c) * 8);
-      }
+      tc::store_staged<S::NCO, CO>(
+          out, wst, RPW * 2 * QW,
+          [=](int sp) -> long {
+            const int oh = 2 * (qy0 + warp * RPW + sp / (2 * QW)) + pa;
+            const int ow = 2 * qx0 + sp % (2 * QW);
+            return oh < Ho && ow < Wo ? ((long)n * Ho + oh) * Wo + ow : -1;
+          },
+          lane);
       __syncwarp();
     }
   }

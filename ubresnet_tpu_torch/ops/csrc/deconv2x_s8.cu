@@ -45,6 +45,15 @@
 // column parities of a row parity are unrolled: dec2 then spills 16 B
 // at its 128 registers, and still runs 2% faster on the H100 than
 // without that unroll, which spills nothing (PERF.md).
+//
+// 8-channel streams (dec1 (16, 8) at inplanes 8; dec2 (16, 8) and dec1
+// (8, 4) at 4): the x tile is zero-padded to one 32-channel k-step (ci
+// = 16 copies one chunk a pixel and zero-fills the second, ci = 8 half a
+// chunk, tc::cp_chunk), N to one 16-column n-tile pair, with zero B rows
+// and columns and zero gains past co; the staged output holds 16
+// channels and only co are stored (co = 4: element by element). 2x and
+// 8x the real MACs, exact: the float32 output stays bit-identical to
+// deconv2x_s8_plain's.
 #include "tensor_core.cuh"
 #include "ubr_shapes.h"  // UBR_DECONV2X_S8_SHAPES (ops/_build.py:SHAPES)
 
@@ -64,18 +73,20 @@ __device__ __forceinline__ int tap_di(int parity, int s) {
 
 template <int CI, int CO, typename OT>
 struct DeconvS8Shape {
-  static_assert(CI % 32 == 0 && CO % 16 == 0,
-                "int8 deconv: 32-channel k-steps, 16-column n-tile pairs");
-  static constexpr int NCI = CI / 16;               // int8 chunks a pixel
-  static constexpr int KC = CI / 32;                // k-steps of one tap
+  // channels of the x tile and K (32-channel k-steps), and of N (16-column
+  // n-tile pairs)
+  static constexpr int CIP = (CI + 31) / 32 * 32, COP = tc::pad16(CO);
+  static_assert(CI % 8 == 0, "ci: whole 8-byte units");
+  static constexpr int NCI = CIP / 16;              // int8 chunks a pixel
+  static constexpr int KC = CIP / 32;               // k-steps of one tap
   static constexpr int KS = 4 * KC;                 // k-steps of a class
-  static constexpr int NQ = CO / 16;                // n-tile pairs
+  static constexpr int NQ = COP / 16;               // n-tile pairs
   static constexpr int ES = 16 / (int)sizeof(OT);   // outputs a chunk
-  static constexpr int NCS = CO / ES;               // staged chunks a pixel
+  static constexpr int NCS = COP / ES;              // staged chunks a pixel
   static constexpr int W_UNITS = 4 * KS * NQ * 32;  // uint4 of B, 4 classes
-  static constexpr int X_BYTES = XH * XW * CI;
-  static constexpr int ST = RPW * 2 * QW * CO;      // staged outputs a warp
-  static constexpr int SMEM = W_UNITS * 16 + CO * 4 + 2 * X_BYTES +
+  static constexpr int X_BYTES = XH * XW * CIP;
+  static constexpr int ST = RPW * 2 * QW * COP;     // staged outputs a warp
+  static constexpr int SMEM = W_UNITS * 16 + COP * 4 + 2 * X_BYTES +
                               NWARP * ST * (int)sizeof(OT);
 };
 
@@ -88,10 +99,11 @@ deconv2x_s8_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
   using S = DeconvS8Shape<CI, CO, OT>;
   constexpr int NCI = S::NCI, KC = S::KC, NQ = S::NQ;
   constexpr int NCS = S::NCS, ES = S::ES;
+  constexpr int CIP = S::CIP, COP = S::COP;
   extern __shared__ uint4 smem[];
   uint4* wf = smem;
   float* gs = reinterpret_cast<float*>(smem + S::W_UNITS);
-  int8_t* xs = reinterpret_cast<int8_t*>(gs + CO);
+  int8_t* xs = reinterpret_cast<int8_t*>(gs + COP);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int tiles_x = (W + QW - 1) / QW, tiles_y = (H + QH - 1) / QH;
@@ -100,19 +112,20 @@ deconv2x_s8_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
   const int Ho = 2 * H, Wo = 2 * W;
   OT* wst = reinterpret_cast<OT*>(xs + 2 * S::X_BYTES) + warp * S::ST;
 
-  // class c = 2 pa + pb: B row k is tap s = k / CI (s = 2 sr + sc),
-  // channel k % CI
+  // class c = 2 pa + pb: B row k is tap s = k / CIP (s = 2 sr + sc),
+  // channel k % CIP (zero past ci and past co)
 #pragma unroll 1
   for (int c = 0; c < 4; ++c)
-    tc::stage_b_s8<S::KS, CO>(
+    tc::stage_b_s8<S::KS, COP>(
         wf + c * (S::W_UNITS / 4),
         [&](int k, int n) {
-          const int s = k / CI, ci = k % CI;
+          const int s = k / CIP, ci = k % CIP;
           const int kh = tap_k(c >> 1, s >> 1), kw = tap_k(c & 1, s & 1);
-          return w[((kh * 4 + kw) * CI + ci) * CO + n];
+          return ci < CI && n < CO ? w[((kh * 4 + kw) * CI + ci) * CO + n]
+                                   : (int8_t)0;
         },
         tid, NT);
-  for (int e = tid; e < CO; e += NT) gs[e] = g[e];
+  for (int e = tid; e < COP; e += NT) gs[e] = e < CO ? g[e] : 0.f;
 
   auto load = [=](int t, int8_t* dst) {
     const int n = t / per_img, r = t % per_img;
@@ -121,10 +134,12 @@ deconv2x_s8_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
       const int p = e / NCI, c = e % NCI;
       const int ih = iy0 + p / XW, iw = ix0 + p % XW;
       const bool in = ih >= 0 && ih < H && iw >= 0 && iw < W;
-      const int8_t* src =
-          in ? x + (((long)n * H + ih) * W + iw) * CI + c * 16 : x;
-      tc::cp_async16(tc::smem_u32(dst + tc::chunk_at<NCI>(p, c) * 16), src,
-                     in);
+      const int8_t* src = in ? x + (((long)n * H + ih) * W + iw) * CI : x;
+      const uint32_t d = tc::smem_u32(dst + tc::chunk_at<NCI>(p, c) * 16);
+      if constexpr (CIP == CI)
+        tc::cp_async16(d, in ? src + c * 16 : x, in);
+      else  // 8-channel streams: the tile's padding zero-filled
+        tc::cp_chunk<CI>(d, x, src, c, in);
     }
     tc::cp_async_commit();
   };
@@ -200,16 +215,14 @@ deconv2x_s8_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
       }
       __syncwarp();
       // output rows 2 (qy0 + ty) + pa of this warp's tile rows ty
-      for (int e = lane; e < RPW * 2 * QW * NCS; e += 32) {
-        const int sp = e / NCS, c = e % NCS;
-        const int oh = 2 * (qy0 + warp * RPW + sp / (2 * QW)) + pa;
-        const int ow = 2 * qx0 + sp % (2 * QW);
-        if (oh < Ho && ow < Wo)
-          *reinterpret_cast<uint4*>(out + (((long)n * Ho + oh) * Wo + ow) * CO +
-                                    c * ES) =
-              *reinterpret_cast<const uint4*>(
-                  wst + tc::chunk_at<NCS>(sp, c) * ES);
-      }
+      tc::store_staged<NCS, CO>(
+          out, wst, RPW * 2 * QW,
+          [=](int sp) -> long {
+            const int oh = 2 * (qy0 + warp * RPW + sp / (2 * QW)) + pa;
+            const int ow = 2 * qx0 + sp % (2 * QW);
+            return oh < Ho && ow < Wo ? ((long)n * Ho + oh) * Wo + ow : -1;
+          },
+          lane);
       __syncwarp();  // staging read before the next parity's dequant
     }
   }

@@ -61,6 +61,12 @@
 //   f32 plain version's distance and far inside the 1e-4·max gate of the
 //   cuda tests, so the k-steps are not promoted as K5's are
 //   (conv_gemm.cuh:conv_rows<S, J, true>), whose bias BatchNorm carried.
+// - 8-channel streams (dec1 (16, 8) at inplanes 8; dec2 (16, 8) and dec1
+//   (8, 4) at 4, under fused_train_deconv): ci = 8 zero-pads the x tile to
+//   one 16-channel M-tile (the second chunk zero-filled by its copy; its
+//   rows of dW are never written); co = 8 is one n-tile, its B by
+//   ldmatrix.x2.trans; co = 4 zero-pads dy's pixels to 8 channels
+//   (tc::cp_chunk) and writes 4 columns. 2x to 4x the real MACs.
 #include "partials.cuh"
 #include "tensor_core.cuh"
 #include "ubr_shapes.h"  // UBR_DECONV_DW_SHAPES (ops/_build.py:SHAPES)
@@ -76,16 +82,19 @@ struct DdwShape {
   static constexpr int TH = CI >= 64 ? 8 : 16;      // x rows of a tile
   static constexpr int PH = TH + 1, PW = TW + 1;    // a plane's pixels
   static constexpr int YH = 2 * PH, YW = 2 * PW;    // the haloed dy tile
-  static constexpr int NCX = CI / 8, NCY = CO / 8;  // 16-byte chunks a pixel
-  static constexpr int MT = CI / 16, NT8 = CO / 8;  // M-tiles, n-tiles
-  static constexpr int X_ELEMS = TH * TW * CI;      // bf16 of the x tile
-  static constexpr int PLANE = PH * PW * CO;        // bf16 of a plane
+  // channels of the x tile (M) and of dy's planes (N)
+  static constexpr int CIP = tc::pad16(CI), COP = (CO + 7) / 8 * 8;
+  static constexpr int NCX = CIP / 8, NCY = COP / 8;  // 16-byte chunks a pixel
+  static constexpr int MT = CIP / 16, NT8 = COP / 8;  // M-tiles, n-tiles
+  static constexpr int X_ELEMS = TH * TW * CIP;       // bf16 of the x tile
+  static constexpr int PLANE = PH * PW * COP;         // bf16 of a plane
   static constexpr int BUF = X_ELEMS + 4 * PLANE;   // bf16 of a buffer
   static constexpr int SMEM = 2 * BUF * 2;
   static constexpr int T = 16 * CI * CO;            // dW elements
   static constexpr int ACC = TPW * MT * NT8 * 4;    // f32 sums a lane
   static constexpr int CAP = ACC > 64 ? 1 : 2;      // blocks an SM
-  static_assert(CI % 16 == 0 && CO % 16 == 0, "16-channel k-steps");
+  static_assert(CI % 8 == 0 && CO % 4 == 0 && (NT8 == 1 || NT8 % 2 == 0),
+                "x in 16-byte chunks, dy in 8-byte units, n-tile pairs");
 };
 
 template <int CI, int CO>
@@ -112,10 +121,11 @@ deconv_dw_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
     for (int e = tid; e < TH * TW * S::NCX; e += NT) {
       const int p = e / S::NCX, c = e % S::NCX;
       const int i = i0 + p / TW, j = j0 + p % TW;
-      const bool in = i < H && j < W;
+      // a chunk past ci is the tile's padding: zero-filled
+      const bool in = i < H && j < W && (S::CIP == CI || c < CI / 8);
       const long pix = in ? ((long)n * H + i) * W + j : 0;
       tc::cp_async16(tc::smem_u32(dst + tc::chunk_at<S::NCX>(p, c) * 8),
-                     x + pix * CI + c * 8, in);
+                     in ? x + pix * CI + c * 8 : x, in);
     }
     bf16* ys = dst + S::X_ELEMS;
     const int y0 = 2 * i0 - 1, x0 = 2 * j0 - 1;
@@ -126,10 +136,13 @@ deconv_dw_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
       const bool in = iy >= 0 && iy < H2 && ix >= 0 && ix < W2;
       const long pix = in ? ((long)n * H2 + iy) * W2 + ix : 0;
       const int pp = (ry >> 1) * S::PW + (rx >> 1);
-      tc::cp_async16(
-          tc::smem_u32(ys + ((ry & 1) * 2 + (rx & 1)) * S::PLANE +
-                       tc::chunk_at<S::NCY>(pp, c) * 8),
-          dy + pix * CO + c * 8, in);
+      const uint32_t d = tc::smem_u32(
+          ys + ((ry & 1) * 2 + (rx & 1)) * S::PLANE +
+          tc::chunk_at<S::NCY>(pp, c) * 8);
+      if constexpr (CO % 8 == 0)
+        tc::cp_async16(d, dy + pix * CO + c * 8, in);
+      else  // co = 4: half a chunk, zero-padded
+        tc::cp_chunk<CO * 2>(d, dy, dy + pix * CO, c, in);
     }
     tc::cp_async_commit();
   };
@@ -181,16 +194,22 @@ deconv_dw_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
       for (int j = 0; j < TPW; ++j) {
         const int pp = y * S::PW + poff[j];
         uint32_t b[NT8][2];
+        if constexpr (NT8 == 1) {  // one n-tile: lanes 0-15 give the rows
+          tc::ldsm_x2_trans(bt + pbase[j] + 16u * tc::chunk_at<S::NCY>(pp, 0),
+                            b[0]);
+        } else {
 #pragma unroll
-        for (int np = 0; np < NT8 / 2; ++np) {
-          uint32_t r[4];
-          tc::ldsm_x4_trans(
-              bt + pbase[j] + 16u * tc::chunk_at<S::NCY>(pp, 2 * np + bchunk),
-              r);
-          b[2 * np][0] = r[0];
-          b[2 * np][1] = r[1];
-          b[2 * np + 1][0] = r[2];
-          b[2 * np + 1][1] = r[3];
+          for (int np = 0; np < NT8 / 2; ++np) {
+            uint32_t r[4];
+            tc::ldsm_x4_trans(
+                bt + pbase[j] +
+                    16u * tc::chunk_at<S::NCY>(pp, 2 * np + bchunk),
+                r);
+            b[2 * np][0] = r[0];
+            b[2 * np][1] = r[1];
+            b[2 * np + 1][0] = r[2];
+            b[2 * np + 1][1] = r[3];
+          }
         }
 #pragma unroll
         for (int m = 0; m < MT; ++m)
@@ -213,9 +232,11 @@ deconv_dw_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int ci = 16 * m + gq + 8 * h, co = 8 * t + 2 * q4;
-          *reinterpret_cast<float2*>(
-              row + ((warp * TPW + j) * CI + ci) * CO + co) =
-              make_float2(acc[j][m][t][2 * h], acc[j][m][t][2 * h + 1]);
+          // the padded rows and columns: none
+          if ((S::CIP == CI || ci < CI) && (S::COP == CO || co < CO))
+            *reinterpret_cast<float2*>(
+                row + ((warp * TPW + j) * CI + ci) * CO + co) =
+                make_float2(acc[j][m][t][2 * h], acc[j][m][t][2 * h + 1]);
         }
 }
 

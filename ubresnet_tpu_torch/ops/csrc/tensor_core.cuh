@@ -122,16 +122,21 @@ __device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
          ((uint32_t)__bfloat16_as_ushort(hi) << 16);
 }
 
-// The K x N bf16 matrix whose row k is row(k)[0 .. N) as mma B
-// fragments in shared memory: for k-step s (16 rows) and n-tile pair q
-// (16 columns) lane l owns one uint4 at dst[(s * N/16 + q) * 32 + l],
-// {b0, b1} of n-tile 2q then of n-tile 2q + 1, where b0 packs rows
-// 16s + 2(l%4) and +1 of column l/4 and b1 the same rows + 8. A warp
-// then reads a k-step's B with one conflict-free 16-byte load per lane
-// and n-tile pair. Written once per block.
-template <int K, int N, typename Row>
-__device__ __forceinline__ void stage_b(uint4* dst, Row row, int tid,
-                                        int nthreads) {
+// Channels of a tile that holds c real ones: c, or the next multiple
+// of 16 (an 8-channel stream is zero-padded to one bf16 k-step, or one
+// 16-byte int8 chunk; its padding's B rows or columns are zero).
+__host__ __device__ constexpr int pad16(int c) { return (c + 15) / 16 * 16; }
+
+// The K x N bf16 matrix val(k, n) as mma B fragments in shared memory:
+// for k-step s (16 rows) and n-tile pair q (16 columns) lane l owns one
+// uint4 at dst[(s * N/16 + q) * 32 + l], {b0, b1} of n-tile 2q then of
+// n-tile 2q + 1, where b0 packs rows 16s + 2(l%4) and +1 of column l/4
+// and b1 the same rows + 8. A warp then reads a k-step's B with one
+// conflict-free 16-byte load per lane and n-tile pair. val gives zero
+// where the kernel pads K or N. Written once per block.
+template <int K, int N, typename Val>
+__device__ __forceinline__ void stage_bv(uint4* dst, Val val, int tid,
+                                         int nthreads) {
   static_assert(K % 16 == 0 && N % 16 == 0, "B is 16 x 16 steps");
   constexpr int NQ = N / 16;
   for (int e = tid; e < (K / 16) * NQ * 32; e += nthreads) {
@@ -142,8 +147,8 @@ __device__ __forceinline__ void stage_b(uint4* dst, Row row, int tid,
     for (int h = 0; h < 2; ++h)
 #pragma unroll
       for (int r = 0; r < 2; ++r)
-        v[2 * h + r] = pack_bf16(row(k + 8 * r)[n + 8 * h],
-                                 row(k + 8 * r + 1)[n + 8 * h]);
+        v[2 * h + r] = pack_bf16(val(k + 8 * r, n + 8 * h),
+                                 val(k + 8 * r + 1, n + 8 * h));
     dst[e] = make_uint4(v[0], v[1], v[2], v[3]);
   }
 }
@@ -166,24 +171,52 @@ __device__ __forceinline__ void stage_b8(uint2* dst, Val val, int tid,
   }
 }
 
+// NP staged pixels (pixel sp of a swizzled tile of NC chunks a pixel,
+// bf16 or float) to the NHWC tensor out of CO channels, pixel sp at
+// out pixel pix(sp) (negative: outside the image, skipped): whole
+// 16-byte chunks where CO fills them, else (co = 3 or 4, a tile padded
+// to 8 channels) element by element. Channels of the tile past CO are
+// the kernel's padding and are never stored.
+template <int NC, int CO, typename T, typename Pix>
+__device__ __forceinline__ void store_staged(T* out, const T* st, int np,
+                                             Pix pix, int lane) {
+  constexpr int E = 16 / (int)sizeof(T);  // elements a chunk
+  static_assert(CO <= NC * E, "the staged tile holds every channel");
+  if constexpr (CO % E == 0) {
+    constexpr int NCR = CO / E;  // real chunks a pixel
+    for (int e = lane; e < np * NCR; e += 32) {
+      const int sp = e / NCR, c = e % NCR;
+      const long o = pix(sp);
+      if (o >= 0)
+        *reinterpret_cast<uint4*>(out + o * CO + c * E) =
+            *reinterpret_cast<const uint4*>(st + chunk_at<NC>(sp, c) * E);
+    }
+  } else {
+    for (int e = lane; e < np * CO; e += 32) {
+      const int sp = e / CO, c = e % CO;
+      const long o = pix(sp);
+      if (o >= 0) out[o * CO + c] = st[chunk_at<NC>(sp, c / E) * E + c % E];
+    }
+  }
+}
+
 // A warp's R staged output rows of 16 pixels (staged pixel sp = r * 16 +
 // px in a swizzled tile of NC chunks a pixel) to image n of the NHWC
-// tensor out (H, W, NC chunks of 16 bytes: bf16 or float) at rows r0 ..,
-// columns c0 .., as whole 16-byte chunks, skipping pixels outside the
-// image.
-template <int NC, int R, typename T>
+// tensor out (H, W, CO channels: bf16 or float; CO defaults to the
+// tile's NC whole chunks) at rows r0 .., columns c0 .., skipping pixels
+// outside the image.
+template <int NC, int R, int CO = 0, typename T>
 __device__ __forceinline__ void store_rows(T* out, const T* st, int n,
                                            int r0, int c0, int H, int W,
                                            int lane) {
-  constexpr int E = 16 / (int)sizeof(T);  // elements a chunk
-  for (int e = lane; e < R * 16 * NC; e += 32) {
-    const int sp = e / NC, c = e % NC;
-    const int oh = r0 + sp / 16, ow = c0 + sp % 16;
-    if (oh < H && ow < W)
-      *reinterpret_cast<uint4*>(out + (((long)n * H + oh) * W + ow) * NC * E +
-                                c * E) =
-          *reinterpret_cast<const uint4*>(st + chunk_at<NC>(sp, c) * E);
-  }
+  constexpr int C = CO > 0 ? CO : NC * (16 / (int)sizeof(T));
+  store_staged<NC, C>(
+      out, st, R * 16,
+      [=](int sp) -> long {
+        const int oh = r0 + sp / 16, ow = c0 + sp % 16;
+        return oh < H && ow < W ? ((long)n * H + oh) * W + ow : -1;
+      },
+      lane);
 }
 
 // ---- int8: s8 x s8 -> s32 on mma.sync m16n8k32, exact accumulators.
@@ -264,6 +297,28 @@ __device__ __forceinline__ void cp_async8(uint32_t dst, const void* src,
   asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst),
                "l"(src), "r"(valid ? 8 : 0)
                : "memory");
+}
+// Chunk c (16 bytes) of a tile pixel whose source pixel src holds CB
+// real bytes (a multiple of 8; more chunks than that are the tile's
+// channel padding): a whole chunk, an 8-byte half and 8 zero bytes, or
+// 16 zero bytes. With valid false (outside the image) the chunk is
+// zeros. base, a 16-byte aligned address of the tensor, is the source
+// named where nothing is read.
+template <int CB>
+__device__ __forceinline__ void cp_chunk(uint32_t dst, const void* base,
+                                         const void* src, int c,
+                                         bool valid) {
+  static_assert(CB % 8 == 0, "pixels of whole 8-byte units");
+  const char* p = static_cast<const char*>(src) + 16 * c;
+  const int real = CB - 16 * c;
+  if (real >= 16) {
+    cp_async16(dst, valid ? p : base, valid);
+  } else if (real == 8) {
+    cp_async8(dst, valid ? p : base, valid);
+    cp_async8(dst + 8, base, false);
+  } else {
+    cp_async16(dst, base, false);
+  }
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");

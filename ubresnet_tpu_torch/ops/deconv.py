@@ -70,13 +70,6 @@ def s8_supports(ci: int, co: int) -> bool:
     return (ci, co) in S8_SHAPES
 
 
-def ad_supports(ci: int, co: int) -> bool:
-    """deconv2x_ad has a kernel on every leg: K3 forward, K8 input
-    gradient, K9 weight gradient."""
-    return (supports(ci, co) and (ci, co) in S2K4_SHAPES
-            and (ci, co) in DW_SHAPES)
-
-
 def deconv2x_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version: f32 math, output in ``x.dtype`` (NHWC)."""
     y = F.conv_transpose2d(x.float().permute(0, 3, 1, 2),

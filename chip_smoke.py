@@ -7,7 +7,7 @@ Phases, each printing JSON lines; any failure exits non-zero:
 
 1. device  — the card's name and power limit (nvidia-smi); no card,
              no run: without CUDA the script exits 1 before anything.
-2. build   — nvcc builds the twelve Hopper kernels from
+2. build   — nvcc builds the thirteen Hopper kernels from
              ubresnet_tpu_torch/ops/csrc for sm_90a (-Xptxas -v): every
              kernel's registers, spills and static shared memory; beside
              it g++ builds the host libraries librootio and libuevt from
@@ -30,17 +30,21 @@ Phases, each printing JSON lines; any failure exits non-zero:
              step of some y may differ), K1 as the input gradient (as K1),
              K6 (f32 dW ≤ 1e-3·max|plain|: sums over 1-4 M pixels in
              another order), K7 forward and backward (f32, ≤ 1e-5·max);
-             deconv-AD rows at dec2's and dec1's b16 shapes: K8 (dx, as
-             K1), K9 (f32 dW ≤ 1e-3·max|plain|, as K6; its and the plain
-             version's distance from a float64 dW reported) and deconv2x_ad
-             forward + backward against F.conv_transpose2d's f32
-             autograd (y, dx and the bf16 dW each ≤ 1e-2·max|plain|).
+             deconv-AD rows at dec2's and dec1's b16 shapes: K10 (dx as
+             K1 and dW as K9 from one launch, against deconv2x_bwd_plain;
+             library: torch.autograd.grad of F.conv_transpose2d, cuDNN
+             bf16), K8 (dx, as K1) and K9 (f32 dW ≤ 1e-3·max|plain|, as
+             K6; its and the plain version's distance from a float64 dW
+             reported) alone, and deconv2x_ad forward + backward (K3,
+             K10) against F.conv_transpose2d's f32 autograd (y, dx and
+             the bf16 dW each ≤ 1e-2·max|plain|), with the host µs a call
+             (wall time of back-to-back calls) beside its kernels' time.
              Each row also gives pct_of_bound (bound_ms / ms) and
-             vs_library (ms / library_ms); K1, K5, K6, K8, K9 and the
-             int8 rows also the ptxas registers, spills and stack of the
-             kernel instance they launch, and K5, K8 and K9 rows launch
-             twice and require the same bits (same_bits). K1, K2, K3,
-             K5, K6, K8 and K9 are bf16 tensor-core kernels (mma.sync
+             vs_library (ms / library_ms); K1, K5, K6, K8, K9, K10 and
+             the int8 rows also the ptxas registers, spills and stack of
+             the kernel instance they launch, and K5, K8, K9 and K10 rows
+             launch twice and require the same bits (same_bits). K1, K2,
+             K3, K5, K6, K8, K9 and K10 are bf16 tensor-core kernels (mma.sync
              m16n8k16, f32 accumulators), K1-s8, K2-s8 and K3-s8 int8
              ones (m16n8k32, exact s32 accumulators: K1-s8 runs K1's
              mainloop with two 7x7 taps a 32-deep k-step, K2-s8 and
@@ -52,11 +56,13 @@ Phases, each printing JSON lines; any failure exits non-zero:
              and K3-s8 compute all four output parity classes of a tile
              from one read of its input, K5 is K1's mainloop with the
              sums of its bf16 y kept per lane and reduced per block in a
-             fixed order, K8 and K9
+             fixed order, K8, K9 and K10
              read each haloed dy tile as its four parity planes (each
-             tap one plane at stride 1), K6 and K9 keep their block's
+             tap one plane at stride 1), K6, K9 and K10 keep their block's
              share of dW in registers (dW = x_shiftᵀ·dy per tile, or
-             x_tileᵀ·dy_tap per tap, both operands by ldmatrix.trans).
+             x_tileᵀ·dy_tap per tap, both operands by ldmatrix.trans);
+             K10 runs K8's and K9's GEMMs on one read of x and dy and
+             adds its blocks' dW in the same launch (clusters of 8).
              The eval and int8 rows again at the wholeview paths' cells:
              b10 512x832 (one stitched chunk of crops) and b1 1024x3456
              (the spatial path's padded plane), under the same checks.
@@ -68,15 +74,15 @@ Phases, each printing JSON lines; any failure exits non-zero:
              wholeview cells, its train zone (K5, K1 dx, K6 at its seven
              shapes) on b16 256² crops; the 4-class classifier (16, 4,
              7), its dx and dW legs and K7 at C = 4; the inplanes-32
-             trainer's dec1 (64, 32) deconv-AD rows (K8, K9,
+             trainer's dec1 (64, 32) deconv-AD rows (K10, K8, K9,
              deconv2x_ad) and its classifier at 256². The 8-channel
              streams (the widths_8 phase): the zones of inplanes 8 and
              4 bf16 and int8 at b16 512² (K2 at (8, 0, 16), (8, 8, 8),
              (8, 0, 8); K3 at (16, 8), (8, 4); K1 at the head (8, 16, 7)
              and the per-conv blocks' (8, 8, 3), (8, 4, 3), (8, 4, 1);
              the same on K2-s8, K3-s8, K1-s8), their train zones (K5,
-             K1 dx, K6) and deconv-AD rows (K8, K9 at (32, 16), (16, 8),
-             (8, 4)). Their rows name their cell ("inplanes 32", "4
+             K1 dx, K6) and deconv-AD rows (K10, K8, K9 at (32, 16),
+             (16, 8), (8, 4)). Their rows name their cell ("inplanes 32", "4
              classes", "inplanes 8", "inplanes 4"); K2 rows give their
              form (resident or streamed) beside their ptxas figures.
 4. main    — 64 synthetic 512x512 crops scored file → file through the
@@ -101,14 +107,14 @@ Phases, each printing JSON lines; any failure exits non-zero:
              step, the busy and idle shares and the largest other
              kernels (reported, not gated).
    train_deconv — the same batch and weights through the train step
-             with Policy.fused_train_deconv (K3 forward, K8 dx, K9 dW at
+             with Policy.fused_train_deconv (K3 forward, K10 dx and dW at
              dec2 and dec1): loss and gradients under the same gates
              against the same plain paths, then 5 Adam steps whose
              launches are exactly 5 × (K5 16, K1 18, K6 17, K4 1, K7
-             1 + 1, K3 2, K8 2, K9 2); the loss must fall. Step ms beside
-             the default zone's, the profiler's K3/K8/K9 device time per
-             step, and deconv2x_ad forward + backward against cuDNN's
-             from the kernel rows (reported).
+             1 + 1, K3 2, K10 2; no K8 or K9); the loss must fall. Step
+             ms beside the default zone's, the profiler's K3/K10 device
+             time per step, and deconv2x_ad forward + backward against
+             cuDNN's from the kernel rows (reported).
 6. train   — the port's training CLI (--device cuda) on 64 synthetic
              512² events: batch 16, 8 iterations, validation every 4
              (1 batch), checkpoints every 4, the default sparse
@@ -273,8 +279,8 @@ Phases, each printing JSON lines; any failure exits non-zero:
              K1), each under the widths phase's gates and timings;
              train_parity's gates and 5 Adam steps on the b16 512²
              batch (K5 16 or 10, K1 18 or 12, K6 17 or 11, K7 1 + 1 a
-             step), then the same with fused_train_deconv (+ K3 2, K8
-             2, K9 2: dec2 and dec1, JAX's deconv-AD gate). ASPP-ResNet
+             step), then the same with fused_train_deconv (+ K3 2, K10
+             2: dec2 and dec1, JAX's deconv-AD gate). ASPP-ResNet
              at inplanes 32 through infer_precropped bf16 (K2 6, K3 1,
              K1 1 a batch) and --int8 (K2-s8 6, K3-s8 1, K1 1). The
              phase's seconds.
@@ -324,9 +330,10 @@ LAUNCHES_PER_BATCH_INT8 = {"conv_bn_act_s8": 1, "basic_block_s8": 6,
 LAUNCHES_PER_TRAIN_STEP = {"conv_stats": 16, "conv_bn_act": 18,
                            "conv_dw": 17, "maxpool3x3s2": 1,
                            "weighted_nll": 1, "weighted_nll_bwd": 1}
-# with Policy.fused_train_deconv: the decoder upsamples' three legs
+# with Policy.fused_train_deconv: the decoder upsamples' forward (K3) and
+# backward (K10: dx and dW in one launch; K8 and K9 run on no path)
 LAUNCHES_PER_DECONV_STEP = {**LAUNCHES_PER_TRAIN_STEP, "deconv2x": 2,
-                            "conv_s2k4": 2, "deconv_dw": 2}
+                            "deconv2x_bwd": 2}
 # a validation forward under QAT: blocks per conv (cuDNN), no K2
 LAUNCHES_PER_QAT_VALID = {"conv_bn_act": 2, "deconv2x": 2,
                           "maxpool3x3s2": 1}
@@ -404,16 +411,20 @@ SOURCES = {
                       "distributed", "widths_32_train", "widths_4_train",
                       "widths_ip8_train", "widths_ip4_train",
                       "widths_ip8_train_deconv", "widths_ip4_train_deconv")),
+    # K8 and K9 compute one leg each of the deconv's backward, which K10
+    # runs on every path: they are held and timed alone, on no path
     "conv_s2k4": ("ubresnet_tpu_torch/ops/csrc/conv_s2k4.cu",
                   f"{PALLAS}:1148 fused_conv_s2k4 (the dx leg of :1341 "
-                  "pallas_deconv2x_ad)", ("conv_s2k4",),
-                  ("train_deconv", "widths_ip8_train_deconv",
-                   "widths_ip4_train_deconv")),
+                  "pallas_deconv2x_ad)", ("conv_s2k4",), ()),
     "deconv_dw": ("ubresnet_tpu_torch/ops/csrc/deconv_dw.cu",
                   f"{PALLAS}:1265 pallas_deconv_dw (the dW leg of :1341 "
-                  "pallas_deconv2x_ad)", ("deconv_dw",),
-                  ("train_deconv", "widths_ip8_train_deconv",
-                   "widths_ip4_train_deconv")),
+                  "pallas_deconv2x_ad)", ("deconv_dw",), ()),
+    "deconv2x_bwd": ("ubresnet_tpu_torch/ops/csrc/deconv2x_bwd.cu",
+                     f"{PALLAS}:1341 pallas_deconv2x_ad (backward, "
+                     "_deconv_ad_bwd :1355: :1148 fused_conv_s2k4 + :1265 "
+                     "pallas_deconv_dw)", ("deconv2x_bwd",),
+                     ("train_deconv", "widths_ip8_train_deconv",
+                      "widths_ip4_train_deconv")),
     "conv_bn_act_s8": ("ubresnet_tpu_torch/ops/csrc/conv_bn_act_s8.cu",
                        f"{PALLAS}:315 fused_packed_conv (_conv_kernel :251,"
                        " quantized :282-300)", ("conv_bn_act_s8",),
@@ -477,7 +488,7 @@ WIDTHS_ITERS = 4            # train CLI iterations at inplanes 32
 # (8, 4, 3), (8, 4, 1) and the classifier). int8 the same with K2-s8,
 # K3-s8 and K1-s8 (the classifier stays bf16 K1). Per train step: K5 16
 # or 10, K1 18 or 12, K6 17 or 11, K7 1 + 1; with fused_train_deconv
-# also K3 2, K8 2, K9 2 (dec2 and dec1).
+# also K3 2, K10 2 (dec2 and dec1).
 LAUNCHES_PER_BATCH_8 = {
     8: {"basic_block": 6, "deconv2x": 2, "conv_bn_act": 2},
     4: {"basic_block": 3, "deconv2x": 2, "conv_bn_act": 4}}
@@ -491,7 +502,7 @@ LAUNCHES_PER_TRAIN_STEP_8 = {
          "weighted_nll": 1, "weighted_nll_bwd": 1}
     for ip, n in ((8, 16), (4, 10))}
 LAUNCHES_PER_DECONV_STEP_8 = {
-    ip: {**t, "deconv2x": 2, "conv_s2k4": 2, "deconv_dw": 2}
+    ip: {**t, "deconv2x": 2, "deconv2x_bwd": 2}
     for ip, t in LAUNCHES_PER_TRAIN_STEP_8.items()}
 # their train zones at batch 16 on 512² crops, as TRAIN_ZONE, and their
 # deconv-AD upsamples (name, input side, ci, co)
@@ -598,17 +609,19 @@ def stats_check(got, want):
 
 def _row(layer, kernel, kfn, pfn, lfn, nbytes, ops, peak, check=bf16_check,
          library=None, per_step=0, per_step_ad=None, instance=None,
-         same_bits=False):
+         same_bits=False, after=None):
     """``per_step``: launches of this row's kernel at this shape in one
     train step; ``per_step_ad`` the same with fused_train_deconv
     (default: ``per_step``); ``instance``: the template arguments of the
     kernel this row launches, for its ptxas figures; ``same_bits``: a
-    second launch must give the same bits in every output."""
+    second launch must give the same bits in every output; ``after``:
+    a function of the measured row whose dict of further measurements
+    joins it."""
     return {"layer": layer, "kernel": kernel, "kfn": kfn, "pfn": pfn,
             "lfn": lfn, "bytes": nbytes, "ops": ops, "peak": peak,
             "check": check, "library": library, "per_step": per_step,
             "per_step_ad": per_step if per_step_ad is None else per_step_ad,
-            "instance": instance, "same_bits": same_bits}
+            "instance": instance, "same_bits": same_bits, "after": after}
 
 
 # demangled kernel name → its ptxas figures, filled after the build
@@ -1024,6 +1037,19 @@ def dw_check(x, dy):
     return check
 
 
+def bwd_check(x, dy):
+    """K10: dx as a bf16 output (one bf16 step, as K8), dW as K9's
+    (dw_check: ≤ 1e-3·max|plain|, the float64 distances reported)."""
+    dw = dw_check(x, dy)
+
+    def check(got, want):
+        err, ref, tol, _ = bf16_check(got[0], want[0])
+        e, r, t, extra = dw(got[1], want[1])
+        require(e <= t, f"deconv2x_bwd dW: max abs err {e} > {t}")
+        return err, ref, tol, {"dw_err": e, "dw_ref": r, **extra}
+    return check
+
+
 # the deconv-AD upsamples of the flagship (name, input side, ci, co)
 DECONV_AD = (("dec2", 128, 64, 32), ("dec1", 256, 32, 16))
 
@@ -1031,16 +1057,18 @@ DECONV_AD = (("dec2", 128, 64, 32), ("dec1", 256, 32, 16))
 def deconv_ad_rows(dev, layers=DECONV_AD, model="", cell_hw=HW):
     """The decoder upsamples' backward at batch 16 and their own
     resolution (default: the flagship's, dec2: x 128² x 64 → 256² x 32,
-    dec1: 256² x 32 → 512² x 16): K8 dx and K9 dW, one launch each per
-    deconv-AD step, and deconv2x_ad forward + backward (K3, K8, K9)
-    against F.conv_transpose2d's autograd — its plain version in f32,
-    its library call in bf16 (cuDNN). ``model``: the cell suffix of
-    another UResNet (its rows count in no flagship step), whose crops
-    are ``cell_hw``."""
+    dec1: 256² x 32 → 512² x 16): K10 dx and dW, one launch per
+    deconv-AD step, K8 dx and K9 dW alone (on no path), and deconv2x_ad
+    forward + backward (K3, K10) against F.conv_transpose2d's autograd —
+    its plain version in f32, its library call in bf16 (cuDNN) —, with
+    its host µs a call beside its kernels' time. ``model``: the cell
+    suffix of another UResNet (its rows count in no flagship step),
+    whose crops are ``cell_hw``."""
     import torch
     import torch.nn.functional as F
 
     from ubresnet_tpu_torch.ops import deconv
+    from ubresnet_tpu_torch.tools.kernel_ab import host_us
 
     gen = torch.Generator(device=dev).manual_seed(4)
     bf = torch.bfloat16
@@ -1061,6 +1089,22 @@ def deconv_ad_rows(dev, layers=DECONV_AD, model="", cell_hw=HW):
         def cl(t):
             return t.permute(0, 3, 1, 2)
 
+        # cuDNN's backward alone: the bf16 graph built once, its dgrad
+        # and wgrad per call
+        xl = cl(x).detach().requires_grad_()
+        wl = w_oihw.detach().requires_grad_()
+        yl = F.conv_transpose2d(xl, wl, stride=2, padding=1)
+        rows.append(_row(
+            f"K10 dx+dW {name} {ci}->{co} @{hw}", "deconv2x_bwd",
+            lambda x=x, dy=dy, w=w: deconv.deconv2x_bwd(x, dy, w),
+            lambda x=x, dy=dy, w=w: deconv.deconv2x_bwd_plain(x, dy, w),
+            lambda xl=xl, wl=wl, yl=yl, dy=dy: torch.autograd.grad(
+                yl, (xl, wl), cl(dy), retain_graph=True),
+            n2(dy) + 2 * n2(x) + n2(w) + 16 * ci * co * 4, 4 * macs,
+            BF16_TENSOR_FLOPS, check=bwd_check(x, dy),
+            library="torch.autograd.grad of F.conv_transpose2d (cuDNN "
+                    "bf16)", per_step_ad=1, instance=(ci, co),
+            same_bits=True))
         rows.append(_row(
             f"K8 dx {name} {ci}<-{co} @{2 * hw}", "conv_s2k4",
             lambda dy=dy, w=w: deconv.conv_s2k4(dy, w),
@@ -1068,7 +1112,7 @@ def deconv_ad_rows(dev, layers=DECONV_AD, model="", cell_hw=HW):
             lambda dy=dy, wo=w_oihw: F.conv2d(cl(dy), wo, stride=2,
                                               padding=1),
             n2(dy) + n2(x) + n2(w), 2 * macs, BF16_TENSOR_FLOPS,
-            library="F.conv2d stride 2", per_step_ad=1, instance=(ci, co),
+            library="F.conv2d stride 2", per_step_ad=0, instance=(ci, co),
             same_bits=True))
         rows.append(_row(
             f"K9 dW {name} {ci}->{co} @{hw}", "deconv_dw",
@@ -1078,7 +1122,7 @@ def deconv_ad_rows(dev, layers=DECONV_AD, model="", cell_hw=HW):
                 cl(dy), (ci, co, 4, 4), cl(x), stride=2, padding=1),
             n2(x) + n2(dy) + 16 * ci * co * 4, 2 * macs, BF16_TENSOR_FLOPS,
             check=dw_check(x, dy), library="torch.nn.grad.conv2d_weight",
-            per_step_ad=1, instance=(ci, co), same_bits=True))
+            per_step_ad=0, instance=(ci, co), same_bits=True))
 
         def ad(x=x, w=w, dy=dy):
             xr, wr = x.detach().requires_grad_(), w.detach().requires_grad_()
@@ -1093,12 +1137,26 @@ def deconv_ad_rows(dev, layers=DECONV_AD, model="", cell_hw=HW):
             return (y.permute(0, 2, 3, 1).detach(), dx,
                     dw.permute(2, 3, 0, 1))
 
+        # the forward reads x and writes y (dy's size), the backward reads
+        # x and dy and writes dx and dW: 3·x + 2·dy + w + dW (before K10:
+        # 3·(x + dy), K8 and K9 each reading dy)
+        before = 3 * (n2(x) + n2(dy)) + 2 * n2(w) + 16 * ci * co * 4
+
+        def after(row, ad=ad, x=x, w=w, dy=dy, before=before):
+            kern = (time_ms(lambda: deconv.deconv2x(x, w))
+                    + time_ms(lambda: deconv.deconv2x_bwd(x, dy, w)))
+            old = before / HBM_BYTES_PER_S * 1e3
+            return {"host_us_per_call": host_us(ad), "kernels_ms": kern,
+                    "bytes_before_k10": before, "bound_ms_before_k10": old,
+                    "pct_of_bound_before_k10": old / row["ms"]}
+
         rows.append(_row(
             f"deconv2x_ad fwd+bwd {name} {ci}->{co} @{hw}", "deconv2x_ad",
             ad, ad_plain, lambda f=ad_plain: f(dtype=bf),
-            3 * (n2(x) + n2(dy)) + 2 * n2(w) + 16 * ci * co * 4,
+            3 * n2(x) + 2 * n2(dy) + n2(w) + 16 * ci * co * 4,
             3 * 2 * macs, BF16_TENSOR_FLOPS, check=ad_check,
-            library="F.conv_transpose2d + autograd (cuDNN bf16)"))
+            library="F.conv_transpose2d + autograd (cuDNN bf16)",
+            after=after))
     return _tagged(rows, B, cell_hw, model) if model else rows
 
 
@@ -1283,6 +1341,8 @@ def check_kernels(rows):
             "ptxas": ptxas_of(r["kernel"], r["instance"]),
         }
         row.update(_ratios(row))
+        if r["after"] is not None:
+            row.update(r["after"](row))
         emit(row)
         require(err <= tol, f"{r['layer']}: kernel disagrees with its plain "
                             f"version: max abs err {err} > {tol}")
@@ -2256,7 +2316,7 @@ def _train_batch(seed, hw=HW, classes=3):
 ZONE_KERNELS = ("conv_stats_kernel", "conv_dw_kernel", "conv_bn_act_kernel",
                 "nll_fwd_kernel", "nll_bwd_kernel", "maxpool3x3s2_kernel",
                 "sum_rows_kernel", "deconv2x_kernel", "conv_s2k4_kernel",
-                "deconv_dw_kernel")
+                "deconv_dw_kernel", "deconv2x_bwd_kernel")
 
 
 def step_profile(step, state, batch, step_ms, steps=2, detail=()):
@@ -2483,7 +2543,7 @@ def train_parity(dev, card, arch="uresnet", phase="train_parity", sd=None,
     return ref
 
 
-DECONV_KERNELS = ("deconv2x_kernel", "conv_s2k4_kernel", "deconv_dw_kernel")
+DECONV_KERNELS = ("deconv2x_kernel", "deconv2x_bwd_kernel")
 
 
 def train_deconv(dev, card, ref, rows, phase="train_deconv", sd=None,

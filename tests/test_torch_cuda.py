@@ -6,7 +6,7 @@ Marked ``cuda``: each test skips without an NVIDIA card. On the card:
     python -m pytest tests/test_torch_cuda.py -m cuda -q
 Tolerance: one bf16 rounding step of the output, ≤ 1e-2·max|plain|
 (f32 sums in another order); the max pool is exact. The train kernels'
-f32 outputs (K5's sums, K6's and K9's dW, K7) are sums in another order:
+f32 outputs (K5's sums, K6's, K9's and K10's dW, K7) are sums in another order:
 within 1e-4·max|plain| (K5's sums are over the bf16 y, which may round
 one step apart, hence 1e-3 for them)."""
 import numpy as np
@@ -364,7 +364,8 @@ def test_model_on_the_card(dev):
                       "maxpool3x3s2": 1, "conv_stats": 0, "conv_dw": 0,
                       "weighted_nll": 0, "weighted_nll_bwd": 0,
                       "conv_bn_act_s8": 0, "basic_block_s8": 0,
-                      "deconv2x_s8": 0, "conv_s2k4": 0, "deconv_dw": 0}
+                      "deconv2x_s8": 0, "conv_s2k4": 0, "deconv_dw": 0,
+                      "deconv2x_bwd": 0}
     assert torch.isfinite(lp).all()
     torch.testing.assert_close(lp.exp().sum(-1),
                                torch.ones(2, 64, 64, device=dev))
@@ -512,7 +513,7 @@ def test_train_step_on_the_card(dev):
         "maxpool3x3s2": 1, "conv_stats": 16, "conv_dw": 17,
         "weighted_nll": 1, "weighted_nll_bwd": 1, "conv_bn_act_s8": 0,
         "basic_block_s8": 0, "deconv2x_s8": 0, "conv_s2k4": 0,
-        "deconv_dw": 0}
+        "deconv_dw": 0, "deconv2x_bwd": 0}
     assert np.isfinite(m["loss"]) and m["nan_skipped"] == 0
     assert not torch.equal(model.conv10.weight, w0)
 
@@ -570,10 +571,81 @@ def test_deconv_dw_kernel_persistent(dev, bhw, shape):
     assert torch.equal(got, deconv.deconv_dw(x, dy))
 
 
+@pytest.mark.parametrize("hw", HW)
+@pytest.mark.parametrize("shape", sorted(deconv.BWD_SHAPES))
+def test_deconv2x_bwd_kernel(dev, hw, shape):
+    """K10 at every compiled (ci, co), ragged tiles at both edges: dx
+    within one bf16 step and dW within 1e-4·max|plain| of its plain
+    version, the same bits on a second launch."""
+    ci, co = shape
+    x = _rand(dev, 2, *hw, ci, relu=True)
+    dy = _rand(dev, 2, 2 * hw[0], 2 * hw[1], co, scale=0.1)
+    w = _rand(dev, 4, 4, ci, co, scale=0.1)
+    dx, dw = deconv.deconv2x_bwd(x, dy, w)
+    pdx, pdw = deconv.deconv2x_bwd_plain(x, dy, w)
+    _close(dx, pdx)
+    _close_f32(dw, pdw, 1e-4)
+    again = deconv.deconv2x_bwd(x, dy, w)
+    assert torch.equal(dx, again[0]) and torch.equal(dw, again[1])
+
+
+@pytest.mark.parametrize("bhw", PERSISTENT, ids=["B4-256x200", "B1-20x37"])
+@pytest.mark.parametrize("shape", sorted(deconv.BWD_SHAPES))
+def test_deconv2x_bwd_kernel_persistent(dev, bhw, shape):
+    """K10 at every compiled (ci, co) with more (and fewer) x tiles than
+    its persistent grid of clusters (x B4 256x200: dy 512x400): right
+    against the plain version, dx and dW the same bits on a second
+    launch, and equal to K8's dx and within K9's distance of its dW."""
+    bsz, *hw = bhw
+    ci, co = shape
+    x = _rand(dev, bsz, *hw, ci, relu=True)
+    dy = _rand(dev, bsz, 2 * hw[0], 2 * hw[1], co, scale=0.1)
+    w = _rand(dev, 4, 4, ci, co, scale=0.1)
+    dx, dw = deconv.deconv2x_bwd(x, dy, w)
+    pdx, pdw = deconv.deconv2x_bwd_plain(x, dy, w)
+    _close(dx, pdx)
+    _close_f32(dw, pdw, 1e-4)
+    again = deconv.deconv2x_bwd(x, dy, w)
+    assert torch.equal(dx, again[0]) and torch.equal(dw, again[1])
+    assert torch.equal(dx, deconv.conv_s2k4(dy, w))  # K8's GEMM, same order
+    _close_f32(dw, deconv.deconv_dw(x, dy), 1e-4)
+
+
+@pytest.mark.parametrize("shape", sorted(deconv.BWD_SHAPES))
+def test_deconv2x_ad_through_k10_matches_cudnn_autograd(dev, shape):
+    """deconv2x_ad's forward (K3) and backward (K10) on bf16 card
+    tensors against F.conv_transpose2d's autograd in f32 on the same
+    bf16 values (TF32 off): y, dx and the bf16-rounded dW each within
+    one bf16 step of its largest magnitude; one K3 and one K10 launch,
+    no K8 or K9."""
+    import torch.nn.functional as F
+
+    ci, co = shape
+    x = _rand(dev, 2, 24, 40, ci, relu=True)
+    w = _rand(dev, 4, 4, ci, co, scale=0.1)
+    dy = _rand(dev, 2, 48, 80, co, scale=0.1)
+    ops.reset_launch_counts()
+    xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+    y = deconv.deconv2x_ad(xr, wr)
+    gx, gw = torch.autograd.grad(y, (xr, wr), dy)
+    assert {k: v for k, v in ops.launch_counts().items() if v} == {
+        "deconv2x": 1, "deconv2x_bwd": 1}
+    xf = x.float().permute(0, 3, 1, 2).requires_grad_()
+    wf = w.float().permute(2, 3, 0, 1).requires_grad_()
+    yf = F.conv_transpose2d(xf, wf, stride=2, padding=1)
+    fx, fw = torch.autograd.grad(yf, (xf, wf), dy.float().permute(0, 3, 1, 2))
+    for got, want in ((y, yf.permute(0, 2, 3, 1)), (gx, fx.permute(0, 2, 3, 1)),
+                      (gw, fw.permute(2, 3, 0, 1))):
+        got, want = got.detach(), want.detach()
+        assert got.dtype == torch.bfloat16 and got.shape == want.shape
+        err = float((got.float() - want).abs().max())
+        assert err <= 1e-2 * float(want.abs().max()), err
+
+
 def test_deconv_ad_train_step_on_the_card(dev):
     """One bf16 step with fused_train_deconv: the zone's table plus K3
-    2, K8 2, K9 2, a finite loss, and the dec1 upsample's weight
-    moved."""
+    2 and K10 2 (no K8 or K9), a finite loss, and the dec1 upsample's
+    weight moved."""
     import dataclasses
 
     from ubresnet_tpu_torch.core.precision import Policy
@@ -602,8 +674,8 @@ def test_deconv_ad_train_step_on_the_card(dev):
         "conv_bn_act": 18, "basic_block": 0, "deconv2x": 2,
         "maxpool3x3s2": 1, "conv_stats": 16, "conv_dw": 17,
         "weighted_nll": 1, "weighted_nll_bwd": 1, "conv_bn_act_s8": 0,
-        "basic_block_s8": 0, "deconv2x_s8": 0, "conv_s2k4": 2,
-        "deconv_dw": 2}
+        "basic_block_s8": 0, "deconv2x_s8": 0, "conv_s2k4": 0,
+        "deconv_dw": 0, "deconv2x_bwd": 2}
     assert np.isfinite(m["loss"]) and m["nan_skipped"] == 0
     assert not torch.equal(model.dec_layer1.deconv.weight, w0)
 

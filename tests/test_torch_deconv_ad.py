@@ -233,8 +233,9 @@ def test_train_step_launch_table_with_deconv_ad(variables, monkeypatch,
                                                 deconv_ad):
     """One bf16 step at the flagship width through the kernel wrappers
     (their plain versions here): the zone's table (K5 16, K1 18, K6 17,
-    K4 1, K7 1 + 1) and, with fused_train_deconv, K3 2, K8 2, K9 2 more;
-    without it none of the three."""
+    K4 1, K7 1 + 1) and, with fused_train_deconv, K3 2 and K10 2 more
+    (the backward's two legs in one launch: no K8 or K9); without it
+    none of them."""
     calls = {}
 
     def count(mod, name):
@@ -252,7 +253,7 @@ def test_train_step_launch_table_with_deconv_ad(variables, monkeypatch,
     count(pool_ops, "maxpool3x3s2")
     count(loss_ops, "weighted_nll_fwd")
     count(loss_ops, "weighted_nll_bwd")
-    for name in ("deconv2x", "conv_s2k4", "deconv_dw"):
+    for name in ("deconv2x", "conv_s2k4", "deconv_dw", "deconv2x_bwd"):
         count(deconv_ops, name)
     policy = dataclasses.replace(Policy(), fused_train_deconv=deconv_ad)
     model = get_model("uresnet", state_dict_from_jax(variables),
@@ -264,5 +265,5 @@ def test_train_step_launch_table_with_deconv_ad(variables, monkeypatch,
     want = {"conv_stats": 16, "conv_bn_act": 18, "conv_dw": 17,
             "maxpool3x3s2": 1, "weighted_nll_fwd": 1, "weighted_nll_bwd": 1}
     if deconv_ad:
-        want.update(deconv2x=2, conv_s2k4=2, deconv_dw=2)
+        want.update(deconv2x=2, deconv2x_bwd=2)
     assert calls == want

@@ -230,7 +230,8 @@ def test_kernel_shapes_have_one_table():
                         ("conv_stats", train_conv.SHAPES),
                         ("conv_dw", conv.DW_SHAPES),
                         ("conv_s2k4", deconv.S2K4_SHAPES),
-                        ("deconv_dw", deconv.DW_SHAPES)):
+                        ("deconv_dw", deconv.DW_SHAPES),
+                        ("deconv2x_bwd", deconv.BWD_SHAPES)):
         macro = f"UBR_{name.upper()}_SHAPES"
         assert table is _build.SHAPES[name]
         line = next(ln for ln in header.splitlines() if macro + "(X)" in ln)

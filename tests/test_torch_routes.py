@@ -15,7 +15,10 @@ blocks import them at call time; pallas_conv_dw's recursion onto a
 lane-padded cotangent counts once; pallas_deconv2x_ad counts beside the
 three legs it calls). Port side: the same model on the CPU, its kernel
 wrappers (whose plain versions run there) counted the same way — every
-wrapper call is a launch on the card (models/blocks.py routes).
+wrapper call is a launch on the card (models/blocks.py routes); K10
+(deconv2x_bwd), the deconv's backward in one launch, counts as the
+fused_conv_s2k4 and pallas_deconv_dw calls of _deconv_ad_bwd that it
+stands for, at its (ci, co).
 
 In every mode and at every width the two lists are equal, and every
 shape the port calls a wrapper with is compiled (ops/_build.py:SHAPES),
@@ -250,8 +253,15 @@ def _port_keys():
         (deconv_ops, "conv_s2k4", deconv),
         (deconv_ops, "deconv_dw",
          lambda x, dy: (x.shape[-1], dy.shape[-1])),
+        (deconv_ops, "deconv2x_bwd", lambda x, dy, w: (w.shape[2], w.shape[3])),
         (deconv_ops, "deconv2x_ad", deconv),
     ]
+
+
+# A port wrapper whose one launch runs several of JAX's Pallas calls, and
+# the calls it stands for: K10 is _deconv_ad_bwd's fused_conv_s2k4 and
+# pallas_deconv_dw at its (ci, co)
+STANDS_FOR = {"deconv2x_bwd": ("conv_s2k4", "deconv_dw")}
 
 
 def port_routes(arch, inplanes, classes, mode, monkeypatch, hw=HW):
@@ -263,7 +273,8 @@ def port_routes(arch, inplanes, classes, mode, monkeypatch, hw=HW):
             fn = getattr(mod, name)
 
             def counted(*a, _fn=fn, _name=name, _key=key, **kw):
-                calls[_name, _key(*a, **kw)] += 1
+                for as_name in STANDS_FOR.get(_name, (_name,)):
+                    calls[as_name, _key(*a, **kw)] += 1
                 return _fn(*a, **kw)
 
             mp.setattr(mod, name, counted)
@@ -285,12 +296,15 @@ def port_routes(arch, inplanes, classes, mode, monkeypatch, hw=HW):
 
 def _uncompiled(calls):
     """The calls at a (kernel, shape) no instance was compiled for (K4
-    takes any C % 8 == 0; deconv2x_ad is K3's with K8's and K9's)."""
+    takes any C % 8 == 0; deconv2x_ad is K3's with K10's, and the dx and
+    dW legs are K10's launches)."""
+    kernel = {"deconv2x_ad": "deconv2x", "conv_s2k4": "deconv2x_bwd",
+              "deconv_dw": "deconv2x_bwd"}
     return sorted((k, s) for k, s in calls if k != "maxpool3x3s2"
-                  and s not in SHAPES[{"deconv2x_ad": "deconv2x"}.get(k, k)])
+                  and s not in SHAPES[kernel.get(k, k)])
 
 
-# the upsamples on K3 + K8 + K9 under fused_train_deconv (JAX's
+# the upsamples on K3 + K10 under fused_train_deconv (JAX's
 # pallas_deconv2x_ad), per inplanes of the UResNet: dec2 and dec1 where
 # their lanes fit, never dec3 or deeper (outside the packed zone)
 DECONV_AD = {16: {(64, 32), (32, 16)}, 32: {(64, 32)},

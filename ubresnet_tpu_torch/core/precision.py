@@ -38,8 +38,8 @@ class Policy:
                    width: K5 x16, K1 x18, K6 x17, K4 x1, K7 1 + 1.
     fused_train_deconv: the train-mode decoder upsamples (dec2, dec1)
                    at exact 2x run ops/deconv.py:deconv2x_ad — K3
-                   forward, K8 input and K9 weight gradient (per step
-                   2 each) — instead of F.conv_transpose2d under
+                   forward, K10 input and weight gradient in one launch
+                   (per step 2 each) — instead of F.conv_transpose2d under
                    autograd. Off by default, as in the JAX package;
                    independent of fused_train, as there.
     quant_eval:    int8 post-training quantization (ops/quant.py) of

@@ -855,7 +855,7 @@ def stem_pool(x: torch.Tensor, fused: bool, pack: int,
 # inplanes 16 (and 8 and 4) that is enc1, dec2, dec1, conv10 and
 # conv11; at 32 the same but dec2's first conv and conv10, whose halos
 # overflow the lanes. A decoder upsample of the packed zone (``zone``:
-# dec2 and dec1) runs ops/deconv.py:deconv2x_ad (K3 forward, K8 dx, K9
+# dec2 and dec1) runs ops/deconv.py:deconv2x_ad (K3 forward, K10 dx and
 # dW) where JAX runs pallas_deconv2x_ad: ``policy.fused_train_deconv``
 # is set, its target is exactly 2x and deconv_ad_fuses holds on its
 # lane geometry (per call). That is dec2 (64, 32) and dec1 (32, 16) at
@@ -1116,7 +1116,7 @@ class TrainDeconv2x(nn.Module):
     (ci, co, 4, 4) f32. Where JAX runs pallas_deconv2x_ad
     (``_fused_form``: policy.fused_train_deconv, in the packed zone,
     ``zone``, deconv_ad_fuses at its input's lane geometry) an exact 2x
-    target runs deconv2x_ad (K3, K8, K9, dW rounded to the compute dtype
+    target runs deconv2x_ad (K3, K10, dW rounded to the compute dtype
     as in JAX), whose wrappers raise on the card at a shape none was
     compiled for; otherwise F.conv_transpose2d under autograd (XLA in
     JAX). Under QAT the input and the kernel are fake-quantized first,
@@ -1151,8 +1151,9 @@ class TrainDeconv2x(nn.Module):
                 2, 3, 0, 1)
         if (tuple(target_hw) == (2 * x.shape[1], 2 * x.shape[2])
                 and self._fused_form(x.shape[2])):
-            return deconv_ops.deconv2x_ad(x, w.permute(2, 3, 0, 1)
-                                          .to(self.cdt))
+            # cast and laid out (4, 4, ci, co) in one copy
+            return deconv_ops.deconv2x_ad(x, w.permute(2, 3, 0, 1).to(
+                self.cdt, memory_format=torch.contiguous_format))
         return deconv_to(x, w.to(self.cdt), target_hw)
 
 

@@ -251,7 +251,7 @@ class TrainUResNet(nn.Module):
     Hopper kernels forward and backward (per step: K5 x16, K1 x18, K6
     x17, K4 x1; at inplanes 32, without dec2's first conv and conv10,
     K5 x14, K1 x16, K6 x15, K4 x1); with ``policy.fused_train_deconv`` the dec2 and dec1
-    upsamples too (K3 x2 forward, K8 x2 dx, K9 x2 dW); the rest are
+    upsamples too (K3 x2 forward, K10 x2 dx and dW); the rest are
     torch.nn.functional ops under autograd. With ``policy.quant_train``
     (QAT) the JAX package's packed zone — stem, enc1, dec2, dec1, head,
     the classifier's kernel — is fake-quantized; it needs depth 5 and

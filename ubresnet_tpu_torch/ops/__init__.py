@@ -5,8 +5,9 @@ K4 pool.maxpool3x3s2. Train: K5 train_conv.conv_stats, K6
 conv.conv_dw, K7 loss.weighted_nll_fwd / weighted_nll_bwd; K1 also
 runs the train zone's input gradients and K4 the stem pool's forward.
 Train with Policy.fused_train_deconv: K3 runs the decoder upsamples
-forward, K8 deconv.conv_s2k4 their input and K9 deconv.deconv_dw their
-weight gradients (deconv.deconv2x_ad).
+forward and K10 deconv.deconv2x_bwd their input and weight gradients in
+one launch (deconv.deconv2x_ad); K8 deconv.conv_s2k4 and K9
+deconv.deconv_dw compute one leg each.
 int8 deploy: K1-s8 conv.conv_bn_act_s8, K2-s8 block.basic_block_s8,
 K3-s8 deconv.deconv2x_s8 (PTQ pieces in quant). Each wrapper counts
 its launches in ``<wrapper>.launches``.
@@ -23,6 +24,7 @@ from ubresnet_tpu_torch.ops.conv import (  # noqa: F401
 from ubresnet_tpu_torch.ops.deconv import (  # noqa: F401
     conv_s2k4,
     deconv2x,
+    deconv2x_bwd,
     deconv2x_s8,
     deconv_dw,
 )
@@ -47,6 +49,7 @@ KERNELS = {
     "deconv2x_s8": deconv2x_s8,
     "conv_s2k4": conv_s2k4,
     "deconv_dw": deconv_dw,
+    "deconv2x_bwd": deconv2x_bwd,
 }
 
 

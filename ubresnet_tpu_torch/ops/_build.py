@@ -15,9 +15,9 @@ objects, the ``.cu`` entry points instantiate and dispatch from those
 lists, and the wrappers' ``supports()`` / ``s8_supports()`` gates read
 the same table.
 
-The deconv's backward (K8 ``ubr_conv_s2k4``, K9 ``ubr_deconv_dw``)
-takes the deconv's own (ci, co) and its input-side H, W; dy is
-(B, 2H, 2W, co).
+The deconv's backward (K8 ``ubr_conv_s2k4``, K9 ``ubr_deconv_dw`` and
+K10 ``ubr_deconv2x_bwd``, both legs in one launch) takes the deconv's
+own (ci, co) and its input-side H, W; dy is (B, 2H, 2W, co).
 
 The int8 entry points (K1-s8, K2-s8, K3-s8: ``ubr_conv_bn_act_s8``,
 ``ubr_basic_block_s8``, ``ubr_deconv2x_s8``) take int8 activations and
@@ -94,6 +94,8 @@ SIGNATURES = {
     "ubr_conv_s2k4": [_P] * 3 + [_I] * 5 + [_P],
     # x, dy, partials, dw | B, H, W, ci, co, blocks
     "ubr_deconv_dw": [_P] * 4 + [_I] * 6 + [_P],
+    # x, dy, w, dx, partials, counter, dw | B, H, W, ci, co, rows
+    "ubr_deconv2x_bwd": [_P] * 7 + [_I] * 6 + [_P],
 }
 
 # The train zone's convolutions (stride 1), as (ci, co, k): the enc1,
@@ -165,9 +167,11 @@ SHAPES = {
     "basic_block": _BLOCKS,
     "deconv2x": _DECONVS,
     # (ci, co) of the deconv: its input gradient (K8) and weight
-    # gradient (K9) under Policy.fused_train_deconv
+    # gradient (K9), and both in one launch (K10, the backward of
+    # deconv2x_ad under Policy.fused_train_deconv)
     "conv_s2k4": _DECONVS,
     "deconv_dw": _DECONVS,
+    "deconv2x_bwd": _DECONVS,
     # int8 deploy (Policy.int8): the head conv10 and the 8-channel
     # convs on K1-s8 where JAX fuses them (the 1-channel stem is an
     # exact plain-torch integer conv, as XLA in JAX; the classifier
@@ -310,10 +314,12 @@ def launch(name: str, tensors, ints, device: torch.device):
     """Call entry point ``name`` with tensor pointers (None → NULL),
     scalar arguments (ints; floats stay floats) and the current stream
     of ``device``; raise on a non-zero cudaGetLastError()."""
-    lib = library()
+    lib = _lib or library()
     stream = torch.cuda.current_stream(device).cuda_stream
     scalars = [v if isinstance(v, float) else int(v) for v in ints]
-    with torch.cuda.device(device):
+    # switch devices only where the current one is another
+    here = device.index in (None, torch.cuda.current_device())
+    with contextlib.nullcontext() if here else torch.cuda.device(device):
         rc = getattr(lib, name)(*[_ptr(t) for t in tensors], *scalars,
                                 stream)
     if rc:

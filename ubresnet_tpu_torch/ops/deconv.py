@@ -1,7 +1,7 @@
 """K3 — ConvTranspose2d(k=4, stride=2, padding=1, bias=False) at
-exactly 2x; K8 and K9 — its input and weight gradients; and
-``deconv2x_ad``, the differentiable deconv of the train configuration
-``Policy.fused_train_deconv``.
+exactly 2x; K8 and K9 — its input and weight gradients; K10 — both in
+one launch; and ``deconv2x_ad``, the differentiable deconv of the train
+configuration ``Policy.fused_train_deconv``.
 
 Replaces ubresnet_tpu/ops/pallas_conv.py:fused_packed_deconv2x
 (_deconv_kernel); in the UResNet it runs the dec2 and dec1 upsamples.
@@ -35,15 +35,26 @@ arriving as K8's four parity planes; a persistent grid whose blocks keep
 their share of dW in registers, added across blocks in a fixed order
 (two passes, no atomics), as K6.
 
+K10 (``deconv2x_bwd``) replaces _deconv_ad_bwd, the backward of
+pallas_deconv2x_ad (its fused_conv_s2k4 and pallas_deconv_dw calls):
+dx and dW from one read of x, dy and w. Kernel: ops/csrc/deconv2x_bwd.cu
+— K8's and K9's GEMMs on one tile walk (ops/csrc/parity_tiles.cuh,
+which K8 and K9 also run), the blocks' shares of dW added in a fixed
+order in the same launch by clusters of 8 blocks through distributed
+shared memory, then the clusters' rows by the cluster that finishes
+last.
+
 ``deconv2x_ad`` replaces pallas_deconv2x_ad (_deconv_ad_fwd,
-_deconv_ad_bwd): forward K3, dx K8 cast to x's dtype, dW K9 rounded to
-the kernel's dtype.
+_deconv_ad_bwd): forward K3, backward K10, dx cast to x's dtype, dW
+rounded to the kernel's dtype.
 
 Weights are (4, 4, ci, co): the reference IOHW checkpoint permuted
 (2, 3, 0, 1), with no spatial flip (torch semantics
 ``out[2i + k - 1] += w[k]·x[i]``).
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -55,11 +66,17 @@ SHAPES = _build.SHAPES["deconv2x"]
 S8_SHAPES = _build.SHAPES["deconv2x_s8"]
 S2K4_SHAPES = _build.SHAPES["conv_s2k4"]
 DW_SHAPES = _build.SHAPES["deconv_dw"]
+BWD_SHAPES = _build.SHAPES["deconv2x_bwd"]
 # K9's scratch rows per SM: at most this many of its blocks fit on an
 # SM (shared memory: 111 KB a block at dec2, 107 KB at dec1). The kernel
 # runs min(rows, SMs x the blocks that fit) blocks, each walking a
 # strided share of the x tiles, and adds exactly the rows they wrote.
 DW_BLOCKS_PER_SM = 2
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def supports(ci: int, co: int) -> bool:
@@ -201,8 +218,7 @@ def deconv_dw(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     _build.check_aligned(dy, "dy")
     th = 8 if ci >= 64 else 16  # K9's x tiles: 8x16 at dec2, 16x16 below
     tiles = bsz * -(-h // th) * -(-wd // 16)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    blocks = min(tiles, sms * DW_BLOCKS_PER_SM)
+    blocks = min(tiles, _sm_count(dev) * DW_BLOCKS_PER_SM)
     part = torch.empty((blocks, 16 * ci * co), dtype=torch.float32,
                        device=dev)
     dw = torch.empty((4, 4, ci, co), dtype=torch.float32, device=dev)
@@ -215,20 +231,79 @@ def deconv_dw(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
 deconv_dw.launches = 0
 
 
+def deconv2x_bwd_plain(x: torch.Tensor, dy: torch.Tensor,
+                       w: torch.Tensor):
+    """Plain PyTorch version of K10: (dx, dW) in f32 math, dx in
+    ``dy.dtype`` (K8's plain version), dW f32 (K9's)."""
+    return conv_s2k4_plain(dy, w), deconv_dw_plain(x, dy)
+
+
+# K10's scratch rows: one a cluster of 8 blocks, at most 2 blocks an SM
+# (shared memory: 189 KB a block at dec2, 136 KB at dec1, 104 KB and 96
+# KB at the 8-channel instances). The kernel runs min(rows, the clusters
+# that fit) clusters and adds exactly the rows they wrote.
+BWD_CLUSTER, BWD_BLOCKS_PER_SM = 8, 2
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_scratch(dev: torch.device, ci: int, co: int):
+    """K10's scratch rows and its counter on ``dev``, made once: the
+    counter starts at 0 and every launch leaves it at 0, so launches on
+    one stream share them."""
+    rows = -(-_sm_count(dev) * BWD_BLOCKS_PER_SM // BWD_CLUSTER)
+    return (torch.empty((rows, 16 * ci * co), dtype=torch.float32,
+                        device=dev),
+            torch.zeros(1, dtype=torch.int32, device=dev))
+
+
+def deconv2x_bwd(x: torch.Tensor, dy: torch.Tensor, w: torch.Tensor):
+    """Backward of the 2x deconv with input x (B, H, W, ci), kernel w
+    (4, 4, ci, co) and output cotangent dy (B, 2H, 2W, co) → (dx
+    (B, H, W, ci) in dy's dtype, dW (4, 4, ci, co) f32). CPU tensors take
+    the plain version; CUDA tensors (bf16) launch K10."""
+    if x.device.type == "cpu":
+        return deconv2x_bwd_plain(x, dy, w)
+    bsz, h, wd, ci = x.shape
+    co = w.shape[-1]
+    if (ci, co) not in BWD_SHAPES:
+        raise ValueError(f"deconv2x_bwd kernel has no (ci, co) = "
+                         f"{(ci, co)}; compiled: {sorted(BWD_SHAPES)}")
+    dev = x.device
+    _build.check(x, "x", torch.bfloat16, (bsz, h, wd, ci), dev)
+    _build.check(dy, "dy", torch.bfloat16, (bsz, 2 * h, 2 * wd, co), dev)
+    _build.check(w, "w", torch.bfloat16, (4, 4, ci, co), dev)
+    _build.check_aligned(x, "x")
+    _build.check_aligned(dy, "dy")
+    part, done = _bwd_scratch(dev, ci, co)
+    dx = torch.empty((bsz, h, wd, ci), dtype=dy.dtype, device=dev)
+    dw = torch.empty((4, 4, ci, co), dtype=torch.float32, device=dev)
+    _build.launch("ubr_deconv2x_bwd", [x, dy, w, dx, part, done, dw],
+                  [bsz, h, wd, ci, co, part.shape[0]], dev)
+    deconv2x_bwd.launches += 1
+    return dx, dw
+
+
+deconv2x_bwd.launches = 0
+
+
 class _Deconv2xAD(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w):
-        x, w = x.contiguous(), w.contiguous()
+        if not x.is_contiguous():
+            x = x.contiguous()
+        if not w.is_contiguous():
+            w = w.contiguous()
         ctx.save_for_backward(x, w)
         return deconv2x(x, w)
 
     @staticmethod
     def backward(ctx, dy):
         x, w = ctx.saved_tensors
-        dy = dy.to(x.dtype).contiguous()
-        dx = conv_s2k4(dy, w.to(dy.dtype)).to(x.dtype)
-        dw = deconv_dw(x, dy).to(w.dtype)
-        return dx, dw
+        if dy.dtype != x.dtype or not dy.is_contiguous():
+            dy = dy.to(x.dtype).contiguous()
+        dx, dw = deconv2x_bwd(x, dy, w if w.dtype == dy.dtype
+                              else w.to(dy.dtype))
+        return dx.to(x.dtype), dw.to(w.dtype)
 
 
 def deconv2x_ad(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,6 @@
 """Kernel rows of one checkout on the card, for A/B against another.
 
-    python ubresnet_tpu_torch/tools/kernel_ab.py ROOT KERNEL[,KERNEL...]
+    python ubresnet_tpu_torch/tools/kernel_ab.py ROOT KERNEL[,KERNEL...] [IP]
 
 Builds the kernels of the checkout at ROOT (its own ``ubresnet_tpu_torch``,
 into ROOT/build/kernels) and runs ROOT's ``chip_smoke.py`` kernel rows —
@@ -8,9 +8,13 @@ eval, int8, train and deconv-AD — whose kernel is one of the KERNEL names
 (the rows' ``kernel`` field: ``deconv_dw``, ``basic_block_s8``,
 ``deconv2x_ad``, ...), each checked against its plain version and timed
 as ``chip_smoke.py`` does it. int8 rows also need the bf16 eval rows
-(their ``bf16_kernel_ms``), which then run too. Every line is tagged with
-ROOT and the card; a last ``kernel_ab`` line sums ms, bound and library
-ms per kernel.
+(their ``bf16_kernel_ms``), which then run too. Train and deconv-AD rows
+also give a ``host`` line: the wall µs a call of back-to-back calls (a
+host-bound row's whole cost, such as ``deconv2x_ad``'s autograd). Every
+line is tagged with ROOT and the card; a last ``kernel_ab`` line sums
+ms, bound and library ms per kernel. IP (8 or 4) takes the deconv-AD rows
+of the UResNet at inplanes IP (the 8-channel streams) in place
+of the flagship's.
 
 Run it by path, not with ``-m``, so that ROOT's package, not this one,
 is imported; run it once per checkout in turns (parent, change, change,
@@ -21,14 +25,29 @@ from __future__ import annotations
 import importlib.util
 import os
 import sys
+import time
 
 EVAL_KERNELS = {"conv_bn_act", "basic_block", "deconv2x", "maxpool3x3s2"}
 INT8_KERNELS = {"conv_bn_act_s8", "basic_block_s8", "deconv2x_s8"}
 
 
+def host_us(fn, n=50):
+    """Host µs a call: the wall time of ``n`` back-to-back calls with one
+    synchronise at each end (after a warm-up)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) / n * 1e6
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
-    if len(argv) != 2:
+    if len(argv) not in (2, 3):
         print(__doc__, file=sys.stderr)
         return 2
     import torch
@@ -37,6 +56,7 @@ def main(argv=None) -> int:
         print("kernel_ab: torch sees no CUDA device", file=sys.stderr)
         return 1
     root, want = os.path.abspath(argv[0]), set(argv[1].split(","))
+    ip = int(argv[2]) if len(argv) == 3 else None
     sys.path.insert(0, root)
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", os.path.join(root, "chip_smoke.py"))
@@ -62,10 +82,17 @@ def main(argv=None) -> int:
     if int8:
         rows += cs.check_kernels([r for r in cs.int8_kernel_rows(
             dev, eval_rows) if r["kernel"] in want])
-    for make in (cs.train_kernel_rows, cs.deconv_ad_rows):
-        mine = [r for r in make(dev) if r["kernel"] in want]
+    deconv_rows = (cs.deconv_ad_rows(dev) if ip is None else
+                   cs.deconv_ad_rows(dev, cs.DECONV_AD_8[ip],
+                                     model=f"inplanes {ip}"))
+    for made in (cs.train_kernel_rows(dev), deconv_rows):
+        mine = [r for r in made if r["kernel"] in want]
         if mine:
             rows += cs.check_kernels(mine)
+        for r in mine:  # the host's share: whole calls back to back
+            cs.emit({"phase": "host", "layer": r["layer"],
+                     "kernel": r["kernel"],
+                     "host_us_per_call": host_us(r["kfn"])})
     totals = {}
     for r in rows:
         k = totals.setdefault(r["kernel"], {"rows": 0, "ms": 0.0,

@@ -364,13 +364,15 @@ SOURCES = {
                      "widths_ip4", "widths_ip8_int8", "widths_ip4_int8",
                      "widths_ip8_train", "widths_ip4_train",
                      "widths_ip8_train_deconv", "widths_ip4_train_deconv",
-                     "aspp_32", "aspp_32_int8")),
+                     "aspp_32", "aspp_32_int8", "spatial_devices",
+                     "model_axis")),
     "basic_block": ("ubresnet_tpu_torch/ops/csrc/basic_block.cu",
                     f"{PALLAS}:1483 fused_basic_block"
                     " + :699 fused_dual_block", ("basic_block",),
                     ("precropped", "train", "wholeview", "serve", "root",
                      "aspp", "golden", "widths_32", "widths_32_train",
-                     "widths_4", "widths_ip8", "widths_ip4", "aspp_32")),
+                     "widths_4", "widths_ip8", "widths_ip4", "aspp_32",
+                     "spatial_devices")),
     "deconv2x": ("ubresnet_tpu_torch/ops/csrc/deconv2x.cu",
                  f"{PALLAS}:898 fused_packed_deconv2x"
                  " + :1341 pallas_deconv2x_ad (forward)",
@@ -379,7 +381,8 @@ SOURCES = {
                                  "aspp_train", "golden", "widths_32",
                                  "widths_4", "widths_ip8", "widths_ip4",
                                  "widths_ip8_train_deconv",
-                                 "widths_ip4_train_deconv", "aspp_32")),
+                                 "widths_ip4_train_deconv", "aspp_32",
+                                 "spatial_devices")),
     "maxpool3x3s2": ("ubresnet_tpu_torch/ops/csrc/maxpool3x3s2.cu",
                      f"{PALLAS}:525 fused_pool3x3s2"
                      " + ubresnet_tpu/ops/pool_ad.py:133 packed_pool_ad "
@@ -388,7 +391,8 @@ SOURCES = {
                       "wholeview", "serve", "root", "aspp", "aspp_int8",
                       "aspp_train", "distributed", "golden", "widths_32",
                       "widths_32_int8", "widths_32_train", "widths_4",
-                      "widths_4_int8", "widths_4_train")),
+                      "widths_4_int8", "widths_4_train", "spatial_devices",
+                      "model_axis")),
     "conv_stats": ("ubresnet_tpu_torch/ops/csrc/conv_stats.cu",
                    "ubresnet_tpu/ops/pallas_train.py:206 train_conv_stats",
                    ("conv_stats",), ("train", "train_deconv", "qat", "root",
@@ -396,13 +400,15 @@ SOURCES = {
                                      "widths_32_train", "widths_4_train",
                                      "widths_ip8_train", "widths_ip4_train",
                                      "widths_ip8_train_deconv",
-                                     "widths_ip4_train_deconv")),
+                                     "widths_ip4_train_deconv",
+                                     "model_axis")),
     "conv_dw": ("ubresnet_tpu_torch/ops/csrc/conv_dw.cu",
                 f"{PALLAS}:1677 pallas_conv_dw", ("conv_dw",),
                 ("train", "train_deconv", "qat", "root", "aspp_train",
                  "distributed", "widths_32_train", "widths_4_train",
                  "widths_ip8_train", "widths_ip4_train",
-                 "widths_ip8_train_deconv", "widths_ip4_train_deconv")),
+                 "widths_ip8_train_deconv", "widths_ip4_train_deconv",
+                 "model_axis")),
     "weighted_nll": ("ubresnet_tpu_torch/ops/csrc/weighted_nll.cu",
                      "ubresnet_tpu/ops/pallas_loss.py:100 "
                      "pallas_weighted_nll", ("weighted_nll",
@@ -410,7 +416,8 @@ SOURCES = {
                      ("train", "train_deconv", "qat", "root", "aspp_train",
                       "distributed", "widths_32_train", "widths_4_train",
                       "widths_ip8_train", "widths_ip4_train",
-                      "widths_ip8_train_deconv", "widths_ip4_train_deconv")),
+                      "widths_ip8_train_deconv", "widths_ip4_train_deconv",
+                      "model_axis")),
     # K8 and K9 compute one leg each of the deconv's backward, which K10
     # runs on every path: they are held and timed alone, on no path
     "conv_s2k4": ("ubresnet_tpu_torch/ops/csrc/conv_s2k4.cu",
@@ -429,20 +436,21 @@ SOURCES = {
                        f"{PALLAS}:315 fused_packed_conv (_conv_kernel :251,"
                        " quantized :282-300)", ("conv_bn_act_s8",),
                        ("int8", "wholeview", "aspp_int8", "widths_4_int8",
-                        "widths_ip8_int8", "widths_ip4_int8")),
+                        "widths_ip8_int8", "widths_ip4_int8",
+                        "spatial_devices")),
     "basic_block_s8": ("ubresnet_tpu_torch/ops/csrc/basic_block_s8.cu",
                        f"{PALLAS}:1483 fused_basic_block (_block_kernel "
                        ":1372) + :699 fused_dual_block (_dual_block_kernel"
                        " :587), quantized", ("basic_block_s8",),
                        ("int8", "wholeview", "aspp_int8", "widths_32_int8",
                         "widths_4_int8", "widths_ip8_int8", "widths_ip4_int8",
-                        "aspp_32_int8")),
+                        "aspp_32_int8", "spatial_devices")),
     "deconv2x_s8": ("ubresnet_tpu_torch/ops/csrc/deconv2x_s8.cu",
                     f"{PALLAS}:898 fused_packed_deconv2x (_deconv_kernel "
                     ":847), quantized", ("deconv2x_s8",),
                     ("int8", "wholeview", "aspp_int8", "widths_32_int8",
                      "widths_4_int8", "widths_ip8_int8", "widths_ip4_int8",
-                     "aspp_32_int8")),
+                     "aspp_32_int8", "spatial_devices")),
 }
 # the train zone at batch 16: (ci, co, k) of each distinct conv, the
 # resolution it runs at and how many of the step's 16 BN-fed zone convs
@@ -1837,6 +1845,210 @@ def wholeview_path(dev, card, work):
     return _merge(*(r["launches"] for r in runs.values()))
 
 
+SPATIAL_DEVICES = (2, 4)     # slabs of the spatial_devices phase's plane
+
+
+def _stage_bits(model, x, dev, n_slabs):
+    """Each stage of ``model``'s row-sharded forward (models/uresnet.py:
+    ZoneModel.forward_rows) on its own: the whole plane's input of the
+    stage split by rows over ``[dev] * R``, the stage run on every slab
+    with its halo, against the stage's whole-plane output. One row a
+    stage: whether it launches a kernel, and for each R the elements
+    that differ and their largest difference."""
+    import torch
+
+    from ubresnet_tpu_torch import ops
+    from ubresnet_tpu_torch.models.blocks import stem_pool, zone_active
+    from ubresnet_tpu_torch.models.uresnet import ROW_HALO, zone_packs
+    from ubresnet_tpu_torch.parallel.sharding import (
+        halo_apply,
+        row_gather,
+        row_split,
+    )
+
+    pol = model.policy
+    pack = zone_packs(model.config)["stem"]
+    stages = []
+
+    def stage(name, fn, halo, scale, *ins):
+        before = sum(ops.launch_counts().values())
+        out = fn(*ins)
+        torch.cuda.synchronize()
+        stages.append((name, fn, halo, scale, ins, out,
+                       sum(ops.launch_counts().values()) > before))
+        return out
+
+    with torch.inference_mode(), zone_active(model.packed_zone(x.shape[2])):
+        x0 = stage("stem", lambda a: model.conv1(
+            a.to(pol.compute_dtype).contiguous()), ROW_HALO["stem"], "same",
+            x)
+        y = stage("pool", lambda a: stem_pool(a, fused=pol.fused_eval,
+                                              pack=pack),
+                  ROW_HALO["pool"], "down", x0)
+        skips = [x0]
+        for i, enc in enumerate(model.enc):
+            s2 = enc.res1.stride == 2
+            y = stage(f"enc{i + 1}", enc, ROW_HALO["stage_s2" if s2
+                                                   else "stage"],
+                      "down" if s2 else "same", y)
+            skips.append(y)
+        for j, (dec, skip) in enumerate(zip(model.dec,
+                                            reversed(skips[:-1]))):
+            up = stage(f"dec{5 - j}.deconv", lambda a, dec=dec: dec.deconv(
+                a, (2 * a.shape[1], 2 * a.shape[2])), ROW_HALO["deconv"],
+                "up", y)
+            y = stage(f"dec{5 - j}.res", lambda u, s, dec=dec: dec.res(
+                u, dual=s), ROW_HALO["stage"], "same", up, skip)
+        stage("head", lambda a: model.conv11(model.conv10(a)),
+              ROW_HALO["head"], "same", y)
+        rows = []
+        for name, fn, halo, scale, ins, want, kernel in stages:
+            row = {"stage": name, "kernel": kernel}
+            for r in n_slabs:
+                sl = [row_split(t, [dev] * r) for t in ins]
+                got = row_gather(halo_apply(lambda d, *a: fn(*a), sl[0],
+                                            halo, scale, extras=sl[1:]), dev)
+                row[f"R{r}_differ"] = int((got != want).sum())
+                row[f"R{r}_max_abs"] = float((got.float()
+                                              - want.float()).abs().max())
+            rows.append(row)
+    return rows
+
+
+def spatial_devices_path(dev, card, work):
+    """Whole planes row-sharded over several devices (the counterpart of
+    the JAX package's ``spatial_mesh``): plane 0 of the wholeview phase's
+    file through ``WholeViewRunner(devices=[cuda:0] * R)`` for R in
+    SPATIAL_DEVICES, each against the one-device spatial plane of the
+    same run, at f32 (Policy.f32, TF32 off), bf16 and int8 (calibrated
+    once, WV_CALIB planes; the same model, so the same scales), with the
+    deploy smoke's weights and with them "tame" (the classifier scaled by
+    3e-4, as the CPU tests scale it: the seeded BN statistics blow the
+    logits up to where float32 probabilities saturate).
+
+    The zone kernels compute per pixel, so on a slab each is the whole
+    plane's bit for bit; cuDNN picks its algorithm by shape, so a deep
+    stage whose slabs are short rounds its bf16 sums otherwise, and the
+    random network carries those last bits to the scores (int8's
+    requantization turns some into whole steps). Gates: f32 (tame)
+    max|Δp| <= 1e-5; every stage that launches a kernel, run alone on
+    slabs of its whole-plane input, bit-equal to its output (bf16 and
+    int8); bf16 and int8 argmax disagreement with the f32 plane at most
+    twice the one-device plane's (train_parity's rule for bf16 against
+    f32); the zone launches R x the one-device plane's; scores summing
+    to 1 ± 1e-2. Reported: the agreement with the one-device plane,
+    max|Δp| and differing pixels, each stage's differing elements, the
+    bf16 plane's forward ms at R = 1, 2, 4 on the one card, the halo
+    rows and bytes a plane. Returns the launches of the row-sharded
+    planes."""
+    import numpy as np
+    import torch
+
+    from ubresnet_tpu_torch import ops
+    from ubresnet_tpu_torch.core.precision import Policy
+    from ubresnet_tpu_torch.data.uevt import EventFileReader
+    from ubresnet_tpu_torch.deploy import WholeViewRunner
+    from ubresnet_tpu_torch.deploy.weights import load_reference_checkpoint
+    from ubresnet_tpu_torch.models import get_model
+    from ubresnet_tpu_torch.parallel.sharding import row_gather, row_split
+
+    t_phase = time.time()
+    src, tar = (os.path.join(work, f) for f in ("planes.uevt", "weights.tar"))
+    deploy, _ = load_reference_checkpoint(tar)
+    tame = dict(deploy, **{"conv11.weight": deploy["conv11.weight"] * 3e-4})
+    plane = EventFileReader(src).read_entry(0, producers=["wire"])[
+        "wire"][0].pixels
+    pad = np.zeros((1,) + tuple(-(-n // 32) * 32 for n in WV_HW) + (1,),
+                   np.float32)
+    pad[0, :WV_HW[0], :WV_HW[1], 0] = plane
+    x = torch.from_numpy(pad).to(dev)
+    result = {"phase": "spatial_devices", "card": card, "hw": list(WV_HW),
+              "devices": list(SPATIAL_DEVICES)}
+    counts, failed = [], []
+    table = {"f32": {}, "bf16": LAUNCHES_PER_BATCH,
+             "int8": LAUNCHES_PER_BATCH_INT8}
+    for wname, sd in (("tame", tame), ("deploy", deploy)):
+        f32_want = None
+        for mode, pol in (("f32", Policy.f32()), ("bf16", Policy()),
+                          ("int8", Policy.int8())):
+            model = get_model("uresnet", sd, policy=pol, device=dev)
+            one = WholeViewRunner(model, spatial=True)
+            if mode == "int8":
+                one.calibrate_from(src, n_images=WV_CALIB)
+            ops.reset_launch_counts()
+            want = one.score_image(plane)
+            one_counts = {k: v for k, v in ops.launch_counts().items() if v}
+            if one_counts != table[mode]:
+                failed.append(f"{wname} {mode}: one-device launches "
+                              f"{one_counts}")
+            res = {"launches_one_device": one_counts}
+            if mode == "f32":
+                f32_want = want.argmax(-1)
+            else:
+                res["one_device_argmax_vs_f32"] = one_f32 = float(
+                    (want.argmax(-1) == f32_want).mean())
+            for r in SPATIAL_DEVICES:
+                runner = WholeViewRunner(model, spatial=True,
+                                         devices=[dev] * r)
+                ops.reset_launch_counts()
+                got = runner.score_image(plane)
+                got_counts = {k: v for k, v in ops.launch_counts().items()
+                              if v}
+                dp = float(np.abs(got - want).max())
+                agree = float((got.argmax(-1) == want.argmax(-1)).mean())
+                res[f"R{r}"] = row = {
+                    "max_abs_dp": dp, "argmax_agreement": agree,
+                    "pixels_differing": int((got != want).any(-1).sum()),
+                    "score_sum_max_dev": float(np.abs(got.sum(-1)
+                                                      - 1).max()),
+                    "launches": got_counts, "halo": dict(runner.last_halo)}
+                tag = f"{wname} {mode} R={r}"
+                if mode == "f32":
+                    with torch.inference_mode():
+                        a = model(x, logits=True).float()
+                        b = row_gather(model.forward_rows(
+                            row_split(x, [dev] * r), logits=True),
+                            dev).float()
+                    row["logit_rel_err"] = float(
+                        (a - b).abs().max() / a.abs().max())
+                    if wname == "tame" and dp > 1e-5:
+                        failed.append(f"{tag}: max|dp| {dp}")
+                else:
+                    row["argmax_vs_f32"] = r_f32 = float(
+                        (got.argmax(-1) == f32_want).mean())
+                    if 1 - r_f32 > 2 * (1 - one_f32):
+                        failed.append(f"{tag}: argmax vs f32 {r_f32}, one "
+                                      f"device {one_f32}")
+                if got_counts != {k: r * v for k, v in one_counts.items()}:
+                    failed.append(f"{tag}: launches {got_counts} != {r} x "
+                                  f"{one_counts}")
+                if row["score_sum_max_dev"] > 1e-2:
+                    failed.append(f"{tag}: scores do not sum to 1")
+                counts.append(got_counts)
+            if mode != "f32":
+                res["stages"] = _stage_bits(model, x, dev, SPATIAL_DEVICES)
+                for st in res["stages"]:
+                    if st["kernel"] and any(st[f"R{r}_differ"]
+                                            for r in SPATIAL_DEVICES):
+                        failed.append(f"{wname} {mode}: kernel stage "
+                                      f"{st['stage']} differs on slabs")
+            if mode == "bf16" and wname == "deploy":
+                with torch.inference_mode():  # forward ms on the one card
+                    res["forward_ms"] = {"R1": time_ms(lambda: model(x),
+                                                       500.0)}
+                    for r in SPATIAL_DEVICES:
+                        res["forward_ms"][f"R{r}"] = time_ms(
+                            lambda r=r: model.forward_rows(row_split(
+                                x, [dev] * r)), 500.0)
+            result[f"{wname}_{mode}"] = res
+            del model, one
+            torch.cuda.empty_cache()
+    result["seconds"] = time.time() - t_phase
+    emit(result)
+    require(not failed, f"spatial_devices: {failed}")
+    return {k: sum(c.get(k, 0) for c in counts) for k in ops.KERNELS}
+
+
 def serve_path(dev, card, work):
     """The serve loop (cli/serve.py --once, --device cuda, the deploy
     smoke's weights) over two watch dirs: two precropped files of
@@ -3097,11 +3309,14 @@ def _summary(text):
     return json.loads(text[text.rfind("\n{\n") + 1:])
 
 
-def distributed_path(dev, card, work, gates):
+def distributed_path(dev, card, work, gates, keep=None):
     """The multi-process layer (parallel/, core/mesh.py, cli/launch.py,
     --data-parallel) at the flagship width on the train smoke's data.
     Returns the launches of the distributed path (the NCCL rank's run,
-    each gloo rank's step, the data-parallel deploy)."""
+    each gloo rank's step, the data-parallel deploy). ``keep`` takes what
+    the model_axis phase compares with: the reordering bounds and the
+    distance to the one-process step, the plain CLI's losses and its
+    config, the step ms of two gloo ranks and of one process."""
     import dataclasses
 
     import numpy as np
@@ -3398,12 +3613,256 @@ def distributed_path(dev, card, work, gates):
             == LAUNCHES_PER_TRAIN_STEP, f"NCCL rank: {one['backend']}, "
                                         f"{one['launches']}")
     counts += [r["launches"] for r in two] + [one["launches"]]
-    del ref, plain_ref, reordered, worlds, two, one
+    if keep is not None:  # for the model_axis phase
+        keep.update(bounds=bounds, distance=distance, plain=plain,
+                    cfg_path=cfg_path,
+                    gloo_step_ms=[r["step_ms"] for r in two],
+                    one_process_step_ms=ref["step_ms"])
+    del plain_ref, reordered, worlds, two, one  # ref: on the host
     torch.cuda.empty_cache()
 
     result["seconds"] = time.time() - t_phase
     emit(result)
     print(card_line(), flush=True)
+    return {k: sum(c.get(k, 0) for c in counts) for k in ops.KERNELS}
+
+
+def _ma_rank(rank, out):
+    """One rank of the model_axis phase's spawned worlds: a (world / 2, 2)
+    mesh over gloo ranks sharing the card, train_parity's weights and its
+    fixed b16 batch (this data index's share), the weights with 256 or
+    more output channels sharded (tp_min_features' default), one Adam
+    step of the kernel path with its launches, then 3 more timed with
+    CUDA events; rank 0 writes the checkpoint of the gathered slices.
+    Writes ``<out>/rank<r>.pt``: the whole gradients and state after
+    the first step, the slices and moments this rank holds at the end,
+    the bytes of its parameters and moments."""
+    import torch
+
+    from ubresnet_tpu_torch import ops
+    from ubresnet_tpu_torch.core.mesh import make_mesh
+    from ubresnet_tpu_torch.deploy.weights import random_state_dict
+    from ubresnet_tpu_torch.models import get_model
+    from ubresnet_tpu_torch.parallel import distributed
+    from ubresnet_tpu_torch.parallel.sharding import (
+        make_param_shardings,
+        param_state_bytes,
+        shard_batch,
+        shard_state,
+        whole_optimizer_state,
+        whole_state_dict,
+    )
+    from ubresnet_tpu_torch.train import (
+        build_train_step,
+        create_train_state,
+        make_optimizer,
+    )
+    from ubresnet_tpu_torch.train.checkpoint import save_checkpoint
+    from ubresnet_tpu_torch.utils.platform import resolve_device
+
+    distributed.initialize(device="cuda")
+    dev = resolve_device("cuda")
+    mesh = make_mesh(model_axis=2)
+    model = get_model("uresnet", random_state_dict(seed=0), device=dev,
+                      train=True)
+    opt = make_optimizer(model.parameters(), "adam", 1e-3, weight_decay=1e-4)
+    sharded = sorted(make_param_shardings(model, mesh))
+    state = shard_state(create_train_state(model, opt), mesh)
+    step = build_train_step(use_pallas_loss=True, device=dev, mesh=mesh)
+    b = {k: torch.from_numpy(v).to(dev)
+         for k, v in shard_batch(_train_batch(7), mesh).items()}
+    ops.reset_launch_counts()
+    state, m = step(state, b)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in ops.launch_counts().items() if v}
+    grads = {}
+    with torch.no_grad():
+        for mod_name, mod in model.named_modules():
+            shard = getattr(mod, "model_shard", None)
+            if shard is not None:
+                grads[f"{mod_name}.weight"] = shard.gather(mod.weight.grad)
+    res = {"backend": distributed.backend(), "device": str(dev),
+           "mesh": [mesh.data_size, mesh.model_size, mesh.data_rank,
+                    mesh.model_rank], "metrics": m, "launches": launches,
+           "sharded": sharded, "bytes": param_state_bytes(state),
+           "grads": {k: grads.get(k, p.grad).float().cpu()
+                     for k, p in model.named_parameters()},
+           "state": {k: v.cpu() for k, v in whole_state_dict(model).items()}}
+    state, _, res["step_ms"] = _adam_steps(step, state, b, n=3)
+    whole = (whole_state_dict(model), whole_optimizer_state(state))
+    if rank == 0:
+        res["tar"] = save_checkpoint(os.path.join(out, "ck"), state,
+                                     whole=whole)
+    names = {id(p): k for k, p in model.named_parameters()}
+    res["slices"] = {k: v.cpu() for k, v in model.state_dict().items()}
+    res["moments"] = {names[id(p)]: {k: v.cpu() for k, v in st.items()
+                                     if torch.is_tensor(v) and v.dim()}
+                      for p, st in opt.opt.state.items()}
+    torch.save(res, os.path.join(out, f"rank{rank}.pt"))
+    distributed.barrier("rank_done")
+    distributed.shutdown()
+
+
+def model_axis_path(dev, card, work, gates, dist):
+    """The model axis (channel sharding) at the flagship width, two gloo
+    ranks and four sharing the card, beside the distributed phase, whose
+    one-process step, reordering bounds and plain train CLI run it takes
+    (``dist``). Spawned worlds (1, 2) and (2, 2): one Adam step on
+    train_parity's b16 batch against one process under the distributed
+    phase's gates (4x the reordering spread, train_parity's), the
+    per-rank launches of one step exact, each rank's bytes of parameters
+    plus Adam moments the replicated bytes plus half the sharded ones,
+    rank 0's checkpoint (after 4 steps) restored by a one-process
+    trainer state with every tensor equal to the ranks' slices put
+    together. Then ``cli.launch --distributed 2 --set model_axis=2`` for
+    DIST_ITERS iterations of the distributed phase's config: its first
+    loss (the weights not yet updated) within 4x the reordering spread
+    of the plain CLI's, the losses finite and falling, its launches
+    DIST_ITERS x the step table, each rank's mesh and bytes. The later
+    losses are reported against the plain CLI's, not gated: from the
+    first update on, Adam's sign steps (±lr where a gradient is near 0)
+    carry the channel split's last bits into the weights, as they carry
+    a different sum order's; the spawned worlds hold the step itself.
+    Reported: the step ms beside the two-data-rank gloo step of the same
+    run. Every result is emitted before a failed gate raises."""
+    import numpy as np
+    import torch
+
+    from ubresnet_tpu_torch import ops
+    from ubresnet_tpu_torch.core.mesh import Mesh
+    from ubresnet_tpu_torch.deploy.weights import random_state_dict
+    from ubresnet_tpu_torch.models import get_model
+    from ubresnet_tpu_torch.parallel.sharding import make_param_shardings
+    from ubresnet_tpu_torch.train import create_train_state, make_optimizer
+    from ubresnet_tpu_torch.train.checkpoint import restore_checkpoint
+    from torch_dist_workers import run_spawned
+
+    t_phase = time.time()
+    root = os.path.join(work, "model_axis")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    bounds, distance = dist["bounds"], dist["distance"]
+    result = {"phase": "model_axis", "card": card, "bounds": bounds}
+    counts, failed = [], []
+    # the bytes a rank should hold: f32 parameters and two Adam moments,
+    # the sharded weights halved
+    full = get_model("uresnet", random_state_dict(seed=0), device=dev,
+                     train=True)
+    params = dict(full.named_parameters())
+    sharded = make_param_shardings(full, Mesh(2, 0, None, 2))
+    want_bytes = 3 * 4 * sum(p.numel() // (2 if k in sharded else 1)
+                             for k, p in params.items())
+    result["sharded"] = sorted(sharded)
+    result["bytes_replicated"] = 3 * 4 * sum(p.numel()
+                                             for p in params.values())
+    result["bytes_per_rank_want"] = want_bytes
+    for name, n in (("model_2", 2), ("data_2_model_2", 4)):
+        out_dir = os.path.join(root, name)
+        os.makedirs(out_dir)
+        t0 = time.time()
+        run_spawned(_ma_rank, n, (out_dir,), timeout_s=300)
+        ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
+                            weights_only=False) for r in range(n)]
+        cmp = [dict(distance(r), backend=r["backend"], mesh=r["mesh"],
+                    launches=r["launches"], bytes=r["bytes"])
+               for r in ranks]
+        # rank 0's file, restored by a one-process trainer state
+        opt = make_optimizer(full.parameters(), "adam", 1e-3,
+                             weight_decay=1e-4)
+        state = restore_checkpoint(os.path.join(out_dir, "ck"),
+                                   create_train_state(full, opt))
+        sd = {k: v.cpu() for k, v in state.model.state_dict().items()}
+        moments = {k: opt.opt.state[p] for k, p in params.items()}
+        tar_equal = True
+        for k, v in sd.items():
+            parts = [ranks[m]["slices"][k] for m in range(2)]
+            dim = 1 if k.endswith("deconv.weight") else 0
+            whole = torch.cat(parts, dim) if k in sharded else parts[0]
+            tar_equal &= torch.equal(whole, v)
+        for k, st in moments.items():
+            for mk in ("exp_avg", "exp_avg_sq"):
+                parts = [ranks[m]["moments"][k][mk] for m in range(2)]
+                dim = 1 if k.endswith("deconv.weight") else 0
+                whole = torch.cat(parts, dim) if k in sharded else parts[0]
+                tar_equal &= torch.equal(whole, st[mk].cpu())
+        result[name] = {"vs_one_process": cmp, "tar_equal_slices": tar_equal,
+                        "step_ms": [r["step_ms"] for r in ranks],
+                        "seconds": time.time() - t0}
+        for c in cmp:
+            if c["backend"] != "gloo":
+                failed.append(f"{name}: backend {c['backend']}")
+            failed += [f"{name} vs one process: {k} {c[k]} > {bound}"
+                       for k, bound in bounds.items() if c[k] > bound]
+            if not (c["loss_rel"] <= gates["loss_rel_vs_f32"]
+                    and c["grad_err"] <= gates["grad_err_vs_f32"]):
+                failed.append(f"{name} vs one process: train_parity's "
+                              f"gates {c}")
+            if c["launches"] != LAUNCHES_PER_TRAIN_STEP:
+                failed.append(f"{name}: rank launches {c['launches']}")
+            if c["bytes"] != want_bytes:
+                failed.append(f"{name}: {c['bytes']} bytes, want "
+                              f"{want_bytes}")
+        if not all(r["sharded"] == sorted(sharded) for r in ranks):
+            failed.append(f"{name}: sharded sets differ")
+        if not tar_equal:
+            failed.append(f"{name}: the checkpoint is not the ranks' "
+                          "slices put together")
+        counts += [r["launches"] for r in ranks]
+        del ranks, state
+    del full, params
+    torch.cuda.empty_cache()
+
+    # the entry point: launch --distributed 2 --set model_axis=2
+    env = dict(os.environ, PYTHONPATH=HERE)
+    t0 = time.time()
+    proc = subprocess.run(
+        [sys.executable, "-m", "ubresnet_tpu_torch.cli.launch",
+         "--distributed", "2", "--config", dist["cfg_path"], "--workdir",
+         os.path.join(root, "cli"), "--set", "model_axis=2", "--set",
+         f"checkpoint_dir={root}/cli_ck", "--set", f"log_dir={root}/cli_log"],
+        capture_output=True, text=True, env=env, cwd=HERE, timeout=600)
+    wall = time.time() - t0
+    logs = [open(os.path.join(root, "cli", f"proc{r}.log")).read()
+            for r in range(2)]
+    if proc.returncode:
+        emit(result)
+    require(proc.returncode == 0, f"launch --distributed 2 --set "
+            f"model_axis=2 returned {proc.returncode}:\n"
+            f"{proc.stdout[-2000:]}\n{logs[0][-3000:]}\n{logs[1][-2000:]}")
+    losses = _jsonl_losses(os.path.join(root, "cli_log", "run.jsonl"))
+    plain = dist["plain"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, plain)]
+    summaries = [_summary(log) for log in logs]
+    want = {k: v * DIST_ITERS for k, v in LAUNCHES_PER_TRAIN_STEP.items()}
+    cli_counts = [{k: v for k, v in s["kernel_launches"].items() if v}
+                  for s in summaries]
+    result["cli"] = {
+        "wall_s": wall, "losses": losses, "plain_losses": plain,
+        "loss_rel_vs_plain": rel, "launches": cli_counts,
+        "mesh": [s["mesh"] for s in summaries],
+        "bytes": [s["param_state_bytes"] for s in summaries],
+        "step_s": [s["meters"].get("time/step") for s in summaries]}
+    if not (len(losses) == DIST_ITERS and np.isfinite(losses).all()
+            and losses[-1] < losses[0]):
+        failed.append(f"CLI losses {losses}")
+    elif rel[0] > bounds["loss_rel"]:
+        failed.append(f"CLI first loss {losses[0]} vs plain {plain[0]}: "
+                      f"{rel[0]} > {bounds['loss_rel']}")
+    if not all(c == want for c in cli_counts):
+        failed.append(f"CLI launches {cli_counts} != {want}")
+    if not all(s["mesh"] == [1, 2] and s["param_state_bytes"] == want_bytes
+               for s in summaries):
+        failed.append(f"CLI mesh and bytes {result['cli']}")
+    counts += cli_counts
+    result["step_ms_vs_two_data_ranks"] = {
+        "model_2": result["model_2"]["step_ms"],
+        "data_2_model_2": result["data_2_model_2"]["step_ms"],
+        "gloo_2_data_ranks": dist["gloo_step_ms"],
+        "one_process": dist["one_process_step_ms"]}
+    result["seconds"] = time.time() - t_phase
+    emit(result)
+    print(card_line(), flush=True)
+    require(not failed, f"model_axis: {failed}")
     return {k: sum(c.get(k, 0) for c in counts) for k in ops.KERNELS}
 
 
@@ -3950,6 +4409,8 @@ def main():
     torch.cuda.empty_cache()
     launches["wholeview"] = wholeview_path(dev, card, work)
     lap("wholeview")
+    launches["spatial_devices"] = spatial_devices_path(dev, card, work)
+    lap("spatial_devices")
     torch.cuda.empty_cache()
     launches["serve"] = serve_path(dev, card, work)
     lap("serve")
@@ -3960,8 +4421,12 @@ def main():
     launches.update(aspp_path(dev, card, work))
     lap("aspp")
     torch.cuda.empty_cache()
-    launches["distributed"] = distributed_path(dev, card, work, gates)
+    dist = {}
+    launches["distributed"] = distributed_path(dev, card, work, gates, dist)
     lap("distributed")
+    launches["model_axis"] = model_axis_path(dev, card, work, gates, dist)
+    del dist
+    lap("model_axis")
     torch.cuda.empty_cache()
     launches["golden"] = golden_path(dev, card, work)
     lap("golden")

@@ -17,6 +17,7 @@ undilated, through the plain versions here. The inplanes-4 forward runs
 with the kernel zone on (Policy.f32 with fused_eval) so that such a
 fault changes the numbers."""
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -63,12 +64,18 @@ def jax_aspp(inplanes, policy=None):
                          aspp_branch_features=16)
 
 
+@functools.lru_cache(maxsize=None)
+def _init_tree(inplanes, seed=0):
+    """``model.init``'s tree at this width (one init compile per width
+    and seed in the module)."""
+    return jax.jit(jax_aspp(inplanes).init)(jax.random.PRNGKey(seed),
+                                            jnp.zeros((1, 64, 64, 1)))
+
+
 def jax_variables(inplanes, seed=0):
     """``model.init``'s tree with seeded BN statistics, BN affines and
     conv biases."""
-    model = jax_aspp(inplanes)
-    v = jax.jit(model.init)(jax.random.PRNGKey(seed),
-                            jnp.zeros((1, 64, 64, 1)))
+    v = _init_tree(inplanes, seed)
     rng = np.random.RandomState(seed)
 
     def fill(path, a):
@@ -111,6 +118,9 @@ def _close(got, want):
     assert float((got.argmax(-1) == want.argmax(-1)).mean()) == 1.0
 
 
+_WANT = {}
+
+
 @pytest.mark.parametrize("policy", [F32, F32_FUSED], ids=["f32", "f32-zone"])
 @pytest.mark.parametrize("hw", [(64, 64), (64, 96)], ids=["64x64", "64x96"])
 def test_aspp_matches_jax(case, policy, hw):
@@ -120,8 +130,10 @@ def test_aspp_matches_jax(case, policy, hw):
     inplanes 32."""
     p, variables = case
     x = _input(1, *hw)
-    want = np.asarray(jax.jit(lambda v, x: jax_aspp(p).apply(
-        v, x, train=False, logits=True))(variables, jnp.asarray(x)))
+    if (p, hw) not in _WANT:  # JAX's logits, the same for both policies
+        _WANT[p, hw] = np.asarray(jax.jit(lambda v, x: jax_aspp(p).apply(
+            v, x, train=False, logits=True))(variables, jnp.asarray(x)))
+    want = _WANT[p, hw]
     model = ASPPResNet(state_dict_from_jax(variables), policy=policy,
                        device="cpu")
     with torch.inference_mode():
@@ -154,8 +166,7 @@ def test_random_weights_import_into_jax_init_tree(p):
     sd = random_state_dict(seed=1, inplanes=p, arch="aspp_resnet")
     variables = import_aspp_state_dict({k: v.numpy() for k, v in sd.items()})
     model = jax_aspp(p)
-    init = jax.jit(model.init)(jax.random.PRNGKey(0),
-                               jnp.zeros((1, 64, 64, 1)))
+    init = _init_tree(p)
 
     def paths(tree):
         return {jax.tree_util.keystr(k): tuple(np.shape(x)) for k, x in
@@ -163,7 +174,8 @@ def test_random_weights_import_into_jax_init_tree(p):
 
     assert paths(variables["params"]) == paths(init["params"])
     assert paths(variables["batch_stats"]) == paths(init["batch_stats"])
-    out = model.apply(variables, jnp.zeros((1, 64, 64, 1)), train=False)
+    out = jax.jit(functools.partial(model.apply, train=False))(
+        variables, jnp.zeros((1, 64, 64, 1)))
     assert out.shape == (1, 64, 64, 3)
     cfg = config_from_state_dict(sd)
     assert (cfg.inplanes, cfg.aspp_branch_features, cfg.num_classes,

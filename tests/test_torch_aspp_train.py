@@ -307,9 +307,16 @@ def test_qat_train_forward_backward_matches_jax(qat_case):
     assert got[3] >= own[3] - 0.02, (got, own)
 
 
+_JAX_EVALS = {}
+
+
 def _jax_eval(variables, img, policy):
-    return np.asarray(jax.jit(lambda v, x: jax_aspp(16, policy).apply(
-        v, x, train=False, logits=True))(variables, jnp.asarray(img)))
+    """JAX's eval logits (one jitted forward per policy: the weights and
+    their perturbed copy share it)."""
+    if policy not in _JAX_EVALS:
+        _JAX_EVALS[policy] = jax.jit(lambda v, x: jax_aspp(16, policy).apply(
+            v, x, train=False, logits=True))
+    return np.asarray(_JAX_EVALS[policy](variables, jnp.asarray(img)))
 
 
 def test_qat_eval_matches_jax(qat_case):

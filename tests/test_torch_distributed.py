@@ -152,8 +152,12 @@ def test_initialize_is_a_noop_without_the_env(monkeypatch):
     assert distributed.is_primary() and distributed.barrier("x") is False
     mesh = make_mesh()
     assert (mesh.size, mesh.rank, mesh.group) == (1, 0, None)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        make_mesh(2, model_axis=2)
+    # a model axis divides the world; without a process group it has no
+    # groups to shard over
+    mesh = make_mesh(2, model_axis=2)
+    assert (mesh.data_size, mesh.model_size, mesh.model_group) == (1, 2, None)
+    with pytest.raises(ValueError, match="not divisible by model_axis"):
+        make_mesh(3, model_axis=2)
 
 
 def test_backend_follows_the_ranks_on_this_host(monkeypatch):

@@ -94,6 +94,38 @@ def test_tools_pull_in_no_jax_and_no_bench(module):
     assert not any(pat.search(line) for line in src.splitlines())
 
 
+@pytest.mark.parametrize("module", ["ubresnet_tpu_torch.parallel.sharding",
+                                    "ubresnet_tpu_torch.core.mesh",
+                                    "ubresnet_tpu_torch.deploy.wholeview",
+                                    "ubresnet_tpu_torch.cli.infer_wholeview",
+                                    "ubresnet_tpu_torch.train.trainer"])
+def test_sharding_modules_pull_in_no_jax(module):
+    """The row-sharded whole planes and the model axis (sharding, mesh,
+    the wholeview runner and CLI, the trainer) import without jax or the
+    JAX package, as a fresh process sees."""
+    code = (f"import sys, {module}\n"
+            "print(sorted(n for n in sys.modules if n == 'jax'\n"
+            "             or n.startswith(('jax.', 'jaxlib', 'flax'))\n"
+            "             or n == 'ubresnet_tpu'\n"
+            "             or n.startswith('ubresnet_tpu.')))\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, cwd=ROOT, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]", proc.stdout
+
+
+def test_model_axis_mesh_no_longer_raises():
+    """make_mesh(model_axis=2) over a world of 2 is a (1, 2) mesh in
+    JAX's order; only a world the axis does not divide raises."""
+    from ubresnet_tpu_torch.core.mesh import make_mesh
+
+    mesh = make_mesh(2, model_axis=2)
+    assert (mesh.size, mesh.data_size, mesh.model_size) == (2, 1, 2)
+    assert (mesh.data_rank, mesh.model_rank) == (0, 0)
+    with pytest.raises(ValueError):
+        make_mesh(2, model_axis=3)
+
+
 def test_sources_name_no_jax():
     files = [p for p in PORT.rglob("*") if p.suffix in (".py", ".cu", ".cuh")]
     files.append(ROOT / "chip_smoke.py")

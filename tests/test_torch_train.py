@@ -186,14 +186,15 @@ _JAX_STEPS = {}
 
 def _jax_step_result(variables, mode):
     """JAX's new state and metrics after one SGD step (cached per
-    transfer form: each is one XLA compile)."""
+    transfer form: each is one XLA compile). The sparse form's is the
+    dense form's: JAX's sparse transfer densifies back to the same batch
+    on the device (ubresnet_tpu/ops/sparse.py), and its step's result
+    is the dense step's bit for bit."""
+    if mode == "sparse":
+        mode = "dense"
     if mode not in _JAX_STEPS:
         batch = _batch(2)
         kw = dict(num_classes=3, donate=False)
-        if mode == "sparse":
-            sp = jax_sparse.sparsify_batch(batch, bucket=256)
-            kw["sparse_hw"] = sp.pop("hw")
-            batch = sp
         if mode == "accum2":
             kw["accum_steps"] = 2
         state = _jax_sgd_state(variables, _jax_model())

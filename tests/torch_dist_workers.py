@@ -206,3 +206,85 @@ def trainer_runs(rank, out):
                      "params": {k: v.detach().clone() for k, v in
                                 t.model.state_dict().items()}})
     return {"runs": runs, "writes": writes}
+
+
+# the model axis at JAX's geometry (tests/test_sharding.py:
+# test_model_axis_sharding_matches): inplanes 8, depth 5, 32x32, global
+# batch 4, min_features 32, Policy.f32, SGD lr 1e-3 without momentum
+MA_INPLANES, MA_MIN, MA_LR = 8, 32, 1e-3
+
+
+def ma_state_dict():
+    from ubresnet_tpu_torch.deploy.weights import random_state_dict
+
+    return random_state_dict(seed=0, inplanes=MA_INPLANES)
+
+
+def ma_step(sd, batch, opt_name, mesh=None):
+    """One step of ``opt_name`` (sgd: no momentum, JAX's test; adam) on
+    ``batch``, with the model axis of ``mesh``: the metrics, the whole
+    state_dict and optimizer state after it (gathered over the model
+    group), the optimizer moments this rank holds, the sharded keys and
+    the bytes of parameters plus moments."""
+    from ubresnet_tpu_torch.core.precision import Policy
+    from ubresnet_tpu_torch.models import get_model
+    from ubresnet_tpu_torch.parallel.sharding import (
+        make_param_shardings,
+        param_state_bytes,
+        shard_state,
+        whole_optimizer_state,
+        whole_state_dict,
+    )
+    from ubresnet_tpu_torch.train import optimizers
+    from ubresnet_tpu_torch.train.step import (
+        build_train_step,
+        create_train_state,
+    )
+
+    model = get_model("uresnet", sd, policy=Policy.f32(), device="cpu",
+                      train=True)
+    opt = optimizers.make_optimizer(model.parameters(), opt_name, MA_LR,
+                                    momentum=0.0)
+    state = create_train_state(model, opt)
+    sharded = []
+    if mesh is not None:
+        sharded = sorted(make_param_shardings(model, mesh, MA_MIN))
+        state = shard_state(state, mesh, MA_MIN)
+    step = build_train_step(num_classes=3, device="cpu", mesh=mesh)
+    state, metrics = step(state, batch)
+    names = {id(p): k for k, p in model.named_parameters()}
+    own = {names[id(p)]: {k: v.clone() for k, v in st.items()
+                          if torch.is_tensor(v) and v.dim()}
+           for p, st in opt.opt.state.items()}
+    return {"metrics": metrics, "sharded": sharded,
+            "sd": {k: v.detach().clone() for k, v in
+                   whole_state_dict(model).items()},
+            "opt": whole_optimizer_state(state)["torch"]["state"],
+            "own": own, "bytes": param_state_bytes(state)}
+
+
+def model_axis_world(rank, out, model_axis, trainer):
+    """Rank ``rank`` of a gloo world on a (world / model_axis,
+    model_axis) mesh: an SGD and an Adam step of ``ma_step`` on its data
+    index's share of the global batch, then (``trainer``) the trainer's
+    checkpoints and resume on ``<out>/cfg.json``."""
+    import sys
+
+    from ubresnet_tpu_torch.core.mesh import make_mesh
+    from ubresnet_tpu_torch.parallel import distributed
+    from ubresnet_tpu_torch.parallel.sharding import shard_batch
+
+    sys.modules.setdefault("torch.utils.tensorboard", None)
+    torch.set_num_threads(1)
+    distributed.initialize(device="cpu")
+    mesh = make_mesh(model_axis=model_axis)
+    res = {"mesh": (mesh.data_size, mesh.model_size, mesh.data_rank,
+                    mesh.model_rank)}
+    batch = shard_batch(global_batch(b=4), mesh)
+    sd = ma_state_dict()
+    for opt in ("sgd", "adam"):
+        res[opt] = ma_step(sd, batch, opt, mesh)
+    if trainer:
+        res["trainer"] = trainer_runs(rank, out)
+    torch.save(res, os.path.join(out, f"rank{rank}.pt"))
+    distributed.shutdown()

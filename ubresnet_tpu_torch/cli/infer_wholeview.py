@@ -9,7 +9,9 @@ deploy/run_ubresnet_wholeview.py): score whole-plane images.
         [--int8 [--int8-calib N] [--int8-percentile P]] [--f16-scores]
 
 By default each whole plane is scored in one forward (padded to a
-multiple of 32 rows and columns, batch 1); ``--stitched`` scores
+multiple of 32 rows and columns, batch 1), split by rows over every
+visible card when there are several (halo exchange between them; the
+JAX CLI lays the plane over all of ``jax.devices()``); ``--stitched`` scores
 overlapping 512x832 crops ``--crop-batch`` at a time and
 overlap-averages them, and ``--detsplit`` places those crops as
 3D-consistent triplets across the U/V/Y planes (crop semantics, so it
@@ -117,10 +119,15 @@ def build_parser():
 def main(argv=None):
     args = build_parser().parse_args(argv)
     from ubresnet_tpu_torch.cli.common import load_model
+    from ubresnet_tpu_torch.cli.infer_precropped import data_parallel_devices
     from ubresnet_tpu_torch.deploy import WholeViewRunner
 
     use_spatial = resolve_spatial(args.spatial, args.stitched, args.detsplit)
     model = load_model(args)
+    # the spatial path lays each plane over every visible card, as the
+    # JAX CLI's spatial mesh spans jax.devices(); one card is the
+    # one-device path
+    devices = data_parallel_devices(model) if use_spatial else None
     runner = WholeViewRunner(
         model,
         tile_rows=args.tile_rows,
@@ -130,6 +137,7 @@ def main(argv=None):
         crop_batch=args.crop_batch,
         spatial=use_spatial,
         score_dtype=np.float16 if args.f16_scores else np.float32,
+        devices=devices,
     )
     calib_s = None
     if args.int8:

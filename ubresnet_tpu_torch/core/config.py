@@ -10,8 +10,10 @@ training/ubresnet_train.cfg) parse into plain dicts so existing data
 configs keep working, and any dataclass config round-trips to/from the
 PSet text form.
 
-Keys the port does not run yet raise in the trainer (train/trainer.py):
-model_axis > 1. ``native`` takes the C++ batch filler (data/native.py)
+Every key runs in the port's trainer (train/trainer.py); ``model_axis``
+and ``tp_min_features`` shard the widest conv weights over the ranks of
+a ``cli/launch.py --distributed`` run, as the JAX trainer shards them
+over devices. ``native`` takes the C++ batch filler (data/native.py)
 where it applies, as in the JAX trainer.
 """
 from __future__ import annotations

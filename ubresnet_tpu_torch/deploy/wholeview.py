@@ -11,7 +11,10 @@ single-input, per-plane, 3-class UResNet or ASPP-ResNet:
      role, ops/tiling.py), score the crops ``crop_batch`` at a time and
      overlap-average them back (UBLArFlowStitcher role) — the stitched
      path — or, with ``spatial``, pad the plane to a multiple of 32 and
-     score it in one forward at batch 1,
+     score it in one forward at batch 1 — on one device, or, given
+     several ``devices``, row-sharded over them with halo exchange
+     (models/uresnet.py:ZoneModel.forward_rows, the counterpart of the
+     JAX package's ``spatial_mesh``),
   4. write per-class images to producer ``ubsnet_plane%d`` with the
      input's meta and run/subrun/event ids, to .uevt or larcv .root.
 
@@ -42,6 +45,11 @@ from ubresnet_tpu_torch.deploy.common import (
     wait_host,
 )
 from ubresnet_tpu_torch.ops.quant import calibrate
+from ubresnet_tpu_torch.parallel.sharding import (
+    SPATIAL_DIVISOR,
+    row_gather,
+    row_split,
+)
 from ubresnet_tpu_torch.ops.sparse import densify, sparsify
 from ubresnet_tpu_torch.ops.tiling import (
     coverage_count,
@@ -65,12 +73,11 @@ class WholeViewRunner:
     ``grid`` arguments are then ignored. sparse: ship planes as COO
     pixels (capacity on a ``sparse_bucket`` grid, which only grows) or
     dense. score_dtype: storage dtype of the written score images
-    (.uevt outputs; a .root output stores float32)."""
-
-    # both models downsample by 2^5 (stem pool + four stride-2 encoders):
-    # the spatial path pads to this so every decoder upsample is an
-    # exact 2x (1008 -> 1024 rows), as the JAX package pads
-    SPATIAL_DIVISOR = 32
+    (.uevt outputs; a .root output stores float32). devices: with more
+    than one, the spatial path splits each padded plane by rows over
+    them (parallel/sharding.py:row_split; a device may repeat), runs
+    the row-sharded forward with a replica of the model on each other
+    device, and gathers the probabilities on the model's device."""
 
     def __init__(
         self,
@@ -86,6 +93,7 @@ class WholeViewRunner:
         det_half_height_cm: Optional[float] = None,
         spatial: bool = False,
         score_dtype=np.float32,
+        devices: Optional[Sequence] = None,
     ):
         self.model = model
         self.device = model.device
@@ -102,6 +110,18 @@ class WholeViewRunner:
         self.score_dtype = np.dtype(score_dtype)
         self._cap = 0
         self._plans = {}  # (hw, grid) → (grid, coverage count on device)
+        self.devices = None
+        self.last_halo = None  # the last row-sharded plane's halo counts
+        self.replicas = {}  # device → the model there, beside model.device
+        if devices is not None and len(devices) > 1:
+            if not spatial:
+                raise ValueError("devices: the stitched path runs on one "
+                                 "device; row sharding is the spatial "
+                                 "path's")
+            self.devices = [torch.device(d) for d in devices]
+            for d in self.devices:
+                if d != self.device and d not in self.replicas:
+                    self.replicas[d] = model.replica(d)
 
     def _grid(self, hw: Tuple[int, int]):
         return tile_grid(hw[0], hw[1], self.tile_rows, self.tile_cols,
@@ -137,10 +157,17 @@ class WholeViewRunner:
         """(h, w, 1) plane → (h, w, c) probabilities from one forward of
         the plane zero-padded on the high side to the stride multiple."""
         h, w = image.shape[:2]
-        pad_r = (-h) % self.SPATIAL_DIVISOR
-        pad_c = (-w) % self.SPATIAL_DIVISOR
+        # every decoder upsample an exact 2x (1008 -> 1024 rows), as the
+        # JAX package pads
+        pad_r = (-h) % SPATIAL_DIVISOR
+        pad_c = (-w) % SPATIAL_DIVISOR
         x = F.pad(image, (0, 0, 0, pad_c, 0, pad_r))[None]
-        return torch.exp(self.model(x))[0, :h, :w, :]
+        if self.devices is None:
+            return torch.exp(self.model(x))[0, :h, :w, :]
+        out = self.model.forward_rows(row_split(x, self.devices),
+                                      replicas=self.replicas)
+        self.last_halo = out.halo
+        return torch.exp(row_gather(out, self.device))[0, :h, :w, :]
 
     @torch.inference_mode()
     def dispatch_image(self, image: np.ndarray,
@@ -219,8 +246,9 @@ class WholeViewRunner:
                 f"no occupied '{producer}' tiles in {input_file}")
         batches = [np.stack(tiles[j : j + self.crop_batch])[..., None]
                    for j in range(0, len(tiles), self.crop_batch)]
-        self.model.set_quant_scales(
-            calibrate(self.model, batches, percentile=percentile))
+        scales = calibrate(self.model, batches, percentile=percentile)
+        for m in (self.model, *self.replicas.values()):
+            m.set_quant_scales(scales)
         return len(tiles)
 
     def make_bboxes(

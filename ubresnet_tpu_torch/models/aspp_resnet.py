@@ -57,10 +57,12 @@ from ubresnet_tpu_torch.models.blocks import (
 )
 from ubresnet_tpu_torch.models.uresnet import (
     PACK_MAX,
+    ROW_HALO,
     ZoneModel,
     plain_call,
     stage_call,
 )
+from ubresnet_tpu_torch.parallel.sharding import halo_apply
 from ubresnet_tpu_torch.utils.platform import resolve_device
 
 DEPTH = 5
@@ -176,10 +178,29 @@ class ASPPResNet(ZoneModel):
     def packed_zone(self, width: int) -> bool:
         return packed_zone(width)
 
+    def zone_runs(self, width: int) -> bool:
+        return width % ZONE_STEP == 0
+
+    def _check_width(self, width: int) -> None:
+        check_zone(self.policy, width)
+
+    def _stem_pack(self) -> int:
+        return PACK_MAX
+
+    def _skip_rows(self, stage, y, at):
+        """ASPP's widened skip of encoder stages 3-5, its dilation-5
+        branch reading ROW_HALO["aspp"] rows beyond the slab."""
+        if stage not in ASPP_STAGES:
+            return y
+        k = ASPP_STAGES.index(stage)
+        return halo_apply(lambda d, e: _widen(e, at(d).aspp[k],
+                                              at(d).combine[k]),
+                          y, ROW_HALO["aspp"])
+
     def forward(self, x: torch.Tensor, logits: bool = False) -> torch.Tensor:
         pol = self.policy
         check_zone(pol, x.shape[2])
-        with zone_active(x.shape[2] % ZONE_STEP == 0):
+        with zone_active(self.zone_runs(x.shape[2])):
             x0 = self.conv1(x.to(pol.compute_dtype).contiguous())
             y = stem_pool(x0, fused=pol.fused_eval, pack=PACK_MAX)
             encs = []

@@ -260,6 +260,12 @@ def deconv_ad_fuses(ci: int, co: int, width: Optional[int],
             and 2 * pe * co >= LANES and 2 * co <= LANES)
 
 
+def _whole(w: torch.Tensor, shard) -> torch.Tensor:
+    """A weight whole: gathered over its model group when ``shard`` (a
+    parallel/sharding.py:ModelShard) says it holds a slice."""
+    return w if shard is None else shard.gather(w)
+
+
 def _nchw(x: torch.Tensor) -> torch.Tensor:
     """Zero-copy channels-last NCHW view of a contiguous NHWC tensor."""
     return x.permute(0, 3, 1, 2)
@@ -873,6 +879,14 @@ def stem_pool(x: torch.Tensor, fused: bool, pack: int,
 # deconv's input and kernel; ``qpack`` is the W-packing factor JAX's
 # tensor has there, which shapes a percentile's subsample.
 #
+# The model axis (parallel/sharding.py:shard_state): a Conv or
+# TrainDeconv2x whose weight is sharded by output channel holds this
+# rank's slice (``model_shard``). On the F.conv2d / F.conv_transpose2d
+# route it computes those output channels and all-gathers them over the
+# model group (its input's gradient summed over the group), the bias
+# after the gather; a kernel route (and QAT's fake-quantized kernel)
+# gathers the weight whole first, so routes and launches do not change.
+#
 # Remat (``remat``): a module call whose activations backward recomputes
 # (torch.utils.checkpoint) instead of keeping them, as jax.checkpoint /
 # nn.remat do in JAX. The recompute runs the forward again, and a
@@ -915,6 +929,9 @@ class Conv(nn.Module):
         self.fuse_ok = (policy.fused_train and zone and stride == 1
                         and dilation == 1)
         self.zone = self._fused_form(None)
+        # the model axis (parallel/sharding.py:shard_state): ``weight``
+        # holds this rank's output channels
+        self.model_shard = None
 
     def _fused_form(self, width: Optional[int]) -> bool:
         """Whether JAX runs this conv on its train-zone kernels at this
@@ -923,8 +940,10 @@ class Conv(nn.Module):
 
     def _kernel_weight(self) -> torch.Tensor:
         """(k, k, ci, co) in the compute dtype, under autograd
-        (fake-quantized under QAT)."""
-        w = self.weight.permute(2, 3, 1, 0)
+        (fake-quantized under QAT), whole: a sharded weight is gathered
+        over its model group first, as XLA gathers a Pallas call's
+        operands."""
+        w = _whole(self.weight, self.model_shard).permute(2, 3, 1, 0)
         if self.qat:
             w = quant_ops.fake_quant_weight(w)
         return w.to(self.cdt)
@@ -934,6 +953,15 @@ class Conv(nn.Module):
             y = conv_ops.conv_ad(x, self._kernel_weight())
             return y if self.bias is None else y + self.bias.to(y.dtype)
         b = None if self.bias is None else self.bias.to(self.cdt)
+        shard = self.model_shard
+        if shard is not None and not self.qat:
+            # this rank's output channels, gathered over the model group;
+            # the bias acts on the gathered tensor
+            y = shard.gather(_nhwc(F.conv2d(
+                _nchw(shard.enter(x)), self.weight.to(self.cdt), None,
+                stride=self.stride, padding=self.pad,
+                dilation=self.dilation)), dim=-1)
+            return y if b is None else y + b
         w = (self._kernel_weight().permute(3, 2, 0, 1) if self.qat
              else self.weight.to(self.cdt))
         return _nhwc(F.conv2d(_nchw(x), w, b, stride=self.stride,
@@ -1135,6 +1163,7 @@ class TrainDeconv2x(nn.Module):
         self.qpack, self.pct = qpack, policy.quant_percentile
         self.fuse_ok = policy.fused_train_deconv and zone
         self.ad = self._fused_form(None)  # at the zone's widths
+        self.model_shard = None  # as Conv's (dim 1: output channels)
 
     def _fused_form(self, width: Optional[int]) -> bool:
         """Whether JAX runs this upsample on pallas_deconv2x_ad at this
@@ -1144,16 +1173,21 @@ class TrainDeconv2x(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 target_hw: Tuple[int, int]) -> torch.Tensor:
-        w = self.weight
+        w, shard = self.weight, self.model_shard
         if self.qat:
             x = quant_ops.fake_quant_act(x, self.pct, self.qpack)
-            w = quant_ops.fake_quant_weight(w.permute(2, 3, 0, 1)).permute(
-                2, 3, 0, 1)
+            w = quant_ops.fake_quant_weight(_whole(w, shard).permute(
+                2, 3, 0, 1)).permute(2, 3, 0, 1)
+            shard = None
         if (tuple(target_hw) == (2 * x.shape[1], 2 * x.shape[2])
                 and self._fused_form(x.shape[2])):
             # cast and laid out (4, 4, ci, co) in one copy
-            return deconv_ops.deconv2x_ad(x, w.permute(2, 3, 0, 1).to(
-                self.cdt, memory_format=torch.contiguous_format))
+            return deconv_ops.deconv2x_ad(x, _whole(w, shard).permute(
+                2, 3, 0, 1).to(self.cdt,
+                               memory_format=torch.contiguous_format))
+        if shard is not None:  # this rank's output channels, gathered
+            return shard.gather(deconv_to(shard.enter(x), w.to(self.cdt),
+                                          target_hw), dim=-1)
         return deconv_to(x, w.to(self.cdt), target_hw)
 
 

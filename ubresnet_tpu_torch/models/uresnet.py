@@ -25,7 +25,7 @@ raises.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 from torch import nn
@@ -44,6 +44,7 @@ from ubresnet_tpu_torch.models.blocks import (
     stem_pool,
     zone_active,
 )
+from ubresnet_tpu_torch.parallel.sharding import RowSlabs, halo_apply
 from ubresnet_tpu_torch.utils.platform import resolve_device
 
 
@@ -72,6 +73,19 @@ def config_from_state_dict(sd: Dict[str, torch.Tensor]) -> UResNetConfig:
 
 
 PACK_MAX = 8  # the JAX package's pack_width (Policy.tpu / tpu_int8)
+
+# Rows of its input that a stage reads beyond the ones it owns on a row
+# slab (ZoneModel.forward_rows): its receptive radius, the sum of its
+# convs' (k // 2)·dilation at the input's resolution, rounded up to even
+ROW_HALO = {
+    "stem": 4,      # the 7x7 stem conv (3)
+    "pool": 2,      # the 3x3 s2 stem pool (1)
+    "stage": 4,     # a stride-1 DoubleResNet: four 3x3 convs (4)
+    "stage_s2": 8,  # a stride-2 one: 1 + 2·3 rows of its input (7)
+    "deconv": 2,    # the k4 s2 deconv (1 input row)
+    "head": 6,      # conv10 and conv11, two 7x7 convs (6)
+    "aspp": 6,      # ASPP's 3x3 branch at dilation 5 (5)
+}
 
 
 def check_zone(cfg: UResNetConfig, policy: Policy, width: int = None
@@ -155,6 +169,70 @@ class ZoneModel(nn.Module):
             if getattr(m, "quant", False):
                 m.set_scales(scales)
 
+    # the row-sharded forward's hooks: the input checks and the zone of
+    # ``forward`` at this width, the stem pool's pack, and the skip an
+    # encoder stage hands the decoder (ASPP widens three)
+    def _check_width(self, width: int) -> None:
+        raise NotImplementedError
+
+    def zone_runs(self, width: int) -> bool:
+        return self.packed_zone(width)
+
+    def _stem_pack(self) -> int:
+        raise NotImplementedError
+
+    def _skip_rows(self, stage: int, y: RowSlabs, at) -> RowSlabs:
+        return y
+
+    def forward_rows(self, slabs: RowSlabs, logits: bool = False,
+                     replicas: Optional[Dict[torch.device, "ZoneModel"]]
+                     = None) -> RowSlabs:
+        """``forward`` of a plane split by rows over devices
+        (parallel/sharding.py:row_split): each stage — the stem conv, the
+        stem pool, every encoder stage, every decoder's upsample and its
+        DoubleResNet over [up, skip], the head (conv10, conv11) — runs on
+        every non-empty slab, on that slab's device (the model
+        ``replicas`` holds for it, this one on its own device), with the
+        rows of its neighbours that its halo needs (``ROW_HALO``), and
+        keeps the rows the slab owns. The routes are the whole plane's:
+        the gates read the plane's width, and every widened slab keeps
+        an even height. So the output equals ``forward`` of the whole
+        plane, and every stage launches its kernels once per non-empty
+        slab. Returns the log-probabilities (or logits) as RowSlabs."""
+        pol = self.policy
+        width = slabs.width
+        self._check_width(width)
+
+        def at(dev):
+            return self if dev == self.device else replicas[dev]
+
+        with zone_active(self.zone_runs(width)):
+            x0 = halo_apply(lambda d, x: at(d).conv1(
+                x.to(pol.compute_dtype).contiguous()), slabs,
+                ROW_HALO["stem"])
+            y = halo_apply(lambda d, x: stem_pool(
+                x, fused=pol.fused_eval, pack=self._stem_pack()), x0,
+                ROW_HALO["pool"], "down")
+            encs = []
+            for i, enc in enumerate(self.enc):
+                s2 = enc.res1.stride == 2
+                y = halo_apply(lambda d, x, i=i: at(d).enc[i](x), y,
+                               ROW_HALO["stage_s2" if s2 else "stage"],
+                               "down" if s2 else "same")
+                encs.append(self._skip_rows(i + 1, y, at))
+            y = encs[-1]
+            for j, skip in enumerate(reversed([x0] + encs[:-1])):
+                up = halo_apply(lambda d, x, j=j: at(d).dec[j].deconv(
+                    x, (2 * x.shape[1], 2 * x.shape[2])), y,
+                    ROW_HALO["deconv"], "up")
+                y = halo_apply(lambda d, u, s, j=j: at(d).dec[j].res(
+                    u, dual=s), up, ROW_HALO["stage"], extras=[skip])
+            y = halo_apply(lambda d, x: at(d).conv11(at(d).conv10(x)).to(
+                pol.output_dtype), y, ROW_HALO["head"])
+        if logits:
+            return y
+        return y.map(lambda t: torch.log_softmax(t, dim=-1))
+
 
 class UResNet(ZoneModel):
     """Input (b, h, w, c) NHWC; output (b, h, w, num_classes)
@@ -207,6 +285,12 @@ class UResNet(ZoneModel):
         """Whether the JAX package runs its packed (and int8) zone for
         inputs of this width (uresnet.py:68-70)."""
         return packed_zone(self.config, width)
+
+    def _check_width(self, width: int) -> None:
+        check_zone(self.config, self.policy, width)
+
+    def _stem_pack(self) -> int:
+        return zone_packs(self.config)["stem"]
 
     def forward(self, x: torch.Tensor, logits: bool = False) -> torch.Tensor:
         pol = self.policy

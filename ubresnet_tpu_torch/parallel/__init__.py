@@ -1,2 +1,3 @@
-"""Multi-process runs of the port: process groups and launch helpers
-(distributed.py), data-parallel sharding of a training (sharding.py)."""
+"""Multi-device runs of the port: process groups and launch helpers
+(distributed.py), and sharding (sharding.py): the data and model axes
+of a training over ranks, whole planes row-sharded over devices."""

@@ -24,14 +24,15 @@ import torch
 _STEP = re.compile(r"^step_(\d+)\.tar$")
 
 
-def _payload(state, epoch: float) -> dict:
+def _payload(state, epoch: float, whole=None) -> dict:
+    sd, osd = whole or (state.model.state_dict(),
+                        state.optimizer.state_dict())
     return {
         "iter": state.step,
         "epoch": float(epoch),
-        "state_dict": {k: v.detach().cpu()
-                       for k, v in state.model.state_dict().items()},
+        "state_dict": {k: v.detach().cpu() for k, v in sd.items()},
         "best_prec1": float(state.best_metric),
-        "optimizer": state.optimizer.state_dict(),
+        "optimizer": osd,
     }
 
 
@@ -47,14 +48,18 @@ def checkpoint_path(directory: str, step: int) -> str:
 
 
 def save_checkpoint(directory: str, state, *, best: bool = False,
-                    epoch: float = 0.0) -> str:
+                    epoch: float = 0.0, whole=None) -> str:
     """Save under <dir>/step_<N>.tar; also refresh <dir>/best.tar when
     ``best``. Returns the step file's path. In a distributed run only
-    rank 0 calls this (train/trainer.py)."""
+    rank 0 calls this (train/trainer.py). ``whole``: (model state_dict,
+    optimizer state_dict) to write instead of the state's own — with a
+    model axis, the sharded weights and moments gathered whole
+    (parallel/sharding.py:whole_state_dict, whole_optimizer_state), so
+    the file is the one a single process writes."""
     directory = os.path.abspath(directory)
     os.makedirs(directory, exist_ok=True)
     path = checkpoint_path(directory, state.step)
-    _write(_payload(state, epoch), path)
+    _write(_payload(state, epoch, whole), path)
     if best:
         tmp = os.path.join(directory, f"best.tar.{os.getpid()}.tmp")
         shutil.copyfile(path, tmp)
@@ -105,7 +110,8 @@ def restore_checkpoint(directory: str, state, *, step: Optional[int] = None,
                        best: bool = False):
     """Load a checkpoint (the latest by default) into ``state``: the
     model's parameters and running stats, the optimizer, the step and
-    the best metric."""
+    the best metric. The model is whole (with a model axis the trainer
+    restores before ``shard_state`` slices it again)."""
     path = checkpoint_file(directory, step=step, best=best)
     payload = torch.load(path, map_location="cpu", weights_only=False)
     state.model.load_state_dict(payload["state_dict"])

@@ -25,6 +25,13 @@ through DistributedDataParallel's hooks, which would not compose with
 the microbatch loop, whole-forward remat and the guard; overlapping
 the gradient all-reduce with backward is left to a later change.
 
+With a model axis (``mesh.model_size`` > 1) the ranks of one data index
+hold the same shard and the same replicated parameters, and each its
+slice of the sharded weights (parallel/sharding.py); the gradients,
+loss and metrics are reduced over the data group (the ranks of the
+same model index), so each data index counts once, and the guard over
+the whole world, since a sharded slice's gradient lives on one rank.
+
 ``build_train_step`` and ``build_eval_step`` run on the card unless
 ``device="cpu"`` is passed; without a card they raise.
 """
@@ -125,7 +132,8 @@ def build_train_step(num_classes: int = 3,
     data-parallel batch (the module docstring); the metrics are the
     global batch's."""
     device = resolve_device(device)
-    group = None if mesh is None else mesh.group
+    group = None if mesh is None else mesh.data_group
+    world = None if mesh is None else mesh.group
     if use_pallas_loss and class_weights is not None:
         raise NotImplementedError(
             "the loss kernel (K7) does not take class_weights")
@@ -174,7 +182,7 @@ def build_train_step(num_classes: int = 3,
         # max |g| per tensor carries any inf or NaN through
         worst = torch.stack(torch._foreach_norm(grads, float("inf")))
         ok = all_true(bool(torch.isfinite(metrics["loss"])
-                           & torch.isfinite(worst).all()), group, device)
+                           & torch.isfinite(worst).all()), world, device)
         if ok:
             opt.step()
         else:
@@ -197,21 +205,24 @@ def build_eval_step(num_classes: int = 3,
     registry pairs with the trained model's class, built from the live
     state_dict (running-stats BN folded, the eval kernel
     zone under the model's policy), then the plain loss and the
-    accuracies, no update; with ``mesh``, the global batch's."""
+    accuracies, no update; with ``mesh``, the global batch's. With a
+    model axis the sharded weights are gathered whole first (every rank
+    of a model group calls the step)."""
     from ubresnet_tpu_torch.models.registry import eval_class_of
+    from ubresnet_tpu_torch.parallel.sharding import whole_state_dict
 
     device = resolve_device(device)
-    group = None if mesh is None else mesh.group
+    group = None if mesh is None else mesh.data_group
     cw = (None if class_weights is None else
           torch.as_tensor(np.asarray(class_weights, np.float32),
                           device=device))
 
     def step(state: TrainState, batch: dict) -> dict:
         batch = to_device(batch, device)
+        sd = whole_state_dict(state.model)
         with torch.inference_mode():
             model = eval_class_of(state.model)(
-                state.model.state_dict(), policy=state.model.policy,
-                device=device)
+                sd, policy=state.model.policy, device=device)
             logits = model(batch["image"], logits=True)
             loss = pixelwise_weighted_nll_from_logits(
                 logits, batch["label"], batch["weight"], cw)

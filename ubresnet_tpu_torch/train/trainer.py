@@ -40,8 +40,16 @@ saves (rank 0) and leaves without waiting for its peers, which the
 launcher's gang kill then ends. ``fault_at_iter`` hard-exits rank 0
 once, as in JAX. Several cards visible to one process: the port trains
 on one of them (one process per card is its idiom; JAX spreads one
-process over them) and says how to use them all. Not in the port yet,
-and refused: model_axis > 1.
+process over them) and says how to use them all.
+
+``model_axis`` M > 1 lays a (world / M, M) mesh over the ranks
+(core/mesh.py): the weights with ``tp_min_features`` or more output
+channels are sharded by output channel over each model group, with
+their Adam moments (parallel/sharding.py). The M ranks of one data
+index load the same shard, from seed + data index·7919, so the global
+batch is batch × world / M; BatchNorm moments, gradients and metrics
+are reduced over the data group. Rank 0 gathers the slices to write the
+checkpoint one process writes, and a resume slices it again.
 """
 from __future__ import annotations
 
@@ -68,7 +76,12 @@ from ubresnet_tpu_torch.data.loader import (
 from ubresnet_tpu_torch.deploy.weights import random_state_dict
 from ubresnet_tpu_torch.models import MODEL_REGISTRY, get_model
 from ubresnet_tpu_torch.parallel import distributed
-from ubresnet_tpu_torch.parallel.sharding import shard_state
+from ubresnet_tpu_torch.parallel.sharding import (
+    param_state_bytes,
+    shard_state,
+    whole_optimizer_state,
+    whole_state_dict,
+)
 from ubresnet_tpu_torch.train.checkpoint import (
     checkpoint_path,
     latest_step,
@@ -129,10 +142,6 @@ def make_loader(dcfg: DataConfig, seed: int = 0):
 
 
 def _refuse_unported(cfg: TrainConfig) -> None:
-    if cfg.model_axis > 1:
-        raise NotImplementedError(
-            "model_axis > 1 (channel sharding) is not in the port yet: "
-            "ROADMAP queue 1, item 10")
     if cfg.model.name not in MODEL_REGISTRY:
         raise NotImplementedError(f"model '{cfg.model.name}' is not in the "
                                   f"port (it has {sorted(MODEL_REGISTRY)})")
@@ -191,8 +200,9 @@ class Trainer:
 
     def run(self) -> dict:
         cfg = self.cfg
-        # each rank draws its own stream: its share of the global batch
-        pseed = cfg.seed + self.rank * 7919
+        # each data index draws its own stream: its share of the global
+        # batch (the ranks of one model group load the same one)
+        pseed = cfg.seed + self.mesh.data_rank * 7919
         train_loader = make_loader(cfg.train_data, seed=pseed).start()
         valid_loader = (make_loader(cfg.valid_data, seed=pseed + 1).start()
                         if cfg.valid_data else None)
@@ -221,7 +231,7 @@ class Trainer:
             distributed.barrier("first_step_compiled")
             print(f"distributed: kernels built + peers synced in "
                   f"{time.time() - t0:.1f}s", flush=True)
-        state = shard_state(state, self.mesh)
+        state = shard_state(state, self.mesh, cfg.tp_min_features)
         meters = MeterDict()
         best = state.best_metric
         summary = {}
@@ -232,8 +242,8 @@ class Trainer:
                    else train_loader.n_entries)
 
         def epoch():  # as the reference counts it: iter · batch / entries
-            return (state.step * cfg.train_data.batch_size * self.world
-                    / n_train)
+            return (state.step * cfg.train_data.batch_size
+                    * self.mesh.data_size / n_train)
 
         try:
             it = state.step
@@ -276,14 +286,17 @@ class Trainer:
                     self.writer.add_scalars("valid", vm, it + 1)
                     if vm["acc_total"] > best:  # the same on every rank
                         best = state.best_metric = vm["acc_total"]
+                        whole = self._whole(state)
                         if self.rank == 0:
                             save_checkpoint(cfg.checkpoint_dir, state,
-                                            best=True, epoch=epoch())
+                                            best=True, epoch=epoch(),
+                                            whole=whole)
                         self._saved("best_checkpoint")
                 if (it + 1) % cfg.checkpoint_every == 0:
+                    whole = self._whole(state)
                     if self.rank == 0:
                         save_checkpoint(cfg.checkpoint_dir, state,
-                                        epoch=epoch())
+                                        epoch=epoch(), whole=whole)
                         prune_checkpoints(cfg.checkpoint_dir,
                                           cfg.keep_checkpoints)
                     self._saved("checkpoint")
@@ -298,11 +311,19 @@ class Trainer:
             summary["error"] = traceback.format_exc()
             sys.stdout.flush()
         finally:
-            if self.rank == 0:
+            # with a model axis the file needs every rank's slices: a
+            # failed run writes no final one (the last periodic stands)
+            sharded = self.mesh.model_size > 1
+            whole = (self._whole(state) if sharded and "error" not in summary
+                     else None)
+            if self.rank == 0 and (whole is not None or not sharded):
                 path = save_checkpoint(cfg.checkpoint_dir, state,
-                                       epoch=epoch())
+                                       epoch=epoch(), whole=whole)
                 prune_checkpoints(cfg.checkpoint_dir, cfg.keep_checkpoints)
             else:
+                if self.rank == 0:
+                    print("model axis: no final checkpoint after a "
+                          "failure", flush=True)
                 path = checkpoint_path(cfg.checkpoint_dir, state.step)
             # a failed rank does not wait: its peers may be blocked in a
             # collective it will never join (the launcher ends them)
@@ -317,6 +338,8 @@ class Trainer:
         summary.update({
             "loader": type(train_loader).__name__,
             "process": [self.rank, self.world],
+            "mesh": [self.mesh.data_size, self.mesh.model_size],
+            "param_state_bytes": param_state_bytes(state),
             "kernel_launches": ops.launch_counts(),
             "final_checkpoint": path,
             "final_iter": state.step,
@@ -325,6 +348,14 @@ class Trainer:
             "meters": meters.averages(),
         })
         return summary
+
+    def _whole(self, state):
+        """The whole weights and optimizer moments for a checkpoint, with
+        a model axis (a collective of every rank), else None."""
+        if self.mesh.model_size == 1:
+            return None
+        return (whole_state_dict(state.model),
+                whole_optimizer_state(state))
 
     def _maybe_inject_fault(self, it: int):
         """One-shot hard exit (no cleanup, no final checkpoint). The

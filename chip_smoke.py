@@ -29,7 +29,10 @@ Phases, each printing JSON lines; any failure exits non-zero:
              its f32 sums of the bf16 y ≤ 1e-3·max|plain|, where one bf16
              step of some y may differ), K1 as the input gradient (as K1),
              K6 (f32 dW ≤ 1e-3·max|plain|: sums over 1-4 M pixels in
-             another order), K7 forward and backward (f32, ≤ 1e-5·max);
+             another order; the same bits on a second launch; its ms and
+             cuDNN's the median of 5 passes, min and max beside; its
+             launch geometry and cross-cluster scratch bytes), K7
+             forward and backward (f32, ≤ 1e-5·max);
              deconv-AD rows at dec2's and dec1's b16 shapes: K10 (dx as
              K1 and dW as K9 from one launch, against deconv2x_bwd_plain;
              library: torch.autograd.grad of F.conv_transpose2d, cuDNN
@@ -42,15 +45,16 @@ Phases, each printing JSON lines; any failure exits non-zero:
              Each row also gives pct_of_bound (bound_ms / ms) and
              vs_library (ms / library_ms); K1, K5, K6, K8, K9, K10 and
              the int8 rows also the ptxas registers, spills and stack of
-             the kernel instance they launch, and K5, K8, K9 and K10 rows
-             launch twice and require the same bits (same_bits). K1, K2,
+             the kernel instance they launch, and K5, K6, K8, K9 and K10
+             rows launch twice and require the same bits (same_bits). K1, K2,
              K3, K5, K6, K8, K9 and K10 are bf16 tensor-core kernels (mma.sync
              m16n8k16, f32 accumulators), K1-s8, K2-s8 and K3-s8 int8
              ones (m16n8k32, exact s32 accumulators: K1-s8 runs K1's
              mainloop with two 7x7 taps a 32-deep k-step, K2-s8 and
              K3-s8 carry K2's and K3's designs), each in a persistent
              grid: each block walks its tiles, the next tile's input
-             arriving by double-buffered cp.async; all but K4, K6, K7
+             arriving by double-buffered cp.async (K6: a 3-4 stage
+             ring); all but K4, K6, K7
              and K9 stage their layer's weights in shared memory once
              per block, K2 and K2-s8 keep m (with its halo) on chip, K3
              and K3-s8 compute all four output parity classes of a tile
@@ -59,10 +63,12 @@ Phases, each printing JSON lines; any failure exits non-zero:
              fixed order, K8, K9 and K10
              read each haloed dy tile as its four parity planes (each
              tap one plane at stride 1), K6, K9 and K10 keep their block's
-             share of dW in registers (dW = x_shiftᵀ·dy per tile, or
-             x_tileᵀ·dy_tap per tap, both operands by ldmatrix.trans);
-             K10 runs K8's and K9's GEMMs on one read of x and dy and
-             adds its blocks' dW in the same launch (clusters of 8).
+             share of dW in registers (K6: x_rowᵀ·dy_row per x row and
+             tap row, wgmma at the 3x3s with ci 64 and the 7x7s with co
+             16; K9: x_tileᵀ·dy_tap per tap, by ldmatrix.trans); K6
+             adds its blocks' dW through clusters of 2 and sum_rows, K10
+             in the same launch through clusters of 8; K10 runs K8's
+             and K9's GEMMs on one read of x and dy.
              The eval and int8 rows again at the wholeview paths' cells:
              b10 512x832 (one stitched chunk of crops) and b1 1024x3456
              (the spatial path's padded plane), under the same checks.
@@ -301,6 +307,7 @@ import os
 import re
 import shutil
 import signal
+import statistics
 import subprocess
 import sys
 import time
@@ -617,7 +624,7 @@ def stats_check(got, want):
 
 def _row(layer, kernel, kfn, pfn, lfn, nbytes, ops, peak, check=bf16_check,
          library=None, per_step=0, per_step_ad=None, instance=None,
-         same_bits=False, after=None):
+         same_bits=False, after=None, passes=1):
     """``per_step``: launches of this row's kernel at this shape in one
     train step; ``per_step_ad`` the same with fused_train_deconv
     (default: ``per_step``); ``instance``: the template arguments of the
@@ -629,7 +636,8 @@ def _row(layer, kernel, kfn, pfn, lfn, nbytes, ops, peak, check=bf16_check,
             "lfn": lfn, "bytes": nbytes, "ops": ops, "peak": peak,
             "check": check, "library": library, "per_step": per_step,
             "per_step_ad": per_step if per_step_ad is None else per_step_ad,
-            "instance": instance, "same_bits": same_bits, "after": after}
+            "instance": instance, "same_bits": same_bits, "after": after,
+            "passes": passes}
 
 
 # demangled kernel name → its ptxas figures, filled after the build
@@ -874,6 +882,21 @@ def kernel_rows(dev, B=BATCH_MAIN, hw=HW, inplanes=16, classes=3,
     return _tagged(rows, B, hw, _model_tag(inplanes, classes))
 
 
+# K6 rows: ms and cuDNN's ms are the median of this many passes
+DW_PASSES = 5
+
+
+def dw_scratch(ci, co, k, B, hw, dev):
+    """K6's launch geometry at one row's shape and the bytes of its
+    cross-cluster scratch: each cluster writes one (k, k, ci, co) f32
+    row, which sum_rows reads back."""
+    from ubresnet_tpu_torch.ops import conv
+
+    g = conv.dw_grid(ci, co, k, B, hw, hw, dev)
+    return {"dw_grid": g,
+            "scratch_bytes": 2 * g["clusters"] * k * k * ci * co * 4}
+
+
 def train_kernel_rows(dev, zone=TRAIN_ZONE, classifier=CLASSIFIER,
                       classes=3, model="", cell_hw=HW, loss_rows=True):
     """One row per distinct shape of the train zone at batch 16 and its
@@ -961,7 +984,9 @@ def train_kernel_rows(dev, zone=TRAIN_ZONE, classifier=CLASSIFIER,
             pix * (ci + co) * 2 + k * k * ci * co * 4, 2 * macs,
             BF16_TENSOR_FLOPS, check=f32_check(1e-3),
             library="torch.nn.grad.conv2d_weight", per_step=count,
-            instance=(ci, co, k)))
+            instance=(ci, co, k), same_bits=True, passes=DW_PASSES,
+            after=lambda row, ci=ci, co=co, k=k, hw=hw: dw_scratch(
+                ci, co, k, B, hw, dev)))
 
     if not loss_rows:
         return _tagged(rows, B, cell_hw, model)
@@ -1310,6 +1335,18 @@ def _ratios(r):
             "vs_library": None if lib is None else r["ms"] / lib}
 
 
+def _timed(key, fn, passes):
+    """{key: ms} of ``fn`` (None without one); over several passes the
+    median, with ``key_min``, ``key_max`` and the passes beside it."""
+    if fn is None:
+        return {key: None}
+    ts = [time_ms(fn) for _ in range(passes)]
+    if passes == 1:
+        return {key: ts[0]}
+    return {key: statistics.median(ts), f"{key}_min": min(ts),
+            f"{key}_max": max(ts), f"{key}_passes": ts}
+
+
 def check_kernels(rows):
     import torch
 
@@ -1338,8 +1375,9 @@ def check_kernels(rows):
             "cell": r.get("cell", MAIN_CELL),
             "shape": list((got[0] if isinstance(got, tuple) else got).shape),
             "max_abs_err": err, "max_abs_ref": ref, "tolerance": tol,
-            **extra, "ms": time_ms(r["kfn"]), "plain_ms": time_ms(r["pfn"]),
-            "library_ms": None if r["lfn"] is None else time_ms(r["lfn"]),
+            **extra, **_timed("ms", r["kfn"], r.get("passes", 1)),
+            "plain_ms": time_ms(r["pfn"]),
+            **_timed("library_ms", r["lfn"], r.get("passes", 1)),
             "library": r["library"],
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",

@@ -447,6 +447,36 @@ def test_conv_stats_kernel_grid_sizes(dev, shape, per_sm):
     _stats_same(got, train_conv.conv_stats(x, w, b))
 
 
+# K6's tile walk: a pixel count that is a multiple of neither its tile
+# nor its grid (an odd number of tiles, 1x1 runs and 16x16 blocks alike,
+# on an even number of blocks), and more tiles than its grid holds in
+# its ring at once
+DW_WALKS = [(3, 37, 37), (8, 512, 512)]
+
+
+@pytest.mark.parametrize("bhw", DW_WALKS, ids=["B3-37x37", "B8-512x512"])
+@pytest.mark.parametrize("shape", sorted(conv.DW_SHAPES))
+def test_conv_dw_kernel_walk(dev, bhw, shape):
+    """K6 at every compiled (ci, co, k) on a ragged batch (the last tile
+    and the last round of the grid cut short) and on one whose tiles
+    outnumber its blocks x ring stages (every stage reused): f32 dW
+    within 1e-4·max|plain|, the same bits on a second launch."""
+    bsz, *hw = bhw
+    ci, co, k = shape
+    g = conv.dw_grid(ci, co, k, bsz, *hw, dev)
+    blocks = g["cluster_blocks"] * g["clusters"]
+    if bsz == 3:
+        assert (bsz * hw[0] * hw[1]) % g["tile_pixels"] and g["tiles"] % 2
+        assert g["tiles"] % blocks
+    else:
+        assert g["tiles"] > blocks * g["stages"]
+    x = _rand(dev, bsz, *hw, ci, relu=True)
+    dy = _rand(dev, bsz, *hw, co, scale=0.1)
+    got = conv.conv_dw(x, dy, k)
+    _close_f32(got, conv.conv_dw_plain(x, dy, k), 1e-4)
+    assert torch.equal(got, conv.conv_dw(x, dy, k))
+
+
 @pytest.mark.parametrize("hw", HW)
 @pytest.mark.parametrize("shape", sorted(conv.DW_SHAPES))
 def test_conv_dw_kernel(dev, hw, shape):

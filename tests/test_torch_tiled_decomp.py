@@ -24,11 +24,15 @@ fused_conv_s2k4):
   padded to a multiple of 8 (co = 3: columns 3-7 zero); at ci = 4 each
   pixel holds 8 channels (4-7 zero) and a 16-deep k-step covers two taps,
   the 49 taps padded by a phantom 50th whose weight rows are zero;
-- K6: per 16x16 pixel tile and tap, x_shift^T @ dy (M = taps ci, K = the
-  tile's pixels, one tile row a k-step, dy zeroed outside the image and
-  co = 3 padded to 8), summed over the rows of each row group, over the
-  tiles t = b, b + blocks, .. of each block, then the groups in order and
-  the blocks' rows in order;
+- K6: per tile of 16 rows of 16 pixels (a 16x16 image block with its x
+  halo, at 1x1 a run of 256 consecutive pixels), for each x row r and
+  tap row kh, x_row[r] (shifted by the tap column)^T @ dy[r - kh] (M =
+  ci, K = the row's pixels, dy zeroed outside the image); at co <= 4 one
+  8-column n-tile holds dy row y in columns 0-3 and row y - 1 in 4-7
+  (zero outside the row group), so slot m serves tap rows 2m and 2m + 1;
+  summed over each row group's rows, over the tiles t = b, b + blocks,
+  .. of each block, the groups in order, the two blocks of a cluster in
+  rank order, the cluster rows in sum_rows' stripe order;
 - K5: K1's tile GEMM + bias, y rounded to x's dtype, and the sums of
   the rounded y of in-image pixels only, per lane (warp w, lane l: rows
   2w, 2w + 1 of each tile, columns l/4 and l/4 + 8), over the block's
@@ -445,53 +449,94 @@ def test_input_grad_decomposition_matches_pallas_vjp(rng, k, ci, co, p):
 # ---- K6: the weight gradient as a GEMM over each tile's pixels
 
 
-def conv_dw_tiled(x, dy, k, blocks=3, groups=1, tile=(16, 16)):
-    """K6's decomposition and summation order: block b walks tiles t =
-    b, b + blocks, .. (row-major over images, tile rows, tile columns);
-    row group q of the block takes the tile's rows q, q + groups, ..,
-    one k-step each: for each tap, x_shift[row]^T @ dy[row] over the
-    row's pixels. The groups' sums are added in group order, then the
-    blocks' rows in block order."""
-    th, tw = tile
+def conv_dw_tiled(x, dy, k, clusters=3, cluster=2, groups=1, rows=16):
+    """K6's decomposition and summation order: ``clusters`` x ``cluster``
+    blocks; block b walks tiles t = b, b + blocks, .. (16 x 16 image
+    blocks, row-major over images, tile rows, tile columns; at 1x1 runs
+    of 256 consecutive pixels). Row group q of a block takes the tile's
+    dy rows q R .. (q + 1) R - 1 (R = 16 / groups) and x rows q R ..
+    q R + R + k - 2: for each x row r and tap row kh with dy row r - kh in
+    the group, x_row[r, kw:kw + 16]^T @ dy_row[r - kh] for every tap
+    column kw. At co <= 4 the dy rows are pairs [dy[y], dy[y - 1]] (zero
+    outside the group), slot m = tap rows 2m, 2m + 1. The groups' sums
+    are added in group order, a cluster's blocks in rank order, the
+    cluster rows in sum_rows' stripe order."""
     bsz, h, wd, ci = x.shape
     co = dy.shape[-1]
-    cop = -(-co // 8) * 8
-    r, taps = k // 2, [(dy_, dx) for dy_ in range(k) for dx in range(k)]
-    x, dy = x.float(), torch.nn.functional.pad(dy.float(), (0, cop - co))
-    tiles_y, tiles_x = -(-h // th), -(-wd // tw)
-    ntiles = bsz * tiles_y * tiles_x
-    rows = []
-    for blk in range(min(blocks, ntiles)):
-        acc = torch.zeros(groups, len(taps), ci, cop)
-        for t in range(blk, ntiles, blocks):
-            n, rem = divmod(t, tiles_y * tiles_x)
-            oh0, ow0 = (rem // tiles_x) * th, (rem % tiles_x) * tw
-            xt = _window(x[n:n + 1], oh0 - r, ow0 - r, th + k - 1,
-                         tw + k - 1)[0]
-            dt = _window(dy[n:n + 1], oh0, ow0, th, tw)[0]
-            for y in range(th):
-                for i, (ky, kx) in enumerate(taps):
-                    acc[y % groups, i] += xt[y + ky, kx:kx + tw].T @ dt[y]
-        part = acc[0]
+    x, dy = x.float(), dy.float()
+    pair = k > 1 and co <= 4
+    rg, r = rows // groups, k // 2
+    if k == 1:  # a run of 256 pixels is 16 rows of 16: an image of them
+        npix = bsz * h * wd
+        ntiles = -(-npix // (rows * 16))
+        pad = ntiles * rows * 16 - npix
+
+        def flat(a):
+            a = torch.cat([a.reshape(-1, a.shape[-1]),
+                           a.new_zeros(pad, a.shape[-1])])
+            return a.reshape(ntiles, rows, 16, a.shape[-1])
+        xt_all, dt_all = flat(x), flat(dy)
+    else:
+        tiles_y, tiles_x = -(-h // rows), -(-wd // 16)
+        ntiles = bsz * tiles_y * tiles_x
+    nblocks = clusters * cluster
+    shares = []
+    for blk in range(nblocks):
+        acc = torch.zeros(groups, k, k, ci, co)
+        for t in range(blk, ntiles, nblocks):
+            if k == 1:
+                xt, dt = xt_all[t], dt_all[t]
+            else:
+                n, rem = divmod(t, tiles_y * tiles_x)
+                oh0, ow0 = (rem // tiles_x) * rows, (rem % tiles_x) * 16
+                xt = _window(x[n:n + 1], oh0 - r, ow0 - r, rows + k - 1,
+                             16 + k - 1)[0]
+                dt = _window(dy[n:n + 1], oh0, ow0, rows, 16)[0]
+            for q in range(groups):
+                d = dt[q * rg:(q + 1) * rg]
+                if pair:  # row y: [dy[y], dy[y - 1]], rg + 1 rows
+                    z = d.new_zeros(1, 16, co)
+                    d = torch.cat([torch.cat([d, z]), torch.cat([z, d])],
+                                  -1)
+                for xr in range(rg + k - 1):
+                    xrow = xt[q * rg + xr]
+                    for kw in range(k):
+                        a = xrow[kw:kw + 16]
+                        for m in range((k + 1) // 2 if pair else k):
+                            y = xr - (2 * m if pair else m)
+                            if not 0 <= y < d.shape[0]:
+                                continue
+                            prod = a.T @ d[y]
+                            if pair:
+                                acc[q, 2 * m, kw] += prod[:, :co]
+                                if 2 * m + 1 < k:
+                                    acc[q, 2 * m + 1, kw] += prod[:, co:]
+                            else:
+                                acc[q, m, kw] += prod
+        share = acc[0]
         for q in range(1, groups):
-            part = part + acc[q]
-        rows.append(part)
-    dw = rows[0]
-    for part in rows[1:]:
-        dw = dw + part
-    return dw[..., :co].reshape(k, k, ci, co)
+            share = share + acc[q]
+        shares.append(share)
+    crow = []
+    for c in range(clusters):
+        s_ = shares[c * cluster]
+        for rank in range(1, cluster):
+            s_ = s_ + shares[c * cluster + rank]
+        crow.append(s_)
+    return _stripe_sum(crow)
 
 
 @pytest.mark.parametrize("groups", [1, 2, 8])
 @pytest.mark.parametrize("shape", sorted(conv.DW_SHAPES))
 def test_conv_dw_decomposition_matches_plain(rng, shape, groups):
     """Every compiled (ci, co, k) at 2 x 40 x 72 (tiles cut at the border
-    in both directions; the halo reads zeros outside the image), incl.
-    co = 3 padded to 8, with 1, 2 and 8 row groups."""
+    in both directions; the halo reads zeros outside the image; at 1x1
+    the last run cut short), incl. co = 3 and 4 as tap-row pairs, with 1,
+    2 and 8 row groups, 5 block pairs."""
     ci, co, k = shape
     x = _t(rng.randn(2, 40, 72, ci))
     dy = _t(rng.randn(2, 40, 72, co))
-    got = conv_dw_tiled(x, dy, k, blocks=5, groups=groups)
+    got = conv_dw_tiled(x, dy, k, clusters=5, groups=groups)
     want = conv.conv_dw_plain(x, dy, k)
     assert got.shape == want.shape == (k, k, ci, co)
     err = float((got - want).abs().max())
@@ -522,7 +567,7 @@ def test_conv_dw_decomposition_matches_pallas(rng, k, ci, co, p):
     dy = rng.randn(2, 16, 16 * p, co).astype(np.float32)
     want = pallas_conv_dw(pack(jnp.asarray(x), p), pack(jnp.asarray(dy), p),
                           p=p, kw=k, th=4, interpret=True)
-    got = conv_dw_tiled(_t(x), _t(dy), k, blocks=3, groups=2)
+    got = conv_dw_tiled(_t(x), _t(dy), k, clusters=3, groups=2)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
                                atol=1e-3)
 

@@ -107,7 +107,8 @@ def test_conv_ad_matches_pallas(rng, k, ci, co, p):
 
 @pytest.mark.parametrize("k,ci,co,p", [(3, 16, 16, 8), (3, 32, 16, 4),
                                        (7, 16, 16, 8), (1, 32, 32, 4),
-                                       (7, 16, 3, 8), (3, 8, 12, 16)])
+                                       (7, 16, 3, 8), (3, 8, 12, 16),
+                                       (1, 32, 16, 4), (7, 16, 4, 8)])
 def test_conv_dw_matches_pallas(rng, k, ci, co, p):
     x = rng.randn(2, H, WC * p, ci).astype(np.float32)
     dy = rng.randn(2, H, WC * p, co).astype(np.float32)

@@ -74,8 +74,10 @@ SIGNATURES = {
     "ubr_maxpool3x3s2": [_P] * 2 + [_I] * 4 + [_P],
     # x, w, bias, y, partials, sums | B, H, W, ci, co, k, blocks
     "ubr_conv_stats": [_P] * 6 + [_I] * 7 + [_P],
-    # x, dy, partials, dw | B, H, W, ci, co, k, blocks
+    # x, dy, partials, dw | B, H, W, ci, co, k, rows
     "ubr_conv_dw": [_P] * 4 + [_I] * 7 + [_P],
+    # out[6] | B, H, W, ci, co, k, rows (no stream: K6's launch geometry)
+    "ubr_conv_dw_grid": [_P] + [_I] * 7,
     # logits, labels, weights, partials, loss | N, C, blocks | N as float
     "ubr_weighted_nll": [_P] * 5 + [_I] * 3 + [_F, _P],
     # logits, labels, weights, g, grad | N, C | N as float

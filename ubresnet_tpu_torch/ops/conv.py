@@ -15,11 +15,15 @@ K = taps x ci) in a persistent grid, the weights laid out once per
 block, the haloed input tiles double-buffered by cp.async.
 
 K6 replaces ubresnet_tpu/ops/pallas_conv.py:pallas_conv_dw
-(_dw_kernel). Kernel: ops/csrc/conv_dw.cu — a bf16 tensor-core GEMM per
-16x16 pixel tile (M = taps x ci, N = co, K = pixels; both operands by
-ldmatrix.trans from the NHWC tiles), each block of a persistent grid
-keeping its partial dW in registers over a strided share of the tiles;
-the blocks' rows are added in a fixed order (two passes, no atomics).
+(_dw_kernel). Kernel: ops/csrc/conv_dw.cu — per tile of 16-pixel rows
+(flat pixel runs at 1x1, haloed image blocks at 3x3 and 7x7, through a
+3- or 4-stage cp.async ring) a bf16 tensor-core GEMM with M = ci, N = co,
+K = pixels, each x row's A fragment feeding the k tap rows of its tap
+column (mma.sync; wgmma with B read by descriptor for the 3x3s at ci 64
+and the 7x7s at co 16); a persistent grid of block pairs (clusters of
+2), each block keeping its share of dW in registers, a pair's shares
+added in rank order through distributed shared memory into one scratch
+row, the rows by sum_rows in a fixed order (no atomics on dW).
 
 ``conv_ad`` replaces pallas_conv_ad (_conv_ad_fwd, _conv_ad_bwd):
 forward K1, dx K1, dW K6 rounded to the kernel's dtype.
@@ -36,6 +40,8 @@ reference OIHW checkpoint permuted (2, 3, 1, 0).
 """
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -47,11 +53,6 @@ from ubresnet_tpu_torch.ops import _build, quant
 SHAPES = _build.SHAPES["conv_bn_act"]
 DW_SHAPES = _build.SHAPES["conv_dw"]
 S8_SHAPES = _build.SHAPES["conv_bn_act_s8"]
-# rows of K6's partial-dW scratch per SM: at least the blocks of any K6
-# shape that one SM holds at once (conv_dw.cu: 3). The kernel runs
-# min(rows, resident blocks) blocks, each over a strided share of the
-# 16x16 pixel tiles, and adds that many rows.
-DW_BLOCKS_PER_SM = 4
 
 
 def supports(ci: int, co: int, k: int) -> bool:
@@ -203,11 +204,40 @@ def conv_dw_plain(x: torch.Tensor, dy: torch.Tensor, k: int) -> torch.Tensor:
     return dw.permute(2, 3, 1, 0).contiguous()
 
 
+def dw_grid(ci: int, co: int, k: int, bsz: int, h: int, wd: int,
+            device: torch.device, rows: int = 1 << 30) -> dict:
+    """K6's launch geometry for an (ci, co, k) instance and a (bsz, h,
+    wd) batch on ``device``: the most clusters that fit at once
+    (``most``), the ring's stages, the pixels of a tile, the batch's
+    tiles, the clusters a launch with ``rows`` scratch rows takes
+    (``clusters``: each writes one (k, k, ci, co) f32 row, which
+    sum_rows reads back) and the blocks of a cluster."""
+    if not dw_supports(ci, co, k):
+        raise ValueError(f"conv_dw kernel has no (ci, co, k) = "
+                         f"{(ci, co, k)}; compiled: {sorted(DW_SHAPES)}")
+    out = (ctypes.c_int * 6)()
+    with torch.cuda.device(device):
+        rc = _build.library().ubr_conv_dw_grid(
+            ctypes.addressof(out), bsz, h, wd, ci, co, k, rows)
+    if rc:
+        raise RuntimeError(f"ubr_conv_dw_grid: CUDA error {rc}")
+    return dict(zip(("most", "stages", "tile_pixels", "tiles", "clusters",
+                     "cluster_blocks"), out))
+
+
+@functools.lru_cache(maxsize=None)
+def _dw_rows(dev: torch.device, ci: int, co: int, k: int) -> int:
+    """K6's scratch rows on ``dev``: one per cluster of blocks that fits
+    on the card at once (asked once per instance)."""
+    return dw_grid(ci, co, k, 1, 1, 1, dev)["most"]
+
+
 def conv_dw(x: torch.Tensor, dy: torch.Tensor, k: int) -> torch.Tensor:
     """Weight gradient of the stride-1 'same' k x k conv: x (B, H, W, ci)
     its input, dy (B, H, W, co) its output cotangent → (k, k, ci, co)
     f32. CPU tensors take the plain version; CUDA tensors (bf16) launch
-    K6."""
+    K6 with a (clusters, k*k*ci*co) f32 scratch, one row a cluster of
+    blocks that fits on the card (``_dw_rows``)."""
     if x.device.type == "cpu":
         return conv_dw_plain(x, dy, k)
     bsz, h, wd, ci = x.shape
@@ -218,14 +248,14 @@ def conv_dw(x: torch.Tensor, dy: torch.Tensor, k: int) -> torch.Tensor:
     dev = x.device
     _build.check(x, "x", torch.bfloat16, (bsz, h, wd, ci), dev)
     _build.check(dy, "dy", torch.bfloat16, (bsz, h, wd, co), dev)
-    tiles = bsz * -(-h // 16) * -(-wd // 16)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    blocks = min(tiles, sms * DW_BLOCKS_PER_SM)
-    part = torch.empty((blocks, k * k * ci * co), dtype=torch.float32,
+    _build.check_aligned(x, "x")
+    _build.check_aligned(dy, "dy")
+    rows = _dw_rows(dev, ci, co, k)
+    part = torch.empty((rows, k * k * ci * co), dtype=torch.float32,
                        device=dev)
     dw = torch.empty((k, k, ci, co), dtype=torch.float32, device=dev)
     _build.launch("ubr_conv_dw", [x, dy, part, dw],
-                  [bsz, h, wd, ci, co, k, blocks], dev)
+                  [bsz, h, wd, ci, co, k, rows], dev)
     conv_dw.launches += 1
     return dw
 

@@ -14,7 +14,8 @@ host-bound row's whole cost, such as ``deconv2x_ad``'s autograd). Every
 line is tagged with ROOT and the card; a last ``kernel_ab`` line sums
 ms, bound and library ms per kernel. IP (8 or 4) takes the deconv-AD rows
 of the UResNet at inplanes IP (the 8-channel streams) in place
-of the flagship's.
+of the flagship's; IP 32 the reference trainer's inplanes-32 train rows
+(256² crops) and its dec1 deconv-AD row.
 
 Run it by path, not with ``-m``, so that ROOT's package, not this one,
 is imported; run it once per checkout in turns (parent, change, change,
@@ -82,10 +83,19 @@ def main(argv=None) -> int:
     if int8:
         rows += cs.check_kernels([r for r in cs.int8_kernel_rows(
             dev, eval_rows) if r["kernel"] in want])
-    deconv_rows = (cs.deconv_ad_rows(dev) if ip is None else
-                   cs.deconv_ad_rows(dev, cs.DECONV_AD_8[ip],
-                                     model=f"inplanes {ip}"))
-    for made in (cs.train_kernel_rows(dev), deconv_rows):
+    if ip == 32:
+        train_rows = cs.train_kernel_rows(
+            dev, cs.TRAIN_ZONE_32, cs.CLASSIFIER_32, model="inplanes 32",
+            cell_hw=cs.TRAIN_HW_32, loss_rows=False)
+        deconv_rows = cs.deconv_ad_rows(
+            dev, (("dec1", 128, 64, 32),), model="inplanes 32",
+            cell_hw=cs.TRAIN_HW_32)
+    else:
+        train_rows = cs.train_kernel_rows(dev)
+        deconv_rows = (cs.deconv_ad_rows(dev) if ip is None else
+                       cs.deconv_ad_rows(dev, cs.DECONV_AD_8[ip],
+                                         model=f"inplanes {ip}"))
+    for made in (train_rows, deconv_rows):
         mine = [r for r in made if r["kernel"] in want]
         if mine:
             rows += cs.check_kernels(mine)

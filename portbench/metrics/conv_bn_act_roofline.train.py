@@ -1,0 +1,7 @@
+"""K1's share of its roofline in the traced stretch: the bound of its zone
+layers' work (work/arith.py) over its launches' device seconds."""
+from portbench.lib import readers
+
+
+def read(ctx):
+    return readers.roofline(ctx, "conv_bn_act")

@@ -13,12 +13,22 @@ for the whole run; the host ships COO pixels and the device densifies
 them; the tail batch is zero-padded to the batch shape; a one-deep
 pipeline dispatches batch k before it drains batch k-1, and a writer
 thread owns the output file; ``run`` returns the cumulative timing
-dict (total / read / forward / write). ``calibrate_from`` calibrates
-an int8 model's activation scales on the input's first images (JAX's
-deploy-time PTQ). On the card the drain overlaps
-the next batch's compute: each dispatch enqueues its device→host copy
-into pinned memory right behind the forward and records an event, so
-draining waits for that batch only.
+dict (total / read / forward / write: ``forward`` is the host's
+dispatch of each batch plus its wait for the scores, not the device's
+forward). ``calibrate_from`` calibrates an int8 model's activation
+scales on the input's first images (JAX's deploy-time PTQ). On the
+card the drain overlaps the next batch's compute: each dispatch
+enqueues its device→host copy into pinned memory right behind the
+forward and records an event, so draining waits for that batch only.
+
+Spans (utils/profiling.py:span; one batch's share its sequence number
+as ``id``): ``runner.dispatch`` around each replica's dispatch, with
+``runner.sparsify`` (COO and the pad to the run's capacity),
+``runner.halo`` (the sparse readback's halo), ``runner.stage`` (pinned
+staging and the host→device copies), ``runner.forward`` (densify, the
+model, exp and the compact form, all enqueued) and ``runner.readback``
+(the device→host copy and its event) inside; ``runner.fetch`` around
+each drain, with ``runner.wait`` (the host blocked on the card) inside.
 
 ``compact_readback="sparse"`` ships back only the u8 scores of the
 charge pixels and a ``readback_dilate`` halo around them
@@ -65,6 +75,7 @@ from ubresnet_tpu_torch.ops.sparse import (
     sparse_gather_forward,
     sparsify,
 )
+from ubresnet_tpu_torch.utils.profiling import StageTimer, span
 
 SPARSE_BUCKET = 4096  # COO capacity grain (pixels per crop)
 
@@ -82,7 +93,11 @@ class PrecroppedRunner:
     compact_readback: False (full f32 scores), "f16" (drop the last
     class, ship f16; the host rebuilds it as 1 - sum), "u8" (drop the
     last class, 255-level fixed point) or "sparse" (u8 at the charge
-    pixels and a ``readback_dilate`` halo only; needs ``sparse``)."""
+    pixels and a ``readback_dilate`` halo only; needs ``sparse``).
+
+    ``run``'s ``forward`` time is the host's dispatch of each batch plus
+    its wait for the scores: it holds the device's forward only where
+    the card, not the host, paces the stream."""
 
     def __init__(self, model, batch_size: int = 8, compact_readback=False,
                  score_dtype=np.float32, sparse: bool = True,
@@ -118,6 +133,7 @@ class PrecroppedRunner:
         self.score_dtype = np.dtype(score_dtype)
         self._cap = 0
         self._out_cap = 0
+        self._seq = 0  # batches dispatched: the spans' id
         self._bg_fields = {}
 
     def _post(self, probs: torch.Tensor) -> torch.Tensor:
@@ -133,46 +149,63 @@ class PrecroppedRunner:
         """(b, h, w, 1) host batch → one ``_dispatch_on`` result per
         replica, each for its contiguous shard."""
         share = batch.shape[0] // len(self.replicas)
-        return [self._dispatch_on(m, batch[i * share:(i + 1) * share])
+        self._seq += 1
+        return [self._dispatch_on(m, batch[i * share:(i + 1) * share],
+                                  self._seq)
                 for i, m in enumerate(self.replicas)]
 
     @torch.inference_mode()
-    def _dispatch_on(self, model, batch: np.ndarray):
+    def _dispatch_on(self, model, batch: np.ndarray, seq: int):
         """(b, h, w, 1) host batch → (``to_host_async``'s pair, the
-        output pixel indices of the sparse readback or None), scored by
-        ``model`` on its device: the forward and the device→host copy
-        are enqueued; on the card nothing waits here."""
+        output pixel indices of the sparse readback or None, ``seq``),
+        scored by ``model`` on its device: the forward and the
+        device→host copy are enqueued; on the card nothing waits here.
+        ``seq``: the batch's sequence number, its spans' id."""
         hw = batch.shape[1:3]
         device = model.device
         out_idx = None
-        if not self.sparse:
-            x = to_device(batch, device)
-        else:
-            sp = sparsify(batch[..., 0], bucket=SPARSE_BUCKET)
-            k = sp["indices"].shape[1]
-            self._cap = max(self._cap, k)
-            idx, val = sp["indices"], sp["values"]
-            if k < self._cap:
-                pad = ((0, 0), (0, self._cap - k))
-                idx, val = np.pad(idx, pad), np.pad(val, pad)
-            idx_t, val_t = to_device(idx, device), to_device(val, device)
-        if self.compact == "sparse":
-            halo = dilate_mask(batch[..., 0] != 0.0, self.readback_dilate)
-            out_idx = mask_indices(halo, bucket=SPARSE_BUCKET)
-            ko = out_idx.shape[1]
-            self._out_cap = max(self._out_cap, ko)
-            if ko < self._out_cap:
-                # pad with the -1 sentinel, never 0: index 0 is pixel
-                # (0, 0), and 0-padded slots would overwrite its fill
-                out_idx = np.pad(out_idx, ((0, 0), (0, self._out_cap - ko)),
-                                 constant_values=-1)
-            dev = sparse_gather_forward(model, idx_t, val_t,
-                                        to_device(out_idx, device), hw)
-        else:
+        with span("runner.dispatch", seq):
             if self.sparse:
-                x = densify(idx_t, val_t, hw)
-            dev = self._post(torch.exp(model(x)))
-        return to_host_async(dev), out_idx
+                with span("runner.sparsify"):
+                    sp = sparsify(batch[..., 0], bucket=SPARSE_BUCKET)
+                    k = sp["indices"].shape[1]
+                    self._cap = max(self._cap, k)
+                    idx, val = sp["indices"], sp["values"]
+                    if k < self._cap:
+                        pad = ((0, 0), (0, self._cap - k))
+                        idx, val = np.pad(idx, pad), np.pad(val, pad)
+            if self.compact == "sparse":
+                with span("runner.halo"):
+                    halo = dilate_mask(batch[..., 0] != 0.0,
+                                       self.readback_dilate)
+                    out_idx = mask_indices(halo, bucket=SPARSE_BUCKET)
+                    ko = out_idx.shape[1]
+                    self._out_cap = max(self._out_cap, ko)
+                    if ko < self._out_cap:
+                        # pad with the -1 sentinel, never 0: index 0 is
+                        # pixel (0, 0), and 0-padded slots would
+                        # overwrite its fill
+                        out_idx = np.pad(
+                            out_idx, ((0, 0), (0, self._out_cap - ko)),
+                            constant_values=-1)
+            with span("runner.stage"):
+                if self.sparse:
+                    idx_t = to_device(idx, device)
+                    val_t = to_device(val, device)
+                else:
+                    x = to_device(batch, device)
+                if out_idx is not None:
+                    out_t = to_device(out_idx, device)
+            with span("runner.forward"):
+                if out_idx is not None:
+                    dev = sparse_gather_forward(model, idx_t, val_t, out_t,
+                                                hw)
+                else:
+                    if self.sparse:
+                        x = densify(idx_t, val_t, hw)
+                    dev = self._post(torch.exp(model(x)))
+            with span("runner.readback"):
+                return to_host_async(dev), out_idx, seq
 
     def _bg_field(self, hw) -> np.ndarray:
         """The network's response to an all-zero input at this shape,
@@ -217,17 +250,20 @@ class PrecroppedRunner:
     def _fetch_one(self, pending, n: int, hw) -> np.ndarray:
         """One shard's first ``n`` rows, rebuilding the dropped class in
         compact mode."""
-        copy, out_idx = pending
-        out = wait_host(copy)[:n].numpy()
-        if self.compact == "sparse":
-            return self._fetch_sparse(out, out_idx, hw)
-        if self.compact:
-            out = out.astype(np.float32)
-            if self.compact == "u8":
-                out *= 1.0 / 255.0
-            rest = np.clip(1.0 - out.sum(axis=-1, keepdims=True), 0.0, 1.0)
-            out = np.concatenate([out, rest], axis=-1)
-        return out
+        copy, out_idx, seq = pending
+        with span("runner.fetch", seq):
+            with span("runner.wait"):
+                out = wait_host(copy)[:n].numpy()
+            if self.compact == "sparse":
+                return self._fetch_sparse(out, out_idx, hw)
+            if self.compact:
+                out = out.astype(np.float32)
+                if self.compact == "u8":
+                    out *= 1.0 / 255.0
+                rest = np.clip(1.0 - out.sum(axis=-1, keepdims=True),
+                               0.0, 1.0)
+                out = np.concatenate([out, rest], axis=-1)
+            return out
 
     def calibrate_from(self, input_file: str, plane: int = 2,
                        producer: str = "wire", n_images: int = 32,
@@ -255,9 +291,8 @@ class PrecroppedRunner:
     def run(self, input_file: str, output_file: str, plane: int = 2,
             producer: str = "wire", n_entries: Optional[int] = None,
             verbose: bool = False) -> OrderedDict:
-        timing = OrderedDict(
-            [("total", 0.0), ("read", 0.0), ("forward", 0.0), ("write", 0.0)])
-        t_total = time.time()
+        timer = StageTimer()
+        t_total = time.perf_counter()
         reader = open_event_file(input_file)
         writer, out_dt = open_score_writer(output_file, self.score_dtype)
         out_producer = f"uburn_plane{plane}"
@@ -271,22 +306,21 @@ class PrecroppedRunner:
         # serves every batch; decoded images are kept (bounded) for the
         # batch loop so each entry is decoded once
         prefetched = {}
-        t0 = time.time()
-        budget, cached, max_nnz, max_halo = 1 << 29, 0, 1, 1
-        for i in range(n):
-            im = select(i)
-            mask = im.pixels != 0
-            max_nnz = max(max_nnz, int(mask.sum()))
+        with timer.stage("read"):
+            budget, cached, max_nnz, max_halo = 1 << 29, 0, 1, 1
+            for i in range(n):
+                im = select(i)
+                mask = im.pixels != 0
+                max_nnz = max(max_nnz, int(mask.sum()))
+                if self.compact == "sparse":
+                    max_halo = max(max_halo, int(dilate_mask(
+                        mask[None], self.readback_dilate).sum()))
+                if cached < budget:
+                    prefetched[i] = im
+                    cached += im.pixels.nbytes
+            self._cap = round_capacity(max_nnz, SPARSE_BUCKET)
             if self.compact == "sparse":
-                max_halo = max(max_halo, int(dilate_mask(
-                    mask[None], self.readback_dilate).sum()))
-            if cached < budget:
-                prefetched[i] = im
-                cached += im.pixels.nbytes
-        self._cap = round_capacity(max_nnz, SPARSE_BUCKET)
-        if self.compact == "sparse":
-            self._out_cap = round_capacity(max_halo, SPARSE_BUCKET)
-        timing["read"] += time.time() - t0
+                self._out_cap = round_capacity(max_halo, SPARSE_BUCKET)
 
         write_q: "queue.Queue" = queue.Queue(maxsize=2)
         write_err = []
@@ -299,28 +333,25 @@ class PrecroppedRunner:
                 images, scores = item
                 if write_err:  # keep draining so the producer never blocks
                     continue
-                t0 = time.time()
-                try:
-                    for img, score in zip(images, scores):
-                        writer.set_id(*img.rse)
-                        for c in range(score.shape[-1]):
-                            writer.append(out_producer, Image2D(
-                                score[..., c].astype(out_dt),
-                                img.meta, *img.rse))
-                        writer.save_entry()
-                except BaseException as e:  # surfaced after the join
-                    write_err.append(e)
-                finally:
-                    timing["write"] += time.time() - t0
+                with timer.stage("write"):
+                    try:
+                        for img, score in zip(images, scores):
+                            writer.set_id(*img.rse)
+                            for c in range(score.shape[-1]):
+                                writer.append(out_producer, Image2D(
+                                    score[..., c].astype(out_dt),
+                                    img.meta, *img.rse))
+                            writer.save_entry()
+                    except BaseException as e:  # surfaced after the join
+                        write_err.append(e)
 
         wthread = threading.Thread(target=write_worker, daemon=True)
         wthread.start()
 
         def drain(images, pending):
-            t0 = time.time()
-            scores = self._fetch(pending, len(images),
-                                 images[0].pixels.shape)
-            timing["forward"] += time.time() - t0
+            with timer.stage("forward"):
+                scores = self._fetch(pending, len(images),
+                                     images[0].pixels.shape)
             if write_err:
                 raise write_err[0]
             write_q.put((images, scores))
@@ -328,20 +359,19 @@ class PrecroppedRunner:
         try:
             last = None
             for start in range(0, n, self.batch_size):
-                t0 = time.time()
-                images = [prefetched.pop(i, None) or select(i)
-                          for i in range(start, min(start + self.batch_size, n))]
-                batch = np.stack([im.pixels for im in images]).astype(
-                    np.float32)[..., None]
-                timing["read"] += time.time() - t0
-                t0 = time.time()
-                pad = self.batch_size - batch.shape[0]
-                if pad:  # keep one batch shape for the whole run
-                    batch = np.concatenate(
-                        [batch, np.zeros((pad,) + batch.shape[1:],
-                                         batch.dtype)])
-                pending = self._dispatch(batch)
-                timing["forward"] += time.time() - t0
+                with timer.stage("read"):
+                    images = [prefetched.pop(i, None) or select(i)
+                              for i in range(start,
+                                             min(start + self.batch_size, n))]
+                    batch = np.stack([im.pixels for im in images]).astype(
+                        np.float32)[..., None]
+                with timer.stage("forward"):
+                    pad = self.batch_size - batch.shape[0]
+                    if pad:  # keep one batch shape for the whole run
+                        batch = np.concatenate(
+                            [batch, np.zeros((pad,) + batch.shape[1:],
+                                             batch.dtype)])
+                    pending = self._dispatch(batch)
                 if last is not None:
                     drain(*last)
                 last = (images, pending)
@@ -356,9 +386,12 @@ class PrecroppedRunner:
         if write_err:
             raise write_err[0]
         writer.close()
-        timing["total"] = time.time() - t_total
+        timing = OrderedDict([("total", time.perf_counter() - t_total)] + [
+            (k, timer.times.get(k, 0.0)) for k in ("read", "forward", "write")])
         if verbose:
             print("------ timing -------")
             for k, v in timing.items():
                 print(f"{k} : {v:.3f} s / {v / max(n, 1):.5f} s per event")
+            print("(forward: the host's dispatch of each batch plus its wait "
+                  "for the scores, not the device's forward)")
         return timing

@@ -34,6 +34,14 @@ the whole world, since a sharded slice's gradient lives on one rank.
 
 ``build_train_step`` and ``build_eval_step`` run on the card unless
 ``device="cpu"`` is passed; without a card they raise.
+
+Spans of a train step (utils/profiling.py:span, ``id`` the step's
+index): ``train.step`` around the call, with ``train.h2d``,
+``train.densify``, ``train.bn_save`` (the running buffers' clone), per
+microbatch ``train.forward``, ``train.loss`` and ``train.backward``,
+then ``train.sync.guard`` (the guard's device→host wait),
+``train.optimizer`` (the update, or the skip's BN restore) and
+``train.sync.scalars`` (the metrics' device→host copy) inside.
 """
 from __future__ import annotations
 
@@ -59,6 +67,7 @@ from ubresnet_tpu_torch.train.metrics import (
 )
 from ubresnet_tpu_torch.train.optimizers import Optimizer
 from ubresnet_tpu_torch.utils.platform import resolve_device
+from ubresnet_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -147,13 +156,20 @@ def build_train_step(num_classes: int = 3,
         return pixelwise_weighted_nll_from_logits(logits, labels, weights, cw)
 
     def step(state: TrainState, batch: dict):
-        batch = to_device(batch, device)
+        with span("train.step", state.step):
+            return one_step(state, batch)
+
+    def one_step(state: TrainState, batch: dict):
+        with span("train.h2d"):
+            batch = to_device(batch, device)
         if sparse_hw is not None:
-            batch = densify_batch(batch, tuple(sparse_hw))
+            with span("train.densify"):
+                batch = densify_batch(batch, tuple(sparse_hw))
         model, opt = state.model, state.optimizer
         model.train()
         running = list(model.buffers())
-        saved = [b.clone() for b in running]
+        with span("train.bn_save"):
+            saved = [b.clone() for b in running]
         b = batch["image"].shape[0]
         if b % accum_steps:
             raise ValueError(f"batch {b} not divisible by accum_steps "
@@ -163,12 +179,15 @@ def build_train_step(num_classes: int = 3,
         micro = []
         for i in range(accum_steps):
             part = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
-            if remat:
-                logits = remat_call(model, part["image"], logits=True)
-            else:
-                logits = model(part["image"], logits=True)
-            loss = loss_impl(logits, part["label"], part["weight"])
-            loss.backward()
+            with span("train.forward"):
+                if remat:
+                    logits = remat_call(model, part["image"], logits=True)
+                else:
+                    logits = model(part["image"], logits=True)
+            with span("train.loss"):
+                loss = loss_impl(logits, part["label"], part["weight"])
+            with span("train.backward"):
+                loss.backward()
             micro.append(torch.cat([
                 loss.detach().float().view(1),
                 pixel_counts(logits.detach(), part["label"], num_classes)]))
@@ -181,17 +200,20 @@ def build_train_step(num_classes: int = 3,
         metrics = _global_metrics(torch.stack(micro), group, num_classes)
         # max |g| per tensor carries any inf or NaN through
         worst = torch.stack(torch._foreach_norm(grads, float("inf")))
-        ok = all_true(bool(torch.isfinite(metrics["loss"])
-                           & torch.isfinite(worst).all()), world, device)
-        if ok:
-            opt.step()
-        else:
-            with torch.no_grad():
-                for buf, old in zip(running, saved):
-                    buf.copy_(old)
-            state.nan_count += 1
+        with span("train.sync.guard"):
+            ok = all_true(bool(torch.isfinite(metrics["loss"])
+                               & torch.isfinite(worst).all()), world, device)
+        with span("train.optimizer"):
+            if ok:
+                opt.step()
+            else:
+                with torch.no_grad():
+                    for buf, old in zip(running, saved):
+                        buf.copy_(old)
+                state.nan_count += 1
         state.step += 1
-        out = _scalars(metrics)
+        with span("train.sync.scalars"):
+            out = _scalars(metrics)
         out["nan_skipped"] = state.nan_count
         return state, out
 

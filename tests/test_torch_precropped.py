@@ -144,3 +144,54 @@ def test_port_cli_takes_the_jax_flags(files):
                      + ["--data-parallel"]) == 0
     with open(dp, "rb") as a, open(d / "flags.uevt", "rb") as b:
         assert a.read() == b.read()
+
+
+def _crops_with(charges, hw=64, seed=11):
+    """(len(charges), hw, hw, 1) float32 crops with exactly ``n``
+    charged pixels each (distinct positions)."""
+    rng = np.random.RandomState(seed)
+    out = np.zeros((len(charges), hw * hw), np.float32)
+    for i, n in enumerate(charges):
+        px = rng.choice(hw * hw, size=n, replace=False)
+        out[i, px] = rng.uniform(20.0, 80.0, size=n)
+    return out.reshape(len(charges), hw, hw, 1)
+
+
+@pytest.mark.parametrize("order", ["grows", "below"])
+def test_runner_capacity_follows_batches_as_dense(monkeypatch, order):
+    """The runner's COO width across batches, at a 64-pixel grain: a
+    later batch whose k exceeds the capacity an earlier one set widens
+    it ("grows"); one whose k is below is shipped at the capacity
+    ("below"). The scores equal the dense transfer's on every batch,
+    and no ``np.pad`` runs."""
+    from ubresnet_tpu_torch.core.precision import Policy
+    from ubresnet_tpu_torch.deploy import precropped
+    from ubresnet_tpu_torch.deploy.weights import random_state_dict
+    from ubresnet_tpu_torch.models import get_model
+
+    def no_pad(*a, **k):
+        raise AssertionError("np.pad on the runner's path")
+
+    monkeypatch.setattr(precropped, "SPARSE_BUCKET", 64)
+    monkeypatch.setattr(np, "pad", no_pad)
+    shipped = []
+
+    def to_device(a, device):
+        shipped.append(a.shape)
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    monkeypatch.setattr(precropped, "to_device", to_device)
+    model = get_model("uresnet", random_state_dict(seed=3),
+                      policy=Policy.f32(), device="cpu")
+    sparse = precropped.PrecroppedRunner(model, batch_size=2)
+    dense = precropped.PrecroppedRunner(model, batch_size=2, sparse=False)
+    small, big = _crops_with([10, 40]), _crops_with([300, 120], seed=12)
+    batches, caps = (([small, big], [64, 320]) if order == "grows"
+                     else ([big, small], [320, 320]))
+    for batch, cap in zip(batches, caps):
+        shipped.clear()
+        got = sparse._fetch(sparse._dispatch(batch), 2, (64, 64))
+        assert sparse._cap == cap
+        assert shipped == [(2, cap), (2, cap)]  # indices, values
+        want = dense._fetch(dense._dispatch(batch), 2, (64, 64))
+        np.testing.assert_array_equal(got, want)

@@ -23,7 +23,7 @@ forward and records an event, so draining waits for that batch only.
 
 Spans (utils/profiling.py:span; one batch's share its sequence number
 as ``id``): ``runner.dispatch`` around each replica's dispatch, with
-``runner.sparsify`` (COO and the pad to the run's capacity),
+``runner.sparsify`` (COO at the run's capacity),
 ``runner.halo`` (the sparse readback's halo), ``runner.stage`` (pinned
 staging and the host→device copies), ``runner.forward`` (densify, the
 model, exp and the compact form, all enqueued) and ``runner.readback``
@@ -167,27 +167,20 @@ class PrecroppedRunner:
         with span("runner.dispatch", seq):
             if self.sparse:
                 with span("runner.sparsify"):
-                    sp = sparsify(batch[..., 0], bucket=SPARSE_BUCKET)
-                    k = sp["indices"].shape[1]
-                    self._cap = max(self._cap, k)
+                    sp = sparsify(batch[..., 0], bucket=SPARSE_BUCKET,
+                                  min_capacity=self._cap)
                     idx, val = sp["indices"], sp["values"]
-                    if k < self._cap:
-                        pad = ((0, 0), (0, self._cap - k))
-                        idx, val = np.pad(idx, pad), np.pad(val, pad)
+                    self._cap = idx.shape[1]  # the capacity only grows
             if self.compact == "sparse":
                 with span("runner.halo"):
                     halo = dilate_mask(batch[..., 0] != 0.0,
                                        self.readback_dilate)
-                    out_idx = mask_indices(halo, bucket=SPARSE_BUCKET)
-                    ko = out_idx.shape[1]
-                    self._out_cap = max(self._out_cap, ko)
-                    if ko < self._out_cap:
-                        # pad with the -1 sentinel, never 0: index 0 is
-                        # pixel (0, 0), and 0-padded slots would
-                        # overwrite its fill
-                        out_idx = np.pad(
-                            out_idx, ((0, 0), (0, self._out_cap - ko)),
-                            constant_values=-1)
+                    # padded with the -1 sentinel, never 0: index 0 is
+                    # pixel (0, 0), and 0-padded slots would overwrite
+                    # its fill
+                    out_idx = mask_indices(halo, bucket=SPARSE_BUCKET,
+                                           min_capacity=self._out_cap)
+                    self._out_cap = out_idx.shape[1]
             with span("runner.stage"):
                 if self.sparse:
                     idx_t = to_device(idx, device)

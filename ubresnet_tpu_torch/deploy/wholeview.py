@@ -179,13 +179,9 @@ class WholeViewRunner:
         hw = tuple(image.shape[:2])
         if self.sparse:
             sp = sparsify(image[None].astype(np.float32),
-                          bucket=self.sparse_bucket)
-            k = sp["indices"].shape[1]
-            self._cap = max(self._cap, k)  # the capacity only grows
+                          bucket=self.sparse_bucket, min_capacity=self._cap)
             idx, val = sp["indices"], sp["values"]
-            if k < self._cap:
-                pad = ((0, 0), (0, self._cap - k))
-                idx, val = np.pad(idx, pad), np.pad(val, pad)
+            self._cap = idx.shape[1]  # the capacity only grows
             x = densify(to_device(idx, self.device),
                         to_device(val, self.device), hw)[0]
         else:

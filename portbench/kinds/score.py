@@ -1,11 +1,12 @@
 """Scoring cells: the precropped runner's pipeline without file I/O.
 
 Set-up makes the weights and a pool of distinct crops from the seed,
-builds the port's eval model and ``PrecroppedRunner`` as the CLI does
-(sparse COO transfer, full float32 scores back), fixes the sparse
-capacity as the runner's pre-scan does, and warms up on the pool. The
-window is the runner's closed loop, one batch in flight: dispatch batch
-k (sparsify, pad, enqueue forward and readback), then drain batch k-1
+builds the port's eval model of the configuration's ``arch`` and
+``PrecroppedRunner`` as the CLI does (sparse COO transfer, full float32
+scores back), fixes the sparse capacity as the runner's pre-scan does,
+and warms up on the pool. The window is the runner's closed loop, one
+batch in flight: dispatch batch k (sparsify, pad, enqueue forward and
+readback), then drain batch k-1
 (``_fetch``: wait for its scores on the host), cycling through the pool
 until ``seconds`` have passed, then drain the last. A batch's latency
 runs from its dispatch call to its scores on the host; the rate counts
@@ -13,7 +14,8 @@ every crop whose scores reached the host, over the whole window.
 
 A sample of the window's batches, drawn from the seed as they complete
 (a reservoir), keeps its scores; after the window, with the program's
-state freed, the reference scores the same crops (lib/check.py).
+state freed, the configuration's reference scores the same crops
+(lib/check.py).
 
 ``control``: the program's own int8 path (``Policy.int8()``, its scales
 calibrated on the pool's first batch, as ``--int8`` calibrates on the
@@ -57,7 +59,7 @@ def run(cell, seed: int, seconds: float, stretch, device, t_start: float,
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
     policy = Policy.int8() if control else Policy()
-    model = get_model("uresnet", sd, policy=policy, device=device)
+    model = get_model(cfg["arch"], sd, policy=policy, device=device)
     if control:
         from ubresnet_tpu_torch.ops.quant import calibrate
 
@@ -127,7 +129,7 @@ def run(cell, seed: int, seconds: float, stretch, device, t_start: float,
         "dispatch_s": [dispatch_s[i] for i in quiet],
         "latency_s": [latency[i] for i in quiet],
         "quiet": common.quiet_rate(len(quiet), stretch.quiet_from, t_end),
-        "check": lambda: _numbers(sd, batches, sample, device),
+        "check": lambda: _numbers(cfg, sd, batches, sample, device),
     }
 
 
@@ -142,8 +144,9 @@ def _keep(sample, keep, rng, seen, item):
     return seen + 1
 
 
-def _numbers(sd, batches, sample, device):
-    from portbench.lib import check
+def _numbers(cfg, sd, batches, sample, device):
+    from portbench.lib import check, common
 
     pairs = [(batches[bi], scores) for bi, scores in sample]
-    return check.score_numbers(sd, pairs, device)
+    return check.score_numbers(common.reference_module(cfg), sd, pairs,
+                               device)

@@ -3,24 +3,25 @@
 Set-up makes the weights and a pool of distinct batches from the seed,
 sparsifies every batch once (the trainer's sparse transfer form,
 ops/sparse.py:sparsify_batch), and builds one step object as
-``Trainer._train_step`` builds it: the port's ``TrainUResNet`` under
-``Policy()`` (the fused train zone and the K7 loss), Adam at the
-configuration's settings, ``build_train_step`` with ``use_pallas_loss``
-and ``sparse_hw``. The first three steps, on three different batches,
-go through the same call and feed as the window's; they are the
-comparison's readings (the losses; after the first, each leaf's
-gradient as Adam got it, from its first moment; after the third, each
-parameter's and running statistic's change) and the warm-up. The same
-step object then runs the window: one step after another over the pool,
+``Trainer._train_step`` builds it: the port's trainable model of the
+configuration's ``arch`` under ``Policy()`` (the fused train zone and
+the K7 loss), Adam at the configuration's settings,
+``build_train_step`` with ``use_pallas_loss`` and ``sparse_hw``. The
+first three steps, on three different batches, go through the same call
+and feed as the window's; they are the comparison's readings (the
+losses; after the first, each leaf's gradient as Adam got it, from its
+first moment; after the third, each parameter's and running statistic's
+change) and the warm-up. The same step object then runs the window: one
+step after another over the pool,
 each step's batch sent to the card and densified in the step, until
 ``seconds`` have passed. The rate counts every crop of every completed
 step over the whole window.
 
-After the window, with the program's state freed, the reference takes
-three float32 steps from the same weights on the same three batches
-(lib/check.py). ``control``: the reference in float8 e4m3 (the control
-of the comparison, portbench/tools/controls.py) is compared in place of
-the program.
+After the window, with the program's state freed, the configuration's
+reference takes three float32 steps from the same weights on the same
+three batches (lib/check.py). ``control``: the reference in float8
+e4m3 (the control of the comparison, portbench/tools/controls.py) is
+compared in place of the program.
 """
 from __future__ import annotations
 
@@ -70,7 +71,7 @@ def run(cell, seed: int, seconds: float, stretch, device, t_start: float,
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
     policy = Policy()
-    model = get_model("uresnet", sd0, policy=policy, device=device,
+    model = get_model(cfg["arch"], sd0, policy=policy, device=device,
                       train=True)
     marks.append(("model", time.perf_counter()))
     opt = make_optimizer(model.parameters(), opt_cfg["name"],
@@ -147,9 +148,10 @@ def run(cell, seed: int, seconds: float, stretch, device, t_start: float,
 
         feed = [{k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
                  for k, v in b.items()} for b in dense]
-        want = check.train_readings(sd0, feed, opt_cfg["lr"],
+        ref = common.reference_module(cfg)
+        want = check.train_readings(ref, sd0, feed, opt_cfg["lr"],
                                     opt_cfg["weight_decay"])
-        got = (check.train_readings(sd0, feed, opt_cfg["lr"],
+        got = (check.train_readings(ref, sd0, feed, opt_cfg["lr"],
                                     opt_cfg["weight_decay"], quant=True)
                if control else prog)
         return check.train_numbers(got, want)

@@ -1,6 +1,7 @@
 """The comparisons that decide ``correct``: the program's outputs against
-the plain float32 reference (portbench/reference), each number beside
-the limit its cell file sets.
+the plain float32 reference of the configuration's architecture
+(``ref``, portbench/reference/<arch>.py), each number beside the limit
+its cell file sets.
 
 Scoring: the probabilities the runner handed back for a sample of the
 window's batches, against the reference's scores of the same crops:
@@ -31,16 +32,17 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
-from portbench.reference import uresnet as ref
+from portbench.reference.shared import strict_f32
 
 SMALL_GRAD = 1e-3
 
 
-def score_numbers(sd, sample: List[Tuple[np.ndarray, np.ndarray]],
+def score_numbers(ref, sd, sample: List[Tuple[np.ndarray, np.ndarray]],
                   device) -> Dict[str, float]:
     """``sample``: (crops (b, h, w, 1), the program's probabilities (b, h,
-    w, c)) pairs. Reference scores on ``device`` in float32, TF32 off."""
-    ref.strict_f32()
+    w, c)) pairs. Scores of the reference module ``ref`` on ``device`` in
+    float32, TF32 off."""
+    strict_f32()
     worst, crop, total, count = 0.0, 0.0, 0.0, 0
     for crops, probs in sample:
         want = ref.probabilities(sd, torch.from_numpy(crops).to(device))
@@ -85,12 +87,12 @@ def train_numbers(prog: dict, want: dict) -> Dict[str, float]:
     return out
 
 
-def train_readings(sd0, batches, lr: float, weight_decay: float,
+def train_readings(ref, sd0, batches, lr: float, weight_decay: float,
                    quant: bool = False) -> dict:
-    """The reference's readings over ``batches`` (dense, on the device)
-    from ``sd0``: losses, raw and Adam-side first gradients, and each
-    leaf's change after the last step."""
-    ref.strict_f32()
+    """The readings of the reference module ``ref`` over ``batches``
+    (dense, on the device) from ``sd0``: losses, raw and Adam-side first
+    gradients, and each leaf's change after the last step."""
+    strict_f32()
     out = ref.train_steps(sd0, batches, lr, weight_decay, quant=quant)
     sd = out["sd"]
     params = {k: float((sd[k] - sd0[k]).norm()) for k in sd

@@ -5,10 +5,12 @@ Files are found by the names ``BENCHMARK.json`` gives: a cell is
 ``cells/<workload>.json`` (its configuration, its traffic mix and the
 limits of its comparison), a configuration ``configs/<name>.json``, a
 traffic mix ``traffic/<name>.json``, the work of a configuration's
-kernel-zone layers ``work/<config>.json``, a traffic kind's code
+kernel-zone layers ``work/<config>.json``, the plain reference of a
+configuration's ``arch`` ``reference/<arch>.py`` (which also gives its
+weights' layout and its FLOPs), a traffic kind's code
 ``kinds/<kind>.py``, a per-layer metric ``metrics/<metric>.py`` and a
 kernel's name map ``kernels/<kernel>.json``. A later cell, mix,
-configuration, metric or kernel is a new file.
+configuration, architecture, metric or kernel is a new file.
 """
 from __future__ import annotations
 
@@ -94,6 +96,18 @@ def load_module(path: Path):
 
 def kind_module(kind: str):
     return load_module(BENCH_DIR / "kinds" / f"{kind}.py")
+
+
+def reference_module(cfg: dict):
+    """The plain reference of the configuration ``cfg``: the module
+    ``reference/<arch>.py`` (the contract every such module keeps:
+    reference/shared.py says where it is written)."""
+    path = BENCH_DIR / "reference" / f"{cfg['arch']}.py"
+    if not path.is_file():
+        raise FileNotFoundError(
+            f"configuration {cfg.get('name')!r} names arch {cfg['arch']!r}, "
+            f"and there is no {path.relative_to(ROOT)}")
+    return load_module(path)
 
 
 def sub_seeds(seed: int, n: int) -> List[int]:

@@ -1,5 +1,5 @@
-"""Plain float32 UResNet, its loss and one Adam step: the yardstick that
-decides whether the port's outputs are correct.
+"""Plain float32 UResNet: the yardstick that decides whether the port's
+outputs are correct for a configuration whose ``arch`` is ``uresnet``.
 
 Written from the architecture's description (the reference's
 models/ub_uresnet.py:31-147 and models/common_layers.py:122-132), NCHW,
@@ -18,44 +18,74 @@ A BasicBlock is conv3x3-BN-ReLU, conv3x3-BN-ReLU (the pre-add ReLU),
 plus the bypass (1x1 conv-BN where the channels or the stride change),
 then ReLU.
 
-BatchNorm in training normalises by the batch's biased variance and
-moves the running statistics by 0.1 towards the batch's mean and biased
-variance. That is the program's stated semantics (flax's BatchNorm,
-which the port follows); torch's nn.BatchNorm2d would move the running
-variance towards the unbiased one.
+Every ``reference/<arch>.py`` keeps this contract (a configuration's
+``arch`` picks the module: lib/common.py:reference_module):
 
-``quant`` (the control): every convolution's input and weight are
-rounded to float8 e4m3 with one scale a tensor, and the products are
-summed in float32; gradients pass the rounding unchanged.
+* ``layout(cfg)``: the configuration's (conv weights [(key, shape,
+  fan_out)], conv biases [(key, fan_in)], BNs [(key, channels)]) under
+  the reference's key names, in the order reference/weights.py draws
+  them. Weight shapes: conv (out, in / groups, kh, kw), transposed conv
+  (in, out / groups, kh, kw); ``fan_out`` is the k·k·out of the
+  reference's init; a bias is as long as its weight's dim 0.
+* ``Net(sd, train=False, quant=False, momentum=0.1)``: the network over
+  a state_dict, called on (b, c, h, w) float32 for logits, its
+  convolutions through F.conv2d and F.conv_transpose2d (work/arith.py
+  counts them there); with ``train`` it moves the running statistics
+  in ``sd``. shared.py's ``Layers`` gives conv, BN and the control.
+* ``probabilities(sd, crops, chunk=4)``, ``train_steps(sd, batches, lr,
+  weight_decay, quant=False)`` and ``is_param(key)``: shared.py's loops
+  bound to ``Net``.
 """
 from __future__ import annotations
 
-import math
-from typing import Dict
+from typing import List, Tuple
 
 import torch
 import torch.nn.functional as F
 
-BN_EPS = 1e-5
-BN_MOMENTUM = 0.1
-E4M3_MAX = 448.0
+from portbench.reference import shared
+from portbench.reference.shared import StateDict
 
-StateDict = Dict[str, torch.Tensor]
-
-
-def strict_f32() -> None:
-    """float32 means float32 on the card: no TF32 in cuDNN or matmuls."""
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+Shape = Tuple[int, ...]
+is_param = shared.is_param
 
 
-def fp8_round(t: torch.Tensor) -> torch.Tensor:
-    """``t`` rounded to float8 e4m3 under one scale (its absolute max at
-    448), back in float32; the gradient passes unchanged."""
-    amax = t.detach().abs().amax().clamp_min(1e-30)
-    scale = amax / E4M3_MAX
-    q = (t.detach() / scale).to(torch.float8_e4m3fn).float() * scale
-    return t + (q - t.detach())
+def layout(cfg: dict) -> Tuple[List[Tuple[str, Shape, int]],
+                               List[Tuple[str, int]], List[Tuple[str, int]]]:
+    """(conv weights [(key, shape, fan_out)], conv biases [(key,
+    fan_in)], BNs [(key, channels)]) of the UResNet ``cfg`` describes."""
+    inplanes, depth = cfg["inplanes"], cfg["depth"]
+    convs: List[Tuple[str, Shape, int]] = []
+    biases: List[Tuple[str, int]] = []
+    bns: List[Tuple[str, int]] = []
+
+    def conv(key, co, ci, k, bn=None, bias=False):
+        convs.append((f"{key}.weight", (co, ci, k, k), k * k * co))
+        if bias:
+            biases.append((f"{key}.bias", ci * k * k))
+        if bn:
+            bns.append((bn, co))
+
+    def block(pref, ci, co, stride):
+        conv(f"{pref}.conv1", co, ci, 3, f"{pref}.bn1")
+        conv(f"{pref}.conv2", co, co, 3, f"{pref}.bn2")
+        if ci != co or stride > 1:
+            conv(f"{pref}.bypass", co, ci, 1, f"{pref}.bnpass")
+
+    chans = [inplanes * 2 ** i for i in range(depth + 1)]
+    conv("conv1", inplanes, cfg["input_channels"], 7, "bn1", bias=True)
+    for i in range(1, depth + 1):
+        block(f"enc_layer{i}.res1", chans[i - 1], chans[i], 1 if i == 1 else 2)
+        block(f"enc_layer{i}.res2", chans[i], chans[i], 1)
+    for i in range(depth, 0, -1):
+        ci, cu = chans[i], chans[i - 1]
+        convs.append((f"dec_layer{i}.deconv.weight", (ci, cu, 4, 4), 16 * cu))
+        block(f"dec_layer{i}.res.res1", 2 * cu, cu, 1)
+        block(f"dec_layer{i}.res.res2", cu, cu, 1)
+    fk = cfg["final_conv_kernels"]
+    conv("conv10", fk, inplanes, 7, "bn10", bias=True)
+    conv("conv11", cfg["num_classes"], fk, 7, bias=True)
+    return convs, biases, bns
 
 
 def depth_of(sd: StateDict) -> int:
@@ -65,46 +95,14 @@ def depth_of(sd: StateDict) -> int:
     return depth
 
 
-class Net:
-    """The network over a state_dict ``sd`` (tensors: parameters and the
-    BN running statistics). ``train``: BN uses batch statistics and the
-    running statistics in ``sd`` are replaced by their moved values;
-    ``momentum``: how far a training step moves them (1: to the batch's);
-    ``quant``: the float8 control."""
+class Net(shared.Layers):
+    """UResNet over a state_dict ``sd``; the other arguments as
+    shared.Layers's."""
 
     def __init__(self, sd: StateDict, train: bool = False,
-                 quant: bool = False, momentum: float = BN_MOMENTUM):
-        self.sd = sd
-        self.train = train
-        self.quant = quant
-        self.momentum = momentum
+                 quant: bool = False, momentum: float = shared.BN_MOMENTUM):
+        super().__init__(sd, train, quant, momentum)
         self.depth = depth_of(sd)
-
-    def _q(self, t):
-        return fp8_round(t) if self.quant else t
-
-    def conv(self, x, key, stride=1):
-        w = self.sd[f"{key}.weight"]
-        k = w.shape[-1]
-        return F.conv2d(self._q(x), self._q(w), self.sd.get(f"{key}.bias"),
-                        stride=stride, padding=k // 2)
-
-    def bn(self, y, key):
-        sd = self.sd
-        w, b = sd[f"{key}.weight"], sd[f"{key}.bias"]
-        if self.train:
-            mean = y.mean((0, 2, 3))
-            var = y.var((0, 2, 3), unbiased=False)
-            with torch.no_grad():
-                m = self.momentum
-                rm, rv = f"{key}.running_mean", f"{key}.running_var"
-                sd[rm] = (1 - m) * sd[rm] + m * mean.detach()
-                sd[rv] = (1 - m) * sd[rv] + m * var.detach()
-        else:
-            mean, var = sd[f"{key}.running_mean"], sd[f"{key}.running_var"]
-        inv = torch.rsqrt(var + BN_EPS)
-        return ((y - mean.view(1, -1, 1, 1)) * (inv * w).view(1, -1, 1, 1)
-                + b.view(1, -1, 1, 1))
 
     def block(self, x, pref, stride=1):
         y = torch.relu(self.bn(self.conv(x, f"{pref}.conv1", stride),
@@ -147,87 +145,9 @@ class Net:
 
 def probabilities(sd: StateDict, crops: torch.Tensor, chunk: int = 4
                   ) -> torch.Tensor:
-    """Eval-mode softmax scores of NHWC crops (b, h, w, 1), computed
-    ``chunk`` crops at a time: (b, h, w, classes) float32."""
-    net = Net(sd)
-    out = []
-    with torch.no_grad():
-        for i in range(0, crops.shape[0], chunk):
-            x = crops[i:i + chunk].float().permute(0, 3, 1, 2)
-            out.append(torch.softmax(net(x), 1).permute(0, 2, 3, 1))
-    return torch.cat(out)
-
-
-def weighted_nll(logits: torch.Tensor, label: torch.Tensor,
-                 weight: torch.Tensor) -> torch.Tensor:
-    """Mean over every pixel of -log softmax(logits)[label] * weight
-    (the reference's training/pixelwise_nllloss.py); logits NCHW."""
-    logp = torch.log_softmax(logits, 1)
-    nll = -logp.gather(1, label.long().unsqueeze(1))[:, 0]
-    return (nll * weight).mean()
-
-
-class Adam:
-    """torch.optim.Adam's update written out: L2 weight decay added to
-    the gradient, bias-corrected moments, eps outside the square root."""
-
-    def __init__(self, lr: float, weight_decay: float,
-                 betas=(0.9, 0.999), eps: float = 1e-8):
-        self.lr, self.wd, self.betas, self.eps = lr, weight_decay, betas, eps
-        self.m: Dict[str, torch.Tensor] = {}
-        self.v: Dict[str, torch.Tensor] = {}
-        self.t = 0
-
-    def step(self, params: Dict[str, torch.Tensor],
-             grads: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        """The updated parameters; ``grads`` are the loss's gradients
-        (the decay is added here)."""
-        b1, b2 = self.betas
-        self.t += 1
-        c1, c2 = 1 - b1 ** self.t, 1 - b2 ** self.t
-        out = {}
-        for k, p in params.items():
-            g = grads[k] + self.wd * p
-            m = self.m.get(k, torch.zeros_like(p)) * b1 + (1 - b1) * g
-            v = self.v.get(k, torch.zeros_like(p)) * b2 + (1 - b2) * g * g
-            self.m[k], self.v[k] = m, v
-            denom = v.sqrt() / math.sqrt(c2) + self.eps
-            out[k] = p - (self.lr / c1) * m / denom
-        return out
-
-
-def is_param(key: str) -> bool:
-    return not key.endswith(("running_mean", "running_var"))
+    return shared.probabilities(Net, sd, crops, chunk)
 
 
 def train_steps(sd: StateDict, batches, lr: float, weight_decay: float,
                 quant: bool = False) -> dict:
-    """Adam steps of the reference from ``sd`` over ``batches``
-    ({image (b, h, w, 1), label (b, h, w), weight (b, h, w)} tensors on
-    one device), one step a batch. Returns the readings the comparison
-    needs: ``losses``; ``raw_grad1`` and ``grad1``, the per-leaf norms
-    of the first step's loss gradient and of that gradient with the
-    decay added (what the optimizer gets); ``sd``, the state after the
-    last step (parameters and running statistics)."""
-    state = {k: v.detach().clone().float() for k, v in sd.items()}
-    opt = Adam(lr, weight_decay)
-    losses, raw1, g1 = [], None, None
-    for n, b in enumerate(batches):
-        params = {k: v.requires_grad_(True) for k, v in state.items()
-                  if is_param(k)}
-        net = Net(dict(state), train=True, quant=quant)
-        x = b["image"].float().permute(0, 3, 1, 2)
-        loss = weighted_nll(net(x), b["label"], b["weight"].float())
-        grads = dict(zip(params, torch.autograd.grad(loss,
-                                                     list(params.values()))))
-        losses.append(float(loss.detach()))
-        if n == 0:
-            raw1 = {k: float(g.norm()) for k, g in grads.items()}
-            g1 = {k: float((g + weight_decay * params[k].detach()).norm())
-                  for k, g in grads.items()}
-        with torch.no_grad():
-            new = opt.step({k: p.detach() for k, p in params.items()},
-                           grads)
-        state = {k: (new[k] if k in new else net.sd[k]).detach()
-                 for k in state}
-    return {"losses": losses, "raw_grad1": raw1, "grad1": g1, "sd": state}
+    return shared.train_steps(Net, sd, batches, lr, weight_decay, quant)

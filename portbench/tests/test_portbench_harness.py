@@ -6,7 +6,9 @@
 * nothing reads the JAX package's bench harness or its result files;
 * BENCHMARK.json keeps to the benchmark's contract, and every file it
   names is there;
-* a cell added as new files only is found and parsed;
+* a cell added as new files only is found and parsed, and so is an
+  architecture: a configuration's ``arch`` picks its reference, weights
+  and FLOP count, and no code outside reference/ names one;
 * a run without a card, or in a directory that holds only the benchmark,
   prints no result and fails;
 * the host-clock readings of a traced run take only the calls made once
@@ -154,6 +156,100 @@ def test_a_cell_added_as_files_is_found(tmp_path):
     assert out.returncode == 0, out.stderr
     assert out.stdout.split()[:2] == ["8", "16"]
     assert "setup_s" in out.stdout
+
+
+# A second architecture as files only: a reference with a dilated 3x3
+# conv (bias, BN) and a grouped transposed conv, and a configuration
+# that names it.
+TOY_REFERENCE = """
+import torch
+import torch.nn.functional as F
+
+from portbench.reference import shared
+
+
+def layout(cfg):
+    c, ci = cfg["inplanes"], cfg["input_channels"]
+    return ([("dil.weight", (c, ci, 3, 3), 9 * c),
+             ("up.weight", (c, c // 2, 4, 4), 16 * c)],
+            [("dil.bias", 9 * ci)], [("bn", c)])
+
+
+class Net(shared.Layers):
+    def __call__(self, x):
+        sd = self.sd
+        y = F.conv2d(x, sd["dil.weight"], sd["dil.bias"], padding=3,
+                     dilation=3)
+        y = torch.relu(self.bn(y, "bn"))
+        return F.conv_transpose2d(y, weight=sd["up.weight"], stride=2,
+                                  padding=1, groups=2)
+"""
+
+TOY_RUN = """
+import json, sys
+sys.path.insert(0, '.')
+import torch
+from portbench.lib import common
+from portbench.reference import weights
+from portbench.work import arith
+cfg = common.load_json(common.BENCH_DIR / 'configs' / 'toy8.json')
+ref = common.reference_module(cfg)
+sd = weights.make_state_dict(cfg, 2 ** 33 + 1, 'cpu',
+                             torch.rand(3, 16, 16, 1))
+print(json.dumps({'file': ref.__file__,
+                  'shapes': {k: list(v.shape) for k, v in sd.items()},
+                  'calibrated': float((sd['bn.running_var'] - 1).abs().max()),
+                  'macs': [arith.forward_macs(cfg, (16, 16)),
+                           arith.forward_macs(cfg, (8, 24))]}))
+"""
+
+
+def test_an_architecture_added_as_files_is_found(tmp_path):
+    copy = tmp_path / "checkout"
+    shutil.copytree(BENCH, copy / "portbench",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    (copy / "portbench" / "reference" / "toy.py").write_text(TOY_REFERENCE)
+    (copy / "portbench" / "configs" / "toy8.json").write_text(json.dumps(
+        {"name": "toy8", "arch": "toy", "inplanes": 8,
+         "input_channels": 1}))
+    out = subprocess.run([sys.executable, "-c", TOY_RUN], cwd=copy,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    got = json.loads(out.stdout.splitlines()[-1])
+    assert got["file"] == str(copy / "portbench" / "reference" / "toy.py")
+    assert got["shapes"] == {
+        "dil.weight": [8, 1, 3, 3], "up.weight": [8, 4, 4, 4],
+        "dil.bias": [8], "bn.weight": [8], "bn.bias": [8],
+        "bn.running_mean": [8], "bn.running_var": [8]}
+    assert got["calibrated"] > 0
+    # the dilated conv: out pixels · C_in · 3 · 3 per output channel; the
+    # transposed conv (groups 2): in pixels · C_in · (C_out / 2) · 4 · 4
+    assert got["macs"] == [h * w * (8 * 1 * 9 + 8 * 4 * 16)
+                           for h, w in ((16, 16), (8, 24))]
+
+
+def test_an_unknown_arch_names_its_missing_file():
+    cfg = {"name": "nosuch8", "arch": "nosuch", "inplanes": 8}
+    with pytest.raises(FileNotFoundError, match="reference/nosuch.py"):
+        common.reference_module(cfg)
+    from portbench.work import arith
+
+    with pytest.raises(FileNotFoundError, match="reference/nosuch.py"):
+        arith.forward_macs(cfg, (16, 16))
+
+
+def test_only_reference_code_names_an_architecture():
+    from ubresnet_tpu_torch.models.registry import MODEL_REGISTRY
+
+    archs = set(MODEL_REGISTRY) | {
+        json.loads(p.read_text())["arch"]
+        for p in (BENCH / "configs").glob("*.json")}
+    assert "uresnet" in archs
+    for p in sources():
+        if {"reference", "tests"} & set(p.relative_to(BENCH).parts):
+            continue
+        text = p.read_text().lower()
+        assert not [a for a in archs if a in text], p
 
 
 def test_run_without_a_card_prints_no_result():

@@ -1,7 +1,8 @@
 """The plain reference (portbench/reference) held to the port's CPU path
 at a small size: the eval scores, the training loss, gradients and
-running statistics, and Adam's update; and the benchmark's weights give
-scores that are not saturated.
+running statistics, and Adam's update; the benchmark's weights give
+scores that are not saturated, and are drawn bit for bit as they were
+before a configuration's ``arch`` picked the reference.
 
     python -m pytest portbench/tests -q
 """
@@ -11,7 +12,8 @@ import numpy as np
 import pytest
 import torch
 
-from portbench.lib import synth
+from portbench.lib import common, synth
+from portbench.reference import shared
 from portbench.reference import uresnet as ref
 from portbench.reference import weights
 from ubresnet_tpu_torch.core.precision import Policy
@@ -22,8 +24,8 @@ GEN = {"n_tracks": [1, 4], "n_showers": [0, 3], "adc_noise": 0.5,
 
 
 def config(inplanes):
-    return {"inplanes": inplanes, "depth": 5, "num_classes": 3,
-            "input_channels": 1, "final_conv_kernels": 16}
+    return {"arch": "uresnet", "inplanes": inplanes, "depth": 5,
+            "num_classes": 3, "input_channels": 1, "final_conv_kernels": 16}
 
 
 def make(inplanes=16, hw=(64, 64), n=4, seed=3):
@@ -65,6 +67,39 @@ def test_weights_follow_the_seed():
     w = a["enc_layer2.res1.conv1.weight"]
     std = math.sqrt(2.0 / (9 * w.shape[0]))
     assert abs(float(w.std()) / std - 1) < 0.05
+
+
+# The configurations' weights at 2**31 + 5 with 4 calibration crops of
+# 64x64, taken before the reference was looked up by ``arch``: the count
+# of tensors, the float64 sum of the drawn tensors (conv weights and
+# biases, BN weights and biases) and that sum weighted by the place in
+# the state_dict, then the same two sums of the running statistics. The
+# draws are exact; the running statistics come from the CPU's float32
+# convolutions, whose order of summation follows the thread count (the
+# sums move in the 10th digit), so they are held to 1e-8.
+PINNED = {"uresnet16": (269, 7379.537364122869, 806397.7307347292,
+                        10833.85740156006, 587721.9964230284),
+          "uresnet32": (269, 14638.99820809835, 1608844.8448914115,
+                        22223.778331717476, 1212797.7820507307)}
+
+
+@pytest.mark.parametrize("name", sorted(PINNED))
+def test_weights_are_drawn_as_pinned(name):
+    cfg = common.load_json(common.BENCH_DIR / "configs" / f"{name}.json")
+    rng = np.random.RandomState(7)
+    cal = torch.from_numpy(synth.crops(rng, 4, (64, 64), GEN)["image"])
+    sd = weights.make_state_dict(cfg, 2 ** 31 + 5, "cpu", cal)
+
+    def sums(keys):
+        s = [float(sd[k].double().numpy().sum()) for k in keys]
+        return (math.fsum(s),
+                math.fsum((i + 1) * v for i, v in enumerate(s)))
+
+    n, draw, draw_w, stat, stat_w = PINNED[name]
+    assert len(sd) == n
+    assert sums([k for k in sd if ref.is_param(k)]) == (draw, draw_w)
+    got = sums([k for k in sd if not ref.is_param(k)])
+    assert got == pytest.approx((stat, stat_w), rel=1e-8)
 
 
 def _port_step(sd, batches, lr, wd):
@@ -123,7 +158,7 @@ def test_adam_is_torch_adam():
     torch.manual_seed(0)
     p = torch.randn(5, 3)
     grads = [torch.randn(5, 3) for _ in range(3)]
-    mine = ref.Adam(1e-2, 1e-3)
+    mine = shared.Adam(1e-2, 1e-3)
     q = {"w": p.clone()}
     for g in grads:
         q = mine.step(q, {"w": g})
@@ -137,6 +172,6 @@ def test_adam_is_torch_adam():
 
 def test_fp8_control_rounds():
     x = torch.linspace(-3, 3, 101)
-    q = ref.fp8_round(x)
+    q = shared.fp8_round(x)
     assert float((q - x).abs().max()) > 1e-3
     assert float((q - x).abs().max()) < 0.07 * 3

@@ -65,14 +65,15 @@ def test_inplanes32_eval_bounds():
         "conv_bn_act": 1}
 
 
-def test_model_flops():
-    c16 = {"inplanes": 16, "depth": 5, "num_classes": 3,
-           "input_channels": 1, "final_conv_kernels": 16}
-    c32 = dict(c16, inplanes=32)
-    # every conv and transposed conv of one crop's forward, 2·MACs
-    assert 2 * arith.forward_macs(c16, (512, 512)) == 66605547520
-    assert 2 * arith.forward_macs(c32, (512, 512)) == 248747393024
-    assert 2 * arith.forward_macs(c32, (256, 256)) == 62186848256
+@pytest.mark.parametrize("name,hw,macs", [
+    ("uresnet16", (512, 512), 33_302_773_760),
+    ("uresnet32", (512, 512), 124_373_696_512),
+    ("uresnet32", (256, 256), 31_093_424_128),
+])
+def test_model_flops(name, hw, macs):
+    # every conv and transposed conv of one crop's forward, as counted
+    # before the reference was looked up by the configuration's ``arch``
+    cfg = json.loads((BENCH_DIR / "configs" / f"{name}.json").read_text())
+    assert arith.forward_macs(cfg, hw) == macs
     # the head alone: two 7x7 convs at full resolution
-    head = 512 * 512 * 49 * (16 * 16 + 16 * 3)
-    assert arith.forward_macs(c16, (512, 512)) > head
+    assert macs > hw[0] * hw[1] * 49 * (16 * cfg["inplanes"] + 16 * 3)

@@ -11,9 +11,10 @@ rates at 700 W. Which layers run on which kernel is data: the list in
 ``work/<config>.json`` (the layers the port routes to its kernels,
 models/blocks.py, at the configuration's widths).
 
-The model's FLOPs are counted from the configuration's layer shapes
-(every convolution and transposed convolution, 2·MACs), whatever
-implements them; a training step counts three forwards, no recompute.
+The model's FLOPs are counted from the configuration's plain reference
+(``reference/<arch>.py``): every convolution and transposed convolution
+it performs, 2·MACs, whatever implements them in the port; a training
+step counts three forwards, no recompute.
 """
 from __future__ import annotations
 
@@ -130,38 +131,43 @@ def by_kernel(rows: List[dict]) -> Dict[str, dict]:
 
 
 def forward_macs(cfg: dict, hw) -> int:
-    """MACs of one crop's forward: every convolution and transposed
-    convolution of the configuration at input ``hw``, from the plain
-    reference run on shape-only tensors."""
+    """MACs of one crop's forward: every F.conv2d and F.conv_transpose2d
+    that the configuration's plain reference calls at input ``hw``,
+    counted on shape-only tensors. A convolution costs out.numel() / N ·
+    (C_in / groups) · kh · kw, a transposed one in.numel() / N · (C_out /
+    groups) · kh · kw (either way the weight's numel over its dim 0);
+    stride and dilation show in the sizes."""
     import torch
+    from torch.overrides import TorchFunctionMode
 
-    from portbench.reference.uresnet import Net
-    from portbench.reference.weights import layout
+    from portbench.lib import common
 
-    convs, biases, bns = layout(cfg["inplanes"], cfg["depth"],
-                                cfg["num_classes"], cfg["input_channels"],
-                                cfg["final_conv_kernels"])
+    ref = common.reference_module(cfg)
+    convs, biases, bns = ref.layout(cfg)
     meta = torch.device("meta")
-    sd = {k: torch.empty(s, device=meta) for k, s in convs}
+    sd = {k: torch.empty(s, device=meta) for k, s, _ in convs}
     for k, _ in biases:
         sd[k] = torch.empty(sd[k.replace(".bias", ".weight")].shape[0],
                             device=meta)
     for k, c in bns:
         for p in ("weight", "bias", "running_mean", "running_var"):
             sd[f"{k}.{p}"] = torch.empty(c, device=meta)
-    total = [0]
 
-    class Counting(Net):
-        def conv(self, x, key, stride=1):
-            y = super().conv(x, key, stride)
-            w = self.sd[f"{key}.weight"]
-            total[0] += y[0, 0].numel() * w.numel()
-            return y
+    class Counting(TorchFunctionMode):
+        def __init__(self):
+            super().__init__()
+            self.total = 0
 
-        def deconv(self, x, key, like):
-            w = self.sd[f"{key}.weight"]
-            total[0] += x[0, 0].numel() * w.numel()
-            return super().deconv(x, key, like)
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            out = func(*args, **kwargs)
+            if func in (torch.conv2d, torch.conv_transpose2d):
+                x = args[0] if args else kwargs["input"]
+                w = args[1] if len(args) > 1 else kwargs["weight"]
+                per = out if func is torch.conv2d else x
+                self.total += per[0].numel() * w[0].numel()
+            return out
 
-    Counting(sd)(torch.empty(1, cfg["input_channels"], *hw, device=meta))
-    return total[0]
+    with Counting() as count:
+        ref.Net(sd)(torch.empty(1, cfg["input_channels"], *hw, device=meta))
+    return count.total

@@ -29,6 +29,10 @@ so the W-packing factor that calibration's strided subsample and the
 QAT percentile read is 8 throughout, and the packed (int8, QAT) zone
 exists for every input width that is a multiple of 16 (and runs for
 multiples of 32: ``packed_zone``).
+
+Each widened skip (ASPP, its recompression and the concat) runs in a
+``model.aspp`` span (utils/profiling.py:span) whose id is its encoder
+stage, 3, 4 or 5: ``ubresnet.model.aspp`` in a torch profile.
 """
 from __future__ import annotations
 
@@ -64,6 +68,7 @@ from ubresnet_tpu_torch.models.uresnet import (
 )
 from ubresnet_tpu_torch.parallel.sharding import halo_apply
 from ubresnet_tpu_torch.utils.platform import resolve_device
+from ubresnet_tpu_torch.utils.profiling import span
 
 DEPTH = 5
 ASPP_STAGES = (3, 4, 5)  # the encoder stages whose skips ASPP widens
@@ -132,6 +137,17 @@ def _widen(e: torch.Tensor, aspp, combine, stage=plain_call
     return torch.cat([a, e.to(a.dtype)], dim=-1)
 
 
+def _widened(encs, aspps, combines, stage=plain_call):
+    """The widened skips of ``ASPP_STAGES`` from the encoder outputs
+    ``encs``, each in a ``model.aspp`` span whose id is its encoder
+    stage."""
+    out = []
+    for i, aspp, combine in zip(ASPP_STAGES, aspps, combines):
+        with span("model.aspp", i):
+            out.append(_widen(encs[i - 1], aspp, combine, stage))
+    return out
+
+
 class ASPPResNet(ZoneModel):
     """Input (b, h, w, c) NHWC; output (b, h, w, num_classes)
     log-probabilities (or logits) in ``policy.output_dtype``.
@@ -193,9 +209,10 @@ class ASPPResNet(ZoneModel):
         if stage not in ASPP_STAGES:
             return y
         k = ASPP_STAGES.index(stage)
-        return halo_apply(lambda d, e: _widen(e, at(d).aspp[k],
-                                              at(d).combine[k]),
-                          y, ROW_HALO["aspp"])
+        with span("model.aspp", stage):
+            return halo_apply(lambda d, e: _widen(e, at(d).aspp[k],
+                                                  at(d).combine[k]),
+                              y, ROW_HALO["aspp"])
 
     def forward(self, x: torch.Tensor, logits: bool = False) -> torch.Tensor:
         pol = self.policy
@@ -207,9 +224,7 @@ class ASPPResNet(ZoneModel):
             for enc in self.enc:
                 y = enc(y)
                 encs.append(y)
-            e3, e4, e5 = (_widen(encs[i - 1], aspp, combine)
-                          for i, aspp, combine in zip(ASPP_STAGES, self.aspp,
-                                                      self.combine))
+            e3, e4, e5 = _widened(encs, self.aspp, self.combine)
             dec5, dec4, dec3, dec2, dec1 = self.dec
             y = dec5(e5, e4)
             y = dec4(y, e3)
@@ -284,9 +299,10 @@ class TrainASPPResNet(nn.Module):
         for i in range(1, DEPTH + 1):
             y = stage(getattr(self, f"enc_layer{i}"), y)
             encs.append(y)
-        e3, e4, e5 = (_widen(encs[i - 1], getattr(self, f"ASPP_layer_enc{i}"),
-                             getattr(self, f"ASPP_combine_enc{i}"), stage)
-                      for i in ASPP_STAGES)
+        e3, e4, e5 = _widened(
+            encs, [getattr(self, f"ASPP_layer_enc{i}") for i in ASPP_STAGES],
+            [getattr(self, f"ASPP_combine_enc{i}") for i in ASPP_STAGES],
+            stage)
         y = stage(self.dec_layer5, e5, e4)
         y = stage(self.dec_layer4, y, e3)
         y = stage(self.dec_layer3, y, encs[1])

@@ -10,7 +10,8 @@ one launch (deconv.deconv2x_ad); K8 deconv.conv_s2k4 and K9
 deconv.deconv_dw compute one leg each.
 int8 deploy: K1-s8 conv.conv_bn_act_s8, K2-s8 block.basic_block_s8,
 K3-s8 deconv.deconv2x_s8 (PTQ pieces in quant). Each wrapper counts
-its launches in ``<wrapper>.launches``.
+its launches in ``<wrapper>.launches`` (a CUDA graph's replay adds its
+capture's, ``add_launch_counts``).
 """
 from ubresnet_tpu_torch.ops.block import (  # noqa: F401
     basic_block,
@@ -60,3 +61,10 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> dict:
     return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def add_launch_counts(counts: dict) -> None:
+    """Count the launches of a CUDA graph's replay: ``counts``, what its
+    capture counted once."""
+    for name, n in counts.items():
+        KERNELS[name].launches += n

@@ -117,8 +117,9 @@ INV_INT8_MAX = 1.0 / INT8_MAX
 
 
 def _inv127(t: torch.Tensor) -> torch.Tensor:
-    return t * torch.tensor(INV_INT8_MAX, dtype=torch.float32,
-                            device=t.device)
+    # a Python number: rounded to float32 as the product is, and no
+    # host-to-card copy (a CUDA graph cannot capture one)
+    return t * INV_INT8_MAX
 
 
 def fake_quant_weight(w: torch.Tensor) -> torch.Tensor:

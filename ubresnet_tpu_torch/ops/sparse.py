@@ -14,7 +14,7 @@ only.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -138,23 +138,31 @@ def sparsify_batch(batch: dict, bucket: int = 2048) -> dict:
     return out
 
 
-def densify_batch(sp: dict, hw: Tuple[int, int]) -> dict:
+def densify_batch(sp: dict, hw: Tuple[int, int],
+                  out: Optional[dict] = None) -> dict:
     """Sparse transfer form (tensors on the device) → dense {image
     (b,h,w,1), label (b,h,w) int32, weight (b,h,w) f32}. Labels are a
     scatter-max into zeros, weights a scatter-add of the residual plus
-    the base: index-0/value-0 pad slots change nothing (labels ≥ 0)."""
+    the base: index-0/value-0 pad slots change nothing (labels ≥ 0).
+    ``out``: dense buffers of those shapes to zero and scatter into in
+    place (a captured train step's fixed inputs), returned."""
     h, w = hw
-    image = densify(sp["img_idx"], sp["img_val"], hw)
-    b = image.shape[0]
-    lab = torch.zeros((b, h * w), dtype=torch.int32,
-                      device=sp["lab_val"].device)
+    b = sp["img_idx"].shape[0]
+    if out is None:
+        out = {"image": sp["img_val"].new_empty((b, h, w, 1)),
+               "label": sp["lab_val"].new_empty((b, h, w),
+                                                dtype=torch.int32),
+               "weight": sp["wgt_val"].new_empty((b, h, w),
+                                                 dtype=torch.float32)}
+    image = out["image"].view(b, h * w).zero_()
+    image.scatter_add_(1, sp["img_idx"].long(), sp["img_val"])
+    lab = out["label"].view(b, h * w).zero_()
     lab.scatter_reduce_(1, sp["lab_idx"].long(), sp["lab_val"].to(lab.dtype),
                         reduce="amax")
-    wgt = torch.zeros((b, h * w), dtype=torch.float32,
-                      device=sp["wgt_val"].device)
+    wgt = out["weight"].view(b, h * w).zero_()
     wgt.scatter_add_(1, sp["wgt_idx"].long(), sp["wgt_val"].float())
-    wgt = wgt.view(b, h, w) + sp["wgt_base"].float().view(b, 1, 1)
-    return {"image": image, "label": lab.view(b, h, w), "weight": wgt}
+    out["weight"].add_(sp["wgt_base"].float().view(b, 1, 1))
+    return out
 
 
 def mask_indices(mask: np.ndarray, capacity: int = None,

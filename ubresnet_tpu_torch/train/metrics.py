@@ -27,7 +27,7 @@ def pixel_counts(logits: torch.Tensor, labels: torch.Tensor,
         mask = (labels == c).float()
         parts += [(correct * mask).sum(), mask.sum()]
     nz = (labels > 0).float()
-    parts += [correct.sum(), correct.new_tensor(float(correct.numel())),
+    parts += [correct.sum(), correct.new_full((), float(correct.numel())),
               (correct * nz).sum(), nz.sum()]
     return torch.stack(parts)
 
